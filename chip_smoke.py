@@ -2,27 +2,41 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``sttode_tpu_torch/csrc`` (nvcc,
-sm_90a), holds each against its plain PyTorch version at the shapes of the
-serving path, then drives the serving path itself at the full width of the
-repo's model (hidden 64, 8 heads, ff 1024, zdim 32, K = 20, random weights
-from a seed):
+Builds the port's CUDA kernels from ``sttode_tpu_torch/csrc`` (nvcc,
+sm_90a, one compiler process per source, started together), holds each
+against its plain PyTorch version at the shapes of the serving and training
+paths, then drives both paths at the full width of the repo's model
+(hidden 64, 8 heads, ff 1024, zdim 32, K = 20, random weights from a seed):
 
+  phase 2  geodesic attention forward kernel (serving and training shapes);
+  phase 3  fp32 selection decode kernel (serving and training shapes);
   phase 4  agent-axis server: ``Predictor(max_group=64)`` answering 64
            synthetic scenes of 8 agents per call;
   phase 5  reference compat: ``sttode_inference`` on 32 scenes × 11 agents
            (5 past / 10 future steps), and a default-config ``Predictor``
-           answering single-scene requests.
+           answering single-scene requests;
+  phase 6  geodesic attention backward kernel: the training shape
+           (88 × 128 × 8, q/k swapped, no mask), the agent-axis shape with a
+           key mask that takes a gradient, and an all-excluded row;
+  phase 7  bf16 selection decode kernel at the training step's M = 1408,
+           K = 20, mode "dist";
+  phase 8  the stage-1 training step at B = 128 scenes × 11 agents: the fp32
+           variant once on the kernel route against the plain route (same
+           parameters, batch and noise; every loss term and every parameter
+           gradient), then ≥ 20 Adam steps of the bf16 recipe on the kernel
+           route, then step time, train scenes/s and the device's idle share
+           of both routes.
 
-Each phase is compared with the same computation on the plain routes
-(``attn_impl="dense"``, ``select_impl="xla"``) with the same latents, and
-checks that both kernels were launched by the serving path. Every failure
-raises; nothing is caught. The second-to-last line of the output is a JSON
-object with each kernel's measurements, the last line the device summary.
-Exits non-zero without a result when no CUDA device is present. Times are
-medians taken with CUDA events (kernels) or the host clock around
-synchronized calls (serving), the kernel and plain routes timed in
-alternating rounds within the same run.
+Each serving or training phase is compared with the same computation on the
+plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
+latents, and checks that every kernel of the path was launched by it (the
+launch counts are set to 0 just before a path runs and read just after).
+Every failure raises; nothing is caught. The second-to-last line of the
+output is a JSON object with each kernel's measurements and its bound, the
+last line the device summary. Exits non-zero without a result when no CUDA
+device is present. Times are medians taken with CUDA events (kernels) or the
+host clock around synchronized calls (serving, training steps), the kernel
+and plain routes timed in alternating rounds within the same run.
 """
 
 from __future__ import annotations
@@ -39,8 +53,62 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ATTN_TOL = 1e-5
+ATTN_GRAD_TOL = 5e-5      # × max(1, max |gradient|): acos' amplifies the Gram
 SELECT_TOL = 1e-4
+SELECT_BF16_TOL = 1e-3    # × the distance scale: bf16 rounding boundaries
 MODEL_TOL = 1e-4
+TRAIN_TOL = 1e-4          # × max(1, |loss|), and × max |gradient| per leaf
+TRAIN_STEPS = 20
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """The least time the card could take for the work, in ms: the larger
+    of the bytes over the memory rate and the operations over the peak
+    rate of their type; and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attn_fwd_work(B, L, S, Dh, masked):
+    """Bytes (q, k, v and the mask read once, out written once) and
+    operations: per (i, j) pair the Gram and p·V FMAs (4·Dh) and six
+    elementwise ones (clip ×2, acos, add, exp, sum); fp32."""
+    nbytes = 4 * (2 * B * L * Dh + 2 * B * S * Dh + (B * L * S if masked
+                                                     else 0))
+    return nbytes, B * L * S * (4 * Dh + 6)
+
+
+def attn_bwd_work(B, L, S, Dh, masked):
+    """Bytes: q, k, v, do (and the mask) read once; dq, dk, dv (and dmask)
+    written once. Operations per (i, j): the recomputed Gram, dp, dq̂, dk̂
+    and dv FMAs (10·Dh) and eleven elementwise ones."""
+    nbytes = 4 * (3 * B * L * Dh + 4 * B * S * Dh + (2 * B * L * S if masked
+                                                     else 0))
+    return nbytes, B * L * S * (10 * Dh + 11)
+
+
+def select_work(weights, M, K, D2, Z, Tp, Tf, mode):
+    """Bytes: the per-agent operands, z, the weights (in their storage type)
+    read once and the output written once. Operations: the prologue's
+    z-independent first-layer partials per agent, then per (m, k) row the
+    z part of both block-0 first layers, both block-0 tails, the conv, the
+    T_p GRU steps, block 1's first layer (z and state rows) and tail, and
+    the distance."""
+    w_bytes = sum(w.numel() * w.element_size() for w in weights)
+    out = M * K if mode == "dist" else K * M * 2 * Tf
+    nbytes = w_bytes + 4 * (M * (D2 + 96 + 2 * Tp + 2 * Tf) + K * M * Z
+                            + out)
+    pro = 2 * M * (3 * D2 * 512 + 2 * 96 * 512)
+    row = 2 * (2 * Z * 512 + 2 * 512 * 256 + 256 * 2 * Tf + 256 * 2 * Tp
+               + Tp * 6 * 32 + Tp * (32 + 96) * 288 + (Z + 96) * 512
+               + 512 * 256 + 256 * 2 * Tf) + 3 * 2 * Tf
+    return nbytes, pro + M * K * row
 
 
 def require(cond: bool, what: str) -> None:
@@ -90,29 +158,38 @@ def main() -> int:
     from sttode_tpu_torch.kernels import select_decode as ks
     from sttode_tpu_torch.models import sttode as tm
     from sttode_tpu_torch.serving import Predictor
+    from sttode_tpu_torch.train import make_train_step
 
     # every plain matmul and conv in full fp32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    bf16 = torch.bfloat16
 
     # 1. device and build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     t0 = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({_build.library_path().name})")
+          f"({_build.library_path().name}, one nvcc per source)")
 
     def counts():
         return {"attn": km.fused_geodesic_attention.launches,
-                "select": ks.select_decode.launches}
+                "attn_bwd": km.fused_geodesic_attention_backward.launches,
+                "select_fp32": ks.select_decode.launches_by_dtype[
+                    torch.float32],
+                "select_bf16": ks.select_decode.launches_by_dtype[bf16]}
 
     def reset():
         km.fused_geodesic_attention.launches = 0
+        km.fused_geodesic_attention_backward.launches = 0
         ks.select_decode.launches = 0
+        ks.select_decode.launches_by_dtype.update(
+            {torch.float32: 0, bf16: 0})
 
     rng = np.random.default_rng(0)
 
@@ -120,18 +197,23 @@ def main() -> int:
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-    # 2. kernel A against its plain version, at the slice's shapes
+    # 2. kernel A against its plain version, at the paths' shapes
+    def flat_mask(mask, lead, L, S):
+        B = int(np.prod(lead))
+        return None if mask is None else km._canonicalize_mask(
+            torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S))
+
     def attn_plain(q, k, v, mask):
         *lead, L, Dh = q.shape
         S = k.shape[-2]
         B = int(np.prod(lead))
-        m3 = None if mask is None else km._canonicalize_mask(
-            torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S))
         return km.fused_geodesic_attention_reference(
             q.reshape(B, L, Dh), k.reshape(B, S, Dh), v.reshape(B, S, Dh),
-            m3).reshape(*lead, L, Dh)
+            flat_mask(mask, lead, L, S)).reshape(*lead, L, Dh)
 
     fmin = torch.finfo(torch.float32).min
+    # training: reference compat, scene axis (128 scenes × 11 agents), swapped
+    qt, kt, vt = (randn(11, 8, 128, 8) for _ in range(3))
     # reference compat, scene axis (32 scenes × 11 agents): q/k swapped
     qa, ka, va = randn(11, 8, 32, 8), randn(11, 8, 32, 8), randn(11, 8, 32, 8)
     # agent axis (64 scenes × 8 agents), key mask with padded agents
@@ -145,6 +227,7 @@ def main() -> int:
     mask_c[1] = fmin
     qc, kc, vc = randn(2, 8, 8, 8), randn(2, 8, 8, 8), randn(2, 8, 8, 8)
     attn_cases = {
+        "train_scene_axis_q11x8x128x8_swapped": (kt, qt, vt, None),
         "scene_axis_q11x8x32x8_swapped": (ka, qa, va, None),
         "agent_axis_q64x8x8x8_masked": (qb, kb, vb, mask_b),
         "all_excluded_scene": (qc, kc, vc, mask_c),
@@ -164,37 +247,47 @@ def main() -> int:
                 lambda: attn_plain(q, k, v, mask))
             attn_times[name] = (ms, plain_ms)
             print(f"attention {name}: max_abs_err {err:.3e}  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
         require(bool((km.fused_geodesic_attention(qc, kc, vc, mask=mask_c)[1]
                       == 0).all()), "all-excluded rows must output 0")
 
-    # 3. kernel B against its plain version
+    # 3. kernel B (fp32) against its plain version; the training step's
+    #    shape (M = 1408, K = 20, 5 / 10 steps) runs in mode "dist"
     select_cases = {}
-    for name, (M, K, t_past, t_fut) in {
-            "traj_M512_K20": (512, 20, 8, 12),
-            "traj_M352_K20": (352, 20, 5, 10)}.items():
+    for name, (M, K, t_past, t_fut, modes) in {
+            "M512_K20": (512, 20, 8, 12, ("traj", "dist")),
+            "M352_K20": (352, 20, 5, 10, ("traj", "dist")),
+            "M1408_K20": (1408, 20, 5, 10, ("dist",))}.items():
         cfg = tm.STTODEConfig(past_length=t_past, future_length=t_fut)
         select_cases[name] = (cfg, bridge.to_device(tm.sttode_init(7, cfg),
-                                                    dev), M, K)
-    select_err, select_times = 0.0, {}
+                                                    dev), M, K, modes)
+    select_err, select_times, select_ops = 0.0, {}, {}
     with torch.inference_mode():
-        for name, (cfg, params, M, K) in select_cases.items():
+        for name, (cfg, params, M, K, modes) in select_cases.items():
             past = randn(M, cfg.past_length, 2)
             ops = [randn(M, 2 * cfg.hidden_dim), randn(K, M, cfg.zdim),
                    tm.decode_block0_state(params, past), past.reshape(M, -1),
                    randn(M, 2 * cfg.future_length)]
-            weights = ks.prep_select_weights(params, 2 * cfg.hidden_dim,
-                                             cfg.zdim, cfg.past_length,
-                                             cfg.future_length)
-            for mode in ("traj", "dist"):
+            select_ops[name] = (params, ops)
+
+            def plain(mode, cfg=cfg, params=params, ops=ops, dtype=None):
+                return ks.select_decode_reference(
+                    ks.prep_select_weights(params, 2 * cfg.hidden_dim,
+                                           cfg.zdim, cfg.past_length,
+                                           cfg.future_length,
+                                           dtype or torch.float32),
+                    *ops, mode=mode)
+
+            for mode in modes:
                 got = ks.select_decode(params, *ops, mode=mode)
-                want = ks.select_decode_reference(weights, *ops, mode=mode)
+                want = plain(mode)
                 torch.cuda.synchronize()
                 err = max_err(got, want)
                 require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
                 require(err <= SELECT_TOL,
                         f"{name} {mode}: max abs err {err} > {SELECT_TOL}")
                 select_err = max(select_err, err)
+                extra = ""
                 if mode == "dist":
                     g_win, w_win = got.argmin(1), want.argmin(1)
                     gap = (want.gather(1, g_win[:, None])
@@ -202,19 +295,15 @@ def main() -> int:
                     ties = int((g_win != w_win).sum())
                     require(bool((gap <= 2 * SELECT_TOL).all()),
                             f"{name}: argmin winners differ beyond near-ties")
-                    print(f"select {name.replace('traj', 'dist')}: max_abs_err "
-                          f"{err:.3e}, winners differ at {ties} near-ties")
-                    continue
-                ms, plain_ms = paired_ms(
-                    lambda: ks.select_decode(params, *ops, mode=mode),
-                    lambda: ks.select_decode_reference(
-                        ks.prep_select_weights(params, 2 * cfg.hidden_dim,
-                                               cfg.zdim, cfg.past_length,
-                                               cfg.future_length),
-                        *ops, mode=mode))
-                select_times[name] = (ms, plain_ms)
-                print(f"select {name}: max_abs_err {err:.3e}  kernel "
-                      f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+                    extra = f", winners differ at {ties} near-ties"
+                if mode == "traj" or name == "M1408_K20":
+                    ms, plain_ms = paired_ms(
+                        lambda: ks.select_decode(params, *ops, mode=mode),
+                        lambda: plain(mode), calls=10, rounds=6)
+                    select_times[f"{mode}_{name}"] = (ms, plain_ms)
+                    extra += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                              f"ms  [{card}]")
+                print(f"select {mode}_{name}: max_abs_err {err:.3e}{extra}")
 
     def serve_ab(kernel_pred, plain_pred, scenes, rounds, single=False):
         """Serve ``rounds`` rounds of requests from each Predictor, the two
@@ -262,7 +351,7 @@ def main() -> int:
         kernel4, plain4, scenes4, 20)
     torch.cuda.synchronize()
     launches4 = counts()
-    require(launches4["attn"] > 0 and launches4["select"] > 0,
+    require(launches4["attn"] > 0 and launches4["select_fp32"] > 0,
             f"phase 4: a kernel was not launched by the serving path "
             f"{launches4}")
     err4 = compare(out4, ref4, [(20, 8, 12, 2)] * 64, "phase 4")
@@ -309,7 +398,7 @@ def main() -> int:
             lambda: tm.sttode_inference(params5, cfg5, batch5, z=z5),
             lambda: tm.sttode_inference(params5, plain_cfg5, batch5, z=z5),
             calls=5)
-    require(launches5["attn"] > 0 and launches5["select"] > 0,
+    require(launches5["attn"] > 0 and launches5["select_fp32"] > 0,
             f"phase 5: a kernel was not launched {launches5}")
     require(tuple(got5.shape) == (20, 352, 10, 2), f"phase 5 shape {got5.shape}")
     require(bool(torch.isfinite(got5).all()), "phase 5: non-finite")
@@ -326,19 +415,300 @@ def main() -> int:
           f"{rate_d:.1f} scenes/s; plain p50 {p50_dp:.3f} ms, "
           f"{rate_dp:.1f} scenes/s; launches {launches5}")
 
-    a_ms, a_plain = attn_times["agent_axis_q64x8x8x8_masked"]
-    s_ms, s_plain = select_times["traj_M512_K20"]
+    # 6. kernel C (attention backward) against its plain backward
+    def bwd_case(q, k, v, mask, do, lead, L, S):
+        B, Dh = int(np.prod(lead)), q.shape[-1]
+        return (q.reshape(B, L, Dh), k.reshape(B, S, Dh), v.reshape(B, S, Dh),
+                flat_mask(mask, lead, L, S), do.reshape(B, L, Dh))
+
+    mask_e = 2.0 * randn(3, 1, 9, 9)                # finite, with one row
+    mask_e[:, :, 0] = fmin                          # all excluded
+    bwd_cases = {
+        "train_scene_axis_q11x8x128x8_swapped": bwd_case(
+            kt, qt, vt, None, randn(11, 8, 128, 8), (11, 8), 128, 128),
+        "agent_axis_q64x8x8x8_masked": bwd_case(
+            qb, kb, vb, mask_b, randn(64, 8, 8, 8), (64, 8), 8, 8),
+        "all_excluded_row_q3x1x9x8": bwd_case(
+            randn(3, 1, 9, 8), randn(3, 1, 9, 8), randn(3, 1, 9, 8), mask_e,
+            randn(3, 1, 9, 8), (3, 1), 9, 9),
+    }
+    bwd_err, bwd_times = 0.0, {}
+    for name, args in bwd_cases.items():
+        got = km.fused_geodesic_attention_backward(*args, need_dmask=True)
+        want = km.fused_geodesic_attention_backward_reference(*args, True)
+        torch.cuda.synchronize()
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+            if w is None:
+                require(g is None, f"{name}: {g_name} not asked for")
+                continue
+            require(bool(torch.isfinite(g).all()), f"{name}: {g_name} NaN")
+            err = max_err(g, w)
+            tol = ATTN_GRAD_TOL * max(1.0, float(w.abs().max()))
+            require(err <= tol, f"{name} {g_name}: max abs err {err} > {tol}")
+            errs[g_name] = err
+            bwd_err = max(bwd_err, err)
+        if name.startswith("all_excluded"):
+            require(bool((got[0][:, 0] == 0).all() and
+                         (got[3][:, 0] == 0).all()),
+                    "an all-excluded row must get a zero gradient")
+        ms, plain_ms = paired_ms(
+            lambda: km.fused_geodesic_attention_backward(
+                *args, need_dmask=args[3] is not None),
+            lambda: km.fused_geodesic_attention_backward_reference(
+                *args, args[3] is not None))
+        bwd_times[name] = (ms, plain_ms)
+        print(f"attention backward {name}: max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
+
+    # the attention route at the training shape, forward + backward: the
+    # kernels (the port's route) against the dense plain path (the route the
+    # JAX package's TPU crossover would pick at L = S = 128)
+    from sttode_tpu_torch.nn.attention import geodesic_attention
+    qr, kr, vr = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    g_out = randn(11, 8, 128, 8)
+
+    def attn_route(fused):
+        out, _ = geodesic_attention(qr, kr, vr, compat="reference",
+                                    fused=fused, need_weights=False)
+        return torch.autograd.grad(out, (qr, kr, vr), g_out)
+
+    route_err = max(max_err(a, b) for a, b in zip(attn_route(True),
+                                                  attn_route(False)))
+    route_ms = paired_ms(lambda: attn_route(True), lambda: attn_route(False))
+    print(f"attention route at the training shape, forward + backward: "
+          f"kernels {route_ms[0]:.4f} ms, dense {route_ms[1]:.4f} ms "
+          f"(gradients agree to {route_err:.3e})  [{card}]")
+
+    # 7. kernel B in bf16 against its bf16 plain version, training shape
+    cfg7 = select_cases["M1408_K20"][0]
+    params7, ops7 = select_ops["M1408_K20"]
+    weights7 = ks.prep_select_weights(params7, 2 * cfg7.hidden_dim,
+                                      cfg7.zdim, cfg7.past_length,
+                                      cfg7.future_length, bf16)
+    with torch.inference_mode():
+        got = ks.select_decode(params7, *ops7, mode="dist", dtype=bf16)
+        want = ks.select_decode_reference(weights7, *ops7, mode="dist")
+        fp32 = ks.select_decode(params7, *ops7, mode="dist")
+        torch.cuda.synchronize()
+        sel16_err = max_err(got, want)
+        scale = float(want.abs().max())
+        require(bool(torch.isfinite(got).all()), "bf16 select: non-finite")
+        require(sel16_err <= SELECT_BF16_TOL * scale,
+                f"bf16 select: max abs err {sel16_err} > "
+                f"{SELECT_BF16_TOL} x {scale}")
+        rows = torch.arange(got.shape[0], device=dev)
+        g_win, w_win = got.argmin(1), want.argmin(1)
+        gap = (want[rows, g_win] - want[rows, w_win]).abs()
+        flips = int((g_win != w_win).sum())
+        require(bool((gap <= 2 * SELECT_BF16_TOL * scale).all()),
+                "bf16 select: winners differ beyond near-ties")
+        vs32 = int((g_win != fp32.argmin(1)).sum())
+        sel16_ms, sel16_plain = paired_ms(
+            lambda: ks.select_decode(params7, *ops7, mode="dist", dtype=bf16),
+            lambda: ks.select_decode_reference(
+                ks.prep_select_weights(params7, 2 * cfg7.hidden_dim,
+                                       cfg7.zdim, cfg7.past_length,
+                                       cfg7.future_length, bf16),
+                *ops7, mode="dist"), calls=10, rounds=6)
+    print(f"select bf16 dist_M1408_K20: max_abs_err {sel16_err:.3e} "
+          f"(distance scale {scale:.1f}), winners differ from the bf16 plain "
+          f"version at {flips} near-ties (from fp32 at {vs32}); kernel "
+          f"{sel16_ms:.4f} ms  plain {sel16_plain:.4f} ms  [{card}]")
+
+    # 8. the stage-1 training step, B = 128 scenes × 11 agents
+    B8, N8 = 128, 11
+    M8 = B8 * N8
+    cfg8 = tm.STTODEConfig(past_length=5, future_length=10,
+                           select_dtype="bfloat16",
+                           decode_dtype="bfloat16").validate()
+    cfg8_32 = cfg8._replace(select_dtype="float32",
+                            decode_dtype="float32").validate()
+
+    def plain_route(c):
+        return c._replace(attn_impl="dense", select_impl="xla")
+
+    sc8 = make_social_scenes(B8, agents_range=(N8, N8), obs_len=5,
+                             pred_len=10, seed=8)
+    batch8, _ = prepare_scene_group(
+        np.stack([s["obs"] for s in sc8]), np.stack([s["pred"] for s in sc8]),
+        np.ones((B8, N8), np.float32), training=True,
+        rng=np.random.default_rng(8))
+    batch8 = batch8.to(dev)
+    params8 = tm.sttode_init(8, cfg8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    D, Z, K = cfg8.hidden_dim, cfg8.zdim, cfg8.sample_k
+    noise = tm.TrainNoise(
+        torch.rand(M8, 5, D, device=dev, generator=gen) >= cfg8.pe_dropout,
+        torch.rand(M8, 10, D, device=dev, generator=gen) >= cfg8.pe_dropout,
+        torch.randn(M8, Z, device=dev, generator=gen),
+        torch.randn(M8 * K, Z, device=dev, generator=gen))
+
+    def forward_backward(c):
+        p = bridge.to_device(params8, dev)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+        out = tm.sttode_forward(p, c, batch8, noise=noise)
+        out.total_loss.backward()
+        return p, out, [t.grad for t in leaves]
+
+    step_k = make_train_step(cfg8, 1e-4, device=dev)
+    params_k, opt_k = step_k.init(params8)
+    reset()   # the main path: fp32 variant once, then the bf16 recipe
+    p_k, out_k, g_k = forward_backward(cfg8_32)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params_k, opt_k, m = step_k(params_k, opt_k, batch8, gen)
+        losses.append(m)
+    torch.cuda.synchronize()
+    launches8 = counts()
+    require(all(n > 0 for n in launches8.values()),
+            f"phase 8: a kernel was not launched by the training path "
+            f"{launches8}")
+    for i, m in enumerate(losses):
+        require(all(bool(torch.isfinite(v)) for v in m.values()),
+                f"phase 8: non-finite loss at step {i}: {m}")
+
+    # the fp32 kernel route against the plain route
+    _, out_p, g_p = forward_backward(plain_route(cfg8_32))
+    loss_err = 0.0
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        a, b = float(getattr(out_k, name)), float(getattr(out_p, name))
+        tol = TRAIN_TOL * max(1.0, abs(b))
+        require(abs(a - b) <= tol, f"phase 8 {name}: {a} vs plain {b}")
+        loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
+    grad_ratio, worst = 0.0, None
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        require(bool(torch.isfinite(a).all()), f"phase 8: leaf {i} NaN")
+        ratio = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if ratio > grad_ratio:
+            grad_ratio, worst = ratio, i
+    require(grad_ratio <= TRAIN_TOL,
+            f"phase 8: gradient leaf {worst} differs by {grad_ratio:.3e} of "
+            f"its largest magnitude")
+    with torch.inference_mode():
+        # both routes' winners on the same latents
+        pf = out_k.past_feature.detach()
+        state0 = tm.decode_block0_state(p_k, batch8.past)
+        pz = noise.eps_p
+        dist_k = ks.select_decode(
+            p_k, pf, pz.reshape(M8, K, -1).transpose(0, 1), state0,
+            batch8.past.reshape(M8, -1),
+            (batch8.future - batch8.cur_location).reshape(M8, -1))
+        rel, _ = tm.decode(p_k, cfg8_32, pf.repeat_interleave(K, 0), pz,
+                           batch8.past, batch8.cur_location, K,
+                           block0_state=state0)
+        dist_p = torch.sum(torch.square(
+            batch8.future[:, None] - rel.reshape(M8, K, 10, 2)), dim=(-1, -2))
+        d_err = max_err(dist_k, dist_p)
+        srt = dist_p.sort(1).values
+        near = int(((srt[:, 1] - srt[:, 0]) <= 2 * d_err).sum())
+        rows = torch.arange(M8, device=dev)
+        w_k, w_p = dist_k.argmin(1), dist_p.argmin(1)
+        flips = int((w_k != w_p).sum())
+        require(bool(((w_k == w_p) | ((dist_p[rows, w_k] - dist_p[rows, w_p])
+                                      .abs() <= 2 * d_err)).all()),
+                "phase 8: winners differ beyond near-ties")
+    print(f"phase 8 fp32 training forward+backward, kernel vs plain route: "
+          f"loss terms within {loss_err:.3e} (relative), gradients within "
+          f"{grad_ratio:.3e} of each leaf's largest magnitude (worst leaf "
+          f"{worst}); winners differ at {flips} rows, {near} near-ties found "
+          f"(distance error {d_err:.3e})")
+    print(f"phase 8 bf16 recipe, {TRAIN_STEPS} Adam steps on the kernel "
+          f"route: total loss {float(losses[0]['total']):.4f} -> "
+          f"{float(losses[-1]['total']):.4f}; launches {launches8}")
+
+    # step time and train scenes/s of both routes (bf16 recipe), alternating
+    step_p = make_train_step(plain_route(cfg8), 1e-4, device=dev)
+    params_p, opt_p = step_p.init(params8)
+    routes = [[step_k, params_k, opt_k], [step_p, params_p, opt_p]]
+
+    def run_steps(i, n):
+        st, p, o = routes[i]
+        for _ in range(n):
+            p, o, _ = st(p, o, batch8, gen)
+        routes[i][1:] = [p, o]
+
+    for i in (0, 1):
+        run_steps(i, 2)
+    torch.cuda.synchronize()
+    step_ms: tuple[list, list] = ([], [])
+    for r in range(6):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t = time.perf_counter()
+            run_steps(i, 5)
+            torch.cuda.synchronize()
+            step_ms[i].append((time.perf_counter() - t) / 5 * 1e3)
+    busy = []
+    for i in (0, 1):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run_steps(i, 5)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) / 5 * 1e3
+        # device kernels only: a user annotation (Optimizer.step#Adam.step)
+        # spans the kernels inside it and would count them twice
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        dev_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        busy.append(None if dev_us <= 0 else (
+            dev_us / 5 / 1e3, wall, sum(e.count for e in kernels) / 5,
+            "; ".join(f"{e.self_device_time_total / 5 / 1e3:.3f} ms "
+                      f"x{e.count // 5} {e.key[:60]}" for e in top)))
+    for i, route in enumerate(("kernel route", "plain route")):
+        ms = statistics.median(step_ms[i])
+        if busy[i] is None:
+            idle = "device busy not measured (no device time in the trace)"
+        else:
+            dev_ms, t_ms, n_k, top = busy[i]
+            idle = (f"device busy {dev_ms:.3f} ms/step, idle share "
+                    f"{1 - dev_ms / ms:.3f} of the untraced step "
+                    f"({1 - dev_ms / t_ms:.3f} of the traced {t_ms:.3f} ms); "
+                    f"{n_k:.0f} kernels/step; top: {top}")
+        print(f"phase 8 bf16 recipe step, {route}: {ms:.3f} ms/step, "
+              f"{B8 * 1e3 / ms:.1f} train scenes/s; {idle}  [{card}]")
+
+    a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
+    b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
+    s_ms, s_plain = select_times["dist_M1408_K20"]
+    w32 = ks.prep_select_weights(params7, 2 * cfg7.hidden_dim, cfg7.zdim,
+                                 5, 10)
+    a_bound = bound(*attn_fwd_work(88, 128, 128, 8, False), FP32_FLOP_PER_S)
+    b_bound = bound(*attn_bwd_work(88, 128, 128, 8, False), FP32_FLOP_PER_S)
+    s_bound = bound(*select_work(w32, 1408, 20, 128, 32, 5, 10, "dist"),
+                    FP32_FLOP_PER_S)
+    s16_bound = bound(*select_work(weights7, 1408, 20, 128, 32, 5, 10,
+                                   "dist"), BF16_FLOP_PER_S)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"sttode_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "fused_geodesic_attention", "route": "cuda",
-         "source": "sttode_tpu_torch/csrc/mhgsa_fwd.cu",
-         "replaces": "sttode_tpu/kernels/mhgsa.py:407",
-         "launches": launches4["attn"] + launches5["attn"],
-         "max_abs_err": attn_err, "ms": a_ms, "plain_ms": a_plain},
-        {"name": "select_decode", "route": "cuda",
-         "source": "sttode_tpu_torch/csrc/select_decode.cu",
-         "replaces": "sttode_tpu/kernels/select_decode.py:270",
-         "launches": launches4["select"] + launches5["select"],
-         "max_abs_err": select_err, "ms": s_ms, "plain_ms": s_plain}]}))
+        entry("fused_geodesic_attention", "mhgsa_fwd.cu",
+              "sttode_tpu/kernels/mhgsa.py:407",
+              launches4["attn"] + launches5["attn"] + launches8["attn"],
+              attn_err, a_ms, a_plain, a_bound),
+        entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
+              "sttode_tpu/kernels/mhgsa.py:455", launches8["attn_bwd"],
+              bwd_err, b_ms, b_plain, b_bound),
+        entry("select_decode_fp32", "select_decode.cu",
+              "sttode_tpu/kernels/select_decode.py:270",
+              launches4["select_fp32"] + launches5["select_fp32"]
+              + launches8["select_fp32"], select_err, s_ms, s_plain,
+              s_bound),
+        entry("select_decode_bf16", "select_decode.cu",
+              "sttode_tpu/kernels/select_decode.py:270",
+              launches8["select_bf16"], sel16_err, sel16_ms, sel16_plain,
+              s16_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,23 @@
-"""sttode_tpu_torch — the PyTorch/CUDA port of ``sttode_tpu``'s serving path.
+"""sttode_tpu_torch — the PyTorch/CUDA port of ``sttode_tpu``: serving and
+stage-1 training.
 
 The JAX package ``sttode_tpu`` stays the reference; this package mirrors its
 module paths, public names and parameter layouts so that the same weights
 (carried by ``bridge.params_from_jax``) give the same forecasts.
 
 What is ported: best-of-K inference (``models.sttode.sttode_inference``) and
-the ``serving.Predictor`` around it. Two hand-written CUDA kernels carry the
-path on an NVIDIA Hopper card:
+the ``serving.Predictor`` around it; the stage-1 CVAE training step
+(``models.sttode.sttode_forward``, ``train.make_train_step``: autograd over
+every parameter leaf, then Adam). Hand-written CUDA kernels carry both paths
+on an NVIDIA Hopper card:
 
-- ``kernels.mhgsa.fused_geodesic_attention`` — geodesic attention forward;
+- ``kernels.mhgsa.fused_geodesic_attention`` — geodesic attention, forward
+  and backward (a ``torch.autograd.Function``);
 - ``kernels.select_decode.select_decode`` — the whole two-block decompose
-  decode of all K samples.
+  decode of all K samples, in fp32 or bf16 storage.
+
+The entry points (``Predictor``, ``make_train_step``) run on the card unless
+the caller passes ``device="cpu"``.
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead;
 on CUDA tensors it launches the kernel or raises. Importing this package
@@ -21,8 +28,10 @@ This package never imports ``jax`` or ``sttode_tpu``.
 """
 
 from sttode_tpu_torch.models.sttode import (Batch, STTODEConfig,
-                                            sttode_inference, sttode_init)
+                                            sttode_forward, sttode_inference,
+                                            sttode_init)
 from sttode_tpu_torch.serving import Predictor
+from sttode_tpu_torch.train import make_train_step, train_epoch
 
-__all__ = ["Batch", "Predictor", "STTODEConfig", "sttode_inference",
-           "sttode_init"]
+__all__ = ["Batch", "Predictor", "STTODEConfig", "make_train_step",
+           "sttode_forward", "sttode_inference", "sttode_init", "train_epoch"]

@@ -1,4 +1,4 @@
-"""JAX parameters → the port's parameters.
+"""JAX parameters ↔ the port's parameters, and the port tree's leaves.
 
 ``params_from_jax`` takes the JAX package's parameter tree with numpy (or
 array-like) leaves — get one with ``jax.tree_util.tree_map(np.asarray,
@@ -7,6 +7,9 @@ tree with float32 torch tensors on ``device``. Layouts are kept as they are
 (dense ``[in, out]``, ``in_proj_w [E, 3E]``, GRU ``w_ih [D, 3H]``, conv WIO):
 the port uses the JAX layouts. NamedTuples are matched by class name and
 field names to the port's own classes; this module does not import JAX.
+``params_to_numpy`` goes back (port tree → the same tree of numpy arrays),
+and ``tree_leaves`` lists a tree's leaves in the JAX package's order
+(dict keys sorted), for the optimizer and for leaf-by-leaf comparisons.
 """
 
 from __future__ import annotations
@@ -51,6 +54,34 @@ def params_from_jax(tree, device: torch.device | str | None = None):
     return tree_map(leaf, tree)
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on: the port runs on the card unless
+    the caller asks for the CPU, so a CUDA device with none present
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present: pass device='cpu' to "
+                           "run the port's plain PyTorch paths on the CPU")
+    return device
+
+
 def to_device(tree, device: torch.device | str):
     """Move every tensor of a port parameter tree to ``device``."""
     return tree_map(lambda t: t.to(device), tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists, tuples and NamedTuples, in a
+    fixed order: dict keys sorted, sequences and NamedTuple fields in order
+    (``jax.tree_util.tree_leaves``'s order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def params_to_numpy(tree):
+    """Port parameter tree → the same tree with float32 numpy leaves."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                    tree)

@@ -1,4 +1,4 @@
-// Best-of-K selection decode for Hopper (sm_90a), fp32.
+// Best-of-K selection decode for Hopper (sm_90a), fp32 or bf16 storage.
 //
 // Replaces the TPU kernel sttode_tpu/kernels/select_decode.py::select_decode
 // (kernel body _select_kernel). For every scene agent m and latent sample k it
@@ -17,22 +17,39 @@
 // (k, m). And the first layers are split by rows into pf | z | state blocks,
 // so the z-independent partials (pf and state0 rows of both block-0 first
 // layers, pf rows of the block-1 first layer) are computed ONCE per agent by
-// select_base_kernel and reused by all K samples from an [Mp, 1536] scratch
-// that stays in L2. The TPU kernel's band matrices and 128-lane gate padding
-// existed only for TPU tiling; here the conv and the GRU gates are computed
-// directly.
+// select_base_kernel and reused by all K samples from an [Mp, 1536] fp32
+// scratch that stays in L2 (the TPU kernel's fp32 base0/base1 scratch). The
+// TPU kernel's band matrices and 128-lane gate padding existed only for TPU
+// tiling; here the conv and the GRU gates are computed directly.
 //
-// What bounds it on the H100: ~1.6 MFLOP per (m, k) row, 16.8 GFLOP at
-// M = 512, K = 20, against fp32 FMA throughput (no tensor cores: this version
-// keeps the plain decode's fp32 numerics); the weights it reads (~3.4 MB
-// fp32) do not fit in a block's 227 KB of shared memory, while DRAM traffic
-// stays under 10 MB per call. The design streams the weights from L2
-// through the read-only path, and gives each block kTM = 16 agent rows of one
-// sample so that every weight element read is used for 16 rows, while all
-// activations ([16, 512] at the widest) stay in shared memory. Each dense
-// layer is a block-wide tile product (block_gemm) whose thread → (row group,
-// column) mapping is chosen from the layer's width.
+// Two storage types, one template. WT = float is the plain fp32 decode. WT =
+// __nv_bfloat16 is the TPU kernel's bf16 numerics (select_dtype="bfloat16"):
+// weight matrices stored in bf16; pf, z and state0 rounded to bf16 on load;
+// the first-layer biases and the GRU biases stay fp32; the tail-layer and
+// conv biases arrive already rounded to bf16 values (prep_select_weights);
+// every activation that feeds a matrix product is rounded to bf16 (the
+// first- and second-layer activations, the residual, the conv output), the
+// GRU input projection gi is rounded before its bias is added, and the GRU
+// state after every step; x_true, fut_rel, pred and the distance stay fp32.
+// Products accumulate in fp32: a bf16×bf16 product is exact in fp32, so an
+// fp32 FMA over bf16 operands computes what a bf16 tensor-core MMA computes,
+// up to summation order.
+//
+// What bounds it on the H100: ~1.4 MFLOP per (m, k) row, 39.7 GFLOP at the
+// training step's M = 1408, K = 20 (5 past / 10 future steps), which is
+// 0.59 ms at the 67 TFLOP/s fp32 non-tensor-core peak; DRAM traffic stays
+// under 10 MB per call. The weights it reads (~3.4 MB fp32, ~1.7 MB bf16) do
+// not fit in a block's 227 KB of shared memory. The design streams the
+// weights from L2 through the read-only path, and gives each block kTM = 16
+// agent rows of one sample so that every weight element read is used for 16
+// rows, while all activations ([16, 512] at the widest) stay in shared
+// memory in fp32 (holding bf16-rounded values in the bf16 variant). Each
+// dense layer is a block-wide tile product (block_gemm) whose thread →
+// (row group, column) mapping is chosen from the layer's width. The bf16
+// variant halves the weight bytes streamed per block; it does not use the
+// tensor cores yet.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -43,15 +60,46 @@ constexpr int kThreads = 256;
 constexpr int kH1 = 512, kH2 = 256, kGru = 96, kConv = 32;
 constexpr int kBaseW = 3 * kH1;  // [y0 | x0 | y1] first-layer partials
 
+// Storage type traits: load a weight as fp32, and round an activation to
+// what the storage type keeps.
+template <typename WT>
+struct Store;
+
+template <>
+struct Store<float> {
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __uint_as_float(static_cast<unsigned>(bits) << 16);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+// Weight matrices in the storage type, biases always fp32.
+template <typename WT>
 struct Weights {
-  const float *y0_w1, *y0_b1, *y0_w2, *y0_b2, *y0_w3, *y0_b3;
-  const float *x0_w1, *x0_b1, *x0_w2, *x0_b2, *x0_w3, *x0_b3;
-  const float *conv_w, *conv_b;
-  const float *w_ih, *w_hh, *b_ih, *b_hh;
-  const float *y1_w1, *y1_b1, *y1_w2, *y1_b2, *y1_w3, *y1_b3;
+  const WT* y0_w1; const float* y0_b1; const WT* y0_w2; const float* y0_b2;
+  const WT* y0_w3; const float* y0_b3;
+  const WT* x0_w1; const float* x0_b1; const WT* x0_w2; const float* x0_b2;
+  const WT* x0_w3; const float* x0_b3;
+  const WT* conv_w; const float* conv_b;
+  const WT* w_ih; const WT* w_hh; const float* b_ih; const float* b_hh;
+  const WT* y1_w1; const float* y1_b1; const WT* y1_w2; const float* y1_b2;
+  const WT* y1_w3; const float* y1_b3;
 };
 constexpr int kNumWeights = 24;
-static_assert(sizeof(Weights) == kNumWeights * sizeof(void*), "Weights");
+static_assert(sizeof(Weights<float>) == kNumWeights * sizeof(void*), "Weights");
+static_assert(sizeof(Weights<__nv_bfloat16>) == kNumWeights * sizeof(void*),
+              "Weights");
 
 struct Dims {
   int M, K, D2, Z, Tp, Tf;
@@ -68,17 +116,18 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// Y[r][n] = act(bias[n] + base[r][n] + Σ_i X[r][i] · W[i][n]), r < kTM, n < N.
-// X is in shared memory with a leading dimension ldx that is a multiple of 4
-// and a 16-byte aligned base, so its rows load as float4. W [Kin][N] is read
-// from global memory once per block and used for RPT rows per load. base and
-// Y may alias (in-place accumulation): each thread reads back only the
+// Y[r][n] = rnd(act(bias[n] + base[r][n] + Σ_i X[r][i] · W[i][n])), r < kTM,
+// n < N, with rnd the storage type's rounding when `round` is set. X is in
+// shared memory with a leading dimension ldx that is a multiple of 4 and a
+// 16-byte aligned base, so its rows load as float4. W [Kin][N] is read from
+// global memory once per block and used for RPT rows per load. base and Y
+// may alias (in-place accumulation): each thread reads back only the
 // elements it writes.
-template <int RPT>
+template <int RPT, typename WT>
 __device__ void gemm_rows(const float* X, int ldx, int Kin,
-                          const float* __restrict__ W, int N,
+                          const WT* __restrict__ W, int N,
                           const float* __restrict__ bias, const float* base,
-                          int ldb, float* Y, int ldy, bool relu) {
+                          int ldb, float* Y, int ldy, bool relu, bool round) {
   constexpr int kGroups = kTM / RPT;
   const int items = kGroups * N;
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
@@ -91,10 +140,10 @@ __device__ void gemm_rows(const float* X, int ldx, int Kin,
       acc[r] = base ? b0 + base[(r0 + r) * ldb + n] : b0;
     int i = 0;
     for (; i + 4 <= Kin; i += 4) {
-      const float w0 = __ldg(W + (size_t)(i + 0) * N + n);
-      const float w1 = __ldg(W + (size_t)(i + 1) * N + n);
-      const float w2 = __ldg(W + (size_t)(i + 2) * N + n);
-      const float w3 = __ldg(W + (size_t)(i + 3) * N + n);
+      const float w0 = Store<WT>::load(W + (size_t)(i + 0) * N + n);
+      const float w1 = Store<WT>::load(W + (size_t)(i + 1) * N + n);
+      const float w2 = Store<WT>::load(W + (size_t)(i + 2) * N + n);
+      const float w3 = Store<WT>::load(W + (size_t)(i + 3) * N + n);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const float4 x =
@@ -106,56 +155,63 @@ __device__ void gemm_rows(const float* X, int ldx, int Kin,
       }
     }
     for (; i < Kin; ++i) {
-      const float w = __ldg(W + (size_t)i * N + n);
+      const float w = Store<WT>::load(W + (size_t)i * N + n);
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
         acc[r] = fmaf(X[(r0 + r) * ldx + i], w, acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      Y[(r0 + r) * ldy + n] = relu ? fmaxf(acc[r], 0.f) : acc[r];
+    for (int r = 0; r < RPT; ++r) {
+      const float y = relu ? fmaxf(acc[r], 0.f) : acc[r];
+      Y[(r0 + r) * ldy + n] = round ? Store<WT>::round(y) : y;
+    }
   }
 }
 
 // Wide layers give every thread all kTM rows of one column (most reuse of a
 // weight load); narrow ones split the rows so more threads have work.
-__device__ void block_gemm(const float* X, int ldx, int Kin, const float* W,
+template <typename WT>
+__device__ void block_gemm(const float* X, int ldx, int Kin, const WT* W,
                            int N, const float* bias, const float* base,
-                           int ldb, float* Y, int ldy, bool relu) {
+                           int ldb, float* Y, int ldy, bool relu,
+                           bool round = false) {
   if (N >= kThreads)
-    gemm_rows<kTM>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu);
+    gemm_rows<kTM>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu, round);
   else if (N * 4 >= kThreads)
-    gemm_rows<4>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu);
+    gemm_rows<4>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu, round);
   else
-    gemm_rows<1>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu);
+    gemm_rows<1>(X, ldx, Kin, W, N, bias, base, ldb, Y, ldy, relu, round);
 }
 
-// Load rows [m0, m0 + kTM) × cols [0, width) of a row-major [M, width] array
-// into shared memory with leading dimension ld; rows ≥ M and cols ≥ width
-// read as 0.
+// Load rows [m0, m0 + kTM) × cols [0, width) of a row-major [M, width] fp32
+// array into shared memory with leading dimension ld, rounded to the
+// storage type; rows ≥ M and cols ≥ width read as 0.
+template <typename WT>
 __device__ void load_tile(const float* __restrict__ src, int M, int width,
                           int m0, float* dst, int ld) {
   for (int i = threadIdx.x; i < kTM * ld; i += blockDim.x) {
     const int r = i / ld, c = i % ld, m = m0 + r;
-    dst[i] = (m < M && c < width) ? src[(size_t)m * width + c] : 0.f;
+    dst[i] = (m < M && c < width)
+                 ? Store<WT>::round(src[(size_t)m * width + c]) : 0.f;
   }
 }
 
-// z-independent first-layer partials, once per agent row:
+// z-independent first-layer partials, once per agent row (fp32):
 //   base[m, 0:512)     = pf @ y0_w1[pf rows] + state0 @ y0_w1[state rows] + b
 //   base[m, 512:1024)  = the same for decoder_x of block 0
 //   base[m, 1024:1536) = pf @ y1_w1[pf rows] + b   (block-1 state is per k)
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
 select_base_kernel(const float* __restrict__ pf,
-                   const float* __restrict__ state0, Weights w, Dims d,
+                   const float* __restrict__ state0, Weights<WT> w, Dims d,
                    float* __restrict__ base) {
   extern __shared__ __align__(16) float sm[];
   const int ldf = round4(d.D2);
   float* P = sm;                 // [kTM][ldf]
   float* S0 = P + kTM * ldf;     // [kTM][kGru]
   const int m0 = blockIdx.x * kTM;
-  load_tile(pf, d.M, d.D2, m0, P, ldf);
-  load_tile(state0, d.M, kGru, m0, S0, kGru);
+  load_tile<WT>(pf, d.M, d.D2, m0, P, ldf);
+  load_tile<WT>(state0, d.M, kGru, m0, S0, kGru);
   __syncthreads();
 
   float* out = base + (size_t)m0 * kBaseW;
@@ -178,12 +234,14 @@ __host__ __device__ size_t main_smem_floats(int Z, int Tp, int Tf) {
 }
 
 // One block per (16-row agent tile, sample k).
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
 select_main_kernel(const float* __restrict__ z_km,
                    const float* __restrict__ x_true,
                    const float* __restrict__ fut_rel,
-                   const float* __restrict__ base, Weights w, Dims d,
+                   const float* __restrict__ base, Weights<WT> w, Dims d,
                    int mode, float* __restrict__ out) {
+  using S = Store<WT>;
   extern __shared__ __align__(16) float sm[];
   const int ldz = round4(d.Z);
   const int tp2 = 2 * d.Tp, tf2 = 2 * d.Tf;
@@ -204,21 +262,23 @@ select_main_kernel(const float* __restrict__ z_km,
   const size_t z_row = (size_t)d.D2 * kH1;
   const size_t state_row = (size_t)(d.D2 + d.Z) * kH1;
 
-  load_tile(z_km + (size_t)k * d.M * d.Z, d.M, d.Z, m0, Zs, ldz);
+  load_tile<WT>(z_km + (size_t)k * d.M * d.Z, d.M, d.Z, m0, Zs, ldz);
   for (int i = threadIdx.x; i < kTM * kGru; i += blockDim.x) St[i] = 0.f;
   __syncthreads();
 
   // block 0
   block_gemm(Zs, ldz, d.Z, w.y0_w1 + z_row, kH1, nullptr, base_rows, kBaseW,
-             A, kH1, true);
+             A, kH1, true, true);
   block_gemm(Zs, ldz, d.Z, w.x0_w1 + z_row, kH1, nullptr, base_rows + kH1,
-             kBaseW, Bm, kH1, true);
+             kBaseW, Bm, kH1, true, true);
   __syncthreads();
-  block_gemm(A, kH1, kH1, w.y0_w2, kH2, w.y0_b2, nullptr, 0, C, kH2, true);
+  block_gemm(A, kH1, kH1, w.y0_w2, kH2, w.y0_b2, nullptr, 0, C, kH2, true,
+             true);
   __syncthreads();
   block_gemm(C, kH2, kH2, w.y0_w3, tf2, w.y0_b3, nullptr, 0, Y0, ldt, false);
   __syncthreads();
-  block_gemm(Bm, kH1, kH1, w.x0_w2, kH2, w.x0_b2, nullptr, 0, C, kH2, true);
+  block_gemm(Bm, kH1, kH1, w.x0_w2, kH2, w.x0_b2, nullptr, 0, C, kH2, true,
+             true);
   __syncthreads();
   block_gemm(C, kH2, kH2, w.x0_w3, tp2, w.x0_b3, nullptr, 0, R, ldp, false);
   __syncthreads();
@@ -227,7 +287,7 @@ select_main_kernel(const float* __restrict__ z_km,
   for (int i = threadIdx.x; i < kTM * tp2; i += blockDim.x) {
     const int r = i / tp2, c = i % tp2, m = m0 + r;
     const float xt = m < d.M ? x_true[(size_t)m * tp2 + c] : 0.f;
-    R[r * ldp + c] = xt - R[r * ldp + c];
+    R[r * ldp + c] = S::round(xt - R[r * ldp + c]);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kTM * d.Tp * kConv; i += blockDim.x) {
@@ -238,18 +298,19 @@ select_main_kernel(const float* __restrict__ z_km,
       if (ts < 0 || ts >= d.Tp) continue;
       for (int c = 0; c < 2; ++c)
         acc = fmaf(R[r * ldp + ts * 2 + c],
-                   __ldg(w.conv_w + (kk * 2 + c) * kConv + o), acc);
+                   S::load(w.conv_w + (kk * 2 + c) * kConv + o), acc);
     }
-    Hc[r * ldh + t * kConv + o] = fmaxf(acc, 0.f);
+    Hc[r * ldh + t * kConv + o] = S::round(fmaxf(acc, 0.f));
   }
   __syncthreads();
 
-  // block 1: GRU over the T_p steps (torch gate convention, h0 = 0)
+  // block 1: GRU over the T_p steps (torch gate convention, h0 = 0); the
+  // input projection is rounded before its bias is added, as on the TPU
   float* GI = A;
   float* GH = Bm;
   for (int t = 0; t < d.Tp; ++t) {
-    block_gemm(Hc + t * kConv, ldh, kConv, w.w_ih, 3 * kGru, w.b_ih, nullptr,
-               0, GI, 3 * kGru, false);
+    block_gemm(Hc + t * kConv, ldh, kConv, w.w_ih, 3 * kGru, nullptr,
+               nullptr, 0, GI, 3 * kGru, false, true);
     block_gemm(St, kGru, kGru, w.w_hh, 3 * kGru, w.b_hh, nullptr, 0, GH,
                3 * kGru, false);
     __syncthreads();
@@ -257,10 +318,12 @@ select_main_kernel(const float* __restrict__ z_km,
       const int r = i / kGru, j = i % kGru;
       const float* gi = GI + r * 3 * kGru;
       const float* gh = GH + r * 3 * kGru;
-      const float rg = sigmoidf(gi[j] + gh[j]);
-      const float zg = sigmoidf(gi[kGru + j] + gh[kGru + j]);
-      const float ng = tanhf(gi[2 * kGru + j] + rg * gh[2 * kGru + j]);
-      St[i] = (1.f - zg) * ng + zg * St[i];
+      const float rg = sigmoidf(gi[j] + __ldg(w.b_ih + j) + gh[j]);
+      const float zg = sigmoidf(gi[kGru + j] + __ldg(w.b_ih + kGru + j) +
+                                gh[kGru + j]);
+      const float ng = tanhf(gi[2 * kGru + j] + __ldg(w.b_ih + 2 * kGru + j) +
+                             rg * gh[2 * kGru + j]);
+      St[i] = S::round((1.f - zg) * ng + zg * St[i]);
     }
     __syncthreads();
   }
@@ -270,9 +333,10 @@ select_main_kernel(const float* __restrict__ z_km,
              kBaseW, A, kH1, false);
   __syncthreads();
   block_gemm(St, kGru, kGru, w.y1_w1 + state_row, kH1, nullptr, A, kH1, A,
-             kH1, true);
+             kH1, true, true);
   __syncthreads();
-  block_gemm(A, kH1, kH1, w.y1_w2, kH2, w.y1_b2, nullptr, 0, C, kH2, true);
+  block_gemm(A, kH1, kH1, w.y1_w2, kH2, w.y1_b2, nullptr, 0, C, kH2, true,
+             true);
   __syncthreads();
   block_gemm(C, kH2, kH2, w.y1_w3, tf2, w.y1_b3, nullptr, 0, Y1, ldt, false);
   __syncthreads();
@@ -300,43 +364,61 @@ select_main_kernel(const float* __restrict__ z_km,
   }
 }
 
+template <typename WT>
+cudaError_t launch(const float* pf, const float* z_km, const float* state0,
+                   const float* x_true, const float* fut_rel,
+                   const void* const* weights, float* base, float* out,
+                   const Dims& d, int mode, cudaStream_t s) {
+  Weights<WT> w;
+  memcpy(&w, weights, sizeof(w));
+  const int mtiles = (d.M + kTM - 1) / kTM;
+  const size_t smem0 = sizeof(float) * kTM * (round4(d.D2) + kGru);
+  const size_t smem1 = sizeof(float) * main_smem_floats(d.Z, d.Tp, d.Tf);
+  cudaError_t err = cudaFuncSetAttribute(
+      select_base_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem0);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(select_main_kernel<WT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem1);
+  if (err != cudaSuccess) return err;
+  select_base_kernel<WT><<<mtiles, kThreads, smem0, s>>>(pf, state0, w, d,
+                                                         base);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  select_main_kernel<WT><<<dim3(mtiles, d.K), kThreads, smem1, s>>>(
+      z_km, x_true, fut_rel, base, w, d, mode, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // pf [M,D2], z_km [K,M,Z], state0 [M,96], x_true [M,2T_p], fut_rel [M,2T_f]
-// (read in mode 0 only; may be null in mode 1), weights = host array of the
-// 24 device pointers in the order of struct Weights, base = scratch of
-// ceil(M/16)·16 × 1536 floats, out = [M,K] (mode 0, "dist") or [K,M,2T_f]
-// (mode 1, "traj"). All fp32, contiguous, on the current device. Launches
-// both kernels on `stream`; returns the first CUDA error (0 on success).
+// (read in mode 0 only; may be null in mode 1), all fp32; weights = host
+// array of the 24 device pointers in the order of struct Weights, the weight
+// matrices in fp32 (dtype 0) or bf16 (dtype 1), the biases in fp32; base =
+// fp32 scratch of ceil(M/16)·16 × 1536 floats; out = fp32 [M,K] (mode 0,
+// "dist") or [K,M,2T_f] (mode 1, "traj"). All contiguous, on the current
+// device. Launches both kernels on `stream`; returns the first CUDA error
+// (0 on success).
 extern "C" int select_decode_fwd(const float* pf, const float* z_km,
                                  const float* state0, const float* x_true,
                                  const float* fut_rel,
                                  const void* const* weights, float* base,
                                  float* out, int M, int K, int D2, int Z,
-                                 int Tp, int Tf, int mode, void* stream) {
+                                 int Tp, int Tf, int mode, int dtype,
+                                 void* stream) {
   if (M <= 0 || K <= 0) return cudaSuccess;
   if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
-  Weights w;
-  memcpy(&w, weights, sizeof(w));
   const Dims d{M, K, D2, Z, Tp, Tf};
-  const int mtiles = (M + kTM - 1) / kTM;
-  const size_t smem0 = sizeof(float) * kTM * (round4(D2) + kGru);
-  const size_t smem1 = sizeof(float) * main_smem_floats(Z, Tp, Tf);
-  cudaError_t err = cudaFuncSetAttribute(
-      select_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem0);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(select_main_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem1);
-  if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  select_base_kernel<<<mtiles, kThreads, smem0, s>>>(pf, state0, w, d, base);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  select_main_kernel<<<dim3(mtiles, K), kThreads, smem1, s>>>(
-      z_km, x_true, fut_rel, base, w, d, mode, out);
-  return cudaGetLastError();
+  if (dtype == 0)
+    return launch<float>(pf, z_km, state0, x_true, fut_rel, weights, base,
+                         out, d, mode, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(pf, z_km, state0, x_true, fut_rel, weights,
+                                 base, out, d, mode, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* sttode_error_string(int err) {

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-The sources in ``sttode_tpu_torch/csrc/*.cu`` are compiled at first use into
-one shared library with a plain C interface, for Hopper only
-(``sm_90a``). The library file is keyed on a hash of the sources and the
-compiler flags and lives in ``sttode_tpu_torch/_build/`` (listed in
+The sources in ``sttode_tpu_torch/csrc/*.cu`` are compiled at first use, one
+``nvcc`` process per source, all started together, for Hopper only
+(``sm_90a``); the objects are then linked into one shared library with a
+plain C interface. The library file is keyed on a hash of the sources and
+the compiler flags and lives in ``sttode_tpu_torch/_build/`` (listed in
 ``.gitignore``), so a process rebuilds only when the sources change.
 Importing this module compiles nothing and does not need ``nvcc``.
 
@@ -23,17 +24,25 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_SIGNATURES = {
+    "mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "select_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
 
 
 def _sources() -> list[Path]:
@@ -61,24 +70,43 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the library if it is not built yet; return its path. The
-    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    compilers' output (``-Xptxas -v``: registers, shared memory and spills
     per kernel) is kept beside it as ``<library>.log``."""
     path = library_path()
     if path.exists():
         return path
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(f) for f in _sources() if f.suffix == ".cu"]]
+    stem = f"{path.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
-           f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    path.with_name(path.name + ".log").write_text(log)
-    if proc.returncode != 0:
+    jobs = []
+    for src in (f for f in _sources() if f.suffix == ".cu"):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}")
+        failed |= proc.returncode != 0
+    tmp = path.with_name(f"{stem}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n"
+                   f"{proc.stdout}{proc.stderr}")
+        failed = proc.returncode != 0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = (f"# {len(jobs)} sources, {time.perf_counter() - t0:.1f} s\n"
+            + "\n".join(log))
+    path.with_name(path.name + ".log").write_text(text)
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed building sttode_tpu_torch kernels:\n"
-                           f"{log}")
+                           f"{text}")
     os.replace(tmp, path)   # atomic: a concurrent build sees all or nothing
     return path
 
@@ -89,11 +117,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.mhgsa_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-            lib.mhgsa_fwd.restype = _I
-            lib.select_decode_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                              _I, _I, _I, _I, _I, _I, _I, _P]
-            lib.select_decode_fwd.restype = _I
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
             lib.sttode_error_string.argtypes = [_I]
             lib.sttode_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -105,3 +132,8 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().sttode_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, as the C entry points take it."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

@@ -1,9 +1,9 @@
 """Best-of-K selection decode: the CUDA kernel's wrapper and its plain version.
 
-Port of ``sttode_tpu/kernels/select_decode.py::select_decode`` (fp32, modes
-"traj" and "dist"). The kernel is ``csrc/select_decode.cu``; its source note
-says which TPU kernel it replaces, what bounds it on the H100 and what its
-design does about it.
+Port of ``sttode_tpu/kernels/select_decode.py::select_decode`` (modes
+"traj" and "dist", ``dtype`` float32 or bfloat16). The kernel is
+``csrc/select_decode.cu``; its source note says which TPU kernel it
+replaces, what bounds it on the H100 and what its design does about it.
 
 For each scene agent m and latent sample k it runs the two-block decompose
 decode (num_decompose = 2) with block 0's conv + GRU state precomputed by the
@@ -12,10 +12,16 @@ trajectories [K, M, 2·T_f] ("traj") or Σ(future_rel − pred)² [M, K]
 ("dist"). Per-agent operands are passed unrepeated; only z is per (k, m), in
 the k-major layout z_km [K, M, Z].
 
+``dtype=torch.bfloat16`` is the TPU kernel's bf16 numerics: weight matrices
+and the pf, z and state0 operands stored in bf16, products accumulated in
+fp32, activations rounded to bf16 where the TPU kernel rounds them (see
+``select_decode_reference``). It is forward-only by design, as on the TPU:
+the training step runs it without gradients to pick the argmin winner.
+
 On a CPU tensor ``select_decode`` runs ``select_decode_reference``, the same
 function in plain torch; on a CUDA tensor it launches the kernel or raises.
 The kernel fixes the decoder's inner widths (MLP 512/256, GRU 96, conv 32,
-kernel 3) and computes in fp32.
+kernel 3).
 """
 
 from __future__ import annotations
@@ -25,23 +31,31 @@ import ctypes
 import torch
 
 from sttode_tpu_torch.kernels import _build
-from sttode_tpu_torch.nn.recurrent import (Conv1dParams, GRUParams, conv1d,
-                                           gru)
+from sttode_tpu_torch.nn.recurrent import Conv1dParams, _gru_gates, conv1d
 
 GRU_H = 96
 CONV_C = 32
 MLP_HIDDEN = (512, 256)
 _MODES = {"dist": 0, "traj": 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# positions in the weight tuple of the biases the TPU kernel rounds to the
+# storage type (tail layers and conv); the first-layer and GRU biases stay fp32
+_ROUNDED_BIASES = (3, 5, 9, 11, 13, 21, 23)
+_FP32_BIASES = (1, 7, 16, 17, 19)
 
 
 def prep_select_weights(params: dict, pf_width: int, z_width: int,
-                        t_past: int, t_fut: int) -> tuple:
-    """The kernel's 24 fp32 weight tensors, in the order of the C struct
+                        t_past: int, t_fut: int,
+                        dtype: torch.dtype = torch.float32) -> tuple:
+    """The kernel's 24 weight tensors, in the order of the C struct
     ``Weights``: block-0 decoder_y and decoder_x (w1, b1, w2, b2, w3, b3
     each), block-1 conv (w, b) and GRU (w_ih, w_hh, b_ih, b_hh), block-1
-    decoder_y. Shapes are checked against the widths the kernel fixes. The
-    first layers are used whole: the kernel addresses their pf | z | state
-    row blocks (rows [0, 2D), [2D, 2D+Z), [2D+Z, 2D+Z+96)) by offset."""
+    decoder_y. Weight matrices are stored in ``dtype``; biases are fp32,
+    those of the tail layers and the conv rounded through ``dtype`` first
+    (the TPU kernel's ``_mlp_tail`` and ``_band_conv_matrix``). Shapes are
+    checked against the widths the kernel fixes. The first layers are used
+    whole: the kernel addresses their pf | z | state row blocks (rows
+    [0, 2D), [2D, 2D+Z), [2D+Z, 2D+Z+96)) by offset."""
     if len(params["decoder"]) != 2:
         raise NotImplementedError(
             "the select_decode kernel supports num_decompose=2 only")
@@ -69,7 +83,16 @@ def prep_select_weights(params: dict, pf_width: int, z_width: int,
     ws = (mlp(b0["decoder_y"], 2 * t_fut) + mlp(b0["decoder_x"], 2 * t_past)
           + [conv.w, conv.b, g.w_ih, g.w_hh, g.b_ih, g.b_hh]
           + mlp(b1["decoder_y"], 2 * t_fut))
-    return tuple(w.to(torch.float32).contiguous() for w in ws)
+    out = []
+    for i, w in enumerate(ws):
+        if i in _FP32_BIASES:
+            w = w.to(torch.float32)
+        elif i in _ROUNDED_BIASES:
+            w = w.to(dtype).to(torch.float32)
+        else:
+            w = w.to(dtype)
+        out.append(w.contiguous())
+    return tuple(out)
 
 
 def select_decode_reference(weights: tuple, past_feature: torch.Tensor,
@@ -77,32 +100,49 @@ def select_decode_reference(weights: tuple, past_feature: torch.Tensor,
                             x_true_flat: torch.Tensor,
                             future_rel_flat: torch.Tensor | None,
                             mode: str) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same operands and outputs)."""
+    """Plain PyTorch version of the kernel (same operands and outputs). The
+    storage type is that of the weight matrices in ``weights``
+    (``prep_select_weights``): with bf16, pf, z and state0 are rounded to
+    bf16, products accumulate in fp32, and the values the TPU kernel rounds
+    are rounded to bf16: the first- and second-layer activations, the
+    residual x_true − x0, the conv output, the GRU input projection (before
+    its bias) and the GRU state after each step."""
+    store = weights[0].dtype
+
+    def rnd(t):
+        return t if store == torch.float32 else t.to(store).to(torch.float32)
+
     (y0w1, y0b1, y0w2, y0b2, y0w3, y0b3, x0w1, x0b1, x0w2, x0b2, x0w3, x0b3,
      cw, cb, w_ih, w_hh, b_ih, b_hh,
-     y1w1, y1b1, y1w2, y1b2, y1w3, y1b3) = weights
-    d2, zw = past_feature.shape[1], z_km.shape[2]
+     y1w1, y1b1, y1w2, y1b2, y1w3, y1b3) = [w.to(torch.float32)
+                                           for w in weights]
+    pf, z_km, state0 = (rnd(t.to(torch.float32))
+                        for t in (past_feature, z_km, state0))
+    d2, zw = pf.shape[1], z_km.shape[2]
     K, M = z_km.shape[:2]
     t_past = x_true_flat.shape[1] // 2
 
     def first(w, b, state):
         # [pf | z | state] @ w + b with the K-repeat left to broadcasting
-        out = past_feature @ w[:d2] + b
+        out = pf @ w[:d2] + b
         if state is not None:
             out = out + state @ w[d2 + zw:]
         return out + z_km @ w[d2:d2 + zw]
 
     relu = torch.relu
-    a_y = relu(first(y0w1, y0b1, state0))                    # [K, M, 512]
-    a_x = relu(first(x0w1, x0b1, state0))
-    y0 = relu(a_y @ y0w2 + y0b2) @ y0w3 + y0b3               # [K, M, 2T_f]
-    x0 = relu(a_x @ x0w2 + x0b2) @ x0w3 + x0b3               # [K, M, 2T_p]
-    res = (x_true_flat - x0).reshape(K * M, t_past, 2)
-    h = relu(conv1d(Conv1dParams(cw, cb), res, padding=1))
-    _, st = gru(GRUParams(w_ih, w_hh, b_ih, b_hh), h)        # [K·M, 96]
-    a1 = relu(first(y1w1, y1b1, None)
-              + st.reshape(K, M, GRU_H) @ y1w1[d2 + zw:])
-    y1 = relu(a1 @ y1w2 + y1b2) @ y1w3 + y1b3
+    a_y = rnd(relu(first(y0w1, y0b1, state0)))                  # [K, M, 512]
+    a_x = rnd(relu(first(x0w1, x0b1, state0)))
+    y0 = rnd(relu(a_y @ y0w2 + y0b2)) @ y0w3 + y0b3             # [K, M, 2T_f]
+    x0 = rnd(relu(a_x @ x0w2 + x0b2)) @ x0w3 + x0b3             # [K, M, 2T_p]
+    res = rnd(x_true_flat - x0).reshape(K * M, t_past, 2)
+    h = rnd(relu(conv1d(Conv1dParams(cw, cb), res, padding=1)))
+    gi = rnd(h @ w_ih) + b_ih                                   # [K·M, T, 288]
+    st = h.new_zeros((K * M, GRU_H))
+    for t in range(t_past):
+        st = rnd(_gru_gates(gi[:, t], st @ w_hh + b_hh, st))
+    a1 = rnd(relu(first(y1w1, y1b1, None)
+                  + st.reshape(K, M, GRU_H) @ y1w1[d2 + zw:]))
+    y1 = rnd(relu(a1 @ y1w2 + y1b2)) @ y1w3 + y1b3
     pred = y0 + y1
     if mode == "traj":
         return pred
@@ -113,16 +153,20 @@ def select_decode(params: dict, past_feature: torch.Tensor,
                   z_km: torch.Tensor, state0: torch.Tensor,
                   x_true_flat: torch.Tensor,
                   future_rel_flat: torch.Tensor | None = None, *,
-                  mode: str = "dist") -> torch.Tensor:
+                  mode: str = "dist",
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Selection decode over M agents × K samples.
 
     past_feature [M, 2D] and state0 [M, 96] unrepeated; z_km [K, M, Z]
     (k-major — the transpose of the sampler's [M·K, Z] layout); x_true_flat
     [M, 2·T_p]; future_rel_flat [M, 2·T_f] (future − cur_location), needed
-    in mode "dist" only. Returns dist [M, K] ("dist") or relative
-    trajectories [K, M, 2·T_f] ("traj"; the caller re-adds cur_location)."""
+    in mode "dist" only. ``dtype`` is the storage type (float32 or
+    bfloat16). Returns fp32 dist [M, K] ("dist") or relative trajectories
+    [K, M, 2·T_f] ("traj"; the caller re-adds cur_location)."""
     if mode not in _MODES:
         raise ValueError(f"mode must be 'dist' or 'traj', got {mode!r}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     M, d2 = past_feature.shape
     K, Mz, zw = z_km.shape
     t_past = x_true_flat.shape[1] // 2
@@ -136,18 +180,18 @@ def select_decode(params: dict, past_feature: torch.Tensor,
     if mode == "dist" and (future_rel_flat is None or
                            tuple(future_rel_flat.shape) != (M, t_fut2)):
         raise ValueError(f"mode 'dist' needs future_rel_flat [M, {t_fut2}]")
-    weights = prep_select_weights(params, d2, zw, t_past, t_fut2 // 2)
+    weights = prep_select_weights(params, d2, zw, t_past, t_fut2 // 2, dtype)
     if past_feature.device.type == "cpu":
         return select_decode_reference(weights, past_feature, z_km, state0,
                                        x_true_flat, future_rel_flat, mode)
     if past_feature.device.type != "cuda":
         raise ValueError(f"unsupported device {past_feature.device}")
     return _launch(weights, past_feature, z_km, state0, x_true_flat,
-                   future_rel_flat, mode, t_fut2)
+                   future_rel_flat, mode, t_fut2, dtype)
 
 
 def _launch(weights, past_feature, z_km, state0, x_true_flat,
-            future_rel_flat, mode, t_fut2) -> torch.Tensor:
+            future_rel_flat, mode, t_fut2, dtype) -> torch.Tensor:
     dev = past_feature.device
     ops = [past_feature, z_km, state0, x_true_flat] + (
         [future_rel_flat] if mode == "dist" else [])
@@ -178,10 +222,14 @@ def _launch(weights, past_feature, z_km, state0, x_true_flat,
             x_true_flat.data_ptr(), None if fut is None else fut.data_ptr(),
             ctypes.cast(ptrs, ctypes.c_void_p), base.data_ptr(),
             out.data_ptr(), M, K, d2, zw, t_past, t_fut2 // 2, _MODES[mode],
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, f"select_decode_fwd(M={M}, K={K}, mode={mode})")
+            _DTYPES[dtype], _build.stream())
+    _build.check(err, f"select_decode_fwd(M={M}, K={K}, mode={mode}, "
+                      f"dtype={dtype})")
     select_decode.launches += 1
+    select_decode.launches_by_dtype[dtype] += 1
     return out
 
 
-select_decode.launches = 0   # kernel launches, counted in _launch
+# kernel launches, counted in _launch: all of them, and per storage type
+select_decode.launches = 0
+select_decode.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}

@@ -1,4 +1,5 @@
-"""STTODE best-of-K inference (port of ``sttode_tpu/models/sttode.py``).
+"""STTODE: the CVAE training forward and best-of-K inference (port of
+``sttode_tpu/models/sttode.py``).
 
 B scenes × N agents are flattened to M = B·N rows. The past encoder's
 interaction attention runs over the scene axis (``attn_axis="scene"``, the
@@ -7,11 +8,21 @@ reference, quirk Q4) or over the agents of each scene with the validity mask
 per agent from the standard-normal prior and decodes them with the
 two-block decompose decoder.
 
-Routing on a CUDA device: attention goes to the geodesic-attention kernel
-unless ``attn_impl="dense"``, and the K-sample decode goes to the
-selection-decode kernel (mode "traj") unless ``select_impl="xla"`` — a name
-kept from the JAX package so configs carry over; in the port it means the
-plain PyTorch decode. On the CPU both take the plain PyTorch path.
+``sttode_forward`` is the stage-1 training forward: posterior decode, KL
+against the prior, and the best-of-K diverse loss, with the sparse
+(winner-only) or dense best-of-K gradient. Its random draws (two
+positional-encoding dropout masks and the posterior and prior latents) come
+from a generator, or are injected with ``TrainNoise`` so that a test can
+hand the port the JAX package's draws.
+
+Routing on a CUDA device: attention goes to the geodesic-attention kernels
+(forward and backward) unless ``attn_impl="dense"``, and the K-sample decode
+goes to the selection-decode kernel (mode "traj" at inference, mode "dist"
+at ``select_dtype`` in training) unless ``select_impl="xla"`` — a name kept
+from the JAX package so configs carry over; in the port it means the plain
+PyTorch decode. On the CPU both take the plain PyTorch path, except that
+``select_impl="fused"`` in training runs the kernel's plain version, as the
+JAX package runs its Pallas kernel in interpret mode off the TPU.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from sttode_tpu_torch import bridge
 from sttode_tpu_torch.kernels.select_decode import select_decode
 from sttode_tpu_torch.nn import core, embed
 from sttode_tpu_torch.nn.ode_block import ode_encoder
@@ -34,11 +46,11 @@ class STTODEConfig(NamedTuple):
     JAX config converts with ``STTODEConfig(**jax_cfg._asdict())``).
 
     ``validate`` raises NotImplementedError on what the port does not run
-    yet rather than running something else. Training-only fields (dropout,
-    remat, loss_terms, diverse_grad, ...) are carried but unused: the port
-    serves inference. One default differs from the JAX package:
-    ``select_impl="auto"``, the selection-decode kernel on CUDA (the JAX
-    default "xla" keeps its meaning, the plain decode)."""
+    yet rather than running something else (``dropout > 0`` among them).
+    ``remat`` is carried but unused: PyTorch stores what autograd needs.
+    One default differs from the JAX package: ``select_impl="auto"``, the
+    selection-decode kernel on CUDA (the JAX default "xla" keeps its
+    meaning, the plain decode)."""
     hidden_dim: int = 64
     zdim: int = 32
     num_heads: int = 8
@@ -97,14 +109,30 @@ class STTODEConfig(NamedTuple):
             raise ValueError("ode_steps and sample_k must be >= 1")
         if self.select_impl not in ("xla", "fused", "auto"):
             raise ValueError(f"select_impl {self.select_impl!r}")
+        if self.diverse_grad not in ("sparse", "dense"):
+            raise ValueError(f"diverse_grad {self.diverse_grad!r}")
+        if self.diverse_grad != "sparse" and (
+                self.select_impl == "fused" or
+                self.select_dtype == "bfloat16"):
+            raise ValueError(
+                "select_impl='fused' and select_dtype='bfloat16' require "
+                "diverse_grad='sparse': the dense path differentiates "
+                "through the K-decode, which the forward-only kernel and "
+                "bf16 selection do not serve")
+        unknown = set(self.loss_terms) - {"pred", "recover", "kl", "diverse"}
+        if unknown:
+            raise ValueError(f"unknown loss_terms {sorted(unknown)}")
+        if self.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout > 0 inside the encoder layer is not ported yet")
         not_ported = {
             "attn_impl": (self.attn_impl, ("auto", "dense", "fused")),
             "attn_metric": (self.attn_metric, ("oblique",)),
             "ode_method": (self.ode_method, ("euler", "midpoint", "rk4")),
             "ode_adjoint": (self.ode_adjoint, (False,)),
             "learn_prior": (self.learn_prior, (False,)),
-            "select_dtype": (self.select_dtype, ("float32",)),
-            "decode_dtype": (self.decode_dtype, ("float32",)),
+            "select_dtype": (self.select_dtype, ("float32", "bfloat16")),
+            "decode_dtype": (self.decode_dtype, ("float32", "bfloat16")),
             "compute_dtype": (self.compute_dtype, ("float32",)),
         }
         for name, (value, ported) in not_ported.items():
@@ -219,16 +247,22 @@ def _agent_attn_mask(valid: torch.Tensor, B: int, N: int) -> torch.Tensor:
 
 def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                   N: int, valid: torch.Tensor, *,
-                  isolate_scenes: bool = False) -> torch.Tensor:
+                  isolate_scenes: bool = False, train: bool = False,
+                  keep_mask: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """Shared trunk → [M, 2D] concat(skip, interaction) feature.
 
     ``isolate_scenes`` (scene axis only) makes every scene its own
     batch_size=1 problem: the attention token axis never crosses scenes,
-    exactly as running each scene alone (the JAX Predictor's vmapped lanes)."""
+    exactly as running each scene alone (the JAX Predictor's vmapped lanes).
+    With ``train`` the positional encoding's dropout applies, its keep-mask
+    [M, T, D] injected or drawn from ``generator``."""
     D = cfg.hidden_dim
     T = inputs.shape[1]
     x = core.dense(p["input_fc"], inputs)                     # [M, T, D]
-    x = embed.positional_agent_encoding(p["pe"], x)
+    x = embed.positional_agent_encoding(
+        p["pe"], x, dropout_rate=cfg.pe_dropout, train=train,
+        keep_mask=keep_mask, generator=generator)
     x = core.dense(p["input_fc2"], x.reshape(B, N, T * D))    # [B, N, D]
     x = core.dense(p["input_fc3"], _add_category(x))          # [B, N, D]
 
@@ -254,11 +288,30 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
 
 
 def encode_past(params: dict, cfg: STTODEConfig, batch: Batch, *,
-                isolate_scenes: bool = False) -> torch.Tensor:
+                isolate_scenes: bool = False, train: bool = False,
+                keep_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
     """past_feature [M, 2D]."""
     return _encode_trunk(params["past_encoder"], cfg, batch.inputs,
                          batch.batch_size, batch.agent_num, batch.valid,
-                         isolate_scenes=isolate_scenes)
+                         isolate_scenes=isolate_scenes, train=train,
+                         keep_mask=keep_mask, generator=generator)
+
+
+def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
+                  past_feature: torch.Tensor, *,
+                  keep_mask: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> DiagNormal:
+    """Posterior q(z | past, future), a training-only head: the future trunk
+    (its PE dropout on), then the posterior head on [past_feature |
+    future_feature]."""
+    fut_feat = _encode_trunk(params["future_encoder"], cfg,
+                             batch.inputs_for_posterior, batch.batch_size,
+                             batch.agent_num, batch.valid, train=True,
+                             keep_mask=keep_mask, generator=generator)
+    h = torch.cat([past_feature, fut_feat], dim=-1)
+    h = core.mlp(params["out_mlp"], h, activation="relu", activate_final=True)
+    return DiagNormal.from_params(core.dense(params["qz_layer"], h))
 
 
 def prior(params: dict, cfg: STTODEConfig,
@@ -316,6 +369,212 @@ def decode(params: dict, cfg: STTODEConfig, past_feature: torch.Tensor,
         reconstruction = reconstruction + x_hat
     return prediction + cur_location.repeat_interleave(s, dim=0), \
         reconstruction
+
+
+def _bf16_tree(tree):
+    """Cast every floating leaf to bfloat16. The cast is differentiable:
+    fp32 master weights receive fp32 gradients through it."""
+    return bridge.tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, tree)
+
+
+def _decode_mp(params: dict, cfg: STTODEConfig, past_feature, z, past_traj,
+               cur_location, sample_num: int, *, block0_state):
+    """``decode`` at ``cfg.decode_dtype`` storage. Under "bfloat16" the
+    decoder params and every operand are cast once at entry, every decode
+    activation is stored in bf16, and the outputs return in fp32 so the loss
+    reductions keep fp32 numerics."""
+    if cfg.decode_dtype != "bfloat16":
+        return decode(params, cfg, past_feature, z, past_traj, cur_location,
+                      sample_num, block0_state=block0_state)
+    out, rec = decode({"decoder": _bf16_tree(params["decoder"])}, cfg,
+                      _bf16_tree(past_feature), _bf16_tree(z),
+                      _bf16_tree(past_traj), _bf16_tree(cur_location),
+                      sample_num, block0_state=_bf16_tree(block0_state))
+    return out.to(torch.float32), rec.to(torch.float32)
+
+
+# --------------------------------------------------------------------------- #
+# losses                                                                      #
+# --------------------------------------------------------------------------- #
+
+def loss_pred(pred, target, batch_size, valid):
+    """ΣSE / B / T — the reference's normalization (÷batch÷horizon, not
+    ÷agents); ``valid`` [M] masks padded agents."""
+    se = torch.square(target - pred) * valid[:, None, None]
+    return torch.sum(se) / batch_size / pred.shape[1]
+
+
+def _masked_mean(per_agent, valid):
+    """Mean of a per-agent [M] quantity over the real agents (the
+    reference's B·N denominator on an unpadded batch)."""
+    return torch.sum(per_agent * valid) / torch.clamp(torch.sum(valid),
+                                                      min=1.0)
+
+
+def loss_kl(qz: DiagNormal, pz: DiagNormal, min_clip, valid):
+    """Σ KL / (real agent count), floored at min_clip with max() (quirk Q5:
+    zero gradient while the unfloored loss is below the floor)."""
+    loss = _masked_mean(torch.sum(qz.kl(pz), dim=-1), valid)
+    return torch.maximum(loss, loss.new_tensor(min_clip))
+
+
+def loss_diverse(pred_k, target, valid):
+    """Best-of-K: min over samples of ΣSE, averaged over agents.
+    pred_k [M, K, T, 2], target [M, T, 2]."""
+    dist = torch.sum(torch.square(target[:, None] - pred_k), dim=(-1, -2))
+    return _masked_mean(torch.min(dist, dim=1).values, valid)
+
+
+# --------------------------------------------------------------------------- #
+# training forward                                                            #
+# --------------------------------------------------------------------------- #
+
+class TrainNoise(NamedTuple):
+    """The training forward's random draws, for injection: the positional
+    encoding's dropout keep-masks of the past [M, T_p, D] and future
+    [M, T_f, D] trunks (bool), the posterior latent noise [M, Z] and the
+    prior latent noise [M·K, Z] (m-major: row m·K + k)."""
+    pe_past: torch.Tensor
+    pe_future: torch.Tensor
+    eps_q: torch.Tensor
+    eps_p: torch.Tensor
+
+
+class ForwardOutput(NamedTuple):
+    total_loss: torch.Tensor
+    loss_pred: torch.Tensor
+    loss_recover: torch.Tensor
+    loss_kl: torch.Tensor
+    loss_diverse: torch.Tensor
+    qz: DiagNormal
+    pz: DiagNormal
+    past_feature: torch.Tensor
+    pred_traj: torch.Tensor     # [M, T_f, 2] posterior decode
+    diverse_pred: torch.Tensor  # [M, K, T_f, 2] prior samples, values only.
+                                # NaN on the selection-kernel route (only
+                                # the [M, K] distances leave the kernel);
+                                # zeros when "diverse" is not a loss term.
+
+
+def _select_dist(params, cfg: STTODEConfig, batch: Batch, past_feature,
+                 pz_sample, state0, K: int):
+    """Gradient-free decode of all K prior samples → (dist [M, K], diverse
+    [M, K, T_f, 2] or NaN). Routes: the selection kernel in mode "dist" at
+    ``select_dtype`` ("fused", or "auto" on CUDA; the plain version of the
+    kernel on a CPU tensor); otherwise the plain decode, which under
+    ``select_dtype="bfloat16"`` runs wholly in bf16 (params and inputs cast
+    once, every intermediate stored bf16)."""
+    M, Tf = past_feature.shape[0], cfg.future_length
+    use_kernel = cfg.select_impl == "fused" or (
+        cfg.select_impl == "auto" and past_feature.is_cuda)
+    with torch.no_grad():
+        if use_kernel:
+            dist = select_decode(
+                params, past_feature, pz_sample.reshape(M, K, -1)
+                .transpose(0, 1), state0, batch.past.reshape(M, -1),
+                (batch.future - batch.cur_location).reshape(M, -1),
+                mode="dist", dtype=getattr(torch, cfg.select_dtype))
+            diverse = torch.full((M, K, Tf, 2), float("nan"),
+                                 device=past_feature.device)
+            return dist, diverse
+        pf_k = past_feature.repeat_interleave(K, dim=0)
+        if cfg.select_dtype == "bfloat16":
+            diverse, _ = decode(
+                {"decoder": _bf16_tree(params["decoder"])}, cfg,
+                _bf16_tree(pf_k), _bf16_tree(pz_sample),
+                _bf16_tree(batch.past), _bf16_tree(batch.cur_location), K,
+                block0_state=_bf16_tree(state0))
+            diverse = diverse.to(batch.future.dtype)
+        else:
+            diverse, _ = decode(params, cfg, pf_k, pz_sample, batch.past,
+                                batch.cur_location, K, block0_state=state0)
+        diverse = diverse.reshape(M, K, Tf, 2)
+        dist = torch.sum(torch.square(batch.future[:, None] - diverse),
+                         dim=(-1, -2))
+    return dist, diverse
+
+
+def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
+                   generator: torch.Generator | None = None,
+                   noise: TrainNoise | None = None) -> ForwardOutput:
+    """Full CVAE training forward: posterior decode + KL + best-of-K diverse
+    loss. The random draws are ``noise`` when given, else drawn from
+    ``generator`` (on the batch's device). With ``diverse_grad="sparse"``
+    the K samples are decoded without gradients only to pick each agent's
+    winner, and ONE differentiable decode of (posterior, winner) follows;
+    "dense" back-propagates through all K."""
+    B, N = batch.batch_size, batch.agent_num
+    M = B * N
+    K = cfg.sample_k
+    valid = batch.valid
+    nz = noise if noise is not None else TrainNoise(None, None, None, None)
+
+    past_feature = encode_past(params, cfg, batch, train=True,
+                               keep_mask=nz.pe_past, generator=generator)
+    qz = encode_future(params, cfg, batch, past_feature,
+                       keep_mask=nz.pe_future, generator=generator)
+    pz = prior(params, cfg, past_feature)
+    qz_sample = qz.rsample(generator, noise=nz.eps_q)
+
+    # decompose block 0's GRU state depends only on past_traj: one scan
+    # serves every decode below
+    state0 = decode_block0_state(params, batch.past)
+
+    sparse = cfg.diverse_grad == "sparse" and K > 1 and \
+        "diverse" in cfg.loss_terms
+    if sparse:
+        # deferred: the posterior decode batches with the winner's below
+        pred_traj = recover_traj = None
+    else:
+        pred_traj, recover_traj = _decode_mp(params, cfg, past_feature,
+                                             qz_sample, batch.past,
+                                             batch.cur_location, 1,
+                                             block0_state=state0)
+    l_kl = loss_kl(qz, pz, cfg.min_clip, valid)
+
+    if "diverse" not in cfg.loss_terms:
+        # VAE-only objective: no K-sample decode at all
+        l_div = past_feature.new_zeros(())
+        diverse = past_feature.new_zeros((M, K, cfg.future_length, 2))
+    else:
+        pz_sample = prior(params, cfg,
+                          past_feature.repeat_interleave(K, dim=0)) \
+            .rsample(generator, noise=nz.eps_p)              # [M·K, Z]
+        if sparse:
+            dist, diverse = _select_dist(params, cfg, batch, past_feature,
+                                         pz_sample, state0, K)
+            best = torch.argmin(dist, dim=1)                   # [M]
+            # the winners' latents, gathered from the non-stopped samples
+            z_best = pz_sample.reshape(M, K, -1)[torch.arange(M), best]
+            # ONE differentiable decode for (posterior, winner), interleaved
+            # as a sample axis of 2
+            pf2 = past_feature.repeat_interleave(2, dim=0)
+            z2 = torch.stack([qz_sample, z_best], dim=1).reshape(2 * M, -1)
+            out2, rec2 = _decode_mp(params, cfg, pf2, z2, batch.past,
+                                    batch.cur_location, 2,
+                                    block0_state=state0)
+            out2 = out2.reshape(M, 2, cfg.future_length, 2)
+            pred_traj, best_pred = out2[:, 0], out2[:, 1]
+            recover_traj = rec2.reshape(M, 2, cfg.past_length, 2)[:, 0]
+            best_se = torch.sum(torch.square(batch.future - best_pred),
+                                dim=(-1, -2))
+            l_div = _masked_mean(best_se, valid)
+        else:
+            diverse, _ = _decode_mp(params, cfg,
+                                    past_feature.repeat_interleave(K, dim=0),
+                                    pz_sample, batch.past,
+                                    batch.cur_location, K, block0_state=state0)
+            diverse = diverse.reshape(M, K, cfg.future_length, 2)
+            l_div = loss_diverse(diverse, batch.future, valid)
+
+    l_pred = loss_pred(pred_traj, batch.future, B, valid)
+    l_recover = loss_pred(recover_traj, batch.past, B, valid)
+    terms = {"pred": l_pred, "recover": l_recover, "kl": l_kl,
+             "diverse": l_div}
+    total = sum(terms[name] for name in cfg.loss_terms)
+    return ForwardOutput(total, l_pred, l_recover, l_kl, l_div, qz, pz,
+                         past_feature, pred_traj, diverse.detach())
 
 
 # --------------------------------------------------------------------------- #

@@ -9,11 +9,13 @@ Scores are negated geodesic distances on the oblique manifold,
 - ``compat="tpu"``: ``scores[i, j] = -d(q_i, k_j)`` with an additive mask.
 
 Routing (``geodesic_attention``): a CUDA tensor with ``fused`` "auto" or True
-goes to the hand-written kernel ``kernels.mhgsa.fused_geodesic_attention``
-(Q3 is the kernel with q and k swapped); ``fused=False`` ("dense") or a CPU
-tensor takes the plain path, a max-subtracted softmax over the dense scores.
-No size threshold is applied: the JAX package's TPU crossovers do not carry
-over to the card.
+goes to the hand-written kernels ``kernels.mhgsa.fused_geodesic_attention``
+(forward and, when a gradient is taken, backward; Q3 is the kernel with q
+and k swapped); ``fused=False`` ("dense") or a CPU tensor takes the plain
+path, a max-subtracted softmax over the dense scores. No size threshold is
+applied: the JAX package's TPU crossover would send the training shape
+(L = S = 128) to XLA, while the port sends it to the kernel;
+``chip_smoke.py`` times both routes.
 """
 
 from __future__ import annotations

@@ -97,6 +97,26 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"], eps)
 
 
+def dropout(x: torch.Tensor, rate: float, *,
+            keep_mask: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout (torch semantics): keep each entry with probability
+    1 − rate and scale the kept ones by 1 / (1 − rate). The keep-mask is
+    injected with ``keep_mask`` (bool, x's shape; the tests hand both
+    frameworks the same draw) or drawn from ``generator``, which must live
+    on x's device. rate ≤ 0 returns x."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep_mask is None:
+        keep_mask = torch.rand(x.shape, generator=generator, device=x.device) \
+            < keep
+    elif keep_mask.shape != x.shape:
+        raise ValueError(f"keep_mask shape {tuple(keep_mask.shape)} != "
+                         f"{tuple(x.shape)}")
+    return torch.where(keep_mask, x / keep, 0.0)
+
+
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                "sigmoid": torch.sigmoid}
 

@@ -1,8 +1,9 @@
 """Positional agent encoding (port of ``sttode_tpu/nn/embed.py``).
 
 Sinusoidal time encoding concatenated with the features and fused by a
-linear layer. The dropout that follows it in training is inactive at
-inference, the only mode this port runs.
+linear layer, then dropout (training only). The table is a parameter leaf:
+the JAX package slices it differentiably and its optimizer updates it, so
+the port's training step does too.
 """
 
 from __future__ import annotations
@@ -32,8 +33,17 @@ def positional_agent_encoding_init(gen, d_model: int, max_t_len: int = 200,
 
 
 def positional_agent_encoding(params: dict, x: torch.Tensor, *,
-                              t_offset: int = 0) -> torch.Tensor:
-    """x: [..., T, D] → concat time PE → fuse linear → [..., T, D]."""
+                              t_offset: int = 0, dropout_rate: float = 0.1,
+                              train: bool = False,
+                              keep_mask: torch.Tensor | None = None,
+                              generator: torch.Generator | None = None
+                              ) -> torch.Tensor:
+    """x: [..., T, D] → concat time PE → fuse linear → dropout (when
+    ``train``; keep-mask injected or drawn from ``generator``) → [..., T, D]."""
     T = x.shape[-2]
     pe = params["pe"][t_offset:t_offset + T].expand(x.shape)
-    return core.dense(params["fc"], torch.cat([x, pe], dim=-1))
+    fused = core.dense(params["fc"], torch.cat([x, pe], dim=-1))
+    if not train:
+        return fused
+    return core.dropout(fused, dropout_rate, keep_mask=keep_mask,
+                        generator=generator)

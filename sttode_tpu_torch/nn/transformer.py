@@ -2,7 +2,8 @@
 ``gated_attention``, ``encoder_layer``, ``encoder_stack``).
 
 Tokens are 4-D ``[L, N, S, D]`` as in the JAX package: L is the attended
-token axis, N·S the batch. Inference only, so dropout never applies.
+token axis, N·S the batch. The layer's own dropout is not ported
+(``STTODEConfig.validate`` refuses ``dropout > 0``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ class EncoderLayerParams(NamedTuple):
 
 class LayerConfig(NamedTuple):
     """Static hyperparameters of one layer. ``attn_impl``: "auto" or "fused"
-    (the CUDA kernel on CUDA tensors) or "dense" (plain path). ``dropout``
-    is carried for configs but inactive: the port only runs inference."""
+    (the CUDA kernels on CUDA tensors) or "dense" (plain path). ``dropout``
+    is carried for configs but must be 0 (not ported)."""
     d_model: int = 64
     num_heads: int = 8
     ff_dim: int = 1024

@@ -30,7 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sttode_tpu_torch.bridge import to_device
+from sttode_tpu_torch.bridge import resolve_device, to_device
 from sttode_tpu_torch.data.batching import DEFAULT_BUCKETS, bucket_for
 from sttode_tpu_torch.data.preprocess import prepare_scene_group
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_inference
@@ -54,18 +54,17 @@ class Predictor:
     >>> samples = pred.predict(obs)     # obs [N, T_p, 2] → [K, N, T_f, 2]
 
     ``params`` is a port parameter tree (``sttode_init`` or
-    ``bridge.params_from_jax``); it is moved to ``device`` (default: where
-    its tensors are)."""
+    ``bridge.params_from_jax``); it is moved to ``device``. The default is
+    the card: without a CUDA device the constructor raises unless the
+    caller passes ``device="cpu"``."""
 
     def __init__(self, params, cfg: STTODEConfig, *,
-                 device: torch.device | str | None = None,
+                 device: torch.device | str = "cuda",
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  sample_k: int | None = None, max_group: int = 16,
                  isolated_group_max: int = 64):
         self.cfg = cfg.validate()
-        if device is None:
-            device = params["decoder"][0]["decoder_y"]["layers"][0]["w"].device
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.buckets = tuple(buckets)
         self.sample_k = sample_k or cfg.sample_k

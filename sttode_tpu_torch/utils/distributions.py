@@ -1,4 +1,4 @@
-"""Diagonal Gaussian for the CVAE prior (port of
+"""Diagonal Gaussian for the CVAE prior and posterior (port of
 ``sttode_tpu/utils/distributions.py::DiagNormal``)."""
 
 from __future__ import annotations
@@ -18,6 +18,12 @@ class DiagNormal(NamedTuple):
         return torch.exp(0.5 * self.logvar)
 
     @staticmethod
+    def from_params(params: torch.Tensor) -> "DiagNormal":
+        """Split a [..., 2Z] parameter vector into mu / logvar halves."""
+        mu, logvar = params.chunk(2, dim=-1)
+        return DiagNormal(mu=mu, logvar=logvar)
+
+    @staticmethod
     def standard(shape, dtype=torch.float32, device=None) -> "DiagNormal":
         z = torch.zeros(shape, dtype=dtype, device=device)
         return DiagNormal(mu=z, logvar=z)
@@ -34,3 +40,11 @@ class DiagNormal(NamedTuple):
             raise ValueError(f"noise shape {tuple(noise.shape)} != "
                              f"{tuple(self.mu.shape)}")
         return self.mu + noise * self.sigma
+
+    def kl(self, p: "DiagNormal") -> torch.Tensor:
+        """Elementwise KL(self ‖ p), the general branch of the JAX
+        ``DiagNormal.kl`` with the reference's 1e-8 sigma guards; ``loss_kl``
+        takes it against the standard prior."""
+        t1 = (self.mu - p.mu) / (p.sigma + 1e-8)
+        t2 = self.sigma / (p.sigma + 1e-8)
+        return 0.5 * (t1 * t1 + t2 * t2) - 0.5 - torch.log(t2)

@@ -7,13 +7,19 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances as in tests/test_torch_kernels.py: attention 1e-5, selection
-decode and the model 1e-4 (fp32 with different summation orders).
+decode and the model 1e-4 (fp32 with different summation orders);
+attention gradients 5e-5 × max(1, max |gradient|) (the acos' factor, up to
+~70 at the clip, amplifies the Gram's summation-order differences); the bf16
+selection decode 1e-3 relative to the distance scale, with winner flips only
+at near-ties (both sides round to bf16 at the same points; a different fp32
+summation order can move a value across a bf16 rounding boundary).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sttode_tpu_torch import bridge
 from sttode_tpu_torch.bridge import to_device
 from sttode_tpu_torch.data.preprocess import prepare_scene_group
 from sttode_tpu_torch.data.synthetic import make_social_scenes
@@ -21,6 +27,7 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import select_decode as tsd
 from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.serving import Predictor
+from sttode_tpu_torch.train import make_train_step
 
 
 @pytest.fixture
@@ -28,6 +35,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _sweep(n, seed, draw):
+    rng = np.random.default_rng(seed)
+    return [draw(rng) for _ in range(n)]
 
 
 def _attn_inputs(shape_q, S, mask_kind, seed):
@@ -69,13 +81,111 @@ def test_attention_kernel_matches_plain(cuda_device, shape_q, S, mask_kind):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_grad_and_oversized_keys(cuda_device):
-    q = torch.randn(2, 4, 8, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tmhgsa.fused_geodesic_attention(q, q, q)
+    """Gradients are taken through the backward kernel (and equal the plain
+    backward's); keys that do not fit in shared memory are refused by both
+    kernels."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32))
+    q = x.to(cuda_device).requires_grad_()
+    before = tmhgsa.fused_geodesic_attention_backward.launches
+    out = tmhgsa.fused_geodesic_attention(q, q, q)
+    (g,) = torch.autograd.grad(out.sum(), q)
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention_backward.launches == before + 1
+    xc = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        tmhgsa.fused_geodesic_attention(xc, xc, xc).sum(), xc)
+    assert torch.isfinite(g).all()
+    np.testing.assert_allclose(g.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=5e-5)
     q = torch.randn(1, 8, 64, device=cuda_device)
     kv = torch.randn(1, 100_000, 64, device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tmhgsa.fused_geodesic_attention(q, kv, kv)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tmhgsa.fused_geodesic_attention_backward(q, kv, kv, None, q)
+
+
+def _grad_check(got, want):
+    for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        scale = max(1.0, float(w.abs().max()))
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=5e-5 * scale, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=88, L=128, S=128, Dh=8, mask="none"),      # the training shape
+    dict(B=64, L=8, S=8, Dh=8, mask="finfo_min"),     # agent axis
+    dict(B=3, L=5, S=9, Dh=8, mask="all_excluded"),
+    dict(B=2, L=6, S=6, Dh=8, mask="identical_qk")])
+def test_attention_backward_kernel_matches_plain(cuda_device, case):
+    rng = np.random.default_rng(case["B"] + case["L"])
+    B, L, S, Dh = case["B"], case["L"], case["S"], case["Dh"]
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, k, v, do = arr(B, L, Dh), arr(B, S, Dh), arr(B, S, Dh), arr(B, L, Dh)
+    mask = None
+    if case["mask"] == "finfo_min":
+        mask = torch.where(torch.from_numpy(rng.random((B, 1, S))) < 0.3,
+                           torch.finfo(torch.float32).min, 0.0) \
+            .expand(B, L, S)
+    elif case["mask"] == "all_excluded":
+        mask = 2.0 * arr(B, L, S)
+        mask[:, 0] = torch.finfo(torch.float32).min
+    elif case["mask"] == "identical_qk":
+        k = q.clone()
+    m3 = None if mask is None else tmhgsa._canonicalize_mask(mask)
+    want = tmhgsa.fused_geodesic_attention_backward(q, k, v, m3, do,
+                                                    need_dmask=True)
+    before = tmhgsa.fused_geodesic_attention_backward.launches
+    got = tmhgsa.fused_geodesic_attention_backward(
+        *[t.to(cuda_device) for t in (q, k, v)],
+        None if m3 is None else m3.to(cuda_device), do.to(cuda_device),
+        need_dmask=True)
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention_backward.launches == before + 1
+    _grad_check(got, want)
+    if case["mask"] == "all_excluded":
+        assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sweep(12, 13, lambda r: dict(
+    lead=tuple(int(x) for x in r.integers(1, 5, size=int(r.integers(1, 3)))),
+    L=int(r.integers(1, 70)), S=int(r.integers(1, 70)),
+    Dh=int(r.choice([1, 3, 5, 8, 13, 32, 33, 64])),
+    mask=str(r.choice(["none", "finite", "finfo_min"])))))
+def test_attention_backward_kernel_randomized_sweep(cuda_device, case):
+    """Random shapes (odd head dims, L ≠ S, one leading dim or two) and mask
+    kinds: gradients of q, k, v and a mask that requires grad, through the
+    autograd Function, against the plain backward on the CPU."""
+    rng = np.random.default_rng(case["L"] * 137 + case["S"])
+    lead, L, S, Dh = case["lead"], case["L"], case["S"], case["Dh"]
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    ins = [arr(*lead, L, Dh), arr(*lead, S, Dh), arr(*lead, S, Dh)]
+    w = arr(*lead, L, Dh)
+    if case["mask"] == "finite":
+        ins.append(20 * arr(*lead, L, S))
+    elif case["mask"] == "finfo_min":
+        ins.append(torch.where(torch.from_numpy(rng.random((*lead, L, S)))
+                               < 0.4, torch.finfo(torch.float32).min, 0.0))
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_() for t in ins]
+        out = tmhgsa.fused_geodesic_attention(
+            *leaves[:3], mask=leaves[3] if len(leaves) > 3 else None)
+        return torch.autograd.grad((out * w.to(dev)).sum(), leaves)
+
+    want = grads("cpu")
+    got = grads(cuda_device)
+    torch.cuda.synchronize()
+    _grad_check(got, want)
 
 
 @pytest.fixture(scope="module")
@@ -108,11 +218,6 @@ def test_select_decode_kernel_matches_plain(cuda_device, decoder, mode, M, K):
     with pytest.raises(NotImplementedError, match="forward-only"):
         tsd.select_decode(to_device(params, cuda_device), leaf,
                           *[o.to(cuda_device) for o in ops[1:]], mode=mode)
-
-
-def _sweep(n, seed, draw):
-    rng = np.random.default_rng(seed)
-    return [draw(rng) for _ in range(n)]
 
 
 @pytest.mark.cuda
@@ -171,6 +276,100 @@ def test_select_decode_kernel_randomized_sweep(cuda_device, case, mode):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sweep(8, 14, lambda r: dict(
+    hidden=int(r.choice([2, 6, 10, 64])), zdim=int(r.choice([1, 3, 8, 32])),
+    t_past=int(r.integers(1, 10)), t_fut=int(r.integers(1, 14)),
+    M=int(r.integers(1, 300)), K=int(r.integers(1, 21)))))
+def test_select_decode_bf16_kernel_randomized_sweep(cuda_device, case):
+    """The bf16 storage variant over random widths, horizons, agent and
+    sample counts, mode "dist": distances within 1e-3 of the distance
+    scale, and a different winner only where the plain version's two
+    candidates are that close."""
+    cfg = tm.STTODEConfig(hidden_dim=case["hidden"], num_heads=1,
+                          zdim=case["zdim"], past_length=case["t_past"],
+                          future_length=case["t_fut"])
+    params = tm.sttode_init(case["M"] + 1, cfg)
+    M, K = case["M"], case["K"]
+    rng = np.random.default_rng(M * 5 + K)
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    past = arr(M, cfg.past_length, 2)
+    ops = [arr(M, 2 * cfg.hidden_dim), arr(K, M, cfg.zdim),
+           tm.decode_block0_state(params, past), past.reshape(M, -1),
+           arr(M, 2 * cfg.future_length)]
+    want = tsd.select_decode(params, *ops, dtype=torch.bfloat16)
+    before = tsd.select_decode.launches_by_dtype[torch.bfloat16]
+    got = tsd.select_decode(to_device(params, cuda_device),
+                            *[o.to(cuda_device) for o in ops],
+                            dtype=torch.bfloat16).cpu()
+    torch.cuda.synchronize()
+    assert tsd.select_decode.launches_by_dtype[torch.bfloat16] == before + 1
+    scale = max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-3 * scale)
+    rows = torch.arange(M)
+    g_win, w_win = got.argmin(1), want.argmin(1)
+    gap = (want[rows, g_win] - want[rows, w_win]).abs()
+    assert bool(((g_win == w_win) | (gap <= 2e-3 * scale)).all())
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_route_matches_plain_route(cuda_device):
+    """One fp32 training forward and backward on the kernel route (attention
+    forward and backward kernels, selection kernel) against the plain route
+    with the same parameters, batch and injected noise; then a few bf16
+    recipe steps on the kernel route stay finite."""
+    cfg = tm.STTODEConfig(past_length=5, future_length=10, sample_k=6,
+                          min_clip=0.0).validate()
+    scenes = make_social_scenes(16, agents_range=(6, 6), obs_len=5,
+                                pred_len=10, seed=3)
+    obs = np.stack([s["obs"] for s in scenes])
+    pred = np.stack([s["pred"] for s in scenes])
+    batch, _ = prepare_scene_group(obs, pred, np.ones((16, 6), np.float32),
+                                   training=True,
+                                   rng=np.random.default_rng(0))
+    batch = batch.to(cuda_device)
+    M = 16 * 6
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    noise = tm.TrainNoise(
+        torch.rand(M, 5, 64, device=cuda_device, generator=gen) < 0.9,
+        torch.rand(M, 10, 64, device=cuda_device, generator=gen) < 0.9,
+        torch.randn(M, 32, device=cuda_device, generator=gen),
+        torch.randn(M * 6, 32, device=cuda_device, generator=gen))
+    params0 = tm.sttode_init(4, cfg)
+
+    def run(c):
+        p = to_device(params0, cuda_device)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+        out = tm.sttode_forward(p, c, batch, noise=noise)
+        out.total_loss.backward()
+        return out, [t.grad for t in leaves]
+
+    counts = (tmhgsa.fused_geodesic_attention_backward.launches,
+              tsd.select_decode.launches)
+    got, g_got = run(cfg)
+    want, g_want = run(cfg._replace(attn_impl="dense", select_impl="xla"))
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention_backward.launches > counts[0]
+    assert tsd.select_decode.launches == counts[1] + 1
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        np.testing.assert_allclose(float(getattr(got, name)),
+                                   float(getattr(want, name)), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    for a, b in zip(g_got, g_want):
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+    rcfg = cfg._replace(select_dtype="bfloat16", decode_dtype="bfloat16")
+    step = make_train_step(rcfg, 1e-4, device=cuda_device)
+    params, opt_state = step.init(params0)
+    for _ in range(3):
+        params, opt_state, metrics = step(params, opt_state, batch, gen)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
 @pytest.mark.cuda

@@ -174,8 +174,7 @@ def test_bridge_rejects_unknown_namedtuples():
 @pytest.mark.parametrize("field,value", [
     ("attn_impl", "flash"), ("attn_impl", "ring"), ("attn_metric", "poincare"),
     ("ode_method", "dopri5"), ("ode_adjoint", True), ("learn_prior", True),
-    ("select_dtype", "bfloat16"), ("decode_dtype", "bfloat16"),
-    ("num_decompose", 3)])
+    ("compute_dtype", "bfloat16"), ("dropout", 0.1), ("num_decompose", 3)])
 def test_config_refuses_unported_settings(field, value):
     with pytest.raises(NotImplementedError):
         tm.STTODEConfig(**{field: value}).validate()

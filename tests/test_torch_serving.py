@@ -25,7 +25,7 @@ def predictor(request):
     kw = dict(SMALL) if request.param == "scene" else \
         dict(SMALL, compat="tpu", attn_axis="agent")
     cfg = tm.STTODEConfig(**kw)
-    return Predictor(tm.sttode_init(0, cfg), cfg, max_group=3)
+    return Predictor(tm.sttode_init(0, cfg), cfg, device="cpu", max_group=3)
 
 
 def test_output_shapes_and_absolute_coordinates(predictor, scenes):
@@ -62,7 +62,7 @@ def test_scene_axis_isolation_is_per_scene():
     """Scene axis: the same (seed, scene) gives the same samples whatever
     else shares the call (up to float reassociation)."""
     cfg = tm.STTODEConfig(**SMALL)
-    pred = Predictor(tm.sttode_init(1, cfg), cfg)
+    pred = Predictor(tm.sttode_init(1, cfg), cfg, device="cpu")
     sc = [s["obs"] for s in make_social_scenes(6, agents_range=(5, 8),
                                                seed=6)]
     together = pred.predict_many(sc, seed=2)
@@ -77,7 +77,7 @@ def test_agent_axis_contract_is_per_group():
     """Agent axis: a group shares one draw, so a scene's samples depend on
     its group; the same (seed, group) reproduces them."""
     cfg = tm.STTODEConfig(**SMALL, compat="tpu", attn_axis="agent")
-    pred = Predictor(tm.sttode_init(1, cfg), cfg, max_group=8)
+    pred = Predictor(tm.sttode_init(1, cfg), cfg, device="cpu", max_group=8)
     sc = [s["obs"] for s in make_social_scenes(3, agents_range=(5, 8),
                                                seed=6)]
     together = pred.predict_many(sc, seed=2)
@@ -92,7 +92,8 @@ def test_predictor_equals_direct_inference(axis, scenes):
         dict(SMALL, compat="tpu", attn_axis="agent")
     cfg = tm.STTODEConfig(**kw)
     params = tm.sttode_init(2, cfg)
-    pred = Predictor(params, cfg, buckets=(16,), max_group=8)
+    pred = Predictor(params, cfg, device="cpu", buckets=(16,),
+                     max_group=8)
     got = pred.predict_many(scenes, seed=5)
     K, B, N = cfg.sample_k, len(scenes), 16
     obs = np.zeros((B, N, cfg.past_length, 2), np.float32)
@@ -144,6 +145,18 @@ def test_isolation_equals_separate_batch_size_one_calls():
         alone = tm.sttode_inference(params, cfg, b1, z=z[rows])
         torch.testing.assert_close(together[:, j * 4:(j + 1) * 4], alone,
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_default_device_is_the_card():
+    """Without ``device`` the Predictor serves on CUDA, and refuses to fall
+    back to the CPU when there is no card."""
+    cfg = tm.STTODEConfig(**SMALL)
+    params = tm.sttode_init(0, cfg)
+    if torch.cuda.is_available():
+        assert Predictor(params, cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Predictor(params, cfg)
 
 
 def test_warmup_runs(predictor):
