@@ -14,7 +14,7 @@ paths, then drives both paths at the full width of the repo's model
            synthetic scenes of 8 agents per call;
   phase 5  reference compat: ``sttode_inference`` on 32 scenes × 11 agents
            (5 past / 10 future steps), and a default-config ``Predictor``
-           answering single-scene requests;
+           answering single-scene requests (both on the packed kernel);
   phase 6  geodesic attention backward kernel: the training shape
            (88 × 128 × 8, q/k swapped, no mask), the agent-axis shape with a
            key mask that takes a gradient, and an all-excluded row;
@@ -25,7 +25,18 @@ paths, then drives both paths at the full width of the repo's model
            parameters, batch and noise; every loss term and every parameter
            gradient), then ≥ 20 Adam steps of the bf16 recipe on the kernel
            route, then step time, train scenes/s and the device's idle share
-           of both routes.
+           of both routes;
+  phase 9  packed attention forward and backward kernels against their
+           plain versions: the NBA recipe's 11 × 8 × 32 × 8 (q/k swapped),
+           a key validity with an all-invalid problem (exact zeros),
+           L = S = 1, a rectangular case and H·Dh = 128; then both kernels
+           against kernels A and C at the recipe's shape and at L = S = 1;
+  phase 10 the NBA reference recipe through the port's CLIs on synthetic
+           NBA files: ``cli.train`` for 2 epochs (a checkpoint each), a
+           resume from epoch 1 for one more, ``cli.test`` on the checkpoints
+           (horizon table, B = 128); then the fp32 step at B = 32 on the
+           kernel route against the plain route, and step time, train
+           scenes/s and idle share of both routes.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -46,6 +57,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -141,8 +153,124 @@ def paired_ms(kernel_fn, plain_fn, *, calls: int = 20,
     return statistics.median(times[0]), statistics.median(times[1])
 
 
+def device_us(fn, calls: int = 20):
+    """Device µs per call of this repo's attention kernels launched by
+    ``fn`` (the profiler's kernel time, other kernels excluded), or None when
+    the trace has no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "_kernel" in e.key
+             and ("packed_" in e.key or "mhgsa_" in e.key))
+    return us / calls if us > 0 else None
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
+
+
+def forward_backward(params, cfg, batch, noise, dev):
+    """The training forward and backward at ``cfg`` on fresh trainable
+    copies of ``params`` with injected ``noise``: (params, output, the
+    gradient of every leaf)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.models import sttode as tm
+    p = bridge.tree_map(lambda t: t.detach().to(dev, copy=True), params)
+    leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+    out = tm.sttode_forward(p, cfg, batch, noise=noise)
+    out.total_loss.backward()
+    return p, out, [t.grad for t in leaves]
+
+
+def compare_routes(out_k, g_k, out_p, g_p, what):
+    """Hold the kernel route's loss terms and gradients to the plain
+    route's: each loss within TRAIN_TOL × max(1, |loss|), each leaf within
+    TRAIN_TOL × its largest magnitude. Returns (worst relative loss error,
+    worst gradient ratio, its leaf)."""
+    loss_err = 0.0
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        a = float(getattr(out_k, name).detach())
+        b = float(getattr(out_p, name).detach())
+        tol = TRAIN_TOL * max(1.0, abs(b))
+        require(abs(a - b) <= tol, f"{what} {name}: {a} vs plain {b}")
+        loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
+    grad_ratio, worst = 0.0, None
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        require(bool(torch.isfinite(a).all()), f"{what}: leaf {i} NaN")
+        ratio = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if ratio > grad_ratio:
+            grad_ratio, worst = ratio, i
+    require(grad_ratio <= TRAIN_TOL,
+            f"{what}: gradient leaf {worst} differs by {grad_ratio:.3e} of "
+            f"its largest magnitude")
+    return loss_err, grad_ratio, worst
+
+
+def step_times(routes, batch, gen, B, label, card, rounds=6):
+    """Train step ms, train scenes/s and the device's idle share of two
+    routes ``[[step, params, opt], ...]`` (kernel route first), timed in
+    alternating rounds of 5 synchronized steps on ``batch``; then 5 steps of
+    each under the profiler for the device busy time. Prints one line per
+    route and returns the median step ms of each."""
+    def run_steps(i, n):
+        st, p, o = routes[i]
+        for _ in range(n):
+            p, o, _ = st(p, o, batch, gen)
+        routes[i][1:] = [p, o]
+
+    for i in (0, 1):
+        run_steps(i, 2)
+    torch.cuda.synchronize()
+    step_ms: tuple[list, list] = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t = time.perf_counter()
+            run_steps(i, 5)
+            torch.cuda.synchronize()
+            step_ms[i].append((time.perf_counter() - t) / 5 * 1e3)
+    busy = []
+    for i in (0, 1):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run_steps(i, 5)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) / 5 * 1e3
+        # device kernels only: a user annotation (Optimizer.step#Adam.step)
+        # spans the kernels inside it and would count them twice
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        dev_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        busy.append(None if dev_us <= 0 else (
+            dev_us / 5 / 1e3, wall, sum(e.count for e in kernels) / 5,
+            "; ".join(f"{e.self_device_time_total / 5 / 1e3:.3f} ms "
+                      f"x{e.count // 5} {e.key[:60]}" for e in top)))
+    medians = []
+    for i, route in enumerate(("kernel route", "plain route")):
+        ms = statistics.median(step_ms[i])
+        medians.append(ms)
+        if busy[i] is None:
+            idle = "device busy not measured (no device time in the trace)"
+        else:
+            dev_ms, t_ms, n_k, top = busy[i]
+            idle = (f"device busy {dev_ms:.3f} ms/step, idle share "
+                    f"{1 - dev_ms / ms:.3f} of the untraced step "
+                    f"({1 - dev_ms / t_ms:.3f} of the traced {t_ms:.3f} ms); "
+                    f"{n_k:.0f} kernels/step; top: {top}")
+        print(f"{label}, {route}: {ms:.3f} ms/step, "
+              f"{B * 1e3 / ms:.1f} train scenes/s; {idle}  [{card}]")
+    return medians
 
 
 def main() -> int:
@@ -155,6 +283,7 @@ def main() -> int:
     from sttode_tpu_torch.data.synthetic import make_social_scenes
     from sttode_tpu_torch.kernels import _build
     from sttode_tpu_torch.kernels import mhgsa as km
+    from sttode_tpu_torch.kernels import packed_mhgsa as kp
     from sttode_tpu_torch.kernels import select_decode as ks
     from sttode_tpu_torch.models import sttode as tm
     from sttode_tpu_torch.serving import Predictor
@@ -180,6 +309,8 @@ def main() -> int:
     def counts():
         return {"attn": km.fused_geodesic_attention.launches,
                 "attn_bwd": km.fused_geodesic_attention_backward.launches,
+                "packed": kp.packed_geodesic_attention.launches,
+                "packed_bwd": kp.packed_geodesic_attention_backward.launches,
                 "select_fp32": ks.select_decode.launches_by_dtype[
                     torch.float32],
                 "select_bf16": ks.select_decode.launches_by_dtype[bf16]}
@@ -187,6 +318,8 @@ def main() -> int:
     def reset():
         km.fused_geodesic_attention.launches = 0
         km.fused_geodesic_attention_backward.launches = 0
+        kp.packed_geodesic_attention.launches = 0
+        kp.packed_geodesic_attention_backward.launches = 0
         ks.select_decode.launches = 0
         ks.select_decode.launches_by_dtype.update(
             {torch.float32: 0, bf16: 0})
@@ -398,7 +531,9 @@ def main() -> int:
             lambda: tm.sttode_inference(params5, cfg5, batch5, z=z5),
             lambda: tm.sttode_inference(params5, plain_cfg5, batch5, z=z5),
             calls=5)
-    require(launches5["attn"] > 0 and launches5["select_fp32"] > 0,
+    # both are small problems (32 × 32 and, isolated, 1 × 1 per scene): the
+    # packed kernel serves them
+    require(launches5["packed"] > 0 and launches5["select_fp32"] > 0,
             f"phase 5: a kernel was not launched {launches5}")
     require(tuple(got5.shape) == (20, 352, 10, 2), f"phase 5 shape {got5.shape}")
     require(bool(torch.isfinite(got5).all()), "phase 5: non-finite")
@@ -545,24 +680,18 @@ def main() -> int:
         torch.randn(M8, Z, device=dev, generator=gen),
         torch.randn(M8 * K, Z, device=dev, generator=gen))
 
-    def forward_backward(c):
-        p = bridge.to_device(params8, dev)
-        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
-        out = tm.sttode_forward(p, c, batch8, noise=noise)
-        out.total_loss.backward()
-        return p, out, [t.grad for t in leaves]
-
     step_k = make_train_step(cfg8, 1e-4, device=dev)
     params_k, opt_k = step_k.init(params8)
     reset()   # the main path: fp32 variant once, then the bf16 recipe
-    p_k, out_k, g_k = forward_backward(cfg8_32)
+    p_k, out_k, g_k = forward_backward(params8, cfg8_32, batch8, noise, dev)
     losses = []
     for _ in range(TRAIN_STEPS):
         params_k, opt_k, m = step_k(params_k, opt_k, batch8, gen)
         losses.append(m)
     torch.cuda.synchronize()
     launches8 = counts()
-    require(all(n > 0 for n in launches8.values()),
+    require(all(launches8[n] > 0 for n in ("attn", "attn_bwd", "select_fp32",
+                                           "select_bf16")),
             f"phase 8: a kernel was not launched by the training path "
             f"{launches8}")
     for i, m in enumerate(losses):
@@ -570,23 +699,10 @@ def main() -> int:
                 f"phase 8: non-finite loss at step {i}: {m}")
 
     # the fp32 kernel route against the plain route
-    _, out_p, g_p = forward_backward(plain_route(cfg8_32))
-    loss_err = 0.0
-    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
-                 "loss_diverse"):
-        a, b = float(getattr(out_k, name)), float(getattr(out_p, name))
-        tol = TRAIN_TOL * max(1.0, abs(b))
-        require(abs(a - b) <= tol, f"phase 8 {name}: {a} vs plain {b}")
-        loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
-    grad_ratio, worst = 0.0, None
-    for i, (a, b) in enumerate(zip(g_k, g_p)):
-        require(bool(torch.isfinite(a).all()), f"phase 8: leaf {i} NaN")
-        ratio = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        if ratio > grad_ratio:
-            grad_ratio, worst = ratio, i
-    require(grad_ratio <= TRAIN_TOL,
-            f"phase 8: gradient leaf {worst} differs by {grad_ratio:.3e} of "
-            f"its largest magnitude")
+    _, out_p, g_p = forward_backward(params8, plain_route(cfg8_32), batch8,
+                                     noise, dev)
+    loss_err, grad_ratio, worst = compare_routes(out_k, g_k, out_p, g_p,
+                                                 "phase 8")
     with torch.inference_mode():
         # both routes' winners on the same latents
         pf = out_k.past_feature.detach()
@@ -622,56 +738,196 @@ def main() -> int:
     # step time and train scenes/s of both routes (bf16 recipe), alternating
     step_p = make_train_step(plain_route(cfg8), 1e-4, device=dev)
     params_p, opt_p = step_p.init(params8)
-    routes = [[step_k, params_k, opt_k], [step_p, params_p, opt_p]]
+    step_times([[step_k, params_k, opt_k], [step_p, params_p, opt_p]],
+               batch8, gen, B8, "phase 8 bf16 recipe step", card)
 
-    def run_steps(i, n):
-        st, p, o = routes[i]
-        for _ in range(n):
-            p, o, _ = st(p, o, batch8, gen)
-        routes[i][1:] = [p, o]
+    # 9. the packed kernels (forward and backward) against their plain
+    #    versions; kernels A and C at the same shapes are the yardstick of the
+    #    route's packed boundary
+    kv64 = valid.to(torch.float32)
+    kv64[3] = 0.0                                   # a problem with no key
+    packed_cases = {
+        "nba_recipe_q11x8x32x8_swapped": (ka, qa, va, None),
+        "kv_valid_q64x8x8x8_one_all_invalid": (qb, kb, vb, kv64),
+        "single_scene_q88x8x1x8": (randn(88, 8, 1, 8), randn(88, 8, 1, 8),
+                                   randn(88, 8, 1, 8), None),
+        "rectangular_q4x8x16x8_s64": (
+            randn(4, 8, 16, 8), randn(4, 8, 64, 8), randn(4, 8, 64, 8),
+            torch.from_numpy(rng.random((4, 64)) < 0.7).to(dev).float()),
+        "h16_dh8_q2x16x8x8": (
+            randn(2, 16, 8, 8), randn(2, 16, 8, 8), randn(2, 16, 8, 8),
+            torch.from_numpy(rng.random((2, 8)) < 0.7).to(dev).float()),
+    }
+    packed_err, packed_bwd_err, packed_times = 0.0, 0.0, {}
+    for name, (q, k, v, kv) in packed_cases.items():
+        do = randn(*q.shape)
+        with torch.inference_mode():
+            got = kp.packed_geodesic_attention(q, k, v, kv_valid=kv)
+            want = kp.packed_geodesic_attention_reference(q, k, v, kv)
+            gots = kp.packed_geodesic_attention_backward(q, k, v, kv, do)
+            wants = kp.packed_geodesic_attention_backward_reference(
+                q, k, v, kv, do)
+            torch.cuda.synchronize()
+        err = max_err(got, want)
+        require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        require(err <= ATTN_TOL, f"{name}: max abs err {err} > {ATTN_TOL}")
+        packed_err = max(packed_err, err)
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), gots, wants):
+            require(bool(torch.isfinite(g).all()), f"{name}: {g_name} NaN")
+            e = max_err(g, w)
+            tol = ATTN_GRAD_TOL * max(1.0, float(w.abs().max()))
+            require(e <= tol, f"{name} {g_name}: max abs err {e} > {tol}")
+            errs[g_name] = e
+            packed_bwd_err = max(packed_bwd_err, e)
+        if kv is not None and not bool(kv.any(dim=-1).all()):
+            dead = ~kv.any(dim=-1)
+            require(bool((got[dead] == 0).all()) and all(
+                bool((g[dead] == 0).all()) for g in gots),
+                f"{name}: a problem with no valid key must output exactly 0 "
+                f"and get exactly zero gradients")
+        with torch.inference_mode():
+            fwd = paired_ms(
+                lambda: kp.packed_geodesic_attention(q, k, v, kv_valid=kv),
+                lambda: kp.packed_geodesic_attention_reference(q, k, v, kv))
+            bwd = paired_ms(
+                lambda: kp.packed_geodesic_attention_backward(q, k, v, kv,
+                                                              do),
+                lambda: kp.packed_geodesic_attention_backward_reference(
+                    q, k, v, kv, do))
+        packed_times[name] = (fwd, bwd)
+        print(f"packed {name}: forward max_abs_err {err:.3e}, kernel "
+              f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; backward max_abs_err "
+              + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+              + f", kernel {bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms  [{card}]")
 
-    for i in (0, 1):
-        run_steps(i, 2)
-    torch.cuda.synchronize()
-    step_ms: tuple[list, list] = ([], [])
-    for r in range(6):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
-            t = time.perf_counter()
-            run_steps(i, 5)
-            torch.cuda.synchronize()
-            step_ms[i].append((time.perf_counter() - t) / 5 * 1e3)
-    busy = []
-    for i in (0, 1):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run_steps(i, 5)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) / 5 * 1e3
-        # device kernels only: a user annotation (Optimizer.step#Adam.step)
-        # spans the kernels inside it and would count them twice
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
-        dev_us = sum(e.self_device_time_total for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        busy.append(None if dev_us <= 0 else (
-            dev_us / 5 / 1e3, wall, sum(e.count for e in kernels) / 5,
-            "; ".join(f"{e.self_device_time_total / 5 / 1e3:.3f} ms "
-                      f"x{e.count // 5} {e.key[:60]}" for e in top)))
-    for i, route in enumerate(("kernel route", "plain route")):
-        ms = statistics.median(step_ms[i])
-        if busy[i] is None:
-            idle = "device busy not measured (no device time in the trace)"
-        else:
-            dev_ms, t_ms, n_k, top = busy[i]
-            idle = (f"device busy {dev_ms:.3f} ms/step, idle share "
-                    f"{1 - dev_ms / ms:.3f} of the untraced step "
-                    f"({1 - dev_ms / t_ms:.3f} of the traced {t_ms:.3f} ms); "
-                    f"{n_k:.0f} kernels/step; top: {top}")
-        print(f"phase 8 bf16 recipe step, {route}: {ms:.3f} ms/step, "
-              f"{B8 * 1e3 / ms:.1f} train scenes/s; {idle}  [{card}]")
+    def flat3(x):
+        return x.reshape(-1, *x.shape[-2:])
+
+    with torch.inference_mode():
+        for name, (q, k, v, _) in (
+                ("nba_recipe_q11x8x32x8_swapped",
+                 packed_cases["nba_recipe_q11x8x32x8_swapped"]),
+                ("single_scene_q88x8x1x8",
+                 packed_cases["single_scene_q88x8x1x8"])):
+            do = randn(*q.shape)
+            q3, k3, v3, do3 = (flat3(t) for t in (q, k, v, do))
+            fwd = paired_ms(lambda: kp.packed_geodesic_attention(q, k, v),
+                            lambda: km.fused_geodesic_attention(q, k, v))
+            bwd = paired_ms(
+                lambda: kp.packed_geodesic_attention_backward(q, k, v, None,
+                                                              do),
+                lambda: km.fused_geodesic_attention_backward(q3, k3, v3,
+                                                             None, do3))
+            dev_us = [device_us(fn) for fn in (
+                lambda: kp.packed_geodesic_attention(q, k, v),
+                lambda: km.fused_geodesic_attention(q, k, v),
+                lambda: kp.packed_geodesic_attention_backward(q, k, v, None,
+                                                              do),
+                lambda: km.fused_geodesic_attention_backward(q3, k3, v3,
+                                                             None, do3))]
+            dev_txt = ("device time not measured (no device time in the "
+                       "trace)" if None in dev_us else
+                       "device µs/launch: forward packed {:.2f} vs A {:.2f}, "
+                       "backward packed {:.2f} vs C {:.2f}".format(*dev_us))
+            print(f"route yardstick {name}: wrapper forward packed "
+                  f"{fwd[0]:.4f} ms vs kernel A {fwd[1]:.4f} ms; backward "
+                  f"packed {bwd[0]:.4f} ms vs kernel C {bwd[1]:.4f} ms; "
+                  f"{dev_txt}  [{card}]")
+
+    # 10. the slice end to end: the NBA reference recipe through the port's
+    #     CLIs (synthetic NBA files in the dataset's format), then the fp32
+    #     step at B = 32 on the kernel route against the plain route
+    from sttode_tpu_torch.cli import test as cli_test
+    from sttode_tpu_torch.cli import train as cli_train
+    from sttode_tpu_torch.data.nba import load_nba, nba_batches
+    from sttode_tpu_torch.data.preprocess import prepare_nba_batch
+    from sttode_tpu_torch.train import step_lr
+
+    steps10 = 20                                    # train steps per epoch
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        nba_dir = os.path.join(tmp, "data", "nba")
+        os.makedirs(nba_dir)
+        data_rng = np.random.default_rng(10)
+        for fname, n in (("train.npy", steps10 * 32), ("test.npy", 2 * 128)):
+            start = data_rng.uniform([0.0, 0.0], [94.0, 50.0],
+                                     size=(n, 1, 11, 2))
+            walk = data_rng.normal(0.0, 1.0, size=(n, 15, 11, 2)).cumsum(1)
+            np.save(os.path.join(nba_dir, fname),
+                    (start + walk).astype(np.float32))
+        flags = ["--dataset", "nba", "--data_root", os.path.join(tmp, "data"),
+                 "--ckpt_dir", os.path.join(tmp, "ck"), "--log_every", "0",
+                 "--model_save_epoch", "1"]
+        reset()   # the main path: train, resume, evaluate
+        run10 = cli_train.main(flags + ["--num_epochs", "2"])
+        resumed = cli_train.main(flags + ["--num_epochs", "2",
+                                          "--epoch_continue", "1"])
+        torch.cuda.synchronize()
+        launches10_train = counts()
+        best10 = cli_test.main(flags)
+        torch.cuda.synchronize()
+        launches10 = counts()
+        past10, fut10 = load_nba(nba_dir)
+    require(launches10_train["packed"] > 0
+            and launches10_train["packed_bwd"] > 0,
+            f"phase 10: the packed kernels were not launched by the CLI's "
+            f"training path {launches10_train}")
+    require(launches10["attn"] > launches10_train["attn"],
+            f"phase 10: evaluation at B = 128 did not launch kernel A "
+            f"{launches10}")
+    for r in (run10, resumed):
+        for epoch, lr, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 10: non-finite loss at epoch {epoch}: {means}")
+    schedule = step_lr(1e-4, 10, 0.5)
+    require(resumed.start_epoch == 1
+            and [h[:2] for h in resumed.history] == [(1, schedule(1))]
+            and all(g["lr"] == schedule(1)
+                    for g in resumed.opt.param_groups)
+            and all(int(st["step"]) == 2 * steps10
+                    for st in resumed.opt.state_dict()["state"].values()),
+            "phase 10: the resumed run did not continue from the saved "
+            "epoch, learning rate and Adam state")
+    table = best10["table"]
+    require(table is not None and table["scenes"] == 256 and all(
+        np.isfinite(list(table[p].values())).all() for p in ("ade", "fde")),
+        f"phase 10: the horizon table is not finite: {best10}")
+    print(f"phase 10 NBA recipe through the CLIs: epochs "
+          + "; ".join(f"{e} lr {lr:.1e} total {m['total']:.4f}"
+                      for e, lr, m in run10.history + resumed.history)
+          + f"; resumed from epoch {resumed.start_epoch}; best epoch "
+          f"{best10['epoch']}: "
+          + " ".join(f"ADE@{h} {v:.4f}" for h, v in table["ade"].items())
+          + " " + " ".join(f"FDE@{h} {v:.4f}" for h, v in table["fde"].items())
+          + f"; launches {launches10}")
+
+    cfg10 = run10.cfg
+    plain10 = cfg10._replace(attn_impl="dense")
+    (data10,) = nba_batches(past10[:32], fut10[:32], 32)
+    batch10 = prepare_nba_batch(data10).to(dev)
+    params10 = tm.sttode_init(10, cfg10)
+    gen10 = torch.Generator(device=dev).manual_seed(10)
+    M10 = 32 * 11
+    noise10 = tm.TrainNoise(
+        torch.rand(M10, 5, D, device=dev, generator=gen10) >= 0.1,
+        torch.rand(M10, 10, D, device=dev, generator=gen10) >= 0.1,
+        torch.randn(M10, Z, device=dev, generator=gen10),
+        torch.randn(M10 * K, Z, device=dev, generator=gen10))
+    _, out_k10, g_k10 = forward_backward(params10, cfg10, batch10, noise10,
+                                         dev)
+    _, out_p10, g_p10 = forward_backward(params10, plain10, batch10, noise10,
+                                         dev)
+    loss_err10, grad_ratio10, worst10 = compare_routes(
+        out_k10, g_k10, out_p10, g_p10, "phase 10")
+    print(f"phase 10 fp32 NBA-recipe forward+backward at B = 32, packed vs "
+          f"plain route: loss terms within {loss_err10:.3e} (relative), "
+          f"gradients within {grad_ratio10:.3e} of each leaf's largest "
+          f"magnitude (worst leaf {worst10})")
+    step_k10 = make_train_step(cfg10, 1e-4, device=dev)
+    step_p10 = make_train_step(plain10, 1e-4, device=dev)
+    step_times([[step_k10, *step_k10.init(params10)],
+                [step_p10, *step_p10.init(params10)]],
+               batch10, gen10, 32, "phase 10 NBA recipe step", card)
 
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
@@ -685,6 +941,11 @@ def main() -> int:
     s16_bound = bound(*select_work(weights7, 1408, 20, 128, 32, 5, 10,
                                    "dist"), BF16_FLOP_PER_S)
 
+    (p_ms, p_plain), (pb_ms, pb_plain) = \
+        packed_times["nba_recipe_q11x8x32x8_swapped"]
+    p_bound = bound(*attn_fwd_work(88, 32, 32, 8, False), FP32_FLOP_PER_S)
+    pb_bound = bound(*attn_bwd_work(88, 32, 32, 8, False), FP32_FLOP_PER_S)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"sttode_tpu_torch/csrc/{source}",
@@ -695,8 +956,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_geodesic_attention", "mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:407",
-              launches4["attn"] + launches5["attn"] + launches8["attn"],
-              attn_err, a_ms, a_plain, a_bound),
+              launches4["attn"] + launches5["attn"] + launches8["attn"]
+              + launches10["attn"], attn_err, a_ms, a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:455", launches8["attn_bwd"],
               bwd_err, b_ms, b_plain, b_bound),
@@ -708,7 +969,15 @@ def main() -> int:
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches8["select_bf16"], sel16_err, sel16_ms, sel16_plain,
-              s16_bound)]}))
+              s16_bound),
+        entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",
+              "sttode_tpu/kernels/packed_mhgsa.py:340",
+              launches5["packed"] + launches10["packed"], packed_err, p_ms,
+              p_plain, p_bound),
+        entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
+              "sttode_tpu/kernels/packed_mhgsa.py:370",
+              launches10["packed_bwd"], packed_bwd_err, pb_ms, pb_plain,
+              pb_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,16 +8,21 @@ module paths, public names and parameter layouts so that the same weights
 What is ported: best-of-K inference (``models.sttode.sttode_inference``) and
 the ``serving.Predictor`` around it; the stage-1 CVAE training step
 (``models.sttode.sttode_forward``, ``train.make_train_step``: autograd over
-every parameter leaf, then Adam). Hand-written CUDA kernels carry both paths
-on an NVIDIA Hopper card:
+every parameter leaf, then Adam); the NBA recipe around it — the NBA loader
+(``data.nba``), StepLR (``train.schedulers``), checkpoints
+(``train.checkpoint``), the horizon-table evaluation (``evaluation``) and
+the CLIs ``python -m sttode_tpu_torch.cli.train`` / ``cli.test``.
+Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
-- ``kernels.mhgsa.fused_geodesic_attention`` — geodesic attention, forward
-  and backward (a ``torch.autograd.Function``);
+- ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,
+  forward and backward (a ``torch.autograd.Function``);
+- ``kernels.packed_mhgsa.packed_geodesic_attention`` — the same for many
+  small problems (L·S ≤ 32²) with key validity, forward and backward;
 - ``kernels.select_decode.select_decode`` — the whole two-block decompose
   decode of all K samples, in fp32 or bf16 storage.
 
-The entry points (``Predictor``, ``make_train_step``) run on the card unless
-the caller passes ``device="cpu"``.
+The entry points (``Predictor``, ``make_train_step``, the CLIs) run on the
+card unless the caller passes ``device="cpu"`` (``--device cpu``).
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead;
 on CUDA tensors it launches the kernel or raises. Importing this package

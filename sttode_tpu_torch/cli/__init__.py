@@ -1,0 +1,2 @@
+"""Command-line entry points of the port: ``cli.train`` (stage-1 training)
+and ``cli.test`` (evaluation of its checkpoints), NBA for now."""

@@ -1,0 +1,157 @@
+"""Shared CLI plumbing of the port (port of ``sttode_tpu/cli/common.py``).
+
+The JAX package's flag surface, with the same names and defaults, so that a
+command line carries over; plus ``--device`` (default ``cuda``: the port runs
+on the card unless the caller asks for the CPU). What is not ported yet
+raises ``NotImplementedError`` naming it: the ETH-UCY and SDD loaders, the
+flags of machinery the port does not have when they are given a non-default
+value (``refuse_unported``), and the config values ``STTODEConfig.validate``
+refuses.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from sttode_tpu_torch.models.sttode import STTODEConfig
+
+ETH_UCY = ("eth", "hotel", "univ", "zara1", "zara2")
+
+# flags whose machinery is not ported, with the one value that runs
+UNPORTED_FLAGS = {"scan_steps": 1, "async_ckpt": False,
+                  "scenes_per_batch": 1}
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--dataset", default="eth",
+                   choices=ETH_UCY + ("sdd", "nba"))
+    p.add_argument("--data_root", default="./datasets")
+    p.add_argument("--ckpt_dir", default="./saved_models")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the model runs on; 'cpu' runs the "
+                        "plain PyTorch paths (no card needed)")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--hidden_dim", type=int, default=64)
+    p.add_argument("--zdim", type=int, default=32)
+    p.add_argument("--num_decompose", type=int, default=2)
+    p.add_argument("--min_clip", type=float, default=2.0)
+    p.add_argument("--sample_k", type=int, default=20)
+    p.add_argument("--learn_prior", action="store_true")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--decay_step", type=int, default=10)
+    p.add_argument("--decay_gamma", type=float, default=0.5)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--model_save_epoch", type=int, default=5)
+    p.add_argument("--keep_last_ckpts", type=int, default=0,
+                   help="retain only the newest N checkpoints (0 = keep all)")
+    p.add_argument("--async_ckpt", action="store_true",
+                   help="not ported: checkpoints are written synchronously")
+    p.add_argument("--epoch_continue", type=int, default=0)
+    p.add_argument("--max_train_agent", type=int, default=100)
+    p.add_argument("--no_rand_rot", action="store_true")
+    p.add_argument("--batch_size", type=int, default=0,
+                   help="0 = dataset default (32 NBA training, 128 NBA "
+                        "evaluation)")
+    p.add_argument("--scenes_per_batch", type=int, default=1,
+                   help="not ported beyond 1 (scene batching is ETH/SDD)")
+    p.add_argument("--attn_axis", default="scene", choices=("scene", "agent"))
+    p.add_argument("--compat", default="reference",
+                   choices=("reference", "tpu"))
+    p.add_argument("--ode_method", default="euler",
+                   choices=("euler", "midpoint", "rk4", "dopri5"))
+    p.add_argument("--ode_steps", type=int, default=1)
+    p.add_argument("--ode_adjoint", action="store_true")
+    p.add_argument("--ode_rtol", type=float, default=1e-7)
+    p.add_argument("--ode_atol", type=float, default=1e-9)
+    p.add_argument("--ode_scan_budget", type=int, default=0)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--select_dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="bfloat16 runs the gradient-free best-of-K selection "
+                        "decode in bf16 storage")
+    p.add_argument("--select_impl", default="xla",
+                   choices=("xla", "fused", "auto"),
+                   help="best-of-K selection decode route: 'xla' = the plain "
+                        "PyTorch decode, 'fused' = the selection kernel, "
+                        "'auto' = the kernel on the card")
+    p.add_argument("--decode_dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="bfloat16 gives the differentiable decode bf16 "
+                        "storage (fp32 master weights)")
+    p.add_argument("--attn_impl", default="auto",
+                   choices=("auto", "dense", "fused", "flash", "packed",
+                            "ring", "ulysses"),
+                   help="attention route: 'auto' = the kernels on the card "
+                        "(packed for small problems, whole-S otherwise), "
+                        "'dense' = the plain path")
+    p.add_argument("--attn_metric", default="oblique",
+                   choices=("oblique", "poincare"))
+    p.add_argument("--curvature", type=float, default=1.0)
+    p.add_argument("--loss_terms", default="pred,recover,kl,diverse",
+                   help="comma-separated subset of pred,recover,kl,diverse")
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--scan_steps", type=int, default=1,
+                   help="not ported beyond 1: one optimizer step per call")
+    return p
+
+
+def refuse_unported(args, extra: dict | None = None) -> None:
+    """Raise NotImplementedError naming the first flag whose machinery is
+    not ported and that was given another value than the one that runs."""
+    for flag, ok in {**UNPORTED_FLAGS, **(extra or {})}.items():
+        if getattr(args, flag) != ok:
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)!r} is not ported yet")
+
+
+def horizons_for(dataset: str) -> tuple[int, int]:
+    return (5, 10) if dataset == "nba" else (8, 12)
+
+
+def model_config(args) -> STTODEConfig:
+    past_len, future_len = horizons_for(args.dataset)
+    return STTODEConfig(
+        hidden_dim=args.hidden_dim, zdim=args.zdim,
+        past_length=past_len, future_length=future_len,
+        num_decompose=args.num_decompose, min_clip=args.min_clip,
+        sample_k=args.sample_k, learn_prior=args.learn_prior,
+        compat=args.compat, attn_axis=args.attn_axis,
+        ode_method=args.ode_method, ode_steps=args.ode_steps,
+        ode_adjoint=args.ode_adjoint, ode_rtol=args.ode_rtol,
+        ode_atol=args.ode_atol, ode_scan_budget=args.ode_scan_budget,
+        compute_dtype=args.compute_dtype, select_dtype=args.select_dtype,
+        select_impl=args.select_impl, decode_dtype=args.decode_dtype,
+        attn_impl=args.attn_impl, attn_metric=args.attn_metric,
+        curvature=args.curvature,
+        loss_terms=tuple(t for t in args.loss_terms.split(",") if t),
+    ).validate()
+
+
+def load_scenes(args, split: str):
+    """split 'train' | 'test' → (past, future) arrays for NBA. The ETH-UCY
+    and SDD loaders are not ported yet."""
+    from sttode_tpu_torch.data.nba import load_nba
+    if args.dataset in ETH_UCY:
+        raise NotImplementedError(
+            "the ETH-UCY loader (sttode_tpu/data/eth_ucy.py::load_eth_ucy) "
+            "is not ported yet")
+    if args.dataset == "sdd":
+        raise NotImplementedError(
+            "the SDD loader (sttode_tpu/data/sdd.py::load_sdd) is not "
+            "ported yet")
+    return load_nba(os.path.join(args.data_root, "nba"),
+                    training=(split == "train"))
+
+
+def ckpt_dir(args) -> str:
+    return os.path.join(args.ckpt_dir, args.dataset)
+
+
+def seed_everything(seed: int) -> np.random.Generator:
+    np.random.seed(seed)
+    return np.random.default_rng(seed)

@@ -1,0 +1,123 @@
+"""Stage-1 CVAE training CLI of the port (port of ``sttode_tpu/cli/train.py``;
+NBA).
+
+    python -m sttode_tpu_torch.cli.train --dataset nba --data_root D --ckpt_dir C
+
+The epoch loop: shuffled NBA batches of 32 scenes (numpy, seeded by
+``--seed``) → the training step on the card (``--device cpu`` for the plain
+paths) → StepLR(``--decay_step``, ``--decay_gamma``) set before each epoch →
+a checkpoint every ``--model_save_epoch`` epochs; ``--epoch_continue N``
+resumes from checkpoint N (parameters, Adam state, epoch, config). The
+model's random draws come from a ``torch.Generator`` seeded by ``--seed`` on
+the device. On SIGTERM the run finishes the epoch, writes a checkpoint and
+returns, so that ``--epoch_continue`` resumes it.
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from typing import NamedTuple
+
+import torch
+
+from sttode_tpu_torch import bridge
+from sttode_tpu_torch.cli import common
+from sttode_tpu_torch.data.nba import nba_batches
+from sttode_tpu_torch.data.preprocess import prepare_nba_batch
+from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_init
+from sttode_tpu_torch.train import (checkpoint_path, load_checkpoint,
+                                    make_train_step, save_checkpoint,
+                                    step_lr, train_epoch)
+from sttode_tpu_torch.utils.profiling import param_count
+
+
+class TrainRun(NamedTuple):
+    """What ``main`` returns: the trained parameters and optimizer, the
+    config, the epoch the run started from and, per epoch run, (epoch,
+    learning rate, mean metrics)."""
+    params: object
+    opt: torch.optim.Optimizer
+    cfg: STTODEConfig
+    start_epoch: int
+    history: list
+
+
+def batch_stream(args, data, nprng):
+    past, fut = data
+    for d in nba_batches(past, fut, args.batch_size or 32, rng=nprng):
+        yield prepare_nba_batch(d), None
+
+
+def main(argv=None) -> TrainRun:
+    parser = common.base_parser("STTODE stage-1 CVAE training (PyTorch)")
+    parser.add_argument("--supervise", action="store_true",
+                        help="not ported: divergence detection + rollback")
+    parser.add_argument("--profile_dir", default="",
+                        help="not ported: trace of the first epoch")
+    parser.add_argument("--distributed", action="store_true",
+                        help="not ported: multi-process training")
+    args = parser.parse_args(argv)
+    common.refuse_unported(args, {"supervise": False, "profile_dir": "",
+                                  "distributed": False})
+    device = bridge.resolve_device(args.device)
+    nprng = common.seed_everything(args.seed)
+    cfg = common.model_config(args)
+    data = common.load_scenes(args, "train")
+    schedule = step_lr(args.lr, args.decay_step, args.decay_gamma)
+
+    params, opt_state, start_epoch = sttode_init(args.seed, cfg), None, 0
+    cdir = common.ckpt_dir(args)
+    if args.epoch_continue > 0:
+        path = checkpoint_path(cdir, args.epoch_continue)
+        params, opt_state, start_epoch, cfg = load_checkpoint(path)
+        print(f"resumed epoch {start_epoch} from {path}")
+    print(f"model parameters: {param_count(params):,}")
+
+    step = make_train_step(cfg, args.lr, device=device)
+    params, opt = step.init(params)
+    if opt_state is not None:
+        opt.load_state_dict(opt_state)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    # Preemption: finish the current epoch, checkpoint, and return, so that
+    # --epoch_continue resumes exactly where the run stopped.
+    preempted = {"flag": False}
+
+    def _on_term(signum, frame):
+        preempted["flag"] = True
+        print(f"signal {signum}: checkpointing after this epoch", flush=True)
+
+    prev_handler = signal.signal(signal.SIGTERM, _on_term)
+    history = []
+    try:
+        epoch, saved_epoch = start_epoch, -1
+        while epoch < args.num_epochs:
+            lr = schedule(epoch)
+            t0 = time.time()
+            params, opt, means = train_epoch(
+                step, params, opt, batch_stream(args, data, nprng), gen,
+                lr=lr, log_every=args.log_every)
+            history.append((epoch, lr, means))
+            msg = " ".join(f"{k}: {v:.4f}" for k, v in sorted(means.items()))
+            print(f"epoch {epoch:03d} [{time.time() - t0:.1f}s] lr {lr:.3e} "
+                  f"{msg}")
+            epoch += 1
+            if epoch % args.model_save_epoch == 0:
+                path = save_checkpoint(cdir, epoch, params, opt, cfg,
+                                       keep_last=args.keep_last_ckpts or None)
+                saved_epoch = epoch
+                print(f"saved {path}")
+            if preempted["flag"]:
+                if saved_epoch != epoch:
+                    path = save_checkpoint(cdir, epoch, params, opt, cfg)
+                print(f"preempted: saved {checkpoint_path(cdir, epoch)}; "
+                      f"resume with --epoch_continue {epoch}", flush=True)
+                break
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+    return TrainRun(params, opt, cfg, start_epoch, history)
+
+
+if __name__ == "__main__":
+    main()

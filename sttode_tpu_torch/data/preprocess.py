@@ -1,5 +1,6 @@
 """Scene → model-Batch preparation (port of
-``sttode_tpu/data/preprocess.py::prepare_scene_group`` and ``_velocities``).
+``sttode_tpu/data/preprocess.py::prepare_scene_group``,
+``prepare_nba_batch`` and ``_velocities``).
 
 Numpy on the host, as in the JAX package; the result is the port's ``Batch``
 of CPU tensors (``Batch.to(device)`` moves it). Copied rather than imported:
@@ -66,8 +67,27 @@ def prepare_scene_group(obs: np.ndarray, pred: np.ndarray, valid: np.ndarray,
     past_vel = past_vel * vmask
     future_vel = future_vel * vmask
 
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))  # noqa: E731
-    batch = Batch(past=t(flat(obs_norm)), past_vel=t(past_vel),
-                  future=t(flat(pred_norm)), future_vel=t(future_vel),
-                  valid=t(valid.reshape(B * Np)), batch_size=B, agent_num=Np)
+    batch = Batch(past=_t(flat(obs_norm)), past_vel=_t(past_vel),
+                  future=_t(flat(pred_norm)), future_vel=_t(future_vel),
+                  valid=_t(valid.reshape(B * Np)), batch_size=B, agent_num=Np)
     return batch, orig
+
+
+def _t(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+def prepare_nba_batch(data: dict) -> Batch:
+    """NBA collated dict {'past_traj': [B, N, T_p, 2], 'future_traj': ...}
+    → Batch in absolute coordinates, every agent real (the reference's
+    ``set_data_nba``)."""
+    past = np.asarray(data["past_traj"], np.float32)
+    future = np.asarray(data["future_traj"], np.float32)
+    B, N = past.shape[:2]
+    past = past.reshape(B * N, *past.shape[2:])
+    future = future.reshape(B * N, *future.shape[2:])
+    past_vel, future_vel = _velocities(past, future)
+    return Batch(past=_t(past), past_vel=_t(past_vel), future=_t(future),
+                 future_vel=_t(future_vel),
+                 valid=torch.ones(B * N, dtype=torch.float32),
+                 batch_size=B, agent_num=N)

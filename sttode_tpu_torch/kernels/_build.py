@@ -42,6 +42,9 @@ _SIGNATURES = {
     "mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "select_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "packed_mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "packed_mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
 }
 
 

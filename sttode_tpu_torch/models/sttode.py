@@ -20,9 +20,12 @@ Routing on a CUDA device: attention goes to the geodesic-attention kernels
 goes to the selection-decode kernel (mode "traj" at inference, mode "dist"
 at ``select_dtype`` in training) unless ``select_impl="xla"`` — a name kept
 from the JAX package so configs carry over; in the port it means the plain
-PyTorch decode. On the CPU both take the plain PyTorch path, except that
-``select_impl="fused"`` in training runs the kernel's plain version, as the
-JAX package runs its Pallas kernel in interpret mode off the TPU.
+PyTorch decode. The attention kernel is the small-shape key-validity one
+(``kernels.packed_mhgsa``) where the problems are small (``nn.attention.
+_kernel_route``), the whole-S one otherwise. On the CPU both take the plain
+PyTorch path, except that ``select_impl="fused"`` in training and
+``attn_impl="packed"`` run the kernel's plain version, as the JAX package
+runs its Pallas kernels in interpret mode off the TPU.
 """
 
 from __future__ import annotations
@@ -126,7 +129,8 @@ class STTODEConfig(NamedTuple):
             raise NotImplementedError(
                 "dropout > 0 inside the encoder layer is not ported yet")
         not_ported = {
-            "attn_impl": (self.attn_impl, ("auto", "dense", "fused")),
+            "attn_impl": (self.attn_impl, ("auto", "dense", "fused",
+                                         "packed")),
             "attn_metric": (self.attn_metric, ("oblique",)),
             "ode_method": (self.ode_method, ("euler", "midpoint", "rk4")),
             "ode_adjoint": (self.ode_adjoint, (False,)),

@@ -8,14 +8,21 @@ Scores are negated geodesic distances on the oblique manifold,
   Masks never reach attention in this mode (quirk Q2, dropped by the caller).
 - ``compat="tpu"``: ``scores[i, j] = -d(q_i, k_j)`` with an additive mask.
 
-Routing (``geodesic_attention``): a CUDA tensor with ``fused`` "auto" or True
-goes to the hand-written kernels ``kernels.mhgsa.fused_geodesic_attention``
-(forward and, when a gradient is taken, backward; Q3 is the kernel with q
-and k swapped); ``fused=False`` ("dense") or a CPU tensor takes the plain
-path, a max-subtracted softmax over the dense scores. No size threshold is
-applied: the JAX package's TPU crossover would send the training shape
-(L = S = 128) to XLA, while the port sends it to the kernel;
-``chip_smoke.py`` times both routes.
+Routing (``_kernel_route``, a pure function of shapes and flags): on a CUDA
+tensor ``fused="auto"`` sends the small problems of the model's hot shapes
+to the key-validity kernel ``kernels.packed_mhgsa`` ("packed": oblique
+metric, no additive mask, an explicit head axis with H·Dh ≤ 128 and
+L·S ≤ 32², the JAX predicate without its TPU VMEM guard) and everything else
+to the whole-S kernel ``kernels.mhgsa.fused_geodesic_attention`` ("fused");
+``fused=True`` and ``fused="packed"`` force one kernel, ``fused=False``
+("dense") takes the plain path, a max-subtracted softmax over the dense
+scores. Both kernels take the forward and, when a gradient is taken, the
+backward; Q3 is the kernel with q and k swapped, under which a key validity
+becomes an additive mask (so it goes to the whole-S kernel). On a CPU tensor
+every route but a forced "packed" takes the plain dense path; a forced
+"packed" runs the packed kernel's plain version. The packed boundary is the
+JAX package's starting point, not an H100 crossover: ``chip_smoke.py`` times
+both kernels at the NBA recipe's shape.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from sttode_tpu_torch.kernels.mhgsa import fused_geodesic_attention
+from sttode_tpu_torch.kernels.packed_mhgsa import packed_geodesic_attention
 from sttode_tpu_torch.manifolds import oblique
 from sttode_tpu_torch.nn import core
 
@@ -76,26 +84,91 @@ def geodesic_scores(q: torch.Tensor, k: torch.Tensor, *,
     return -oblique.dist(qn, kn)
 
 
+def _kv_valid_mask(kv_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Additive mask from key validity, aligned to the score shape
+    [..., (H,) L, S]: axes are inserted before S until kv_valid aligns with
+    q's batch (and head) dims, then the query-row axis is added."""
+    kvv = kv_valid
+    while kvv.ndim < q.ndim - 1:
+        kvv = kvv[..., None, :]
+    neg = torch.finfo(q.dtype).min
+    return torch.where(kvv[..., None, :] > 0, 0.0, neg).to(q.dtype)
+
+
+def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
+                  has_kv_valid: bool, compat: str, fused: str | bool,
+                  need_weights: bool, metric: str,
+                  on_cuda: bool) -> str | None:
+    """The kernel that serves one attention call: "packed", "fused" or None
+    (the plain path). Under reference compat the square case is the kernel
+    with q and k swapped, and a key validity then counts as an additive
+    mask."""
+    if fused not in ("auto", True, False, "packed"):
+        raise NotImplementedError(
+            f"attention route {fused!r} is not ported "
+            "(auto/fused/packed/dense)")
+    if fused == "packed":
+        if metric != "oblique":
+            raise ValueError("the packed kernel implements the oblique "
+                             "metric only")
+        return "packed"
+    if fused is False or not on_cuda:
+        return None
+    if fused is True:
+        return "fused"
+    if need_weights:
+        return None
+    L, S = q_shape[-2], k_shape[-2]
+    swapped = compat == "reference" and L == S
+    has_mask = has_mask or (has_kv_valid and swapped)
+    if (metric == "oblique" and not has_mask and len(q_shape) >= 4
+            and q_shape[-3] * q_shape[-1] <= 128 and L * S <= 32 * 32):
+        return "packed"
+    return "fused"
+
+
 def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        mask: torch.Tensor | None = None,
                        compat: str = "reference",
                        fused: str | bool = "auto",
                        need_weights: bool = True,
-                       metric: str = "oblique"):
+                       metric: str = "oblique",
+                       kv_valid: torch.Tensor | None = None):
     """Core attention: scores → (+mask) → softmax → @v.
 
     q [..., L, Dh], k/v [..., S, Dh], additive mask broadcastable to
-    [..., L, S]. Returns (out [..., L, Dh], weights [..., L, S] or None on
-    the kernel route). ``fused``: "auto" (kernel on CUDA unless weights are
-    wanted), True (kernel on CUDA), False (plain path)."""
-    if fused not in ("auto", True, False):
-        raise NotImplementedError(
-            f"attention route {fused!r} is not ported (only auto/fused/dense)")
-    use_kernel = q.is_cuda and (fused is True or
-                                (fused == "auto" and not need_weights))
-    if use_kernel:
-        swapped = compat == "reference" and q.shape[-2] == k.shape[-2]
+    [..., L, S], key validity ``kv_valid`` [..., S] (1 = real key; no head
+    axis). Returns (out [..., L, Dh], weights [..., L, S] or None on a kernel
+    route). ``fused``: "auto" (routed by ``_kernel_route``), True (the
+    whole-S kernel on CUDA), "packed" (the key-validity kernel, additive
+    masks refused), False (plain path)."""
+    route = _kernel_route(tuple(q.shape), tuple(k.shape),
+                          has_mask=mask is not None,
+                          has_kv_valid=kv_valid is not None, compat=compat,
+                          fused=fused, need_weights=need_weights,
+                          metric=metric, on_cuda=q.is_cuda)
+    swapped = compat == "reference" and q.shape[-2] == k.shape[-2]
+    kv_as_mask = kv_valid is not None and (swapped or route != "packed")
+    if kv_as_mask:
+        # under the Q3 swap "key validity" would mark the wrong axis of the
+        # swapped kernel: it becomes an additive mask on the unswapped
+        # scores, merged with any mask given (dropping either would attend
+        # to padding)
+        kvm = _kv_valid_mask(kv_valid, q)
+        mask = kvm if mask is None else mask + kvm
+        kv_valid = None
+    if route is not None:
         qq, kk = (k, q) if swapped else (q, k)
+        if route == "packed":
+            if mask is not None:
+                raise ValueError(
+                    "packed kernel supports key-validity masks only; pass "
+                    "kv_valid instead of an additive mask, or fused=False"
+                    + (" (compat='reference' square attention expresses "
+                       "kv_valid as an additive mask: quirk Q3's swap)"
+                       if swapped and kv_as_mask else ""))
+            return packed_geodesic_attention(qq, kk, v,
+                                             kv_valid=kv_valid), None
         return fused_geodesic_attention(qq, kk, v, mask=mask,
                                         metric=metric), None
     scores = geodesic_scores(q, k, compat=compat, metric=metric)
@@ -111,11 +184,13 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           compat: str = "reference",
           need_weights: bool = False,
           fused: str | bool = "auto",
-          metric: str = "oblique"):
+          metric: str = "oblique",
+          kv_valid: torch.Tensor | None = None):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
     packed [E, 3E] projection when query, key and value are the same tensor,
-    split projections otherwise."""
+    split projections otherwise. ``kv_valid`` [..., S] marks real keys and
+    is shared by the heads."""
     E = query.shape[-1]
     head_dim = E // num_heads
     if head_dim * num_heads != E:
@@ -135,7 +210,8 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
     out_h, w = geodesic_attention(
         split_heads(q, num_heads), split_heads(k, num_heads),
         split_heads(v, num_heads), mask=mask, compat=compat,
-        fused=fused, need_weights=need_weights, metric=metric)
+        fused=fused, need_weights=need_weights, metric=metric,
+        kv_valid=kv_valid)
     out = merge_heads(out_h) @ params.out_proj_w + params.out_proj_b
     if need_weights and w is not None:
         return out, w.mean(dim=-3)

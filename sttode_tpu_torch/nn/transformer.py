@@ -35,9 +35,10 @@ class EncoderLayerParams(NamedTuple):
 
 
 class LayerConfig(NamedTuple):
-    """Static hyperparameters of one layer. ``attn_impl``: "auto" or "fused"
-    (the CUDA kernels on CUDA tensors) or "dense" (plain path). ``dropout``
-    is carried for configs but must be 0 (not ported)."""
+    """Static hyperparameters of one layer. ``attn_impl``: "auto" (the CUDA
+    kernels on CUDA tensors, routed by shape), "fused" or "packed" (one
+    kernel forced) or "dense" (plain path). ``dropout`` is carried for
+    configs but must be 0 (not ported)."""
     d_model: int = 64
     num_heads: int = 8
     ff_dim: int = 1024
@@ -49,7 +50,8 @@ class LayerConfig(NamedTuple):
     curvature: float = 1.0
 
 
-_ATTN_IMPL_TO_FUSED = {"auto": "auto", "dense": False, "fused": True}
+_ATTN_IMPL_TO_FUSED = {"auto": "auto", "dense": False, "fused": True,
+                       "packed": "packed"}
 
 
 def gated_attention_init(gen, d_model: int,
@@ -78,9 +80,11 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
                     key: torch.Tensor, value: torch.Tensor, num_heads: int, *,
                     mask: torch.Tensor | None = None,
                     compat: str = "reference", need_weights: bool = False,
-                    fused: str | bool = "auto", metric: str = "oblique"):
+                    fused: str | bool = "auto", metric: str = "oblique",
+                    kv_valid: torch.Tensor | None = None):
     """Gated geodesic attention over [L, N, S, D]: MHGSA on [N·S, L, D],
-    then the ``tanh(info(a)) * sigmoid(gate(a))`` gate.
+    then the ``tanh(info(a)) * sigmoid(gate(a))`` gate. ``kv_valid``
+    [N·S, L] (or broadcastable) marks real key tokens.
     Returns (out [L, N, S, D], weights or None)."""
     L, N, S, D = query.shape
 
@@ -94,9 +98,10 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
         k = to_batch_first(key)
         v = to_batch_first(value) if value is not key else k
     if compat == "reference":
-        mask = None      # quirk Q2: masks never reach the kernel
+        mask = kv_valid = None   # quirk Q2: masks never reach the kernel
     out, w = mhgsa(params.attn, q, k, v, num_heads, mask=mask, compat=compat,
-                   need_weights=need_weights, fused=fused, metric=metric)
+                   need_weights=need_weights, fused=fused, metric=metric,
+                   kv_valid=kv_valid)
     gated = torch.tanh(core.dense(params.info, out)) * \
         torch.sigmoid(core.dense(params.gate, out))
     return gated.transpose(0, 1).reshape(L, N, S, D), w
@@ -104,15 +109,17 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
 
 def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
                   cfg: LayerConfig, *,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Post-norm encoder layer over [L, N, S, D] tokens."""
     if cfg.attn_impl not in _ATTN_IMPL_TO_FUSED:
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported (auto/fused/dense)")
+            f"attn_impl={cfg.attn_impl!r} is not ported "
+            "(auto/fused/packed/dense)")
     attn_out, _ = gated_attention(
         params.self_attn, src, src, src, cfg.num_heads, mask=mask,
         compat=cfg.compat, fused=_ATTN_IMPL_TO_FUSED[cfg.attn_impl],
-        metric=cfg.attn_metric)
+        metric=cfg.attn_metric, kv_valid=kv_valid)
     src = core.layer_norm(params.norm1, src + attn_out)
     act = core.ACTIVATIONS[cfg.activation]
     ffn_out = core.dense(params.ffn.linear2,
@@ -121,7 +128,8 @@ def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
 
 
 def encoder_stack(params: list, src: torch.Tensor, cfg: LayerConfig, *,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     for p in params:
-        src = encoder_layer(p, src, cfg, mask=mask)
+        src = encoder_layer(p, src, cfg, mask=mask, kv_valid=kv_valid)
     return src

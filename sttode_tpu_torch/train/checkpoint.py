@@ -1,0 +1,113 @@
+"""Checkpoints of the port (the role of ``sttode_tpu/train/checkpoint.py``,
+in a ``torch.save`` format).
+
+One file per checkpoint, ``<ckpt_dir>/model_%04d.pt`` (the JAX package's
+``CKPT_FMT`` directory name plus a suffix), holding the parameter tree, the
+Adam ``state_dict``, the epoch and the ``STTODEConfig`` as JSON, so that
+evaluation rebuilds the model from the checkpoint alone (the reference's
+reconstruct-from-checkpoint property). The tree is stored as plain dicts and
+lists (parameter NamedTuples become tagged dicts), so the file loads with
+``torch.load(weights_only=True)``: no pickled classes. A save writes a
+temporary file beside the target and renames it into place, so a half-written
+file is never listed or read. Reading a JAX orbax checkpoint is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+
+import torch
+
+from sttode_tpu_torch import bridge
+from sttode_tpu_torch.models.sttode import STTODEConfig
+
+CKPT_FMT = "model_{:04d}"
+SUFFIX = ".pt"
+_NAME = re.compile(r"model_(\d{4,})\.pt")
+_TAG = "__namedtuple__"
+
+
+def checkpoint_path(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, CKPT_FMT.format(epoch) + SUFFIX)
+
+
+def _to_plain(tree):
+    if isinstance(tree, dict):
+        return {k: _to_plain(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {_TAG: type(tree).__name__,
+                **{f: _to_plain(getattr(tree, f)) for f in tree._fields}}
+    if isinstance(tree, (list, tuple)):
+        return [_to_plain(v) for v in tree]
+    return tree.detach().to("cpu")
+
+
+def _from_plain(tree):
+    if isinstance(tree, dict) and _TAG in tree:
+        cls = bridge._NAMEDTUPLES[tree[_TAG]]
+        return cls(*(_from_plain(tree[f]) for f in cls._fields))
+    if isinstance(tree, dict):
+        return {k: _from_plain(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_from_plain(v) for v in tree]
+    return tree
+
+
+def _config_to_json(cfg: STTODEConfig) -> str:
+    return json.dumps({"type": type(cfg).__name__, **cfg._asdict()})
+
+
+def _config_from_json(s: str) -> STTODEConfig:
+    """JSON round-trips tuples as lists; fields the config does not know are
+    dropped and missing ones take its defaults, as in the JAX package."""
+    d = json.loads(s)
+    if d.pop("type") != "STTODEConfig":
+        raise ValueError("not an STTODEConfig checkpoint")
+    return STTODEConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in d.items()
+                           if k in STTODEConfig._fields})
+
+
+def checkpoint_epochs(ckpt_dir: str) -> list[int]:
+    """Epochs of the complete checkpoints under ``ckpt_dir``, ascending
+    (temporary files of a save in progress are not listed)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.fullmatch,
+                                               os.listdir(ckpt_dir)) if m)
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    """Path of the newest complete checkpoint, or None."""
+    epochs = checkpoint_epochs(ckpt_dir)
+    return checkpoint_path(ckpt_dir, epochs[-1]) if epochs else None
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, params,
+                    opt: torch.optim.Optimizer, cfg: STTODEConfig,
+                    keep_last: int | None = None) -> str:
+    """Write ``<ckpt_dir>/model_%04d.pt`` with the parameters (moved to the
+    CPU), the optimizer's ``state_dict``, the epoch and the config; return
+    its path. ``keep_last`` then deletes all but the newest that many
+    checkpoints (at least one: the one just written)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = checkpoint_path(ckpt_dir, epoch)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save({"params": _to_plain(params), "opt_state": opt.state_dict(),
+                "epoch": int(epoch), "config": _config_to_json(cfg)}, tmp)
+    os.replace(tmp, path)
+    if keep_last is not None:
+        for e in checkpoint_epochs(ckpt_dir)[:-max(keep_last, 1)]:
+            os.remove(checkpoint_path(ckpt_dir, e))
+    return path
+
+
+def load_checkpoint(path: str, device: torch.device | str = "cpu"):
+    """Restore (params, optimizer state_dict, epoch, cfg); the tensors land
+    on ``device``. Load the state into an optimizer over the restored
+    parameters with ``opt.load_state_dict``."""
+    ck = torch.load(path, map_location=device, weights_only=True)
+    return (_from_plain(ck["params"]), ck["opt_state"], int(ck["epoch"]),
+            _config_from_json(ck["config"]))

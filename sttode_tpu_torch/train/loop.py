@@ -22,6 +22,7 @@ import torch
 
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.models.sttode import Batch, STTODEConfig, sttode_forward
+from sttode_tpu_torch.train.schedulers import set_lr
 
 METRICS = ("total", "pred", "recover", "kl", "diverse")
 
@@ -77,10 +78,14 @@ def make_train_step(cfg: STTODEConfig, lr: float, *,
 def train_epoch(step: TrainStep, params, opt_state,
                 batches: Iterable[tuple[Batch, Any]],
                 generator: torch.Generator | None = None, *,
-                log_every: int = 0, log_fn: Callable = print) -> tuple:
-    """Drive one epoch over host-prepared (batch, aux) pairs. Returns
+                lr: float | None = None, log_every: int = 0,
+                log_fn: Callable = print) -> tuple:
+    """Drive one epoch over host-prepared (batch, aux) pairs, at learning
+    rate ``lr`` when given (the epoch's value of a schedule). Returns
     (params, opt_state, mean metrics). Metrics accumulate on the device and
     are fetched only at log boundaries and at the end."""
+    if lr is not None:
+        set_lr(opt_state, lr)
     sums: dict = {}
     count = 0
     for i, (batch, _aux) in enumerate(batches):

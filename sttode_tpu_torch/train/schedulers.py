@@ -1,0 +1,27 @@
+"""Learning-rate schedule (port of ``sttode_tpu/train/schedulers.py``:
+``step_lr``, ``set_lr``).
+
+The reference steps its scheduler once per epoch, so a schedule is a function
+of the epoch that the trainer evaluates before each epoch and writes into the
+optimizer with ``set_lr``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def step_lr(base_lr: float, decay_step: int, gamma: float = 0.5):
+    """torch StepLR as a function of the epoch: lr·γ^⌊epoch/decay_step⌋ (the
+    reference trains with StepLR(10, 0.5))."""
+    def schedule(epoch: int) -> float:
+        return base_lr * (gamma ** (epoch // decay_step))
+    return schedule
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
+    """Set the learning rate of every parameter group of ``opt``; its
+    moments are kept."""
+    for group in opt.param_groups:
+        group["lr"] = lr
+    return opt

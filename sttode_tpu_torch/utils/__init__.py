@@ -1,4 +1,5 @@
-"""Utilities used by the port's serving path."""
+"""Utilities of the port: distributions, the parameter count
+(``utils.profiling``) and the NBA horizon table (``utils.metrics``)."""
 
 from sttode_tpu_torch.utils.distributions import DiagNormal
 

@@ -24,6 +24,7 @@ from sttode_tpu_torch.bridge import to_device
 from sttode_tpu_torch.data.preprocess import prepare_scene_group
 from sttode_tpu_torch.data.synthetic import make_social_scenes
 from sttode_tpu_torch.kernels import mhgsa as tmhgsa
+from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.kernels import select_decode as tsd
 from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.serving import Predictor
@@ -188,6 +189,152 @@ def test_attention_backward_kernel_randomized_sweep(cuda_device, case):
     _grad_check(got, want)
 
 
+def _packed_inputs(rng, B, H, L, S, Dh, valid):
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, k, v, do = arr(B, H, L, Dh), arr(B, H, S, Dh), arr(B, H, S, Dh), \
+        arr(B, H, L, Dh)
+    kv = None
+    if valid == "random":
+        kv = torch.from_numpy((rng.random((B, S)) < 0.7).astype(np.float32))
+    elif valid == "all_invalid":
+        kv = torch.ones(B, S)
+        kv[0] = 0.0
+    return q, k, v, do, kv
+
+
+def _packed_both(q, k, v, do, kv, dev):
+    """(out, dq, dk, dv) through the public wrapper and autograd."""
+    leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+    out = tpacked.packed_geodesic_attention(
+        *leaves, kv_valid=None if kv is None else kv.to(dev))
+    grads = torch.autograd.grad(out, leaves, do.to(dev))
+    return [out.detach(), *grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=11, H=8, L=32, S=32, Dh=8, valid="none"),     # the NBA recipe
+    dict(B=88, H=8, L=1, S=1, Dh=8, valid="none"),       # single scenes
+    dict(B=4, H=8, L=11, S=11, Dh=8, valid="all_invalid"),
+    dict(B=2, H=16, L=8, S=8, Dh=8, valid="random"),     # H·Dh = 128
+    dict(B=2, H=1, L=1, S=1024, Dh=8, valid="random"),   # L·S = 32², S > 32
+    dict(B=3, H=2, L=40, S=25, Dh=16, valid="random"),   # L > 32
+    dict(B=2, H=1, L=7, S=13, Dh=128, valid="random"),   # widest head
+    dict(B=2, H=2, L=6, S=6, Dh=8, valid="identical_qk")])
+def test_packed_kernels_match_plain(cuda_device, case):
+    rng = np.random.default_rng(case["L"] * 7 + case["S"])
+    q, k, v, do, kv = _packed_inputs(
+        rng, *(case[x] for x in ("B", "H", "L", "S", "Dh", "valid")))
+    if case["valid"] == "identical_qk":
+        k = q.clone()
+    want = _packed_both(q, k, v, do, kv, "cpu")
+    before = (tpacked.packed_geodesic_attention.launches,
+              tpacked.packed_geodesic_attention_backward.launches)
+    got = _packed_both(q, k, v, do, kv, cuda_device)
+    torch.cuda.synchronize()
+    assert (tpacked.packed_geodesic_attention.launches,
+            tpacked.packed_geodesic_attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    _grad_check(got[1:], want[1:])
+    if case["valid"] == "all_invalid":
+        assert all(bool(torch.all(t[0] == 0)) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sweep(24, 15, lambda r: dict(
+    B=int(r.integers(1, 6)), H=int(r.choice([1, 2, 4, 8, 16])),
+    L=int(r.integers(1, 33)), S=int(r.integers(1, 33)),
+    Dh=int(r.choice([1, 3, 5, 8, 13, 16, 32])),
+    valid=str(r.choice(["none", "random"])))))
+def test_packed_kernels_randomized_sweep(cuda_device, case):
+    """Random problem counts, head counts, L, S ∈ 1..32 and head dims (odd
+    ones too, H·Dh ≤ 128), with and without a random key validity: forward
+    and q, k, v gradients against the plain versions."""
+    if case["H"] * case["Dh"] > 128:
+        case = dict(case, H=128 // case["Dh"])
+    rng = np.random.default_rng(case["L"] * 131 + case["S"] * 7 + case["Dh"])
+    ins = _packed_inputs(rng, *(case[x] for x in ("B", "H", "L", "S", "Dh",
+                                                  "valid")))
+    want = _packed_both(*ins, "cpu")
+    got = _packed_both(*ins, cuda_device)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    _grad_check(got[1:], want[1:])
+
+
+@pytest.mark.cuda
+def test_packed_kernel_refuses_wide_heads(cuda_device):
+    q = torch.randn(1, 1, 4, 130, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpacked._launch(q, q, q, None)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpacked.packed_geodesic_attention_backward(q, q, q, None, q)
+
+
+@pytest.mark.cuda
+def test_auto_route_sends_small_problems_to_packed(cuda_device):
+    """Reference-compat inference at 32 scenes × 11 agents and the NBA
+    training step's forward and backward go through the packed kernels;
+    the step equals the dense route's. Each gradient leaf is held at 1e-4 of
+    its largest magnitude: a ReLU whose input lies within rounding of 0 can
+    switch between the routes and move a decoder leaf discretely (on an
+    H100, at K = 6 on this batch one leaf moved by 7.4e-4 of its largest
+    value, on both kernel routes alike; at the recipe's K = 20 no ReLU
+    switches)."""
+    cfg = tm.STTODEConfig(past_length=5, future_length=10,
+                          min_clip=0.0).validate()
+    scenes = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=6)
+    batch, _ = prepare_scene_group(
+        np.stack([s["obs"] for s in scenes]),
+        np.stack([s["pred"] for s in scenes]), np.ones((32, 11), np.float32),
+        training=True, rng=np.random.default_rng(1))
+    batch = batch.to(cuda_device)
+    M = 32 * 11
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    noise = tm.TrainNoise(
+        torch.rand(M, 5, 64, device=cuda_device, generator=gen) < 0.9,
+        torch.rand(M, 10, 64, device=cuda_device, generator=gen) < 0.9,
+        torch.randn(M, 32, device=cuda_device, generator=gen),
+        torch.randn(M * 20, 32, device=cuda_device, generator=gen))
+    params0 = tm.sttode_init(5, cfg)
+
+    def run(c):
+        p = to_device(params0, cuda_device)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+        out = tm.sttode_forward(p, c, batch, noise=noise)
+        out.total_loss.backward()
+        return out, [t.grad for t in leaves]
+
+    counts = (tpacked.packed_geodesic_attention.launches,
+              tpacked.packed_geodesic_attention_backward.launches,
+              tmhgsa.fused_geodesic_attention.launches)
+    got, g_got = run(cfg)
+    torch.cuda.synchronize()
+    assert (tpacked.packed_geodesic_attention.launches,
+            tpacked.packed_geodesic_attention_backward.launches,
+            tmhgsa.fused_geodesic_attention.launches) == \
+        (counts[0] + 2, counts[1] + 2, counts[2])
+    want, g_want = run(cfg._replace(attn_impl="dense"))
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        np.testing.assert_allclose(float(getattr(got, name).detach()),
+                                   float(getattr(want, name).detach()),
+                                   rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    for a, b in zip(g_got, g_want):
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    before = tpacked.packed_geodesic_attention.launches
+    with torch.inference_mode():
+        tm.sttode_inference(to_device(params0, cuda_device), cfg, batch)
+    assert tpacked.packed_geodesic_attention.launches == before + 1
+
+
 @pytest.fixture(scope="module")
 def decoder():
     cfg = tm.STTODEConfig(past_length=5, future_length=10).validate()
@@ -319,9 +466,10 @@ def test_select_decode_bf16_kernel_randomized_sweep(cuda_device, case):
 @pytest.mark.cuda
 def test_train_step_kernel_route_matches_plain_route(cuda_device):
     """One fp32 training forward and backward on the kernel route (attention
-    forward and backward kernels, selection kernel) against the plain route
-    with the same parameters, batch and injected noise; then a few bf16
-    recipe steps on the kernel route stay finite."""
+    forward and backward kernels — the packed ones at 16 scenes × 6 agents —
+    and the selection kernel) against the plain route with the same
+    parameters, batch and injected noise; then a few bf16 recipe steps on
+    the kernel route stay finite."""
     cfg = tm.STTODEConfig(past_length=5, future_length=10, sample_k=6,
                           min_clip=0.0).validate()
     scenes = make_social_scenes(16, agents_range=(6, 6), obs_len=5,
@@ -348,12 +496,12 @@ def test_train_step_kernel_route_matches_plain_route(cuda_device):
         out.total_loss.backward()
         return out, [t.grad for t in leaves]
 
-    counts = (tmhgsa.fused_geodesic_attention_backward.launches,
+    counts = (tpacked.packed_geodesic_attention_backward.launches,
               tsd.select_decode.launches)
     got, g_got = run(cfg)
     want, g_want = run(cfg._replace(attn_impl="dense", select_impl="xla"))
     torch.cuda.synchronize()
-    assert tmhgsa.fused_geodesic_attention_backward.launches > counts[0]
+    assert tpacked.packed_geodesic_attention_backward.launches > counts[0]
     assert tsd.select_decode.launches == counts[1] + 1
     for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
                  "loss_diverse"):
@@ -397,14 +545,17 @@ def test_inference_kernel_route_matches_plain_route(cuda_device, kind):
         training=False)
     batch = batch.to(cuda_device)
     z = torch.randn(5 * N * cfg.sample_k, cfg.zdim, device=cuda_device)
-    counts = (tmhgsa.fused_geodesic_attention.launches,
-              tsd.select_decode.launches)
+    # the agent axis carries a key mask (the whole-S kernel); reference
+    # compat's 5 scenes × 6 agents are small problems (the packed kernel)
+    attn = tmhgsa.fused_geodesic_attention if kind == "agent" else \
+        tpacked.packed_geodesic_attention
+    counts = (attn.launches, tsd.select_decode.launches)
     with torch.inference_mode():
         got = tm.sttode_inference(params, cfg, batch, z=z)
         plain_cfg = cfg._replace(attn_impl="dense", select_impl="xla")
         want = tm.sttode_inference(params, plain_cfg, batch, z=z)
     torch.cuda.synchronize()
-    assert tmhgsa.fused_geodesic_attention.launches > counts[0]
+    assert attn.launches > counts[0]
     assert tsd.select_decode.launches == counts[1] + 1
     assert got.shape == (cfg.sample_k, 5 * N, cfg.future_length, 2)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),

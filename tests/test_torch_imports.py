@@ -49,3 +49,26 @@ def test_import_builds_nothing():
     from sttode_tpu_torch.kernels import _build
 
     assert _build._lib is None
+
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in (ROOT / "sttode_tpu_torch").rglob("*.py")
+    if p.name != "__init__.py")
+
+
+@pytest.mark.parametrize("name", [m for m in MODULES if ".cli." in m
+                                  or m.endswith(("packed_mhgsa", "evaluation",
+                                                 "checkpoint", "schedulers",
+                                                 ".nba", "metrics",
+                                                 "profiling"))])
+def test_module_import_builds_and_parses_nothing(monkeypatch, name):
+    """Importing a module of the port (the CLIs among them) compiles no
+    kernel and reads no command line: a bad argv changes nothing."""
+    import importlib
+
+    from sttode_tpu_torch.kernels import _build
+
+    monkeypatch.setattr("sys.argv", ["x", "--no-such-flag"])
+    importlib.import_module(name)
+    assert _build._lib is None
