@@ -16,6 +16,9 @@ Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
 - ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,
   forward and backward (a ``torch.autograd.Function``);
+- ``kernels.mhgsa.flash_geodesic_attention`` — the same S-tiled, with key
+  validity, for any context length (the scene axis beyond 1036 scenes):
+  forward, and a backward in two sweeps (dq; dk and dv);
 - ``kernels.packed_mhgsa.packed_geodesic_attention`` — the same for many
   small problems (L·S ≤ 32²) with key validity, forward and backward;
 - ``kernels.select_decode.select_decode`` — the whole two-block decompose

@@ -87,8 +87,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    choices=("auto", "dense", "fused", "flash", "packed",
                             "ring", "ulysses"),
                    help="attention route: 'auto' = the kernels on the card "
-                        "(packed for small problems, whole-S otherwise), "
-                        "'dense' = the plain path")
+                        "(packed for small problems, S-tiled flash beyond "
+                        "the whole-S kernels' shared memory or S > 2048 — "
+                        "on the scene axis, --batch_size above 1036 — "
+                        "whole-S otherwise); 'fused', 'packed', 'flash' "
+                        "force one kernel; 'dense' = the plain path")
     p.add_argument("--attn_metric", default="oblique",
                    choices=("oblique", "poincare"))
     p.add_argument("--curvature", type=float, default=1.0)

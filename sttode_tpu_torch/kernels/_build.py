@@ -45,6 +45,10 @@ _SIGNATURES = {
     "packed_mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "packed_mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
+    "flash_mhgsa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_mhgsa_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_mhgsa_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P],
 }
 
 

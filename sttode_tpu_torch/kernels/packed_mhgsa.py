@@ -29,12 +29,9 @@ from __future__ import annotations
 import torch
 
 from sttode_tpu_torch.kernels import _build
-from sttode_tpu_torch.kernels.mhgsa import EPS, NORM_FLOOR, _check_devices
-
-
-def _unit(x: torch.Tensor):
-    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    return x / torch.clamp(norm, min=NORM_FLOOR), norm
+from sttode_tpu_torch.kernels.mhgsa import (EPS, _check_devices,
+                                            _normalize_vjp, _score_grad,
+                                            _unit)
 
 
 def _probs(qn, kn, val):
@@ -71,16 +68,9 @@ def packed_geodesic_attention_backward_reference(q, k, v, val, do):
     gc = torch.clamp(g, -1.0 + EPS, 1.0 - EPS)
     dp = do @ v.transpose(-1, -2)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-    dg = torch.where(g.abs() < 1.0 - EPS,
-                     ds * torch.rsqrt(torch.clamp(1.0 - gc * gc, min=1e-12)),
-                     0.0)
-
-    def normalize_vjp(dxn, xn, norm):
-        return (dxn - xn * torch.sum(dxn * xn, dim=-1, keepdim=True)) / \
-            torch.clamp(norm, min=NORM_FLOOR)
-
-    return (normalize_vjp(dg @ kn, qn, q_norm),
-            normalize_vjp(dg.transpose(-1, -2) @ qn, kn, k_norm),
+    dg = _score_grad(g, gc, ds)
+    return (_normalize_vjp(dg @ kn, qn, q_norm),
+            _normalize_vjp(dg.transpose(-1, -2) @ qn, kn, k_norm),
             p.transpose(-1, -2) @ do)
 
 

@@ -20,12 +20,15 @@ Routing on a CUDA device: attention goes to the geodesic-attention kernels
 goes to the selection-decode kernel (mode "traj" at inference, mode "dist"
 at ``select_dtype`` in training) unless ``select_impl="xla"`` — a name kept
 from the JAX package so configs carry over; in the port it means the plain
-PyTorch decode. The attention kernel is the small-shape key-validity one
-(``kernels.packed_mhgsa``) where the problems are small (``nn.attention.
-_kernel_route``), the whole-S one otherwise. On the CPU both take the plain
-PyTorch path, except that ``select_impl="fused"`` in training and
-``attn_impl="packed"`` run the kernel's plain version, as the JAX package
-runs its Pallas kernels in interpret mode off the TPU.
+PyTorch decode. The attention kernel (``nn.attention._kernel_route``) is the
+small-shape key-validity one (``kernels.packed_mhgsa``) where the problems
+are small, the S-tiled one (``kernels.mhgsa.flash_geodesic_attention``) for
+maskless problems beyond the whole-S kernels' shared memory or JAX's
+S > 2048 — on the scene axis, batches of more than 1036 scenes — and the
+whole-S one otherwise. On the CPU both take the plain PyTorch path, except
+that ``select_impl="fused"`` in training and ``attn_impl="packed"`` or
+``"flash"`` run the kernel's plain version, as the JAX package runs its
+Pallas kernels in interpret mode off the TPU.
 """
 
 from __future__ import annotations
@@ -130,7 +133,7 @@ class STTODEConfig(NamedTuple):
                 "dropout > 0 inside the encoder layer is not ported yet")
         not_ported = {
             "attn_impl": (self.attn_impl, ("auto", "dense", "fused",
-                                         "packed")),
+                                         "packed", "flash")),
             "attn_metric": (self.attn_metric, ("oblique",)),
             "ode_method": (self.ode_method, ("euler", "midpoint", "rk4")),
             "ode_adjoint": (self.ode_adjoint, (False,)),

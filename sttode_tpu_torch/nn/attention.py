@@ -9,20 +9,32 @@ Scores are negated geodesic distances on the oblique manifold,
 - ``compat="tpu"``: ``scores[i, j] = -d(q_i, k_j)`` with an additive mask.
 
 Routing (``_kernel_route``, a pure function of shapes and flags): on a CUDA
-tensor ``fused="auto"`` sends the small problems of the model's hot shapes
-to the key-validity kernel ``kernels.packed_mhgsa`` ("packed": oblique
-metric, no additive mask, an explicit head axis with H·Dh ≤ 128 and
-L·S ≤ 32², the JAX predicate without its TPU VMEM guard) and everything else
-to the whole-S kernel ``kernels.mhgsa.fused_geodesic_attention`` ("fused");
-``fused=True`` and ``fused="packed"`` force one kernel, ``fused=False``
-("dense") takes the plain path, a max-subtracted softmax over the dense
-scores. Both kernels take the forward and, when a gradient is taken, the
-backward; Q3 is the kernel with q and k swapped, under which a key validity
-becomes an additive mask (so it goes to the whole-S kernel). On a CPU tensor
-every route but a forced "packed" takes the plain dense path; a forced
-"packed" runs the packed kernel's plain version. The packed boundary is the
-JAX package's starting point, not an H100 crossover: ``chip_smoke.py`` times
-both kernels at the NBA recipe's shape.
+tensor ``fused="auto"`` sends
+- the small problems of the model's hot shapes to the key-validity kernel
+  ``kernels.packed_mhgsa`` ("packed": oblique metric, no additive mask, an
+  explicit head axis with H·Dh ≤ 128 and L·S ≤ 32², the JAX predicate
+  without its TPU VMEM guard);
+- every other maskless problem (a key validity allowed) to the S-tiled
+  kernel ``kernels.mhgsa.flash_geodesic_attention`` ("flash") where JAX's
+  rule S > 2048 says so or where the whole-S kernels would refuse it for
+  shared memory (``kernels.mhgsa.whole_s_smem_bytes``: at Dh = 8 their
+  backward refuses L = S > 1036, so scene-axis training at 1037 ≤ B ≤ 2048
+  scenes goes to flash on the card where JAX runs its fused kernel — an
+  H100 routing decision; the backward's fit is used since the route cannot
+  know whether a gradient follows);
+- an additive mask with S > 2048 to the plain path, as in JAX;
+- everything else to the whole-S kernel
+  ``kernels.mhgsa.fused_geodesic_attention`` ("fused").
+``fused=True``, ``fused="packed"`` and ``fused="flash"`` force one kernel,
+``fused=False`` ("dense") takes the plain path, a max-subtracted softmax over
+the dense scores. Every kernel takes the forward and, when a gradient is
+taken, the backward; Q3 is the kernel with q and k swapped, under which a
+key validity becomes an additive mask (so it goes to the whole-S kernel, and
+the packed and flash kernels refuse it). On a CPU tensor every route but a
+forced "packed" or "flash" takes the plain dense path; those two run their
+kernel's plain version. The packed boundary is the JAX package's starting
+point, not an H100 crossover: ``chip_smoke.py`` times the kernels at the NBA
+recipe's shapes.
 """
 
 from __future__ import annotations
@@ -31,7 +43,10 @@ from typing import NamedTuple
 
 import torch
 
-from sttode_tpu_torch.kernels.mhgsa import fused_geodesic_attention
+from sttode_tpu_torch.kernels.mhgsa import (SMEM_OPTIN_BYTES,
+                                            flash_geodesic_attention,
+                                            fused_geodesic_attention,
+                                            whole_s_smem_bytes)
 from sttode_tpu_torch.kernels.packed_mhgsa import packed_geodesic_attention
 from sttode_tpu_torch.manifolds import oblique
 from sttode_tpu_torch.nn import core
@@ -99,31 +114,37 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
                   has_kv_valid: bool, compat: str, fused: str | bool,
                   need_weights: bool, metric: str,
                   on_cuda: bool) -> str | None:
-    """The kernel that serves one attention call: "packed", "fused" or None
-    (the plain path). Under reference compat the square case is the kernel
-    with q and k swapped, and a key validity then counts as an additive
-    mask."""
-    if fused not in ("auto", True, False, "packed"):
+    """The kernel that serves one attention call: "packed", "flash",
+    "fused" or None (the plain path). Under reference compat the square
+    case is the kernel with q and k swapped, and a key validity then counts
+    as an additive mask."""
+    if fused not in ("auto", True, False, "packed", "flash"):
         raise NotImplementedError(
             f"attention route {fused!r} is not ported "
-            "(auto/fused/packed/dense)")
+            "(auto/fused/packed/flash/dense)")
     if fused == "packed":
         if metric != "oblique":
             raise ValueError("the packed kernel implements the oblique "
                              "metric only")
         return "packed"
+    if fused == "flash":
+        return "flash"
     if fused is False or not on_cuda:
         return None
     if fused is True:
         return "fused"
     if need_weights:
         return None
-    L, S = q_shape[-2], k_shape[-2]
+    L, S, Dh = q_shape[-2], k_shape[-2], q_shape[-1]
     swapped = compat == "reference" and L == S
     has_mask = has_mask or (has_kv_valid and swapped)
     if (metric == "oblique" and not has_mask and len(q_shape) >= 4
-            and q_shape[-3] * q_shape[-1] <= 128 and L * S <= 32 * 32):
+            and q_shape[-3] * Dh <= 128 and L * S <= 32 * 32):
         return "packed"
+    if has_mask:
+        return None if S > 2048 else "fused"
+    if S > 2048 or max(whole_s_smem_bytes(L, S, Dh)) > SMEM_OPTIN_BYTES:
+        return "flash"
     return "fused"
 
 
@@ -140,15 +161,17 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [..., L, S], key validity ``kv_valid`` [..., S] (1 = real key; no head
     axis). Returns (out [..., L, Dh], weights [..., L, S] or None on a kernel
     route). ``fused``: "auto" (routed by ``_kernel_route``), True (the
-    whole-S kernel on CUDA), "packed" (the key-validity kernel, additive
-    masks refused), False (plain path)."""
+    whole-S kernel on CUDA), "packed" (the small-shape key-validity kernel)
+    or "flash" (the S-tiled key-validity kernel), both refusing additive
+    masks, False (plain path)."""
     route = _kernel_route(tuple(q.shape), tuple(k.shape),
                           has_mask=mask is not None,
                           has_kv_valid=kv_valid is not None, compat=compat,
                           fused=fused, need_weights=need_weights,
                           metric=metric, on_cuda=q.is_cuda)
     swapped = compat == "reference" and q.shape[-2] == k.shape[-2]
-    kv_as_mask = kv_valid is not None and (swapped or route != "packed")
+    kv_as_mask = kv_valid is not None and (
+        swapped or route not in ("packed", "flash"))
     if kv_as_mask:
         # under the Q3 swap "key validity" would mark the wrong axis of the
         # swapped kernel: it becomes an additive mask on the unswapped
@@ -157,6 +180,9 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kvm = _kv_valid_mask(kv_valid, q)
         mask = kvm if mask is None else mask + kvm
         kv_valid = None
+    hint = (" (compat='reference' square attention expresses kv_valid as "
+            "an additive mask: quirk Q3's swap)" if swapped and kv_as_mask
+            else "")
     if route is not None:
         qq, kk = (k, q) if swapped else (q, k)
         if route == "packed":
@@ -164,11 +190,20 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(
                     "packed kernel supports key-validity masks only; pass "
                     "kv_valid instead of an additive mask, or fused=False"
-                    + (" (compat='reference' square attention expresses "
-                       "kv_valid as an additive mask: quirk Q3's swap)"
-                       if swapped and kv_as_mask else ""))
+                    + hint)
             return packed_geodesic_attention(qq, kk, v,
                                              kv_valid=kv_valid), None
+        if route == "flash":
+            if mask is not None:
+                raise ValueError(
+                    "flash kernel supports key-validity masks only; pass "
+                    "kv_valid instead of an additive mask, or use fused=True "
+                    "(S ≤ ~2k) / fused=False" + hint)
+            if kv_valid is not None:
+                while kv_valid.ndim < qq.ndim - 1:   # insert axes before S
+                    kv_valid = kv_valid[..., None, :]   # (e.g. the heads)
+            return flash_geodesic_attention(qq, kk, v, kv_valid=kv_valid,
+                                            metric=metric), None
         return fused_geodesic_attention(qq, kk, v, mask=mask,
                                         metric=metric), None
     scores = geodesic_scores(q, k, compat=compat, metric=metric)

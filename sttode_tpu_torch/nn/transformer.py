@@ -36,8 +36,8 @@ class EncoderLayerParams(NamedTuple):
 
 class LayerConfig(NamedTuple):
     """Static hyperparameters of one layer. ``attn_impl``: "auto" (the CUDA
-    kernels on CUDA tensors, routed by shape), "fused" or "packed" (one
-    kernel forced) or "dense" (plain path). ``dropout`` is carried for
+    kernels on CUDA tensors, routed by shape), "fused", "packed" or "flash"
+    (one kernel forced) or "dense" (plain path). ``dropout`` is carried for
     configs but must be 0 (not ported)."""
     d_model: int = 64
     num_heads: int = 8
@@ -51,7 +51,7 @@ class LayerConfig(NamedTuple):
 
 
 _ATTN_IMPL_TO_FUSED = {"auto": "auto", "dense": False, "fused": True,
-                       "packed": "packed"}
+                       "packed": "packed", "flash": "flash"}
 
 
 def gated_attention_init(gen, d_model: int,
@@ -115,7 +115,7 @@ def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
     if cfg.attn_impl not in _ATTN_IMPL_TO_FUSED:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported "
-            "(auto/fused/packed/dense)")
+            "(auto/fused/packed/flash/dense)")
     attn_out, _ = gated_attention(
         params.self_attn, src, src, src, cfg.num_heads, mask=mask,
         compat=cfg.compat, fused=_ATTN_IMPL_TO_FUSED[cfg.attn_impl],

@@ -252,7 +252,7 @@ def test_cli_train_trains_saves_and_resumes(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="--supervise"):
         cli_train.main(args + ["--supervise"])
     with pytest.raises(NotImplementedError, match="attn_impl"):
-        cli_train.main(args + ["--attn_impl", "flash"])
+        cli_train.main(args + ["--attn_impl", "ring"])
 
 
 def test_cli_train_checkpoints_and_stops_on_sigterm(tmp_path, monkeypatch,

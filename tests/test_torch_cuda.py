@@ -335,6 +335,175 @@ def test_auto_route_sends_small_problems_to_packed(cuda_device):
     assert tpacked.packed_geodesic_attention.launches == before + 1
 
 
+def _flash_inputs(rng, lead, L, S, Dh, valid):
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, k, v, do = arr(*lead, L, Dh), arr(*lead, S, Dh), arr(*lead, S, Dh), \
+        arr(*lead, L, Dh)
+    kv = None
+    if valid == "random":
+        kv = torch.from_numpy((rng.random((*lead, S)) < 0.7)
+                              .astype(np.float32))
+    elif valid == "all_invalid":
+        kv = torch.ones(*lead, S)
+        kv.view(-1, S)[0] = 0.0
+    return q, k, v, do, kv
+
+
+def _flash_both(q, k, v, do, kv, dev):
+    """(out, dq, dk, dv) through the public wrapper and autograd; on a CUDA
+    device the kernels, on the CPU the plain versions."""
+    leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+    out = tmhgsa.flash_geodesic_attention(
+        *leaves, kv_valid=None if kv is None else kv.to(dev))
+    grads = torch.autograd.grad(out, leaves, do.to(dev))
+    return [out.detach(), *grads]
+
+
+def _flash_plain_on(dev, q, k, v, do, kv):
+    """The plain versions, forward and both sweeps, run on ``dev`` (the
+    large shapes are too slow for the host)."""
+    *lead, L, Dh = q.shape
+    S = k.shape[-2]
+    B = int(np.prod(lead))
+    q3, k3, v3, do3 = (t.to(dev).reshape(B, -1, Dh) for t in (q, k, v, do))
+    val = None if kv is None else kv.to(dev).reshape(B, S)
+    out, lse = tmhgsa.flash_geodesic_attention_reference(q3, k3, v3, val)
+    grads = tmhgsa.flash_geodesic_attention_backward_reference(
+        q3, k3, v3, val, do3, lse, (do3 * out).sum(-1))
+    return [t.reshape(*lead, -1, Dh) for t in (out, *grads)]
+
+
+def _flash_launches():
+    return (tmhgsa.flash_geodesic_attention.launches,
+            tmhgsa.flash_geodesic_attention_backward.launches_dq,
+            tmhgsa.flash_geodesic_attention_backward.launches_dkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(lead=(11, 8), L=2304, S=2304, Dh=8, valid="none"),   # B = 2304
+    dict(lead=(8,), L=4096, S=4096, Dh=64, valid="none"),     # long context
+    dict(lead=(1,), L=300, S=1100, Dh=5, valid="none"),       # ragged
+    dict(lead=(4, 2), L=90, S=700, Dh=8, valid="all_invalid"),
+    dict(lead=(11, 8), L=1152, S=1152, Dh=8, valid="random"),  # B = 1152
+    dict(lead=(2,), L=12, S=12, Dh=8, valid="identical_qk")])
+def test_flash_kernels_match_plain(cuda_device, case):
+    """Forward, dq and dk/dv kernels against the plain versions on the same
+    device: at the NBA recipe's B = 2304 (88 problems of 2304² × 8, as the
+    Q3 swap hands them over), the long-context 8 × 4096² × 64, a ragged
+    shape, a validity with an all-invalid problem (exact zeros), the
+    B = 1152 of the whole-S kernels' fault, and q = k."""
+    rng = np.random.default_rng(case["L"] + case["S"])
+    q, k, v, do, kv = _flash_inputs(
+        rng, *(case[x] for x in ("lead", "L", "S", "Dh")),
+        "none" if case["valid"] == "identical_qk" else case["valid"])
+    if case["valid"] == "identical_qk":
+        k = q.clone()
+    before = _flash_launches()
+    got = _flash_both(q, k, v, do, kv, cuda_device)
+    torch.cuda.synchronize()
+    assert _flash_launches() == tuple(b + 1 for b in before)
+    with torch.no_grad():
+        want = _flash_plain_on(cuda_device, q, k, v, do, kv)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    _grad_check([g.cpu() for g in got[1:]], [w.cpu() for w in want[1:]])
+    if case["valid"] == "all_invalid":
+        first = [t.reshape(-1, *t.shape[-2:])[0] for t in got]
+        assert all(bool(torch.all(t == 0)) for t in first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sweep(16, 17, lambda r: dict(
+    B=int(r.integers(1, 6)), L=int(r.integers(1, 400)),
+    S=int(r.integers(1, 700)),
+    Dh=int(r.choice([1, 3, 5, 8, 13, 16, 32, 33, 64, 100, 128])),
+    valid=str(r.choice(["none", "random"])))))
+def test_flash_kernels_randomized_sweep(cuda_device, case):
+    """Random problem counts, L, S (not multiples of the 128-row tiles) and
+    head dims up to 128, with and without a random key validity: forward
+    and q, k, v gradients against the plain versions on the CPU."""
+    rng = np.random.default_rng(case["L"] * 131 + case["S"] * 7 + case["Dh"])
+    ins = _flash_inputs(rng, (case["B"],),
+                        *(case[x] for x in ("L", "S", "Dh", "valid")))
+    want = _flash_both(*ins, "cpu")
+    got = _flash_both(*ins, cuda_device)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    _grad_check(got[1:], want[1:])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_wide_heads(cuda_device):
+    q = torch.randn(1, 4, 130, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tmhgsa._launch_flash(q, q, q, None)
+
+
+@pytest.mark.cuda
+def test_train_step_at_1152_scenes_runs_on_flash(cuda_device):
+    """The scene-axis training forward and backward at B = 1152 scenes × 11
+    agents, beyond the whole-S backward kernel's shared memory: on the
+    kernel route it goes through the flash kernels (both trunks) and none of
+    the whole-S ones, and equals the dense route with the same parameters,
+    batch and noise (plain selection decode on both, as the CLI runs it):
+    every loss term within 1e-4 × max(1, |loss|); every gradient leaf
+    within 1e-4 in relative L2 and every element within 1e-3 of the leaf's
+    largest magnitude. Per element, 1e-4 is too tight at this size: among
+    25,344 decoder rows a ReLU whose input lies within rounding of 0 can
+    switch between the routes and move a few elements of one leaf
+    discretely (on an H100 at this batch, two elements of a bias moved by
+    1.3e-4 of its largest value while the rest agreed to 1e-8; no winner of
+    the best-of-K selection differed)."""
+    B, N = 1152, 11
+    cfg = tm.STTODEConfig(past_length=5, future_length=10, min_clip=0.0,
+                          select_impl="xla").validate()
+    scenes = make_social_scenes(B, agents_range=(N, N), obs_len=5,
+                                pred_len=10, seed=9)
+    batch, _ = prepare_scene_group(
+        np.stack([s["obs"] for s in scenes]),
+        np.stack([s["pred"] for s in scenes]), np.ones((B, N), np.float32),
+        training=True, rng=np.random.default_rng(9))
+    batch = batch.to(cuda_device)
+    M = B * N
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    noise = tm.TrainNoise(
+        torch.rand(M, 5, 64, device=cuda_device, generator=gen) >= 0.1,
+        torch.rand(M, 10, 64, device=cuda_device, generator=gen) >= 0.1,
+        torch.randn(M, 32, device=cuda_device, generator=gen),
+        torch.randn(M * 20, 32, device=cuda_device, generator=gen))
+    params0 = tm.sttode_init(9, cfg)
+
+    def run(c):
+        p = to_device(params0, cuda_device)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+        out = tm.sttode_forward(p, c, batch, noise=noise)
+        out.total_loss.backward()
+        return out, [t.grad for t in leaves]
+
+    before = (*_flash_launches(), tmhgsa.fused_geodesic_attention.launches,
+              tmhgsa.fused_geodesic_attention_backward.launches)
+    got, g_got = run(cfg)
+    torch.cuda.synchronize()
+    after = (*_flash_launches(), tmhgsa.fused_geodesic_attention.launches,
+             tmhgsa.fused_geodesic_attention_backward.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2, 0, 0)
+    want, g_want = run(cfg._replace(attn_impl="dense"))
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        a = float(getattr(got, name).detach())
+        b = float(getattr(want, name).detach())
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (name, a, b)
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert bool(torch.isfinite(a).all()), i
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a - b).abs().max()) <= 1e-3 * scale, i
+        assert float(torch.linalg.vector_norm(a - b)) <= \
+            1e-4 * max(float(torch.linalg.vector_norm(b)), 1e-6), i
+
+
 @pytest.fixture(scope="module")
 def decoder():
     cfg = tm.STTODEConfig(past_length=5, future_length=10).validate()

@@ -228,7 +228,7 @@ def test_ode_encoder(rng, layer_setup, compat, method, steps):
 def test_unported_routes_raise(rng):
     q = T(randn(rng, 2, 4, 8))
     with pytest.raises(NotImplementedError):
-        tattn.geodesic_attention(q, q, q, fused="flash")
+        tattn.geodesic_attention(q, q, q, fused="ring")
     with pytest.raises(NotImplementedError):
         tattn.geodesic_scores(q, q, metric="poincare")
     with pytest.raises(NotImplementedError):

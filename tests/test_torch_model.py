@@ -172,7 +172,8 @@ def test_bridge_rejects_unknown_namedtuples():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("attn_impl", "flash"), ("attn_impl", "ring"), ("attn_metric", "poincare"),
+    ("attn_impl", "ulysses"), ("attn_impl", "ring"),
+    ("attn_metric", "poincare"),
     ("ode_method", "dopri5"), ("ode_adjoint", True), ("learn_prior", True),
     ("compute_dtype", "bfloat16"), ("dropout", 0.1), ("num_decompose", 3)])
 def test_config_refuses_unported_settings(field, value):

@@ -25,6 +25,7 @@ import torch
 from sttode_tpu.kernels import packed_mhgsa as jpacked
 from sttode_tpu.nn import attention as jattn
 from sttode_tpu_torch.bridge import params_from_jax
+from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.nn import attention as tattn
 
@@ -182,14 +183,21 @@ ROUTE_SHAPES = [
     ((2, 4, 4, 16), (2, 4, 256, 16)),    # rectangular, L·S = 32²
     ((2, 4, 8, 16), (2, 4, 256, 16)),    # rectangular, L·S = 2·32²
     ((1, 2, 7, 8), (1, 2, 13, 8)),       # odd rectangular
+    ((11, 8, 1152, 8), (11, 8, 1152, 8)),  # B = 1152: port flash, JAX fused
+    ((11, 8, 2304, 8), (11, 8, 2304, 8)),  # B = 2304: both flash
 ]
+
+
+class _RouteSeen(Exception):
+    pass
 
 
 def _jax_route(monkeypatch, q_shape, k_shape, *, mask, kv, compat, fused,
                need_weights):
     """The route JAX's geodesic_attention picks on a TPU (its VMEM guard
-    lifted), recorded from inside the call; the call itself then runs the
-    dense path on the CPU."""
+    lifted), recorded from inside the call, which then stops: nothing of
+    the attention itself is computed (the shapes reach L = S = 2304). The
+    additive mask is a zero row broadcast over the query rows."""
     seen = []
     real = jattn._kernel_route
 
@@ -198,16 +206,18 @@ def _jax_route(monkeypatch, q_shape, k_shape, *, mask, kv, compat, fused,
             m.setattr(jax, "default_backend", lambda: "tpu")
             m.setattr(jpacked, "packed_vmem_fit", lambda *a: True)
             seen.append(real(*args, **kw))
-        return None
+        raise _RouteSeen
 
     monkeypatch.setattr(jattn, "_kernel_route", spy)
     q = jnp.zeros(q_shape) + 0.5
     k = jnp.zeros(k_shape) + 0.25
     lead = q_shape[:-3] if len(q_shape) >= 4 else q_shape[:-2]
-    jattn.geodesic_attention(
-        q, k, k, mask=jnp.zeros((*q_shape[:-1], k_shape[-2])) if mask
-        else None, kv_valid=jnp.ones((*lead, k_shape[-2])) if kv else None,
-        compat=compat, fused=fused, need_weights=need_weights)
+    with pytest.raises(_RouteSeen):
+        jattn.geodesic_attention(
+            q, k, k, mask=jnp.zeros((*q_shape[:-2], 1, k_shape[-2])) if mask
+            else None, kv_valid=jnp.ones((*lead, k_shape[-2])) if kv
+            else None, compat=compat, fused=fused,
+            need_weights=need_weights)
     monkeypatch.setattr(jattn, "_kernel_route", real)
     (route,) = seen
     return route
@@ -216,15 +226,21 @@ def _jax_route(monkeypatch, q_shape, k_shape, *, mask, kv, compat, fused,
 @pytest.mark.parametrize("q_shape,k_shape", ROUTE_SHAPES, ids=str)
 def test_route_matches_jax_predicate(monkeypatch, q_shape, k_shape):
     """On the card "auto" picks the packed kernel exactly where the JAX
-    predicate does (minus its TPU VMEM guard) and the whole-S kernel
-    everywhere else JAX would run a kernel or XLA; forced routes and the
-    plain route agree with JAX's; in both compat modes, with and without an
-    additive mask or a key validity. On the CPU only a forced "packed"
-    leaves the plain path."""
+    predicate does (minus its TPU VMEM guard), the flash kernel wherever JAX
+    does (S > 2048, maskless) and the whole-S kernel everywhere else JAX
+    would run a kernel or XLA — with one H100 deviation: a maskless problem
+    that the whole-S kernels would refuse for shared memory goes to flash
+    (at Dh = 8 their backward refuses L = S > 1036, where JAX runs its fused
+    kernel up to S = 2048). Forced routes and the plain route agree with
+    JAX's; in both compat modes, with and without an additive mask or a key
+    validity. On the CPU only a forced "packed" or "flash" leaves the plain
+    path."""
+    L, S, Dh = q_shape[-2], k_shape[-2], q_shape[-1]
+    fits = max(tmhgsa.whole_s_smem_bytes(L, S, Dh)) <= tmhgsa.SMEM_OPTIN_BYTES
     for compat in ("reference", "tpu"):
         for mask in (False, True):
             for kv in (False, True):
-                for fused in ("auto", True, "packed", False):
+                for fused in ("auto", True, "packed", "flash", False):
                     for need_weights in ((False, True) if fused == "auto"
                                          else (False,)):
                         flags = dict(compat=compat, fused=fused,
@@ -236,13 +252,22 @@ def test_route_matches_jax_predicate(monkeypatch, q_shape, k_shape):
                             metric="oblique", on_cuda=on, **flags)
                             for on in (True, False)}
                         what = (compat, mask, kv, fused, need_weights, jr)
+                        maskless = not mask and not (
+                            kv and compat == "reference" and L == S)
                         if fused == "auto" and not need_weights:
-                            assert route[True] == (
-                                "packed" if jr == "packed" else "fused"), what
+                            if jr in ("packed", "flash"):
+                                want = jr
+                            elif jr is None and S > 2048:
+                                want = None    # masked beyond S = 2048
+                            else:
+                                want = ("flash" if maskless and not fits
+                                        else "fused")
+                            assert route[True] == want, what
                         else:
                             assert route[True] == jr, what
                         assert route[False] == (
-                            "packed" if fused == "packed" else None), what
+                            fused if fused in ("packed", "flash")
+                            else None), what
 
 
 @pytest.mark.parametrize("compat", ["tpu", "reference"])
