@@ -49,7 +49,25 @@ paths, then drives both paths at the full width of the repo's model
            and ``cli.test`` on its checkpoint; the fp32 step at B = 2304 on
            the kernel route against the dense route; one step at B = 1152,
            beyond the whole-S backward kernel's shared memory; step time,
-           train scenes/s and idle share of both routes at B = 2304.
+           train scenes/s and idle share of both routes at B = 2304;
+  phase 13 the poincaré branches of the geodesic-attention kernels against
+           their plain versions, on ball points: the whole-S forward and
+           backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
+           88 × 128² × 8, the forward with the agent-axis server's key mask;
+           the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
+           swapped) and 8 × 4096² × 64; then the masked whole-S backward at
+           8 × 1500² × 8, beyond shared memory (its device-workspace mode),
+           in both metrics;
+  phase 14 the poincaré path end to end: ``cli.train --attn_metric
+           poincare`` for 2 epochs at B = 32, a resume from epoch 1, and
+           ``cli.test`` on its checkpoint (the poincaré whole-S kernels); the fp32 step at B = 32
+           on the kernel route against the dense route (and both against the
+           dense route in float64); ``--batch_size 2304`` for 1 epoch of 2
+           steps (the poincaré flash kernels only); the flash-route step
+           against the dense route at the largest of B = 2304 and 1152 that
+           the dense route's memory allows; the agent-axis ``Predictor`` with
+           the poincaré metric against the dense route; step time, train
+           scenes/s and idle share of both routes at B = 32 and B = 2304.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -100,56 +118,76 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def attn_fwd_work(B, L, S, Dh, masked):
+# Elementwise operations per (i, j) pair beyond the FMAs, by metric. The
+# poincaré score (poincare.cuh) is 19: x2 − 2g + y2 (2), max, den
+# (x2·y2 and two FMAs, 3), + ε, m·den, (den + ε)², ÷, + 1e-15, √, × √c,
+# min, 1 ± zc (2), ÷, log, × −1/√c; its VJP another 22: 1 − zc² (2), max,
+# ÷, × ds, dn·½/n (2), + ε, A (2), Bd (4), a (2), b (2), dg (4).
+SCORE_OPS = {"oblique": 3, "poincare": 19}       # oblique: clip ×2, acos
+SCORE_VJP_OPS = {"oblique": 4, "poincare": 22}   # |g| test, 1 − gc², rsqrt, × gate
+
+
+def attn_fwd_work(B, L, S, Dh, masked, metric="oblique"):
     """Bytes (q, k, v and the mask read once, out written once) and
-    operations: per (i, j) pair the Gram and p·V FMAs (4·Dh) and six
-    elementwise ones (clip ×2, acos, add, exp, sum); fp32."""
+    operations: per (i, j) pair the Gram and p·V FMAs (4·Dh), the score
+    (``SCORE_OPS``) and three elementwise ones (add, exp, sum); fp32."""
     nbytes = 4 * (2 * B * L * Dh + 2 * B * S * Dh + (B * L * S if masked
                                                      else 0))
-    return nbytes, B * L * S * (4 * Dh + 6)
+    return nbytes, B * L * S * (4 * Dh + SCORE_OPS[metric] + 3)
 
 
-def attn_bwd_work(B, L, S, Dh, masked):
+def attn_bwd_work(B, L, S, Dh, masked, metric="oblique"):
     """Bytes: q, k, v, do (and the mask) read once; dq, dk, dv (and dmask)
     written once. Operations per (i, j): the recomputed Gram, dp, dq̂, dk̂
-    and dv FMAs (10·Dh) and eleven elementwise ones."""
+    and dv FMAs (10·Dh), the score and its VJP (``SCORE_OPS``,
+    ``SCORE_VJP_OPS``) and four elementwise ones (add, exp, p, ds); the
+    poincaré dx2 and dy2 sums add four more."""
     nbytes = 4 * (3 * B * L * Dh + 4 * B * S * Dh + (2 * B * L * S if masked
                                                      else 0))
-    return nbytes, B * L * S * (10 * Dh + 11)
+    return nbytes, B * L * S * (10 * Dh + SCORE_OPS[metric] + 4
+                                + SCORE_VJP_OPS[metric]
+                                + (4 if metric == "poincare" else 0))
 
 
-def flash_fwd_work(B, L, S, Dh, has_val):
+def flash_fwd_work(B, L, S, Dh, has_val, metric="oblique"):
     """Bytes: q, k, v (and the validity) read once, out and the per-row lse
     written once. Operations per (i, j): as ``attn_fwd_work``."""
     nbytes = 4 * (2 * B * L * Dh + 2 * B * S * Dh + B * L
                   + (B * S if has_val else 0))
-    return nbytes, B * L * S * (4 * Dh + 6)
+    return nbytes, B * L * S * (4 * Dh + SCORE_OPS[metric] + 3)
 
 
-def flash_dq_work(B, L, S, Dh, has_val):
+def _sweep_ops(metric):
+    """Elementwise operations per (i, j) of one backward sweep: the replayed
+    score, − lse, exp, − δ, × p, the score's VJP, and the poincaré dx2 (or
+    dy2) sum (2)."""
+    return SCORE_OPS[metric] + 4 + SCORE_VJP_OPS[metric] + (
+        2 if metric == "poincare" else 0)
+
+
+def flash_dq_work(B, L, S, Dh, has_val, metric="oblique"):
     """The dq sweep replays the scores. Bytes: q, k, v, do, lse, δ (and the
     validity) read once, dq written once. Operations per (i, j): the Gram,
-    do·v and dq̂ FMAs (6·Dh) and eleven elementwise ones (clip ×2, acos,
-    − lse, exp, − δ, × p, the |g| test, 1 − gc², rsqrt, × gate)."""
+    do·v and dq̂ FMAs (6·Dh) and ``_sweep_ops`` (eleven oblique)."""
     nbytes = 4 * (3 * B * L * Dh + 2 * B * S * Dh + 2 * B * L
                   + (B * S if has_val else 0))
-    return nbytes, B * L * S * (6 * Dh + 11)
+    return nbytes, B * L * S * (6 * Dh + _sweep_ops(metric))
 
 
-def flash_dkv_work(B, L, S, Dh, has_val):
+def flash_dkv_work(B, L, S, Dh, has_val, metric="oblique"):
     """The dk/dv sweep replays the scores again. Bytes: q, k, v, do, lse, δ
     (and the validity) read once, dk and dv written once. Operations per
-    (i, j): the Gram, do·v, dv and dk̂ FMAs (8·Dh) and the same eleven."""
+    (i, j): the Gram, do·v, dv and dk̂ FMAs (8·Dh) and ``_sweep_ops``."""
     nbytes = 4 * (2 * B * L * Dh + 4 * B * S * Dh + 2 * B * L
                   + (B * S if has_val else 0))
-    return nbytes, B * L * S * (8 * Dh + 11)
+    return nbytes, B * L * S * (8 * Dh + _sweep_ops(metric))
 
 
-def flash_bwd_work(B, L, S, Dh, has_val):
+def flash_bwd_work(B, L, S, Dh, has_val, metric="oblique"):
     """Both sweeps of the flash backward: each replays the scores, so the
-    Gram, acos and exp of every pair are counted twice."""
-    (b1, o1), (b2, o2) = (flash_dq_work(B, L, S, Dh, has_val),
-                          flash_dkv_work(B, L, S, Dh, has_val))
+    Gram, score and exp of every pair are counted twice."""
+    (b1, o1), (b2, o2) = (flash_dq_work(B, L, S, Dh, has_val, metric),
+                          flash_dkv_work(B, L, S, Dh, has_val, metric))
     return b1 + b2, o1 + o2
 
 
@@ -372,7 +410,18 @@ def main() -> int:
                 "packed_bwd": kp.packed_geodesic_attention_backward.launches,
                 "select_fp32": ks.select_decode.launches_by_dtype[
                     torch.float32],
-                "select_bf16": ks.select_decode.launches_by_dtype[bf16]}
+                "select_bf16": ks.select_decode.launches_by_dtype[bf16],
+                # the poincaré launches among the geodesic-attention ones
+                **{f"{n}_p": d["poincare"] for n, d in by_metric.items()}}
+
+    by_metric = {
+        "attn": km.fused_geodesic_attention.launches_by_metric,
+        "attn_bwd": km.fused_geodesic_attention_backward.launches_by_metric,
+        "flash": km.flash_geodesic_attention.launches_by_metric,
+        "flash_dq":
+            km.flash_geodesic_attention_backward.launches_dq_by_metric,
+        "flash_dkv":
+            km.flash_geodesic_attention_backward.launches_dkv_by_metric}
 
     def reset():
         km.fused_geodesic_attention.launches = 0
@@ -385,6 +434,8 @@ def main() -> int:
         ks.select_decode.launches = 0
         ks.select_decode.launches_by_dtype.update(
             {torch.float32: 0, bf16: 0})
+        for d in by_metric.values():
+            d.update(dict.fromkeys(d, 0))
 
     rng = np.random.default_rng(0)
 
@@ -398,13 +449,14 @@ def main() -> int:
         return None if mask is None else km._canonicalize_mask(
             torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S))
 
-    def attn_plain(q, k, v, mask):
+    def attn_plain(q, k, v, mask, metric="oblique", curvature=1.0):
         *lead, L, Dh = q.shape
         S = k.shape[-2]
         B = int(np.prod(lead))
         return km.fused_geodesic_attention_reference(
             q.reshape(B, L, Dh), k.reshape(B, S, Dh), v.reshape(B, S, Dh),
-            flat_mask(mask, lead, L, S)).reshape(*lead, L, Dh)
+            flat_mask(mask, lead, L, S), metric, curvature).reshape(
+                *lead, L, Dh)
 
     fmin = torch.finfo(torch.float32).min
     # training: reference compat, scene axis (128 scenes × 11 agents), swapped
@@ -906,20 +958,27 @@ def main() -> int:
     from sttode_tpu_torch.data.preprocess import prepare_nba_batch
     from sttode_tpu_torch.train import step_lr
 
-    steps10 = 20                                    # train steps per epoch
-    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+    def nba_files(tmp, n_train, seed):
+        """Synthetic NBA files in the dataset's format ([S, 15, 11, 2] feet,
+        random walks from ``seed``): ``n_train`` train and 256 test scenes
+        under ``tmp``; returns their directory and the CLIs' flags."""
         nba_dir = os.path.join(tmp, "data", "nba")
         os.makedirs(nba_dir)
-        data_rng = np.random.default_rng(10)
-        for fname, n in (("train.npy", steps10 * 32), ("test.npy", 2 * 128)):
+        data_rng = np.random.default_rng(seed)
+        for fname, n in (("train.npy", n_train), ("test.npy", 2 * 128)):
             start = data_rng.uniform([0.0, 0.0], [94.0, 50.0],
                                      size=(n, 1, 11, 2))
             walk = data_rng.normal(0.0, 1.0, size=(n, 15, 11, 2)).cumsum(1)
             np.save(os.path.join(nba_dir, fname),
                     (start + walk).astype(np.float32))
-        flags = ["--dataset", "nba", "--data_root", os.path.join(tmp, "data"),
-                 "--ckpt_dir", os.path.join(tmp, "ck"), "--log_every", "0",
-                 "--model_save_epoch", "1"]
+        return nba_dir, ["--dataset", "nba", "--data_root",
+                         os.path.join(tmp, "data"), "--ckpt_dir",
+                         os.path.join(tmp, "ck"), "--log_every", "0",
+                         "--model_save_epoch", "1"]
+
+    steps10 = 20                                    # train steps per epoch
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        nba_dir, flags = nba_files(tmp, steps10 * 32, 10)
         reset()   # the main path: train, resume, evaluate
         run10 = cli_train.main(flags + ["--num_epochs", "2"])
         resumed = cli_train.main(flags + ["--num_epochs", "2",
@@ -1118,7 +1177,8 @@ def main() -> int:
                 txt += (f"; backward flash (dq + dkv) {bwd[0]:.4f} ms vs "
                         f"kernel C {bwd[1]:.4f} ms")
             else:
-                txt += "; backward: kernel C refuses this shape"
+                txt += ("; backward: beyond kernel C's shared memory (its "
+                        "workspace mode: phase 13)")
             txt += ("; device time not measured (no device time in the "
                     "trace)" if None in dev_us else
                     "; device µs/launch " + ", ".join(
@@ -1139,18 +1199,7 @@ def main() -> int:
     #     flash), then the step on both routes and at B = 1152
     B12 = 2304
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
-        nba_dir = os.path.join(tmp, "data", "nba")
-        os.makedirs(nba_dir)
-        data_rng = np.random.default_rng(12)
-        for fname, n in (("train.npy", 2 * B12), ("test.npy", 2 * 128)):
-            start = data_rng.uniform([0.0, 0.0], [94.0, 50.0],
-                                     size=(n, 1, 11, 2))
-            walk = data_rng.normal(0.0, 1.0, size=(n, 15, 11, 2)).cumsum(1)
-            np.save(os.path.join(nba_dir, fname),
-                    (start + walk).astype(np.float32))
-        flags = ["--dataset", "nba", "--data_root", os.path.join(tmp, "data"),
-                 "--ckpt_dir", os.path.join(tmp, "ck"), "--log_every", "0",
-                 "--model_save_epoch", "1"]
+        nba_dir, flags = nba_files(tmp, 2 * B12, 12)
         reset()   # the main path: train at B = 2304, then evaluate
         run12 = cli_train.main(flags + ["--batch_size", str(B12),
                                         "--num_epochs", "1"])
@@ -1209,7 +1258,8 @@ def main() -> int:
     del out_k12, g_k12, out_p12, g_p12
     torch.cuda.empty_cache()
 
-    # one step at B = 1152: the whole-S backward kernel refuses L = S > 1036
+    # one step at B = 1152: beyond the whole-S backward kernel's shared
+    # memory, so a maskless problem goes to flash
     (data1152,) = nba_batches(past12[:1152], fut12[:1152], 1152)
     batch1152 = prepare_nba_batch(data1152).to(dev)
     step1152 = make_train_step(cfg12, 1e-4, device=dev)
@@ -1234,6 +1284,379 @@ def main() -> int:
                 [step_p12, *step_p12.init(params12)]],
                batch12, gen12, B12, f"phase 12 NBA recipe step at B = {B12}",
                card, rounds=4)
+
+    # 13. the poincaré kernels against their plain versions, on ball points
+    #     (the attention layer's map of rows of norm ~0.5: mid-ball, where
+    #     fp32 summation orders agree to the tolerances), then the masked
+    #     whole-S backward beyond shared memory (its workspace mode) in both
+    #     metrics
+    from sttode_tpu_torch.nn.attention import to_ball
+    C = 1.0                                         # the CLIs' default
+    P = dict(metric="poincare", curvature=C)
+
+    def ball(*shape):
+        return to_ball(randn(*shape) * (0.5 / shape[-1] ** 0.5), C)
+
+    q32, k32 = ball(11, 8, 32, 8), ball(11, 8, 32, 8)
+    v32 = randn(11, 8, 32, 8)
+    qe, ke, ve = ball(11, 8, 128, 8), ball(11, 8, 128, 8), randn(11, 8, 128, 8)
+    p32 = "nba_b32_q11x8x32x8_swapped"
+    pcases = {
+        p32: (k32, q32, v32, None),
+        "nba_eval_q11x8x128x8_swapped": (ke, qe, ve, None),
+        "agent_axis_q64x8x8x8_masked": (ball(64, 8, 8, 8), ball(64, 8, 8, 8),
+                                        vb, mask_b),
+    }
+    perr = {"fwd": 0.0, "bwd": 0.0}
+    ptimes = {}
+    for name, (q, k, v, mask) in pcases.items():
+        *lead, L, _ = q.shape
+        S = k.shape[-2]
+        args = bwd_case(q, k, v, mask, randn(*q.shape), lead, L, S)
+        need = mask is not None
+        with torch.inference_mode():
+            got = km.fused_geodesic_attention(q, k, v, mask=mask, **P)
+            want = attn_plain(q, k, v, mask, **P)
+            got_b = km.fused_geodesic_attention_backward(
+                *args, need_dmask=need, **P)
+            want_b = km.fused_geodesic_attention_backward_reference(
+                *args, need, "poincare", C)
+            torch.cuda.synchronize()
+        errs = {"out": max_err(got, want)}
+        require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        require(errs["out"] <= ATTN_TOL,
+                f"{name}: max abs err {errs['out']} > {ATTN_TOL}")
+        for g_name, g, w in zip(("dq", "dk", "dv", "dmask"), got_b, want_b):
+            if w is None:
+                continue
+            require(bool(torch.isfinite(g).all()), f"{name}: {g_name} NaN")
+            errs[g_name] = max_err(g, w)
+            tol = ATTN_GRAD_TOL * max(1.0, float(w.abs().max()))
+            require(errs[g_name] <= tol,
+                    f"{name} {g_name}: max abs err {errs[g_name]} > {tol}")
+        perr["fwd"] = max(perr["fwd"], errs["out"])
+        perr["bwd"] = max([perr["bwd"]] + [e for n, e in errs.items()
+                                          if n != "out"])
+        with torch.inference_mode():
+            t = (paired_ms(
+                lambda: km.fused_geodesic_attention(q, k, v, mask=mask, **P),
+                lambda: attn_plain(q, k, v, mask, **P)),
+                paired_ms(
+                lambda: km.fused_geodesic_attention_backward(
+                    *args, need_dmask=need, **P),
+                lambda: km.fused_geodesic_attention_backward_reference(
+                    *args, need, "poincare", C)))
+            us = [device_us(fn) for fn in (
+                lambda: km.fused_geodesic_attention(q, k, v, mask=mask, **P),
+                lambda: km.fused_geodesic_attention_backward(
+                    *args, need_dmask=need, **P))]
+        ptimes[name] = t
+        print(f"poincare whole-S {name}: max_abs_err " + ", ".join(
+            f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+            + f"; forward kernel {t[0][0]:.4f} ms plain {t[0][1]:.4f} ms, "
+            f"backward kernel {t[1][0]:.4f} ms plain {t[1][1]:.4f} ms; "
+            + ("device time not measured (no device time in the trace)"
+               if None in us else
+               "device µs/launch forward {:.2f}, backward {:.2f}".format(*us))
+            + f"  [{card}]")
+
+    qf, kf = ball(88, 2304, 8), ball(88, 2304, 8)
+    pf2304 = "nba_b2304_q11x8x2304x8_swapped"
+    pflash = {
+        pf2304: (kf, qf, randn(88, 2304, 8), randn(88, 2304, 8)),
+        "long_context_q8x4096x4096x64": (ball(8, 4096, 64), ball(8, 4096, 64),
+                                         randn(8, 4096, 64),
+                                         randn(8, 4096, 64)),
+    }
+    pflash_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    pflash_times = {}
+    for name, (q, k, v, do) in pflash.items():
+        with torch.inference_mode():
+            out, lse = km._flash_forward(q, k, v, None, **P)
+            want = km.flash_geodesic_attention_reference(q, k, v, None, **P)
+            args = (q, k, v, None, do, lse, torch.sum(do * out, dim=-1),
+                    "poincare", C)
+            got_b = (km._launch_flash_dq(*args), *km._launch_flash_dkv(*args))
+            want_b = (km.flash_dq_reference(*args),
+                      *km.flash_dkv_reference(*args))
+            torch.cuda.synchronize()
+        errs = {}
+        for g_name, g, w, tol in (
+                ("out", out, want[0], ATTN_TOL),
+                ("lse", lse, want[1], ATTN_TOL),
+                *((n, g, w, ATTN_GRAD_TOL * max(1.0, float(w.abs().max())))
+                  for n, g, w in zip(("dq", "dk", "dv"), got_b, want_b))):
+            require(bool(torch.isfinite(g).all()), f"{name}: {g_name} NaN")
+            errs[g_name] = max_err(g, w)
+            require(errs[g_name] <= tol,
+                    f"{name} {g_name}: max abs err {errs[g_name]} > {tol}")
+        pflash_err["fwd"] = max(pflash_err["fwd"], errs["out"], errs["lse"])
+        pflash_err["dq"] = max(pflash_err["dq"], errs["dq"])
+        pflash_err["dkv"] = max(pflash_err["dkv"], errs["dk"], errs["dv"])
+        with torch.inference_mode():
+            t = {"fwd": paired_ms(
+                lambda: km._flash_forward(q, k, v, None, **P),
+                lambda: km.flash_geodesic_attention_reference(q, k, v, None,
+                                                              **P),
+                calls=3, rounds=4),
+                 "dq": paired_ms(lambda: km._launch_flash_dq(*args),
+                                 lambda: km.flash_dq_reference(*args),
+                                 calls=3, rounds=4),
+                 "dkv": paired_ms(lambda: km._launch_flash_dkv(*args),
+                                  lambda: km.flash_dkv_reference(*args),
+                                  calls=3, rounds=4)}
+            us = [device_us(fn, calls=5) for fn in (
+                lambda: km._flash_forward(q, k, v, None, **P),
+                lambda: km._launch_flash_dq(*args),
+                lambda: km._launch_flash_dkv(*args))]
+        pflash_times[name] = t
+        B_, L_, Dh_ = q.shape
+        bnd = [bound(*w(B_, L_, k.shape[1], Dh_, False, "poincare"),
+                     FP32_FLOP_PER_S)[0]
+               for w in (flash_fwd_work, flash_dq_work, flash_dkv_work)]
+        print(f"poincare flash {name}: max_abs_err " + ", ".join(
+            f"{k_} {v_:.3e}" for k_, v_ in errs.items()) + "; " + ", ".join(
+            f"{k_} kernel {v_[0]:.4f} ms plain {v_[1]:.4f} ms"
+            for k_, v_ in t.items())
+            + "; bounds fwd {:.4f}, dq {:.4f}, dkv {:.4f} ms".format(*bnd)
+            + ("; device time not measured (no device time in the trace)"
+               if None in us else
+               "; device µs/launch fwd {:.1f}, dq {:.1f}, dkv {:.1f}".format(
+                   *us)) + f"  [{card}]")
+    del pflash, qf, kf, out, lse, want, got_b, want_b, args
+    torch.cuda.empty_cache()
+
+    # the masked whole-S backward at 8 × 1500² × 8: its staging (224·S + 256
+    # bytes) passes the block's shared memory, so the kernel stages each
+    # problem in a device workspace; one row of each problem is all excluded
+    ws_err, ws_times = {}, {}
+    for metric in ("oblique", "poincare"):
+        L = 1500
+        q, k = ((ball(8, L, 8), ball(8, L, 8)) if metric == "poincare"
+                else (randn(8, L, 8), randn(8, L, 8)))
+        mask = torch.where(torch.from_numpy(rng.random((8, L, L)) < 0.2)
+                           .to(dev), fmin, randn(8, L, L))
+        mask[:, 0] = fmin
+        args = (q, k, randn(8, L, 8), km._canonicalize_mask(mask),
+                randn(8, L, 8))
+        require(km.whole_s_smem_bytes(L, L, 8, metric)[1]
+                > km.SMEM_OPTIN_BYTES, "phase 13: 1500² fits shared memory")
+        kw = dict(metric=metric, curvature=C)
+        with torch.inference_mode():
+            got = km.fused_geodesic_attention_backward(*args, need_dmask=True,
+                                                       **kw)
+            want = km.fused_geodesic_attention_backward_reference(
+                *args, True, metric, C)
+            torch.cuda.synchronize()
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+            require(bool(torch.isfinite(g).all()), f"{metric}: {g_name} NaN")
+            errs[g_name] = max_err(g, w)
+            tol = ATTN_GRAD_TOL * max(1.0, float(w.abs().max()))
+            require(errs[g_name] <= tol, f"phase 13 masked 1500² {metric} "
+                    f"{g_name}: max abs err {errs[g_name]} > {tol}")
+        require(bool((got[0][:, 0] == 0).all() and (got[3][:, 0] == 0).all()),
+                "phase 13: an all-excluded row must get a zero gradient")
+        ws_err[metric] = max(errs.values())
+        with torch.inference_mode():
+            ws_times[metric] = paired_ms(
+                lambda: km.fused_geodesic_attention_backward(
+                    *args, need_dmask=True, **kw),
+                lambda: km.fused_geodesic_attention_backward_reference(
+                    *args, True, metric, C), calls=3, rounds=4)
+        print(f"masked whole-S backward 8 x 1500 x 1500 x 8 {metric} "
+              f"(device workspace): max_abs_err " + ", ".join(
+                  f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+              + f"; kernel {ws_times[metric][0]:.4f} ms plain "
+              f"{ws_times[metric][1]:.4f} ms  [{card}]")
+    bwd_err = max(bwd_err, ws_err["oblique"])
+    perr["bwd"] = max(perr["bwd"], ws_err["poincare"])
+    del mask, args, got, want
+    torch.cuda.empty_cache()
+
+    # 14. the poincaré path end to end: the NBA recipe with
+    #     --attn_metric poincare through the CLIs at B = 32 and at B = 2304,
+    #     both routes' steps, and the agent-axis server
+    from sttode_tpu_torch.train import checkpoint as tck
+    poincare_flags = ["--attn_metric", "poincare", "--curvature", str(C)]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        nba_dir, flags = nba_files(tmp, 10 * 32, 14)
+        flags += poincare_flags
+        reset()   # the main path: train, resume, evaluate the checkpoint
+        run14 = cli_train.main(flags + ["--num_epochs", "2"])
+        resumed14 = cli_train.main(flags + ["--num_epochs", "2",
+                                            "--epoch_continue", "1"])
+        torch.cuda.synchronize()
+        launches14_train = counts()
+        best14 = cli_test.main(flags)
+        torch.cuda.synchronize()
+        launches14 = counts()
+        ck14 = tck.load_checkpoint(tck.checkpoint_path(
+            os.path.join(tmp, "ck", "nba"), 2))[3]
+        past14, fut14 = load_nba(nba_dir)
+    require((ck14.attn_metric, ck14.curvature) == ("poincare", C)
+            and [h[0] for h in resumed14.history] == [1]
+            and resumed14.cfg.attn_metric == "poincare",
+            f"phase 14: the checkpoint's config says {ck14.attn_metric}, "
+            f"c = {ck14.curvature}; the resumed run {resumed14.history}")
+    require(launches14_train["attn_p"] > 0
+            and launches14_train["attn_bwd_p"] > 0
+            and launches14_train["attn"] == launches14_train["attn_p"]
+            and launches14_train["attn_bwd"] == launches14_train["attn_bwd_p"]
+            and launches14_train["packed"] == 0
+            and launches14_train["flash"] == 0,
+            f"phase 14: the CLI's poincaré training at B = 32 did not run on "
+            f"the poincaré whole-S kernels alone {launches14_train}")
+    require(launches14["attn_p"] > launches14_train["attn_p"],
+            f"phase 14: evaluation did not launch the poincaré forward "
+            f"{launches14}")
+    for epoch, lr, means in run14.history + resumed14.history:
+        require(all(np.isfinite(list(means.values()))),
+                f"phase 14: non-finite loss at epoch {epoch}: {means}")
+    table14 = best14["table"]
+    require(table14 is not None and table14["scenes"] == 256 and all(
+        np.isfinite(list(table14[p].values())).all() for p in ("ade", "fde")),
+        f"phase 14: the horizon table is not finite: {best14}")
+    print(f"phase 14 poincaré NBA recipe through the CLIs (c = {C}): "
+          + "; ".join(f"epoch {e} lr {lr:.1e} total {m['total']:.4f}"
+                      for e, lr, m in run14.history + resumed14.history)
+          + f" (resumed from epoch 1); best epoch {best14['epoch']}: "
+          + " ".join(f"ADE@{h} {v:.4f}" for h, v in table14["ade"].items())
+          + f"; launches {launches14}")
+
+    def nba_step_inputs(past, fut, B, seed):
+        (data,) = nba_batches(past[:B], fut[:B], B)
+        gen_ = torch.Generator(device=dev).manual_seed(seed)
+        M_ = B * 11
+        return prepare_nba_batch(data).to(dev), gen_, tm.TrainNoise(
+            torch.rand(M_, 5, D, device=dev, generator=gen_) >= 0.1,
+            torch.rand(M_, 10, D, device=dev, generator=gen_) >= 0.1,
+            torch.randn(M_, Z, device=dev, generator=gen_),
+            torch.randn(M_ * K, Z, device=dev, generator=gen_))
+
+    cfg14 = run14.cfg
+    dense14 = cfg14._replace(attn_impl="dense")
+    params14 = tm.sttode_init(14, cfg14)
+    batch14, gen14, noise14 = nba_step_inputs(past14, fut14, 32, 14)
+    _, out_k14, g_k14 = forward_backward(params14, cfg14, batch14, noise14,
+                                         dev)
+    _, out_p14, g_p14 = forward_backward(params14, dense14, batch14, noise14,
+                                         dev)
+    loss_err14, grad_ratio14, worst14, _ = compare_routes(
+        out_k14, g_k14, out_p14, g_p14, "phase 14")
+    f64 = torch.float64
+    _, _, g_o14 = forward_backward(
+        bridge.tree_map(lambda t: t.to(f64), params14), dense14,
+        batch14.to(f64), tm.TrainNoise(noise14[0], noise14[1],
+                                       noise14[2].to(f64),
+                                       noise14[3].to(f64)), dev)
+    oracle14 = [max(float((a.to(f64) - o).abs().max())
+                    / max(float(o.abs().max()), 1e-30)
+                    for a, o in zip(g, g_o14)) for g in (g_k14, g_p14)]
+    print(f"phase 14 fp32 poincaré NBA-recipe forward+backward at B = 32, "
+          f"whole-S kernels vs dense route: loss terms within "
+          f"{loss_err14:.3e} (relative), gradients within {grad_ratio14:.3e} "
+          f"of each leaf's largest magnitude (worst leaf {worst14}); against "
+          f"the float64 dense route the kernel route's worst leaf differs by "
+          f"{oracle14[0]:.3e}, the fp32 dense route's by {oracle14[1]:.3e}")
+    del g_o14
+    step_k14 = make_train_step(cfg14, 1e-4, device=dev)
+    step_p14 = make_train_step(dense14, 1e-4, device=dev)
+    step_times([[step_k14, *step_k14.init(params14)],
+                [step_p14, *step_p14.init(params14)]],
+               batch14, gen14, 32, "phase 14 poincaré NBA recipe step", card)
+
+    B14 = 2304
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        nba_dir, flags = nba_files(tmp, 2 * B14, 15)
+        reset()   # the main path: train at B = 2304
+        run14L = cli_train.main(flags + poincare_flags + [
+            "--batch_size", str(B14), "--num_epochs", "1"])
+        torch.cuda.synchronize()
+        launches14L = counts()
+        past14L, fut14L = load_nba(nba_dir)
+    require(all(launches14L[n] == launches14L[f"{n}_p"] == 4
+                for n in ("flash", "flash_dq", "flash_dkv"))
+            and launches14L["attn"] == 0 and launches14L["attn_bwd"] == 0
+            and launches14L["packed"] == 0,
+            f"phase 14: the CLI's poincaré B = 2304 training (2 steps x 2 "
+            f"trunks) did not run on the poincaré flash kernels alone "
+            f"{launches14L}")
+    for epoch, lr, means in run14L.history:
+        require(all(np.isfinite(list(means.values()))),
+                f"phase 14: non-finite loss at epoch {epoch}: {means}")
+    print(f"phase 14 poincaré NBA recipe at B = {B14} through the CLI: "
+          + "; ".join(f"epoch {e} lr {lr:.1e} total {m['total']:.4f}"
+                      for e, lr, m in run14L.history)
+          + f"; launches {launches14L}")
+
+    # the flash route against the dense route, at the largest batch whose
+    # dense route fits the card's memory (its poincaré score tensors are
+    # 88 × B² floats each, a dozen of them kept for the backward)
+    cfg14L = run14L.cfg
+    dense14L = cfg14L._replace(attn_impl="dense")
+    params14L = tm.sttode_init(15, cfg14L)
+    oom = []
+    for B_cmp in (B14, 1152):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batchL, genL, noiseL = nba_step_inputs(past14L, fut14L, B_cmp, 15)
+        try:
+            _, out_kL, g_kL = forward_backward(params14L, cfg14L, batchL,
+                                               noiseL, dev)
+            _, out_pL, g_pL = forward_backward(params14L, dense14L, batchL,
+                                               noiseL, dev)
+            break
+        except torch.cuda.OutOfMemoryError:
+            oom.append(B_cmp)
+    else:
+        raise AssertionError("phase 14: the dense route fits neither batch")
+    peak14L = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_errL, grad_ratioL, worstL, l2L = compare_routes(
+        out_kL, g_kL, out_pL, g_pL, "phase 14 large batch", kinks=True)
+    print(f"phase 14 fp32 poincaré NBA-recipe forward+backward at B = "
+          f"{B_cmp} (dense route out of memory at {oom or 'none'}; peak "
+          f"{peak14L:.2f} GiB allocated), flash vs dense route: loss terms "
+          f"within {loss_errL:.3e} (relative), gradients within {l2L:.3e} in "
+          f"relative L2, each element within {grad_ratioL:.3e} of its leaf's "
+          f"largest magnitude (worst leaf {worstL})")
+    del out_kL, g_kL, out_pL, g_pL
+    torch.cuda.empty_cache()
+    step_kL = make_train_step(cfg14L, 1e-4, device=dev)
+    step_pL = make_train_step(dense14L, 1e-4, device=dev)
+    step_times([[step_kL, *step_kL.init(params14L)],
+                [step_pL, *step_pL.init(params14L)]],
+               batchL, genL, B_cmp,
+               f"phase 14 poincaré NBA recipe step at B = {B_cmp}", card,
+               rounds=4)
+    del batchL, noiseL
+    torch.cuda.empty_cache()
+
+    # the agent-axis server with the poincaré metric: key validity as an
+    # additive mask, on the poincaré whole-S forward
+    cfg14a = cfg4._replace(attn_metric="poincare", curvature=C).validate()
+    params14a = tm.sttode_init(0, cfg14a)
+    kernel14a = Predictor(params14a, cfg14a, device=dev, max_group=64)
+    plain14a = Predictor(params14a, cfg14a._replace(attn_impl="dense",
+                                                    select_impl="xla"),
+                         device=dev, max_group=64)
+    kernel14a.warmup([8], scenes_per=64)
+    plain14a.warmup([8], scenes_per=64)
+    reset()   # the main path: serving
+    (out14a, p50_a, rate_a), (ref14a, p50_ap, rate_ap) = serve_ab(
+        kernel14a, plain14a, scenes4, 6)
+    torch.cuda.synchronize()
+    launches14a = counts()
+    require(launches14a["attn_p"] > 0
+            and launches14a["attn"] == launches14a["attn_p"]
+            and launches14a["select_fp32"] > 0,
+            f"phase 14: the poincaré agent-axis server did not launch the "
+            f"poincaré forward {launches14a}")
+    err14a = compare(out14a, ref14a, [(20, 8, 12, 2)] * 64, "phase 14 server")
+    print(f"phase 14 poincaré agent-axis server, 64 scenes x 8 agents/call: "
+          f"max_abs_err vs dense {err14a:.3e}; kernels p50 {p50_a:.3f} ms, "
+          f"{rate_a:.1f} scenes/s; dense p50 {p50_ap:.3f} ms, "
+          f"{rate_ap:.1f} scenes/s; launches {launches14a}")
 
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
@@ -1303,7 +1726,28 @@ def main() -> int:
         entry("flash_geodesic_attention_dkv", "flash_mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:880",
               launches12_train["flash_dkv"], flash_err["dkv"],
-              *rec11["dkv"], fdkv_bound)]}))
+              *rec11["dkv"], fdkv_bound),
+        entry("fused_geodesic_attention_poincare", "mhgsa_fwd.cu",
+              "sttode_tpu/kernels/mhgsa.py:407",
+              launches14["attn_p"] + launches14a["attn_p"], perr["fwd"],
+              *ptimes[p32][0], bound(*attn_fwd_work(88, 32, 32, 8, False,
+                                                    "poincare"),
+                                     FP32_FLOP_PER_S)),
+        entry("fused_geodesic_attention_backward_poincare", "mhgsa_bwd.cu",
+              "sttode_tpu/kernels/mhgsa.py:455",
+              launches14_train["attn_bwd_p"], perr["bwd"], *ptimes[p32][1],
+              bound(*attn_bwd_work(88, 32, 32, 8, False, "poincare"),
+                    FP32_FLOP_PER_S)),
+        *(entry(f"flash_geodesic_attention{suffix}_poincare", source,
+                f"sttode_tpu/kernels/mhgsa.py:{line}",
+                launches14L[f"flash{suffix}_p"],
+                pflash_err[part], *pflash_times[pf2304][part],
+                bound(*work(88, 2304, 2304, 8, False, "poincare"),
+                      FP32_FLOP_PER_S))
+          for suffix, part, source, line, work in (
+              ("", "fwd", "flash_mhgsa_fwd.cu", 776, flash_fwd_work),
+              ("_dq", "dq", "flash_mhgsa_bwd.cu", 605, flash_dq_work),
+              ("_dkv", "dkv", "flash_mhgsa_bwd.cu", 641, flash_dkv_work)))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -93,8 +93,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "whole-S otherwise); 'fused', 'packed', 'flash' "
                         "force one kernel; 'dense' = the plain path")
     p.add_argument("--attn_metric", default="oblique",
-                   choices=("oblique", "poincare"))
-    p.add_argument("--curvature", type=float, default=1.0)
+                   choices=("oblique", "poincare"),
+                   help="attention distance: 'oblique' (the reference's "
+                        "-acos) or 'poincare' (the Möbius distance on the "
+                        "ball of --curvature; the whole-S and flash kernels "
+                        "serve it on the card, never the packed one)")
+    p.add_argument("--curvature", type=float, default=1.0,
+                   help="Poincaré ball curvature c > 0; the kernels need "
+                        "c >= 0.032, below it 'auto' takes the plain path")
     p.add_argument("--loss_terms", default="pred,recover,kl,diverse",
                    help="comma-separated subset of pred,recover,kl,diverse")
     p.add_argument("--log_every", type=int, default=100)

@@ -1,42 +1,66 @@
-// S-tiled (flash) geodesic attention backward for Hopper (sm_90a), fp32: the
-// dq sweep and the dk/dv sweep.
+// S-tiled (flash) geodesic attention backward for Hopper (sm_90a), fp32, both
+// metrics: the dq sweep and the dk/dv sweep.
 //
-// Replace the TPU kernels of sttode_tpu/kernels/mhgsa.py::_flash_bwd, oblique
-// metric: the dq sweep (kernel body _make_flash_dq_kernel) and the dk/dv
-// sweep (_make_flash_dkv_kernel). Both replay the forward's scores from its
-// per-row lse instead of storing the L × S probabilities. With
-// x̂ = x / max(‖x‖, 1e-12), g_ij = q̂_i·k̂_j, gc = clip(g, ±(1 − 1e-4)) and
-// the cotangent do of out:
+// Replace the TPU kernels of sttode_tpu/kernels/mhgsa.py::_flash_bwd (:811):
+// the dq sweep (kernel body _make_flash_dq_kernel, :681, and for the
+// poincaré metric _make_flash_poincare_dq_kernel, :605) and the dk/dv sweep
+// (_make_flash_dkv_kernel, :712, and _make_flash_poincare_dkv_kernel,
+// :641). Both replay the forward's scores from its per-row lse instead of
+// storing the L × S probabilities. With the cotangent do of out:
 //
-//   p_ij  = exp(−acos(gc_ij) − lse_i)         (0 where val[b,j] ≤ 0)
+//   p_ij  = exp(s_ij − lse_i)                 (0 where val[b,j] ≤ 0)
 //   ds_ij = p_ij (do_i·v_j − δ_i),   δ_i = do_i·out_i (the caller's rowsum)
+//   dv_j  = Σ_i p_ij do_i
+//
+// oblique (x̂ = x / max(‖x‖, 1e-12), g_ij = q̂_i·k̂_j, gc = clip(g, ±(1 −
+// 1e-4)), s = −acos(gc)):
+//
 //   dg_ij = ds_ij / √(1 − gc²) · 1{|g_ij| < 1 − 1e-4}   (the unclipped g)
-//   dq̂_i = Σ_j dg_ij k̂_j,   dk̂_j = Σ_i dg_ij q̂_i,   dv_j = Σ_i p_ij do_i
-//   dq_i  = (dq̂_i − q̂_i (dq̂_i·q̂_i)) / max(‖q_i‖, 1e-12), dk alike.
+//   dq̂_i = Σ_j dg_ij k̂_j,   dk̂_j = Σ_i dg_ij q̂_i
+//   dq_i  = (dq̂_i − q̂_i (dq̂_i·q̂_i)) / max(‖q_i‖, 1e-12), dk alike;
+//
+// poincaré (ball points, g_ij = q_i·k_j, the epilogue of poincare.cuh):
+//
+//   dq_i  = Σ_j dg_ij k_j + 2·dx2_i·q_i,   dk_j = Σ_i dg_ij q_i + 2·dy2_j·k_j
+//
+// with dx2_i the row sum and dy2_j the column sum of the epilogue's
+// squared-norm cotangents (the TPU carries them in (tile, 128) VMEM
+// scratch across its sequential grid axis).
 //
 // What bounds them on the H100: at the NBA recipe at B = 2304 a call is 88
-// problems of 2304 × 2304 × 8; each sweep replays the Gram, acos and exp of
-// every pair, so together they do 6.3e10 operations on 2.5 MB of inputs
-// and outputs (chip_smoke.py, flash_dq_work and flash_dkv_work): bound by
-// operations, ~0.9 ms at the fp32 peak. On the TPU each sweep is a grid
-// whose innermost axis runs in order and carries the sum in VMEM scratch;
-// on Hopper blocks run in parallel, so each sweep gives one thread one
-// output row and loops over the other axis inside the block, and nothing
-// needs atomics:
+// problems of 2304 × 2304 × 8; each sweep replays the Gram, the score and
+// exp of every pair, so together they do 6.3e10 operations on 2.5 MB of
+// inputs and outputs (chip_smoke.py, flash_dq_work and flash_dkv_work; the
+// poincaré epilogue and its VJP, their metric "poincare", add ~25 per pair
+// and sweep): bound by operations, ~0.9 ms at the fp32 peak. On
+// the TPU each sweep is a grid whose innermost axis runs in order and
+// carries the sum in VMEM scratch; on Hopper blocks run in parallel, so
+// each sweep gives one thread one output row and loops over the other axis
+// inside the block, and nothing needs atomics or anything of size L·S:
 //   dq sweep: a block per (problem, 128 query rows), a thread per query row
-//     i holding q̂_i, do_i and dq̂_i in registers; the keys are normalized
-//     and staged with their values and validity 128 at a time in shared
-//     memory and read as broadcasts; the q-side normalize VJP ends the row;
+//     i holding q̂_i (or the ball row and x2_i), do_i, dq̂_i and, poincaré,
+//     the running dx2_i in registers; the keys are normalized (or kept raw
+//     with their y2) and staged with their values and validity 128 at a time
+//     in shared memory and read as broadcasts; the q-side normalize VJP (or
+//     the 2·dx2_i·q_i term) ends the row;
 //   dk/dv sweep: a block per (problem, 128 keys), a thread per key j holding
-//     k̂_j, v_j, dk̂_j and dv_j in registers; the query rows (q̂, do, lse, δ)
-//     are staged 128 at a time; the k-side normalize VJP ends the key.
-// fp32 FMAs throughout, no TF32 (acos' amplifies Gram error near ±1). The
-// gate takes rsqrtf(max(1 − gc², 1e-12)), so q = k rows (g ≈ 1) get an
-// exactly zero, finite gradient; an invalid key has p ≡ 0 and zero dk and
-// dv; a row with no valid key gets dq = 0.
+//     k̂_j (or the ball row and y2_j), v_j, dk̂_j, dv_j and, poincaré, the
+//     running dy2_j in registers; the query rows (q̂ or ball rows with x2,
+//     do, lse, δ) are staged 128 at a time; the k-side normalize VJP (or the
+//     2·dy2_j·k_j term) ends the key.
+// fp32 FMAs throughout, no TF32 (acos' amplifies Gram error near ±1; the
+// poincaré x2 − 2g + y2 cancels for close points). The oblique gate takes
+// rsqrtf(max(1 − gc², 1e-12)), so q = k rows (g ≈ 1) get an exactly zero,
+// finite gradient; poincaré q = k rows stay finite through n ≥ √1e-15; an
+// invalid key has p ≡ 0 and zero dk and dv; a row with no valid key gets
+// dq = 0. The metric is a template parameter: the oblique instantiations
+// are the kernels of before; the poincaré ones carry two more scalars per
+// thread (x2 or y2, and the running dx2 or dy2).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "poincare.cuh"
 
 namespace {
 
@@ -52,17 +76,30 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x, int Dh,
   for (int d = 0; d < DH; ++d) r[d] = d < Dh ? x[d] : 0.f;
 }
 
-// scale r to unit norm (floored); returns the unfloored norm
+// the squared norm of r
 template <int DH>
-__device__ __forceinline__ float to_unit(float (&r)[DH]) {
+__device__ __forceinline__ float sq_norm(const float (&r)[DH]) {
   float ss = 0.f;
 #pragma unroll
   for (int d = 0; d < DH; ++d) ss = fmaf(r[d], r[d], ss);
-  const float n = sqrtf(ss);
+  return ss;
+}
+
+// scale r to unit norm (floored); returns the unfloored norm
+template <int DH>
+__device__ __forceinline__ float to_unit(float (&r)[DH]) {
+  const float n = sqrtf(sq_norm(r));
   const float f = fmaxf(n, kNormFloor);
 #pragma unroll
   for (int d = 0; d < DH; ++d) r[d] = r[d] / f;
   return n;
+}
+
+// oblique: scale to unit norm, return the norm; poincaré: keep the ball
+// row, return its squared norm
+template <int DH, bool POINCARE>
+__device__ __forceinline__ float prep_row(float (&r)[DH]) {
+  return POINCARE ? sq_norm(r) : to_unit(r);
 }
 
 // a · b[0..DH) with b a 16-byte aligned row of shared memory
@@ -98,22 +135,42 @@ __device__ __forceinline__ void axpy_smem(float e, const float* __restrict__ b,
 }
 
 // (p, dg) of one pair from its Gram entry, the row's lse and δ and the pair's
-// do·v: the replayed probability and the clip-gated score cotangent
-__device__ __forceinline__ void pair_grad(float g, float lse, float delta,
-                                          float dp, float* p, float* dg) {
-  const float gc = fminf(fmaxf(g, -kClip), kClip);
-  *p = expf(-acosf(gc) - lse);
-  const float gate =
-      fabsf(g) < kClip ? rsqrtf(fmaxf(1.f - gc * gc, 1e-12f)) : 0.f;
-  *dg = *p * (dp - delta) * gate;
+// do·v: the replayed probability and the score-Gram cotangent. Poincaré
+// also takes the pair's x2 and y2 and returns in (a, b) what the squared
+// norms' cotangents gather (poincare::grad).
+template <bool POINCARE>
+__device__ __forceinline__ void pair_grad(float g, float x2, float y2,
+                                          float lse, float delta, float dp,
+                                          const poincare::Curv& curv,
+                                          float* p, float* dg, float* a,
+                                          float* b) {
+  if (POINCARE) {
+    const poincare::Pair pp = poincare::pair(g, x2, y2, curv);
+    *p = expf(poincare::score(pp, curv) - lse);
+    *dg = poincare::grad(pp, *p * (dp - delta), curv, a, b);
+  } else {
+    const float gc = fminf(fmaxf(g, -kClip), kClip);
+    *p = expf(-acosf(gc) - lse);
+    const float gate =
+        fabsf(g) < kClip ? rsqrtf(fmaxf(1.f - gc * gc, 1e-12f)) : 0.f;
+    *dg = *p * (dp - delta) * gate;
+  }
 }
 
-// (dx̂ − x̂ (dx̂·x̂)) / max(n, floor) written to out[0..Dh)
-template <int DH>
-__device__ __forceinline__ void normalize_vjp(const float (&dxh)[DH],
-                                              const float (&xh)[DH], float n,
-                                              int Dh,
-                                              float* __restrict__ out) {
+// The row's gradient from its accumulated Gram cotangent dxh, its row xh
+// (unit or ball) and n (the norm, or the squared norm's cotangent sum),
+// written to out[0..Dh): oblique (dx̂ − x̂ (dx̂·x̂)) / max(n, floor),
+// poincaré dx + 2·n·x.
+template <int DH, bool POINCARE>
+__device__ __forceinline__ void finish_row(const float (&dxh)[DH],
+                                           const float (&xh)[DH], float n,
+                                           int Dh, float* __restrict__ out) {
+  if (POINCARE) {
+#pragma unroll
+    for (int d = 0; d < DH; ++d)
+      if (d < Dh) out[d] = dxh[d] + 2.f * n * xh[d];
+    return;
+  }
   float r = 0.f;
 #pragma unroll
   for (int d = 0; d < DH; ++d) r = fmaf(dxh[d], xh[d], r);
@@ -123,7 +180,7 @@ __device__ __forceinline__ void normalize_vjp(const float (&dxh)[DH],
     if (d < Dh) out[d] = (dxh[d] - xh[d] * r) / f;
 }
 
-template <int DH>
+template <int DH, bool POINCARE>
 __global__ void __launch_bounds__(kThreads)
 flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -131,11 +188,13 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
-                      int L, int S, int Dh, int row_tiles) {
+                      int L, int S, int Dh, int row_tiles,
+                      poincare::Curv curv) {
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // [kTile][DH] unit keys
+  float* ks = smem;                       // [kTile][DH] unit (ball) keys
   float* vs = ks + kTile * DH;            // [kTile][DH] values
   float* ok = vs + kTile * DH;            // [kTile] 1 = valid key
+  float* y2 = ok + kTile;                 // [kTile] poincaré: ‖k_j‖²
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / row_tiles;
@@ -147,7 +206,7 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* valb = val ? val + (size_t)b * S : nullptr;
 
   float qh[DH], dor[DH];
-  float qn = 0.f, li = 0.f, di = 0.f;
+  float li = 0.f, di = 0.f;
   if (row) {
     load_row(q + ri * Dh, Dh, qh);
     load_row(dout + ri * Dh, Dh, dor);
@@ -157,7 +216,9 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) qh[d] = dor[d] = 0.f;
   }
-  qn = to_unit(qh);
+  // oblique: the norm; poincaré: x2
+  const float qn = prep_row<DH, POINCARE>(qh);
+  float dx2 = 0.f;
   float dqh[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) dqh[d] = 0.f;
@@ -169,7 +230,8 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = j0 + t;
       float r[DH];
       load_row(kb + (size_t)j * Dh, Dh, r);
-      to_unit(r);
+      const float kn = prep_row<DH, POINCARE>(r);
+      if (POINCARE) y2[t] = kn;
 #pragma unroll
       for (int d = 0; d < DH; ++d) ks[t * DH + d] = r[d];
       load_row(vb + (size_t)j * Dh, Dh, r);
@@ -182,17 +244,21 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < n; ++jj) {
         if (ok[jj] == 0.f) continue;      // the same key for every thread
         const float* kr = ks + jj * DH;
-        float p, dg;
-        pair_grad(dot_smem(qh, kr), li, di, dot_smem(dor, vs + jj * DH), &p,
-                  &dg);
+        const float yj = POINCARE ? y2[jj] : 0.f;
+        float p, dg, a = 0.f, bb = 0.f;
+        pair_grad<POINCARE>(dot_smem(qh, kr), qn, yj, li, di,
+                            dot_smem(dor, vs + jj * DH), curv, &p, &dg, &a,
+                            &bb);
+        if (POINCARE) dx2 += a + bb * yj;
         axpy_smem(dg, kr, dqh);
       }
     }
   }
-  if (row) normalize_vjp(dqh, qh, qn, Dh, dq + ri * Dh);
+  if (row) finish_row<DH, POINCARE>(dqh, qh, POINCARE ? dx2 : qn, Dh,
+                                    dq + ri * Dh);
 }
 
-template <int DH>
+template <int DH, bool POINCARE>
 __global__ void __launch_bounds__(kThreads)
 flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -202,12 +268,13 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int L,
-                       int S, int Dh, int col_tiles) {
+                       int S, int Dh, int col_tiles, poincare::Curv curv) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [kTile][DH] unit query rows
+  float* qs = smem;                       // [kTile][DH] unit (ball) query rows
   float* ds = qs + kTile * DH;            // [kTile][DH] their do rows
   float* ls = ds + kTile * DH;            // [kTile] lse
   float* dl = ls + kTile;                 // [kTile] δ
+  float* x2 = dl + kTile;                 // [kTile] poincaré: ‖q_i‖²
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / col_tiles;
@@ -225,7 +292,9 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int d = 0; d < DH; ++d) kh[d] = vr[d] = 0.f;
   }
-  const float kn = to_unit(kh);
+  // oblique: the norm; poincaré: y2
+  const float kn = prep_row<DH, POINCARE>(kh);
+  float dy2 = 0.f;
   float dkh[DH], dvr[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) dkh[d] = dvr[d] = 0.f;
@@ -237,7 +306,8 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
       const size_t ri = qo + i0 + t;
       float r[DH];
       load_row(q + ri * Dh, Dh, r);
-      to_unit(r);
+      const float qn = prep_row<DH, POINCARE>(r);
+      if (POINCARE) x2[t] = qn;
 #pragma unroll
       for (int d = 0; d < DH; ++d) qs[t * DH + d] = r[d];
       load_row(dout + ri * Dh, Dh, r);
@@ -251,24 +321,27 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
       for (int ii = 0; ii < n; ++ii) {
         const float* qr = qs + ii * DH;
         const float* dr = ds + ii * DH;
-        float p, dg;
-        pair_grad(dot_smem(kh, qr), ls[ii], dl[ii], dot_smem(vr, dr), &p,
-                  &dg);
+        const float xi = POINCARE ? x2[ii] : 0.f;
+        float p, dg, a = 0.f, bb = 0.f;
+        pair_grad<POINCARE>(dot_smem(kh, qr), xi, kn, ls[ii], dl[ii],
+                            dot_smem(vr, dr), curv, &p, &dg, &a, &bb);
+        if (POINCARE) dy2 += a + bb * xi;
         axpy_smem(p, dr, dvr);
         axpy_smem(dg, qr, dkh);
       }
     }
   }
   if (col) {
-    normalize_vjp(dkh, kh, kn, Dh, dk + rj * Dh);
+    finish_row<DH, POINCARE>(dkh, kh, POINCARE ? dy2 : kn, Dh, dk + rj * Dh);
 #pragma unroll
     for (int d = 0; d < DH; ++d)
       if (d < Dh) dv[rj * Dh + d] = dvr[d];
   }
 }
 
+template <bool POINCARE>
 constexpr size_t kSmem(int dh) {
-  return sizeof(float) * (2 * kTile * dh + 2 * kTile);
+  return sizeof(float) * (2 * kTile * dh + (POINCARE ? 3 : 2) * kTile);
 }
 
 template <typename Kernel>
@@ -279,62 +352,106 @@ int allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int DH>
+template <int DH, bool POINCARE>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* val, const float* dout, const float* lse,
               const float* delta, float* dq, int B, int L, int S, int Dh,
-              cudaStream_t stream) {
-  int err = allow_smem(flash_mhgsa_dq_kernel<DH>, kSmem(DH));
+              float c, cudaStream_t stream) {
+  constexpr size_t smem = kSmem<POINCARE>(DH);
+  int err = allow_smem(flash_mhgsa_dq_kernel<DH, POINCARE>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (L + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dq_kernel<DH><<<(unsigned)blocks, kThreads, kSmem(DH),
-                              stream>>>(q, k, v, val, dout, lse, delta, dq, L,
-                                        S, Dh, tiles);
+  flash_mhgsa_dq_kernel<DH, POINCARE>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          q, k, v, val, dout, lse, delta, dq, L, S, Dh, tiles,
+          poincare::make_curv(c));
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool POINCARE>
 int launch_dkv(const float* q, const float* k, const float* v,
                const float* val, const float* dout, const float* lse,
                const float* delta, float* dk, float* dv, int B, int L, int S,
-               int Dh, cudaStream_t stream) {
-  int err = allow_smem(flash_mhgsa_dkv_kernel<DH>, kSmem(DH));
+               int Dh, float c, cudaStream_t stream) {
+  constexpr size_t smem = kSmem<POINCARE>(DH);
+  int err = allow_smem(flash_mhgsa_dkv_kernel<DH, POINCARE>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dkv_kernel<DH><<<(unsigned)blocks, kThreads, kSmem(DH),
-                               stream>>>(q, k, v, val, dout, lse, delta, dk,
-                                         dv, L, S, Dh, tiles);
+  flash_mhgsa_dkv_kernel<DH, POINCARE>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          q, k, v, val, dout, lse, delta, dk, dv, L, S, Dh, tiles,
+          poincare::make_curv(c));
   return cudaGetLastError();
+}
+
+template <bool POINCARE>
+int dispatch_dq(const float* q, const float* k, const float* v,
+                const float* val, const float* dout, const float* lse,
+                const float* delta, float* dq, int B, int L, int S, int Dh,
+                float c, cudaStream_t st) {
+  if (Dh <= 8)
+    return launch_dq<8, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
+                                  Dh, c, st);
+  if (Dh <= 16)
+    return launch_dq<16, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
+                                   S, Dh, c, st);
+  if (Dh <= 32)
+    return launch_dq<32, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
+                                   S, Dh, c, st);
+  if (Dh <= 64)
+    return launch_dq<64, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
+                                   S, Dh, c, st);
+  return launch_dq<128, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
+                                  Dh, c, st);
+}
+
+template <bool POINCARE>
+int dispatch_dkv(const float* q, const float* k, const float* v,
+                 const float* val, const float* dout, const float* lse,
+                 const float* delta, float* dk, float* dv, int B, int L,
+                 int S, int Dh, float c, cudaStream_t st) {
+  if (Dh <= 8)
+    return launch_dkv<8, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+                                   L, S, Dh, c, st);
+  if (Dh <= 16)
+    return launch_dkv<16, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+                                    L, S, Dh, c, st);
+  if (Dh <= 32)
+    return launch_dkv<32, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+                                    L, S, Dh, c, st);
+  if (Dh <= 64)
+    return launch_dkv<64, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+                                    L, S, Dh, c, st);
+  return launch_dkv<128, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+                                   L, S, Dh, c, st);
 }
 
 }  // namespace
 
 // The dq sweep. q [B,L,Dh], k/v [B,S,Dh], val [B,S] (> 0 marks a real key)
 // or null, dout [B,L,Dh], lse and delta [B,L]; output dq [B,L,Dh]. All fp32,
-// contiguous, on the current device. Launches on `stream` and returns
-// cudaGetLastError() (0 on success). A head dim outside 1..128 is refused
-// with cudaErrorInvalidValue.
+// contiguous, on the current device; metric 0 = oblique, 1 = poincaré at
+// curvature c (q and k ball points). Launches on `stream` and returns
+// cudaGetLastError() (0 on success). A head dim outside 1..128 or another
+// metric is refused with cudaErrorInvalidValue.
 extern "C" int flash_mhgsa_dq(const float* q, const float* k, const float* v,
                               const float* val, const float* dout,
                               const float* lse, const float* delta, float* dq,
-                              int B, int L, int S, int Dh, void* stream) {
-  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128)
+                              int B, int L, int S, int Dh, int metric,
+                              float c, void* stream) {
+  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128 ||
+      (metric != 0 && metric != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Dh <= 8)
-    return launch_dq<8>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
-  if (Dh <= 16)
-    return launch_dq<16>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
-  if (Dh <= 32)
-    return launch_dq<32>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
-  if (Dh <= 64)
-    return launch_dq<64>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
-  return launch_dq<128>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
+  return metric == 1 ? dispatch_dq<true>(q, k, v, val, dout, lse, delta, dq,
+                                         B, L, S, Dh, c, st)
+                     : dispatch_dq<false>(q, k, v, val, dout, lse, delta, dq,
+                                          B, L, S, Dh, c, st);
 }
 
 // The dk/dv sweep: the same operands; outputs dk and dv [B,S,Dh].
@@ -342,23 +459,14 @@ extern "C" int flash_mhgsa_dkv(const float* q, const float* k, const float* v,
                                const float* val, const float* dout,
                                const float* lse, const float* delta,
                                float* dk, float* dv, int B, int L, int S,
-                               int Dh, void* stream) {
-  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128)
+                               int Dh, int metric, float c, void* stream) {
+  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128 ||
+      (metric != 0 && metric != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Dh <= 8)
-    return launch_dkv<8>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
-                         st);
-  if (Dh <= 16)
-    return launch_dkv<16>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
-                          st);
-  if (Dh <= 32)
-    return launch_dkv<32>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
-                          st);
-  if (Dh <= 64)
-    return launch_dkv<64>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
-                          st);
-  return launch_dkv<128>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
-                         st);
+  return metric == 1 ? dispatch_dkv<true>(q, k, v, val, dout, lse, delta, dk,
+                                          dv, B, L, S, Dh, c, st)
+                     : dispatch_dkv<false>(q, k, v, val, dout, lse, delta, dk,
+                                           dv, B, L, S, Dh, c, st);
 }

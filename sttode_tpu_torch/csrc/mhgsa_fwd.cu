@@ -1,33 +1,48 @@
-// Geodesic attention forward for Hopper (sm_90a), fp32.
+// Geodesic attention forward for Hopper (sm_90a), fp32, both metrics.
 //
 // Replaces the TPU kernel sttode_tpu/kernels/mhgsa.py::_fused_fwd (kernel body
-// _make_fwd_kernel), oblique metric. For each problem b and query row i:
+// _make_fwd_kernel, :294), both of its metrics. For each problem b and query
+// row i:
 //
 //   out[b,i] = Σ_j p_ij · v[b,j],   p_ij = e_ij / max(Σ_j e_ij, 1e-30),
-//   e_ij     = exp(-acos(clip(q̂_i · k̂_j, ±(1 − 1e-4))) + mask[b,i,j])
+//   e_ij     = exp(s_ij + mask[b,i,j])
 //
-// with x̂ = x / max(‖x‖, 1e-12). The softmax is maxless, as on the TPU: the
-// scores are bounded in [-π, 0] and the caller canonicalizes the mask (row-max
-// shift, floor −30, excluded entries = −1e30), so exp cannot overflow and an
-// all-excluded row gets denominator 1e-30 and outputs exactly 0.
+// with the oblique score s_ij = -acos(clip(q̂_i · k̂_j, ±(1 − 1e-4))),
+// x̂ = x / max(‖x‖, 1e-12), or the poincaré score of ball points, the
+// negated Möbius distance at curvature c from the Gram closed form
+// (poincare.cuh; the TPU body's _poincare_scores branch, :236 and :301-302).
+// The softmax is maxless, as on the TPU: the scores are bounded (oblique in
+// [-π, 0], poincaré in [−12.21/√c, 0] with c ≥ 0.032) and the caller
+// canonicalizes the mask (row-max shift, floor −30, excluded entries =
+// −1e30), so exp cannot overflow and an all-excluded row gets denominator
+// 1e-30 and outputs exactly 0.
 //
 // What bounds it on the H100: on the serving path the problems are tiny
 // (L = S ≤ 32, Dh = 8 — one problem per (scene or agent slot) × head), so
 // the kernel is bound by latency and launch overhead, not by bytes or FLOPs:
-// the whole input is a few hundred KB. The design keeps one problem per block
-// with all its keys and values staged once in shared memory (normalized k
-// rows padded to an odd stride so the per-lane Gram loop hits no bank
-// conflicts), one warp per query row, scores held in a per-warp shared row,
-// and the Gram computed with fp32 FMAs: no TF32 and no tensor cores, because
-// acos' amplifies Gram error near ±1. acosf is CUDA's (≤ 2 ulp), where the
-// TPU needed a polynomial.
+// the whole input is a few hundred KB; at the NBA recipe's evaluation
+// (88 × 128² × 8) it does ~1.5 M pairs, each a handful of FMAs and one
+// transcendental chain (acosf, or the poincaré epilogue's sqrtf, logf and
+// two divisions), tens of instructions a pair against one fp32 FMA counted
+// by the bound. The design keeps one problem per block with all its keys and
+// values staged once in shared memory (normalized k rows for oblique, raw
+// ball rows plus their squared norms y2 for poincaré, padded to an odd
+// stride so the per-lane Gram loop hits no bank conflicts), one warp per
+// query row (its norm or its x2 a warp sum), scores held in a per-warp
+// shared row, and the Gram computed with fp32 FMAs: no TF32 and no tensor
+// cores, because acos' amplifies Gram error near ±1 and the poincaré
+// epilogue's x2 − 2g + y2 cancels for close points. acosf and logf are
+// CUDA's (≤ 2 ulp), where the TPU needed a polynomial for acos. The metric is
+// a template parameter: the oblique instantiation is the kernel of before.
 //
-// The score orientation is always scores[i,j] = -acos(q̂_i·k̂_j); the
+// The score orientation is always scores[i,j] = score(q_i, k_j); the
 // reference-compat transposed square case (quirk Q3) is the caller swapping
 // q and k.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "poincare.cuh"
 
 namespace {
 
@@ -41,16 +56,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+template <bool POINCARE>
 __global__ void __launch_bounds__(kWarps * 32)
 mhgsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ out, int L, int S, int Dh) {
+                 float* __restrict__ out, int L, int S, int Dh,
+                 poincare::Curv curv) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = Dh | 1;                 // odd stride: conflict-free rows
-  float* kn = smem;                       // [S][ldk] normalized keys
+  float* kn = smem;                       // [S][ldk] unit (ball) keys
   float* vs = kn + S * ldk;               // [S][Dh]
   float* qn = vs + S * Dh;                // [kWarps][Dh]
   float* p = qn + kWarps * Dh;            // [kWarps][S]
+  float* y2 = p + kWarps * S;             // [S] poincaré: ‖k_j‖²
 
   const int b = blockIdx.x;
   const float* qb = q + (size_t)b * L * Dh;
@@ -62,8 +80,13 @@ mhgsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kr = kb + (size_t)j * Dh;
     float ss = 0.f;
     for (int d = 0; d < Dh; ++d) ss = fmaf(kr[d], kr[d], ss);
-    const float nrm = fmaxf(sqrtf(ss), kNormFloor);
-    for (int d = 0; d < Dh; ++d) kn[j * ldk + d] = kr[d] / nrm;
+    if (POINCARE) {
+      for (int d = 0; d < Dh; ++d) kn[j * ldk + d] = kr[d];
+      y2[j] = ss;
+    } else {
+      const float nrm = fmaxf(sqrtf(ss), kNormFloor);
+      for (int d = 0; d < Dh; ++d) kn[j * ldk + d] = kr[d] / nrm;
+    }
   }
   __syncthreads();
 
@@ -74,8 +97,9 @@ mhgsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* qr = qb + (size_t)i * Dh;
     float ss = 0.f;
     for (int d = lane; d < Dh; d += 32) ss = fmaf(qr[d], qr[d], ss);
-    const float nrm = fmaxf(sqrtf(warp_sum(ss)), kNormFloor);
-    for (int d = lane; d < Dh; d += 32) qw[d] = qr[d] / nrm;
+    const float x2 = warp_sum(ss);
+    const float nrm = POINCARE ? 1.f : fmaxf(sqrtf(x2), kNormFloor);
+    for (int d = lane; d < Dh; d += 32) qw[d] = POINCARE ? qr[d] : qr[d] / nrm;
     __syncwarp();
 
     const float* mrow = mask ? mask + ((size_t)b * L + i) * S : nullptr;
@@ -84,7 +108,9 @@ mhgsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* kr = kn + j * ldk;
       float g = 0.f;
       for (int d = 0; d < Dh; ++d) g = fmaf(qw[d], kr[d], g);
-      float s = -acosf(fminf(fmaxf(g, -kClip), kClip));
+      float s = POINCARE
+          ? poincare::score(poincare::pair(g, x2, y2[j], curv), curv)
+          : -acosf(fminf(fmaxf(g, -kClip), kClip));
       if (mrow) s += mrow[j];
       const float e = expf(s);
       pw[j] = e;
@@ -102,19 +128,14 @@ mhgsa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// q [B,L,Dh], k/v [B,S,Dh], mask [B,L,S] or null (already canonicalized),
-// out [B,L,Dh]; all fp32, contiguous, on the current device. Launches on
-// `stream` and returns cudaGetLastError() (0 on success). An S whose keys and
-// values do not fit in shared memory is refused with cudaErrorInvalidValue.
-extern "C" int mhgsa_fwd(const float* q, const float* k, const float* v,
-                         const float* mask, float* out, int B, int L, int S,
-                         int Dh, void* stream) {
-  if (B <= 0 || L <= 0) return cudaSuccess;
+template <bool POINCARE>
+int launch(const float* q, const float* k, const float* v, const float* mask,
+           float* out, int B, int L, int S, int Dh, float c,
+           cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)S * (Dh | 1) + (size_t)S * Dh +
-                       (size_t)kWarps * Dh + (size_t)kWarps * S);
+                       (size_t)kWarps * Dh + (size_t)kWarps * S +
+                       (POINCARE ? (size_t)S : 0));
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -122,11 +143,29 @@ extern "C" int mhgsa_fwd(const float* q, const float* k, const float* v,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(mhgsa_fwd_kernel,
+  err = cudaFuncSetAttribute(mhgsa_fwd_kernel<POINCARE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  mhgsa_fwd_kernel<<<B, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      q, k, v, mask, out, L, S, Dh);
+  mhgsa_fwd_kernel<POINCARE><<<B, kWarps * 32, smem, stream>>>(
+      q, k, v, mask, out, L, S, Dh, poincare::make_curv(c));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B,L,Dh], k/v [B,S,Dh], mask [B,L,S] or null (already canonicalized),
+// out [B,L,Dh]; all fp32, contiguous, on the current device; metric 0 =
+// oblique, 1 = poincaré at curvature c (q and k ball points). Launches on
+// `stream` and returns cudaGetLastError() (0 on success). An S whose keys and
+// values do not fit in shared memory, or another metric, is refused with
+// cudaErrorInvalidValue.
+extern "C" int mhgsa_fwd(const float* q, const float* k, const float* v,
+                         const float* mask, float* out, int B, int L, int S,
+                         int Dh, int metric, float c, void* stream) {
+  if (metric != 0 && metric != 1) return cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0) return cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return metric == 1 ? launch<true>(q, k, v, mask, out, B, L, S, Dh, c, st)
+                     : launch<false>(q, k, v, mask, out, B, L, S, Dh, c, st);
 }

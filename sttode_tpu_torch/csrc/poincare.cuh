@@ -1,0 +1,83 @@
+// The poincaré score epilogue of the geodesic-attention kernels, shared by
+// mhgsa_fwd.cu, mhgsa_bwd.cu, flash_mhgsa_fwd.cu and flash_mhgsa_bwd.cu.
+//
+// Device form of sttode_tpu/kernels/mhgsa.py::_poincare_pieces (:211),
+// _poincare_score_from_pieces (:228) and _poincare_grad_pieces (:241),
+// one (query row i, key j) pair at a time. The inputs are ball points (the
+// caller applies project(expmap0(·)) outside the kernels), staged raw, with
+// x2 = ‖q_i‖² and y2 = ‖k_j‖² kept beside them; g = q_i·k_j comes from fp32
+// FMAs (no TF32, no tensor cores: x2 − 2g + y2 cancels for close points and
+// artanh amplifies the error up to 1/(2·1e-5) near the ball's edge):
+//
+//   m   = max(x2 − 2g + y2, 0),   den = 1 − 2c·g + c²·x2·y2
+//   n²  = m·den / (den + 1e-5)²,  n = √(n² + 1e-15)
+//   zc  = min(√c·n, 1 − 1e-5),    s = −(2/√c)·½·log((1 + zc)/(1 − zc))
+//
+// and, for the score cotangent ds of the pair,
+//
+//   dn  = ds · (−2 / max(1 − zc², 1e-12))      (through the clamp)
+//   dn2 = dn · ½ / n
+//   A   = den/(den + ε)²,  Bd = m·(ε − den)/(den + ε)³,  gate = 1{x2−2g+y2 > 0}
+//   dg  = dn2·(−2·A·gate − 2c·Bd)
+//   dx2 += dn2·(A·gate + c²·Bd·y2),  dy2 += dn2·(A·gate + c²·Bd·x2)
+//
+// The caller assembles dq_i = Σ_j dg_ij k_j + 2·dx2_i·q_i and
+// dk_j = Σ_i dg_ij q_i + 2·dy2_j·k_j; there is no normalize VJP. The scores
+// are ≥ −12.21/√c, which keeps the kernels' maxless softmax valid for
+// c ≥ 0.032 (the wrappers refuse smaller c).
+
+#pragma once
+
+#include <math.h>
+
+namespace poincare {
+
+constexpr float kArtanhEps = 1e-5f;
+constexpr float kDenomEps = 1e-5f;
+
+// the curvature and what the epilogue derives from it, once per launch
+struct Curv {
+  float c, c2, sqrt_c, inv_sqrt_c;
+};
+
+inline Curv make_curv(float c) {
+  const float s = sqrtf(c);
+  return Curv{c, c * c, s, 1.f / s};
+}
+
+// the recompute of one pair, kept for its gradient
+struct Pair {
+  float raw, m, den, n, zc;
+};
+
+__device__ __forceinline__ Pair pair(float g, float x2, float y2,
+                                     const Curv& k) {
+  Pair p;
+  p.raw = x2 - 2.f * g + y2;
+  p.m = fmaxf(p.raw, 0.f);
+  p.den = 1.f - 2.f * k.c * g + k.c2 * x2 * y2;
+  const float de = p.den + kDenomEps;
+  p.n = sqrtf(p.m * p.den / (de * de) + 1e-15f);
+  p.zc = fminf(k.sqrt_c * p.n, 1.f - kArtanhEps);
+  return p;
+}
+
+__device__ __forceinline__ float score(const Pair& p, const Curv& k) {
+  return -k.inv_sqrt_c * logf((1.f + p.zc) / (1.f - p.zc));
+}
+
+// dg of the pair for its score cotangent ds; a = dn2·A·gate and
+// b = dn2·c²·Bd, so that dx2 += a + b·y2 and dy2 += a + b·x2
+__device__ __forceinline__ float grad(const Pair& p, float ds, const Curv& k,
+                                      float* a, float* b) {
+  const float dn = ds * (-2.f / fmaxf(1.f - p.zc * p.zc, 1e-12f));
+  const float dn2 = dn * (0.5f / p.n);
+  const float de = p.den + kDenomEps;
+  const float A = p.den / (de * de);
+  const float Bd = p.m * (kDenomEps - p.den) / (de * de * de);
+  *a = p.raw > 0.f ? dn2 * A : 0.f;
+  *b = dn2 * k.c2 * Bd;
+  return -2.f * *a - 2.f * k.c * dn2 * Bd;
+}
+
+}  // namespace poincare

@@ -37,18 +37,23 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# the geodesic-attention entry points end in (metric, curvature, stream):
+# metric 0 = oblique, 1 = poincaré
 _SIGNATURES = {
-    "mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _F, _P],
     "select_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "packed_mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
-    "flash_mhgsa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "flash_mhgsa_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_mhgsa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flash_mhgsa_dq": [_P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _F, _P],
     "flash_mhgsa_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _P],
 }
 
 

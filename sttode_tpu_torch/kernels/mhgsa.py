@@ -1,32 +1,41 @@
 """Geodesic attention: the CUDA kernels' wrappers and their plain versions.
 
-Port of ``sttode_tpu/kernels/mhgsa.py``, oblique metric, forward and
+Port of ``sttode_tpu/kernels/mhgsa.py``, both metrics, forward and
 backward, in two forms whose kernels' source notes say which TPU kernel each
 replaces, what bounds it on the H100 and what its design does about it:
 
 - ``fused_geodesic_attention``, the whole-S kernels ``csrc/mhgsa_fwd.cu``
-  and ``csrc/mhgsa_bwd.cu``: every key of a problem sits in shared memory,
-  so they refuse long contexts (``whole_s_smem_bytes``); additive masks.
+  and ``csrc/mhgsa_bwd.cu``: every key of a problem is staged at once
+  (``whole_s_smem_bytes``), so the forward refuses long contexts; the
+  backward stages in a device workspace instead of shared memory where
+  shared memory is too small; additive masks.
 - ``flash_geodesic_attention``, the S-tiled kernels
   ``csrc/flash_mhgsa_fwd.cu`` (forward, with the per-row lse) and
   ``csrc/flash_mhgsa_bwd.cu`` (the dq and the dk/dv sweeps, which replay
   the scores from the lse): any L and S, key validity only.
 
-Both keep the JAX entries' contracts: leading dims are flattened into the
-problem axis; the scores are ``-acos(clip(q̂_i·k̂_j, ±(1-1e-4)))`` and the
-softmax is maxless with its denominator floored at 1e-30, so an
-all-excluded row outputs 0. ``fused_geodesic_attention`` canonicalizes its
-additive mask in plain torch before the launch (``_canonicalize_mask``);
-``flash_geodesic_attention`` takes ``kv_valid`` (a key with validity ≤ 0
-gets weight exactly 0). Each gradient is a ``torch.autograd.Function``, the
-JAX ``custom_vjp``: ``_FusedCore`` saves q, k, v and the canonicalized mask
-and recomputes the scores in its backward, which returns the mask cotangent
-only when the mask needs one (the canonicalization itself stays
-differentiable plain torch, as in JAX); ``_FlashCore`` saves q, k, v, the
-validity, out and the per-row lse, as the JAX residuals do, and nothing of
-size L·S. On a CPU tensor each direction runs its plain version (the
-``*_reference`` functions); on a CUDA tensor it launches the kernel or
-raises.
+Scores: ``metric="oblique"`` scores ``-acos(clip(q̂_i·k̂_j, ±(1-1e-4)))``;
+``metric="poincare"`` scores the negated Möbius geodesic distance of ball
+points at curvature c from the Gram closed form (``_poincare_pieces``): q
+and k must already be ball points (``nn.attention`` applies
+``pmath.project(pmath.expmap0(·))`` outside the kernels, so that map's
+gradient stays plain autograd). Both keep the JAX entries' contracts:
+leading dims are flattened into the problem axis; the softmax is maxless
+with its denominator floored at 1e-30, so an all-excluded row outputs 0,
+which needs the scores bounded below: poincaré requires
+c ≥ ``MIN_MAXLESS_CURVATURE`` (``_check_maxless_bounds``).
+``fused_geodesic_attention`` canonicalizes its additive mask in plain torch
+before the launch (``_canonicalize_mask``); ``flash_geodesic_attention``
+takes ``kv_valid`` (a key with validity ≤ 0 gets weight exactly 0). Each
+gradient is a ``torch.autograd.Function``, the JAX ``custom_vjp``:
+``_FusedCore`` saves q, k, v and the canonicalized mask and recomputes the
+scores in its backward, which returns the mask cotangent only when the mask
+needs one (the canonicalization itself stays differentiable plain torch, as
+in JAX); ``_FlashCore`` saves q, k, v, the validity, out and the per-row
+lse, as the JAX residuals do, and nothing of size L·S. On a CPU tensor each
+direction runs its plain version (the ``*_reference`` functions); on a CUDA
+tensor it launches the kernel or raises. Each wrapper counts its launches,
+in all and per metric (``launches_by_metric``).
 """
 
 from __future__ import annotations
@@ -39,15 +48,42 @@ EPS = 1e-4            # fp32 acos clip
 NORM_FLOOR = 1e-12
 NEG_INF = -1e30       # exclusion sentinel after canonicalization
 SMEM_OPTIN_BYTES = 232_448   # shared memory one block may opt in to (H100)
+METRICS = ("oblique", "poincare")   # index = the C entry points' metric
+ARTANH_EPS = 1e-5     # poincaré: zc ≤ 1 − 1e-5
+DENOM_EPS = 1e-5      # poincaré: the Möbius denominator guard
+
+# The maxless softmax needs the scores bounded below: poincaré scores are
+# ≥ −(2/√c)·artanh(1 − 1e-5) = −12.21/√c, and a row whose every valid key
+# sits there has denominator ≈ S·e^{−12.21/√c}, which must stay above the
+# 1e-30 floor: c ≥ 0.03124, with a margin (the JAX package's constant).
+MIN_MAXLESS_CURVATURE = 0.032
 
 
-def whole_s_smem_bytes(L: int, S: int, Dh: int) -> tuple[int, int]:
-    """Shared memory the whole-S kernels ask for at one problem's shape:
-    (forward, backward), as ``csrc/mhgsa_fwd.cu`` and ``csrc/mhgsa_bwd.cu``
-    compute it at launch; each refuses a shape above ``SMEM_OPTIN_BYTES``
-    (at Dh = 8: S > 2765 forward, L = S > 1036 backward)."""
+def _check_maxless_bounds(metric: str, curvature: float) -> None:
+    if metric not in METRICS:
+        raise ValueError(f"metric {metric!r} (oblique/poincare)")
+    if metric == "poincare" and curvature < MIN_MAXLESS_CURVATURE:
+        raise ValueError(
+            f"the geodesic-attention kernels require curvature >= "
+            f"{MIN_MAXLESS_CURVATURE} for metric='poincare': their maxless "
+            f"softmax relies on the score lower bound -12.21/sqrt(c) staying "
+            f"above the 1e-30 denominator floor (got c={curvature}). Use the "
+            f"dense route (attn_impl='dense') for smaller curvature.")
+
+
+def whole_s_smem_bytes(L: int, S: int, Dh: int,
+                       metric: str = "oblique") -> tuple[int, int]:
+    """Bytes the whole-S kernels stage per problem: (forward, backward), as
+    ``csrc/mhgsa_fwd.cu`` and ``csrc/mhgsa_bwd.cu`` compute them at launch.
+    The forward refuses a shape above ``SMEM_OPTIN_BYTES`` (at Dh = 8:
+    S > 2765 oblique, S > 2640 poincaré, which also stages the keys'
+    squared norms); the backward stages in a device workspace of that size
+    per problem instead of shared memory from there (at Dh = 8: L = S >
+    1036, both metrics — poincaré keeps squared norms where oblique keeps
+    norms)."""
     ld = Dh | 1
-    fwd = 4 * (S * ld + S * Dh + 4 * Dh + 4 * S)
+    fwd = 4 * (S * ld + S * Dh + 4 * Dh + 4 * S
+               + (S if metric == "poincare" else 0))
     bwd = 4 * (2 * (L + S) * ld + 3 * L + S + 2 * 8 * max(L, S) + 8 * Dh)
     return fwd, bwd
 
@@ -71,6 +107,81 @@ def _score_grad(g, gc, ds):
                        0.0)
 
 
+# --------------------------------------------------------------------------- #
+# the poincaré score epilogue (plain versions of the kernels' arithmetic)     #
+# --------------------------------------------------------------------------- #
+
+def _poincare_pieces(qb, kb, c: float):
+    """The score recompute on ball points qb [B,L,D], kb [B,S,D]:
+    (g, x2, y2, m, den, n2, n, zc) with g = qb·kbᵀ, x2 [B,L,1], y2 [B,1,S],
+    m = max(x2 − 2g + y2, 0), den = 1 − 2c·g + c²·x2·y2,
+    n² = m·den/(den + 1e-5)², n = √(n² + 1e-15), zc = min(√c·n, 1 − 1e-5)."""
+    g = qb @ kb.transpose(-1, -2)
+    x2 = torch.sum(qb * qb, dim=-1, keepdim=True)
+    y2 = torch.sum(kb * kb, dim=-1)[..., None, :]
+    m = torch.clamp(x2 - 2.0 * g + y2, min=0.0)
+    den = 1.0 - 2.0 * c * g + (c * c) * x2 * y2
+    n2 = m * den / ((den + DENOM_EPS) ** 2)
+    n = torch.sqrt(n2 + 1e-15)
+    zc = torch.clamp((c ** 0.5) * n, max=1.0 - ARTANH_EPS)
+    return g, x2, y2, m, den, n2, n, zc
+
+
+def _poincare_score_from_pieces(zc, c: float):
+    """s = −(2/√c)·artanh(zc), artanh from one log."""
+    return -(2.0 / c ** 0.5) * 0.5 * torch.log((1.0 + zc) / (1.0 - zc))
+
+
+def _poincare_grad_pieces(pieces, ds, c: float):
+    """The VJP of the score epilogue for the score cotangent ds [B,L,S]:
+    (dg [B,L,S], dx2 [B,L,1], dy2 [B,S,1]). ds/dn = −2/(1 − zc²) passes
+    through the clamp; dn/dn² = 1/(2n); n² = m·den/(den + ε)² with
+    m = relu(x2 − 2g + y2) gated by the unclipped x2 − 2g + y2 > 0."""
+    g, x2, y2, m, den, n2, n, zc = pieces
+    dn = ds * (-2.0 / torch.clamp(1.0 - zc * zc, min=1e-12))
+    dn2 = dn * (0.5 / n)
+    dA = den / ((den + DENOM_EPS) ** 2)
+    dB = m * (DENOM_EPS - den) / ((den + DENOM_EPS) ** 3)
+    gate = (x2 - 2.0 * g + y2 > 0.0).to(ds.dtype)
+    dg = dn2 * (dA * (-2.0 * gate) + dB * (-2.0 * c))
+    dx2 = torch.sum(dn2 * (dA * gate + dB * (c * c) * y2), dim=-1,
+                    keepdim=True)
+    dy2 = torch.sum(dn2 * (dA * gate + dB * (c * c) * x2),
+                    dim=-2)[..., None]
+    return dg, dx2, dy2
+
+
+def _poincare_assemble(dg, dx2, dy2, qb, kb):
+    """dq = dg·kb + 2·dx2⊙qb, dk = dgᵀ·qb + 2·dy2⊙kb (x2 = Σ qb², y2 =
+    Σ kb²): no normalize VJP, the ball points are the kernels' inputs."""
+    return (dg @ kb + 2.0 * dx2 * qb,
+            dg.transpose(-1, -2) @ qb + 2.0 * dy2 * kb)
+
+
+def _scores(q, k, metric: str, c: float):
+    """The replay the plain versions share: (state, s) with the scores
+    s [B,L,S] and what the gradient needs — (q̂, ‖q‖, k̂, ‖k‖, g, gc)
+    oblique, the ``_poincare_pieces`` poincaré."""
+    if metric == "poincare":
+        pieces = _poincare_pieces(q, k, c)
+        return pieces, _poincare_score_from_pieces(pieces[-1], c)
+    qn, q_norm = _unit(q)
+    kn, k_norm = _unit(k)
+    g = qn @ kn.transpose(-1, -2)
+    gc = torch.clamp(g, -1.0 + EPS, 1.0 - EPS)
+    return (qn, q_norm, kn, k_norm, g, gc), -torch.arccos(gc)
+
+
+def _qk_grads(state, ds, q, k, metric: str, c: float):
+    """(dq, dk) from the score cotangent ds and ``_scores``' state."""
+    if metric == "poincare":
+        return _poincare_assemble(*_poincare_grad_pieces(state, ds, c), q, k)
+    qn, q_norm, kn, k_norm, g, gc = state
+    dg = _score_grad(g, gc, ds)
+    return (_normalize_vjp(dg @ kn, qn, q_norm),
+            _normalize_vjp(dg.transpose(-1, -2) @ qn, kn, k_norm))
+
+
 def _canonicalize_mask(m: torch.Tensor) -> torch.Tensor:
     """Make an additive mask safe for the maxless softmax: subtract each
     row's max over its finite entries (softmax-invariant), floor the rest at
@@ -86,14 +197,13 @@ def _canonicalize_mask(m: torch.Tensor) -> torch.Tensor:
 
 def fused_geodesic_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                        v: torch.Tensor,
-                                       mask: torch.Tensor | None
+                                       mask: torch.Tensor | None,
+                                       metric: str = "oblique",
+                                       curvature: float = 1.0
                                        ) -> torch.Tensor:
     """Plain PyTorch version of the kernel on flattened operands: q [B,L,Dh],
     k/v [B,S,Dh], canonicalized mask [B,L,S] or None."""
-    qn, _ = _unit(q)
-    kn, _ = _unit(k)
-    g = torch.clamp(qn @ kn.transpose(-1, -2), -1.0 + EPS, 1.0 - EPS)
-    s = -torch.arccos(g)
+    _, s = _scores(q, k, metric, curvature)
     if mask is not None:
         s = s + mask
     e = torch.exp(s)
@@ -103,26 +213,23 @@ def fused_geodesic_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def fused_geodesic_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        mask: torch.Tensor | None, do: torch.Tensor, need_dmask: bool):
+        mask: torch.Tensor | None, do: torch.Tensor, need_dmask: bool,
+        metric: str = "oblique", curvature: float = 1.0):
     """Plain PyTorch version of the backward kernel, the formula of the JAX
     ``_fused_bwd``: recompute p; dv = pᵀ·do; ds = p ⊙ (dp − rowsum(dp ⊙ p));
-    dg = ds / √(1 − gc²) gated by the unclipped |g| < 1 − ε; dq̂ = dg·k̂,
-    dk̂ = dgᵀ·q̂; the row-normalize VJP of each side. Returns (dq, dk, dv,
-    dmask or None) on flattened operands."""
-    qn, q_norm = _unit(q)
-    kn, k_norm = _unit(k)
-    g = qn @ kn.transpose(-1, -2)
-    gc = torch.clamp(g, -1.0 + EPS, 1.0 - EPS)
-    s = -torch.arccos(gc)
+    oblique: dg = ds / √(1 − gc²) gated by the unclipped |g| < 1 − ε,
+    dq̂ = dg·k̂, dk̂ = dgᵀ·q̂ and the row-normalize VJP of each side;
+    poincaré: the epilogue's VJP (``_poincare_grad_pieces``) and
+    ``_poincare_assemble``. Returns (dq, dk, dv, dmask or None) on flattened
+    operands."""
+    state, s = _scores(q, k, metric, curvature)
     if mask is not None:
         s = s + mask
     e = torch.exp(s)
     p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     dp = do @ v.transpose(-1, -2)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-    dg = _score_grad(g, gc, ds)
-    dq = _normalize_vjp(dg @ kn, qn, q_norm)
-    dk = _normalize_vjp(dg.transpose(-1, -2) @ qn, kn, k_norm)
+    dq, dk = _qk_grads(state, ds, q, k, metric, curvature)
     dv = p.transpose(-1, -2) @ do
     return dq, dk, dv, (ds if need_dmask and mask is not None else None)
 
@@ -133,8 +240,14 @@ def _check_devices(q, *others):
             raise ValueError(f"operand on {t.device}, q on {q.device}")
 
 
+def _count(fn, metric: str, attr: str = "launches") -> None:
+    setattr(fn, attr, getattr(fn, attr) + 1)
+    getattr(fn, f"{attr}_by_metric")[metric] += 1
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor | None) -> torch.Tensor:
+            mask: torch.Tensor | None, metric: str = "oblique",
+            curvature: float = 1.0) -> torch.Tensor:
     _check_devices(q, k, v, mask)
     B, L, Dh = q.shape
     S = k.shape[1]
@@ -144,19 +257,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.mhgsa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, L, S, Dh, _build.stream())
-    _build.check(err, f"mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh})")
-    fused_geodesic_attention.launches += 1
+            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
+    _build.check(err, f"mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, {metric})")
+    _count(fused_geodesic_attention, metric)
     return out
 
 
-def _launch_bwd(q, k, v, mask, do, need_dmask):
+def _launch_bwd(q, k, v, mask, do, need_dmask, metric="oblique",
+                curvature=1.0):
     _check_devices(q, k, v, mask, do)
     B, L, Dh = q.shape
     S = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dmask = torch.empty((B, L, S), device=q.device, dtype=torch.float32) \
         if need_dmask and mask is not None else None
+    # beyond shared memory the kernel stages each problem in this workspace
+    _, staged = whole_s_smem_bytes(L, S, Dh, metric)
+    ws = torch.empty(B * staged // 4, device=q.device, dtype=torch.float32) \
+        if staged > SMEM_OPTIN_BYTES else None
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.mhgsa_bwd(
@@ -164,17 +282,19 @@ def _launch_bwd(q, k, v, mask, do, need_dmask):
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if dmask is None else dmask.data_ptr(),
-            B, L, S, Dh, _build.stream())
-    _build.check(err, f"mhgsa_bwd(B={B}, L={L}, S={S}, Dh={Dh})")
-    fused_geodesic_attention_backward.launches += 1
+            None if ws is None else ws.data_ptr(),
+            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
+    _build.check(err, f"mhgsa_bwd(B={B}, L={L}, S={S}, Dh={Dh}, {metric})")
+    _count(fused_geodesic_attention_backward, metric)
     return dq, dk, dv, dmask
 
 
-def _forward(q, k, v, mask):
+def _forward(q, k, v, mask, metric="oblique", curvature=1.0):
     if q.device.type == "cpu":
-        return fused_geodesic_attention_reference(q, k, v, mask)
+        return fused_geodesic_attention_reference(q, k, v, mask, metric,
+                                                  curvature)
     if q.device.type == "cuda":
-        return _launch(q, k, v, mask)
+        return _launch(q, k, v, mask, metric, curvature)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -182,136 +302,151 @@ def fused_geodesic_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                       v: torch.Tensor,
                                       mask: torch.Tensor | None,
                                       do: torch.Tensor, *,
-                                      need_dmask: bool = False):
+                                      need_dmask: bool = False,
+                                      metric: str = "oblique",
+                                      curvature: float = 1.0):
     """Backward of the flattened core: q [B,L,Dh], k/v [B,S,Dh], the
     canonicalized mask [B,L,S] or None, the output cotangent do [B,L,Dh].
     Returns (dq, dk, dv, dmask), dmask None unless ``need_dmask`` and a mask
     is given. CPU tensors run the plain version; CUDA tensors launch
     ``csrc/mhgsa_bwd.cu`` or raise."""
+    _check_maxless_bounds(metric, curvature)
     do = do.to(torch.float32).contiguous()
     if q.device.type == "cpu":
-        return fused_geodesic_attention_backward_reference(q, k, v, mask, do,
-                                                           need_dmask)
+        return fused_geodesic_attention_backward_reference(
+            q, k, v, mask, do, need_dmask, metric, curvature)
     if q.device.type == "cuda":
-        return _launch_bwd(q, k, v, mask, do, need_dmask)
+        return _launch_bwd(q, k, v, mask, do, need_dmask, metric, curvature)
     raise ValueError(f"unsupported device {q.device}")
 
 
 class _FusedCore(torch.autograd.Function):
-    """softmax(−acos(q̂·k̂ᵀ) + mask)·V on flattened, contiguous fp32 operands,
-    with the hand-derived backward. Saves its inputs, as the JAX residuals
-    (q, k, v, mask) do; nothing of the forward's intermediates."""
+    """softmax(score(q_i, k_j) + mask)·V on flattened, contiguous fp32
+    operands, with the hand-derived backward. Saves its inputs, as the JAX
+    residuals (q, k, v, mask) do; nothing of the forward's intermediates.
+    The metric and curvature are not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask):
+    def forward(ctx, q, k, v, mask, metric, curvature):
         ctx.save_for_backward(q, k, v, mask)
-        return _forward(q, k, v, mask)
+        ctx.metric, ctx.curvature = metric, curvature
+        return _forward(q, k, v, mask, metric, curvature)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask = ctx.saved_tensors
         dq, dk, dv, dmask = fused_geodesic_attention_backward(
-            q, k, v, mask, do, need_dmask=ctx.needs_input_grad[3])
-        return dq, dk, dv, dmask
+            q, k, v, mask, do, need_dmask=ctx.needs_input_grad[3],
+            metric=ctx.metric, curvature=ctx.curvature)
+        return dq, dk, dv, dmask, None, None
 
 
-def fused_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, *,
-                             mask: torch.Tensor | None = None,
-                             metric: str = "oblique") -> torch.Tensor:
-    """softmax_j(-acos(q̂_i·k̂_j) + mask)·V over q [..., L, Dh], k/v
-    [..., S, Dh] and an additive mask broadcastable to [..., L, S]; fp32.
-
-    MASK CONTRACT (as in the JAX package): entries ≤ -1e29 exclude a key
-    (weight exactly 0; a row with every key excluded outputs 0); other finite
-    values are shifted per row and floored at -30 before the kernel sees
-    them, which leaves the softmax weights unchanged up to ~1e-13."""
-    if metric != "oblique":
-        raise NotImplementedError("the poincaré metric is not ported yet")
+def _flatten(q, k, v):
     *lead, L, Dh = q.shape
     S = k.shape[-2]
     B = 1
     for d in lead:
         B *= d
-    q3 = q.reshape(B, L, Dh).to(torch.float32).contiguous()
-    k3 = k.reshape(B, S, Dh).to(torch.float32).contiguous()
-    v3 = v.reshape(B, S, Dh).to(torch.float32).contiguous()
+    return lead, B, L, S, Dh, (
+        x.reshape(B, -1, Dh).to(torch.float32).contiguous()
+        for x in (q, k, v))
+
+
+def fused_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             mask: torch.Tensor | None = None,
+                             metric: str = "oblique",
+                             curvature: float = 1.0) -> torch.Tensor:
+    """softmax_j(score(q_i, k_j) + mask)·V over q [..., L, Dh], k/v
+    [..., S, Dh] and an additive mask broadcastable to [..., L, S]; fp32.
+    ``metric``: "oblique" (−acos of the unit rows) or "poincare" (the
+    negated Möbius distance at ``curvature`` ≥ ``MIN_MAXLESS_CURVATURE``;
+    q and k must be ball points).
+
+    MASK CONTRACT (as in the JAX package): entries ≤ -1e29 exclude a key
+    (weight exactly 0; a row with every key excluded outputs 0); other finite
+    values are shifted per row and floored at -30 before the kernel sees
+    them, which leaves the softmax weights unchanged up to ~1e-13."""
+    _check_maxless_bounds(metric, curvature)
+    lead, B, L, S, Dh, (q3, k3, v3) = _flatten(q, k, v)
     m3 = None if mask is None else _canonicalize_mask(
         torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S)).contiguous()
-    return _FusedCore.apply(q3, k3, v3, m3).reshape(*lead, L, Dh)
+    return _FusedCore.apply(q3, k3, v3, m3, metric, float(curvature)) \
+        .reshape(*lead, L, Dh)
 
 
 # kernel launches, counted in _launch and _launch_bwd
 fused_geodesic_attention.launches = 0
+fused_geodesic_attention.launches_by_metric = dict.fromkeys(METRICS, 0)
 fused_geodesic_attention_backward.launches = 0
+fused_geodesic_attention_backward.launches_by_metric = dict.fromkeys(METRICS,
+                                                                     0)
 
 
 # --------------------------------------------------------------------------- #
 # S-tiled (flash) attention with key validity                                 #
 # --------------------------------------------------------------------------- #
 
-def _flash_scores(qn, kn, val):
-    """(g, gc, s) of the flattened flash core: the Gram [B,L,S], its clip and
-    the scores, an invalid key's at NEG_INF (its exp is exactly 0)."""
-    g = qn @ kn.transpose(-1, -2)
-    gc = torch.clamp(g, -1.0 + EPS, 1.0 - EPS)
-    s = -torch.arccos(gc)
+def _flash_scores(q, k, val, metric, c):
+    """``_scores`` with an invalid key's score at NEG_INF (its exp is
+    exactly 0)."""
+    state, s = _scores(q, k, metric, c)
     if val is not None:
         s = torch.where(val[:, None, :] > 0, s, NEG_INF)
-    return g, gc, s
+    return state, s
 
 
 def flash_geodesic_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                        v: torch.Tensor,
-                                       val: torch.Tensor | None):
+                                       val: torch.Tensor | None,
+                                       metric: str = "oblique",
+                                       curvature: float = 1.0):
     """Plain PyTorch version of the forward kernel on q [B,L,Dh], k/v
     [B,S,Dh] and the validity [B,S] or None: (out [B,L,Dh], lse [B,L]) with
     the maxless softmax, l = max(Σ_j e_ij, 1e-30), out = Σ_j e_ij v_j / l and
     lse = log l; a row with no valid key outputs exactly 0."""
-    qn, _ = _unit(q)
-    kn, _ = _unit(k)
-    _, _, s = _flash_scores(qn, kn, val)
+    _, s = _flash_scores(q, k, val, metric, curvature)
     e = torch.exp(s)
     l = torch.clamp(e.sum(dim=-1), min=1e-30)
     return (e @ v) / l[..., None], torch.log(l)
 
 
-def _flash_replay(q, k, v, val, do, lse, delta):
-    """What both backward sweeps replay: the unit rows and norms, the
-    probabilities p = exp(s − lse) and the clip-gated score cotangent
-    dg = ds / √(1 − gc²), ds = p ⊙ (do·vᵀ − δ)."""
-    qn, q_norm = _unit(q)
-    kn, k_norm = _unit(k)
-    g, gc, s = _flash_scores(qn, kn, val)
+def _flash_replay(q, k, v, val, do, lse, delta, metric, c):
+    """What both backward sweeps replay: the scores' state, the
+    probabilities p = exp(s − lse) and the score cotangent
+    ds = p ⊙ (do·vᵀ − δ)."""
+    state, s = _flash_scores(q, k, val, metric, c)
     p = torch.exp(s - lse[..., None])
-    dg = _score_grad(g, gc, p * (do @ v.transpose(-1, -2) - delta[..., None]))
-    return qn, q_norm, kn, k_norm, p, dg
+    return state, p, p * (do @ v.transpose(-1, -2) - delta[..., None])
 
 
-def flash_dq_reference(q, k, v, val, do, lse, delta):
-    """Plain PyTorch version of the dq sweep: dq̂ = dg·k̂, then the q-side
-    row-normalize VJP."""
-    qn, q_norm, kn, _, _, dg = _flash_replay(q, k, v, val, do, lse, delta)
-    return _normalize_vjp(dg @ kn, qn, q_norm)
+def flash_dq_reference(q, k, v, val, do, lse, delta, metric="oblique",
+                       curvature=1.0):
+    """Plain PyTorch version of the dq sweep."""
+    state, _, ds = _flash_replay(q, k, v, val, do, lse, delta, metric,
+                                 curvature)
+    return _qk_grads(state, ds, q, k, metric, curvature)[0]
 
 
-def flash_dkv_reference(q, k, v, val, do, lse, delta):
-    """Plain PyTorch version of the dk/dv sweep: dk̂ = dgᵀ·q̂ with the
-    k-side row-normalize VJP, and dv = pᵀ·do."""
-    qn, _, kn, k_norm, p, dg = _flash_replay(q, k, v, val, do, lse, delta)
-    return (_normalize_vjp(dg.transpose(-1, -2) @ qn, kn, k_norm),
+def flash_dkv_reference(q, k, v, val, do, lse, delta, metric="oblique",
+                        curvature=1.0):
+    """Plain PyTorch version of the dk/dv sweep: (dk, dv = pᵀ·do)."""
+    state, p, ds = _flash_replay(q, k, v, val, do, lse, delta, metric,
+                                 curvature)
+    return (_qk_grads(state, ds, q, k, metric, curvature)[1],
             p.transpose(-1, -2) @ do)
 
 
 def flash_geodesic_attention_backward_reference(q, k, v, val, do, lse,
-                                                delta):
+                                                delta, metric="oblique",
+                                                curvature=1.0):
     """Plain PyTorch version of the two backward sweeps, the formula of the
-    JAX ``_make_flash_dq_kernel``/``_make_flash_dkv_kernel``: the replayed
-    p = exp(s − lse); dv = pᵀ·do; ds = p ⊙ (do·vᵀ − δ) with δ = rowsum(do ⊙
-    out); dg = ds / √(1 − gc²) gated by the unclipped |g| < 1 − ε; dq̂ =
-    dg·k̂, dk̂ = dgᵀ·q̂; the row-normalize VJP of each side last. Each sweep
-    replays the scores, as the kernels do. Returns (dq, dk, dv)."""
-    args = (q, k, v, val, do, lse, delta)
+    JAX ``_make_flash_dq_kernel``/``_make_flash_dkv_kernel`` and their
+    poincaré counterparts: the replayed p = exp(s − lse); dv = pᵀ·do;
+    ds = p ⊙ (do·vᵀ − δ) with δ = rowsum(do ⊙ out); then each metric's
+    score VJP (``_qk_grads``). Each sweep replays the scores, as the
+    kernels do. Returns (dq, dk, dv)."""
+    args = (q, k, v, val, do, lse, delta, metric, curvature)
     return (flash_dq_reference(*args), *flash_dkv_reference(*args))
 
 
@@ -319,7 +454,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_flash(q, k, v, val):
+def _launch_flash(q, k, v, val, metric="oblique", curvature=1.0):
     _check_devices(q, k, v, val)
     B, L, Dh = q.shape
     S = k.shape[1]
@@ -329,13 +464,16 @@ def _launch_flash(q, k, v, val):
     with torch.cuda.device(q.device):
         err = lib.flash_mhgsa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
-            out.data_ptr(), lse.data_ptr(), B, L, S, Dh, _build.stream())
-    _build.check(err, f"flash_mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh})")
-    flash_geodesic_attention.launches += 1
+            out.data_ptr(), lse.data_ptr(), B, L, S, Dh,
+            METRICS.index(metric), curvature, _build.stream())
+    _build.check(err, f"flash_mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, "
+                      f"{metric})")
+    _count(flash_geodesic_attention, metric)
     return out, lse
 
 
-def _launch_flash_dq(q, k, v, val, do, lse, delta):
+def _launch_flash_dq(q, k, v, val, do, lse, delta, metric="oblique",
+                     curvature=1.0):
     _check_devices(q, k, v, val, do, lse, delta)
     B, L, Dh = q.shape
     S = k.shape[1]
@@ -345,13 +483,15 @@ def _launch_flash_dq(q, k, v, val, do, lse, delta):
         err = lib.flash_mhgsa_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, L, S, Dh, _build.stream())
-    _build.check(err, f"flash_mhgsa_dq(B={B}, L={L}, S={S}, Dh={Dh})")
-    flash_geodesic_attention_backward.launches_dq += 1
+            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
+    _build.check(err, f"flash_mhgsa_dq(B={B}, L={L}, S={S}, Dh={Dh}, "
+                      f"{metric})")
+    _count(flash_geodesic_attention_backward, metric, "launches_dq")
     return dq
 
 
-def _launch_flash_dkv(q, k, v, val, do, lse, delta):
+def _launch_flash_dkv(q, k, v, val, do, lse, delta, metric="oblique",
+                      curvature=1.0):
     _check_devices(q, k, v, val, do, lse, delta)
     B, L, Dh = q.shape
     S = k.shape[1]
@@ -361,17 +501,20 @@ def _launch_flash_dkv(q, k, v, val, do, lse, delta):
         err = lib.flash_mhgsa_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, L, S, Dh, _build.stream())
-    _build.check(err, f"flash_mhgsa_dkv(B={B}, L={L}, S={S}, Dh={Dh})")
-    flash_geodesic_attention_backward.launches_dkv += 1
+            dv.data_ptr(), B, L, S, Dh, METRICS.index(metric), curvature,
+            _build.stream())
+    _build.check(err, f"flash_mhgsa_dkv(B={B}, L={L}, S={S}, Dh={Dh}, "
+                      f"{metric})")
+    _count(flash_geodesic_attention_backward, metric, "launches_dkv")
     return dk, dv
 
 
-def _flash_forward(q, k, v, val):
+def _flash_forward(q, k, v, val, metric="oblique", curvature=1.0):
     if q.device.type == "cpu":
-        return flash_geodesic_attention_reference(q, k, v, val)
+        return flash_geodesic_attention_reference(q, k, v, val, metric,
+                                                  curvature)
     if q.device.type == "cuda":
-        return _launch_flash(q, k, v, val)
+        return _launch_flash(q, k, v, val, metric, curvature)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -379,68 +522,71 @@ def flash_geodesic_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                       v: torch.Tensor,
                                       val: torch.Tensor | None,
                                       out: torch.Tensor, lse: torch.Tensor,
-                                      do: torch.Tensor):
+                                      do: torch.Tensor,
+                                      metric: str = "oblique",
+                                      curvature: float = 1.0):
     """Backward of the flattened flash core from its residuals: q [B,L,Dh],
     k/v [B,S,Dh], the validity [B,S] or None, the forward's out [B,L,Dh] and
     lse [B,L], the output cotangent do [B,L,Dh]. δ = rowsum(do ⊙ out) is one
     plain reduction here (JAX takes it outside its kernels too). Returns
     (dq, dk, dv). CPU tensors run the plain version; CUDA tensors launch the
     dq and dk/dv sweeps of ``csrc/flash_mhgsa_bwd.cu`` or raise."""
+    _check_maxless_bounds(metric, curvature)
     do = do.to(torch.float32).contiguous()
     delta = torch.sum(do * out, dim=-1)
+    args = (q, k, v, val, do, lse, delta, metric, curvature)
     if q.device.type == "cpu":
-        return flash_geodesic_attention_backward_reference(q, k, v, val, do,
-                                                           lse, delta)
+        return flash_geodesic_attention_backward_reference(*args)
     if q.device.type == "cuda":
-        args = (q, k, v, val, do, lse, delta)
         return (_launch_flash_dq(*args), *_launch_flash_dkv(*args))
     raise ValueError(f"unsupported device {q.device}")
 
 
 class _FlashCore(torch.autograd.Function):
-    """softmax(−acos(q̂·k̂ᵀ))·V with key validity on flattened, contiguous
+    """softmax(score(q_i, k_j))·V with key validity on flattened, contiguous
     fp32 operands, with the hand-derived backward. Saves q, k, v, the
-    validity, out and the per-row lse, as the JAX residuals do."""
+    validity, out and the per-row lse, as the JAX residuals do. The metric
+    and curvature are not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, val):
-        out, lse = _flash_forward(q, k, v, val)
+    def forward(ctx, q, k, v, val, metric, curvature):
+        out, lse = _flash_forward(q, k, v, val, metric, curvature)
         ctx.save_for_backward(q, k, v, val, out, lse)
+        ctx.metric, ctx.curvature = metric, curvature
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, val, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_geodesic_attention_backward(q, k, v, val, out, lse,
-                                                       do)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_geodesic_attention_backward(
+            q, k, v, val, out, lse, do, ctx.metric, ctx.curvature)
+        return dq, dk, dv, None, None, None
 
 
 def flash_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *,
                              kv_valid: torch.Tensor | None = None,
-                             metric: str = "oblique") -> torch.Tensor:
-    """S-tiled softmax_j(-acos(q̂_i·k̂_j))·V over q [..., L, Dh], k/v [..., S,
+                             metric: str = "oblique",
+                             curvature: float = 1.0) -> torch.Tensor:
+    """S-tiled softmax_j(score(q_i, k_j))·V over q [..., L, Dh], k/v [..., S,
     Dh] with key validity ``kv_valid`` broadcastable to [..., S] (1 = real
-    key) or None; fp32. Any L and S: the context is bounded by device
-    memory, not shared memory."""
-    if metric != "oblique":
-        raise NotImplementedError("the poincaré metric is not ported yet")
-    *lead, L, Dh = q.shape
-    S = k.shape[-2]
-    B = 1
-    for d in lead:
-        B *= d
-    q3 = q.reshape(B, L, Dh).to(torch.float32).contiguous()
-    k3 = k.reshape(B, S, Dh).to(torch.float32).contiguous()
-    v3 = v.reshape(B, S, Dh).to(torch.float32).contiguous()
+    key) or None; fp32; the metric as in ``fused_geodesic_attention``. Any L
+    and S: the context is bounded by device memory, not shared memory."""
+    _check_maxless_bounds(metric, curvature)
+    lead, B, L, S, Dh, (q3, k3, v3) = _flatten(q, k, v)
     val = None if kv_valid is None else torch.broadcast_to(
         kv_valid, (*lead, S)).reshape(B, S).to(torch.float32).contiguous()
-    return _FlashCore.apply(q3, k3, v3, val).reshape(*lead, L, Dh)
+    return _FlashCore.apply(q3, k3, v3, val, metric, float(curvature)) \
+        .reshape(*lead, L, Dh)
 
 
 # kernel launches, counted in _launch_flash, _launch_flash_dq and
 # _launch_flash_dkv
 flash_geodesic_attention.launches = 0
+flash_geodesic_attention.launches_by_metric = dict.fromkeys(METRICS, 0)
 flash_geodesic_attention_backward.launches_dq = 0
+flash_geodesic_attention_backward.launches_dq_by_metric = \
+    dict.fromkeys(METRICS, 0)
 flash_geodesic_attention_backward.launches_dkv = 0
+flash_geodesic_attention_backward.launches_dkv_by_metric = \
+    dict.fromkeys(METRICS, 0)

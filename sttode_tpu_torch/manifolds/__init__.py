@@ -1,5 +1,5 @@
-"""Manifolds used by the port (oblique only; poincaré is not ported yet)."""
+"""Manifolds used by the port: the oblique manifold and the Poincaré ball."""
 
-from sttode_tpu_torch.manifolds import oblique
+from sttode_tpu_torch.manifolds import oblique, pmath
 
-__all__ = ["oblique"]
+__all__ = ["oblique", "pmath"]

@@ -20,9 +20,12 @@ Routing on a CUDA device: attention goes to the geodesic-attention kernels
 goes to the selection-decode kernel (mode "traj" at inference, mode "dist"
 at ``select_dtype`` in training) unless ``select_impl="xla"`` — a name kept
 from the JAX package so configs carry over; in the port it means the plain
-PyTorch decode. The attention kernel (``nn.attention._kernel_route``) is the
-small-shape key-validity one (``kernels.packed_mhgsa``) where the problems
-are small, the S-tiled one (``kernels.mhgsa.flash_geodesic_attention``) for
+PyTorch decode. The attention metric is ``attn_metric``: "oblique" (the
+reference's) or "poincare" (the Möbius distance on the ball of
+``curvature`` c, the paper's framing). The attention kernel
+(``nn.attention._kernel_route``) is the small-shape key-validity one
+(``kernels.packed_mhgsa``, oblique only) where the problems are small, the
+S-tiled one (``kernels.mhgsa.flash_geodesic_attention``) for
 maskless problems beyond the whole-S kernels' shared memory or JAX's
 S > 2048 — on the scene axis, batches of more than 1036 scenes — and the
 whole-S one otherwise. On the CPU both take the plain PyTorch path, except
@@ -111,6 +114,10 @@ class STTODEConfig(NamedTuple):
         if self.attn_axis == "agent" and self.compat == "reference":
             raise ValueError("attn_axis='agent' requires compat='tpu': "
                              "reference compat drops attention masks (Q2)")
+        if self.attn_metric not in ("oblique", "poincare"):
+            raise ValueError(f"attn_metric {self.attn_metric!r}")
+        if not self.curvature > 0.0:
+            raise ValueError(f"curvature {self.curvature} must be > 0")
         if self.ode_steps < 1 or self.sample_k < 1:
             raise ValueError("ode_steps and sample_k must be >= 1")
         if self.select_impl not in ("xla", "fused", "auto"):
@@ -134,7 +141,6 @@ class STTODEConfig(NamedTuple):
         not_ported = {
             "attn_impl": (self.attn_impl, ("auto", "dense", "fused",
                                          "packed", "flash")),
-            "attn_metric": (self.attn_metric, ("oblique",)),
             "ode_method": (self.ode_method, ("euler", "midpoint", "rk4")),
             "ode_adjoint": (self.ode_adjoint, (False,)),
             "learn_prior": (self.learn_prior, (False,)),

@@ -1,7 +1,11 @@
 """Multi-head geodesic self-attention (port of ``sttode_tpu/nn/attention.py``).
 
-Scores are negated geodesic distances on the oblique manifold,
-``score(q, k) = -acos(clip(q̂·k̂, ±(1-1e-4)))``, in one of two orientations:
+Scores are negated geodesic distances, on the oblique manifold
+(``metric="oblique"``, the reference's live path:
+``score(q, k) = -acos(clip(q̂·k̂, ±(1-1e-4)))``) or on the Poincaré ball of
+curvature c (``metric="poincare"``, the paper's framing: q and k mapped onto
+the ball by ``pmath.project(pmath.expmap0(·))`` and scored by the negated
+Möbius distance, ``pmath.dist_matrix_gram``), in one of two orientations:
 
 - ``compat="reference"`` (quirk Q3): the square case uses
   ``scores[i, j] = -d(k_i, q_j)``; rectangular shapes use the corrected one.
@@ -16,22 +20,31 @@ tensor ``fused="auto"`` sends
   without its TPU VMEM guard);
 - every other maskless problem (a key validity allowed) to the S-tiled
   kernel ``kernels.mhgsa.flash_geodesic_attention`` ("flash") where JAX's
-  rule S > 2048 says so or where the whole-S kernels would refuse it for
-  shared memory (``kernels.mhgsa.whole_s_smem_bytes``: at Dh = 8 their
-  backward refuses L = S > 1036, so scene-axis training at 1037 ≤ B ≤ 2048
-  scenes goes to flash on the card where JAX runs its fused kernel — an
-  H100 routing decision; the backward's fit is used since the route cannot
+  rule S > 2048 says so or where the whole-S kernels would not stage it in
+  shared memory (``kernels.mhgsa.whole_s_smem_bytes`` of the metric: at
+  Dh = 8 their backward's rows pass the opt-in limit at L = S > 1036, so
+  scene-axis training at 1037 ≤ B ≤ 2048 scenes goes to flash on the card
+  where JAX runs its fused kernel — an H100 routing decision, flash being
+  ~10× faster there; the backward's fit is used since the route cannot
   know whether a gradient follows);
-- an additive mask with S > 2048 to the plain path, as in JAX;
+- an additive mask with S > 2048 to the plain path, as in JAX (up to 2048
+  the whole-S backward stages a problem that does not fit in shared memory
+  in a device workspace);
+- poincaré below ``MIN_MAXLESS_CURVATURE`` to the plain path, as in JAX:
+  the kernels' maxless softmax needs the scores bounded below;
 - everything else to the whole-S kernel
-  ``kernels.mhgsa.fused_geodesic_attention`` ("fused").
+  ``kernels.mhgsa.fused_geodesic_attention`` ("fused"), also the small
+  poincaré problems that JAX leaves to XLA on the TPU (L·S < 256²): an
+  H100 routing choice, the kernels of either metric staying on the card.
 ``fused=True``, ``fused="packed"`` and ``fused="flash"`` force one kernel,
 ``fused=False`` ("dense") takes the plain path, a max-subtracted softmax over
 the dense scores. Every kernel takes the forward and, when a gradient is
 taken, the backward; Q3 is the kernel with q and k swapped, under which a
 key validity becomes an additive mask (so it goes to the whole-S kernel, and
-the packed and flash kernels refuse it). On a CPU tensor every route but a
-forced "packed" or "flash" takes the plain dense path; those two run their
+the packed and flash kernels refuse it). Under poincaré the ball map is
+applied to q and k (after the swap) in plain differentiable torch before a
+kernel sees them, as in JAX. On a CPU tensor every route but a forced
+"packed" or "flash" takes the plain dense path; those two run their
 kernel's plain version. The packed boundary is the JAX package's starting
 point, not an H100 crossover: ``chip_smoke.py`` times the kernels at the NBA
 recipe's shapes.
@@ -43,12 +56,13 @@ from typing import NamedTuple
 
 import torch
 
-from sttode_tpu_torch.kernels.mhgsa import (SMEM_OPTIN_BYTES,
+from sttode_tpu_torch.kernels.mhgsa import (MIN_MAXLESS_CURVATURE,
+                                            SMEM_OPTIN_BYTES,
                                             flash_geodesic_attention,
                                             fused_geodesic_attention,
                                             whole_s_smem_bytes)
 from sttode_tpu_torch.kernels.packed_mhgsa import packed_geodesic_attention
-from sttode_tpu_torch.manifolds import oblique
+from sttode_tpu_torch.manifolds import oblique, pmath
 from sttode_tpu_torch.nn import core
 
 
@@ -82,13 +96,25 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, L, H * Dh)
 
 
+def to_ball(x: torch.Tensor, c: float) -> torch.Tensor:
+    """The poincaré metric's map onto the ball: project(expmap0(x))."""
+    return pmath.project(pmath.expmap0(x, c=c), c=c)
+
+
 def geodesic_scores(q: torch.Tensor, k: torch.Tensor, *,
                     compat: str = "reference",
-                    metric: str = "oblique") -> torch.Tensor:
+                    metric: str = "oblique",
+                    curvature: float = 1.0) -> torch.Tensor:
     """Negated geodesic distances: q [..., L, Dh], k [..., S, Dh] →
     [..., L, S] (square reference-compat case: the Q3 orientation)."""
+    if metric == "poincare":
+        d = pmath.dist_matrix_gram(to_ball(q, curvature),
+                                   to_ball(k, curvature), c=curvature)
+        if compat == "reference" and q.shape[-2] == k.shape[-2]:
+            d = d.transpose(-1, -2)
+        return -d
     if metric != "oblique":
-        raise NotImplementedError("the poincaré metric is not ported yet")
+        raise ValueError(f"metric {metric!r} (oblique/poincare)")
     qn = oblique.proj(q)
     kn = oblique.proj(k)
     if compat == "reference":
@@ -112,8 +138,8 @@ def _kv_valid_mask(kv_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
                   has_kv_valid: bool, compat: str, fused: str | bool,
-                  need_weights: bool, metric: str,
-                  on_cuda: bool) -> str | None:
+                  need_weights: bool, metric: str, on_cuda: bool,
+                  curvature: float = 1.0) -> str | None:
     """The kernel that serves one attention call: "packed", "flash",
     "fused" or None (the plain path). Under reference compat the square
     case is the kernel with q and k swapped, and a key validity then counts
@@ -135,6 +161,8 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
         return "fused"
     if need_weights:
         return None
+    if metric == "poincare" and curvature < MIN_MAXLESS_CURVATURE:
+        return None
     L, S, Dh = q_shape[-2], k_shape[-2], q_shape[-1]
     swapped = compat == "reference" and L == S
     has_mask = has_mask or (has_kv_valid and swapped)
@@ -143,7 +171,8 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
         return "packed"
     if has_mask:
         return None if S > 2048 else "fused"
-    if S > 2048 or max(whole_s_smem_bytes(L, S, Dh)) > SMEM_OPTIN_BYTES:
+    if S > 2048 or max(whole_s_smem_bytes(L, S, Dh, metric)) > \
+            SMEM_OPTIN_BYTES:
         return "flash"
     return "fused"
 
@@ -154,6 +183,7 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        fused: str | bool = "auto",
                        need_weights: bool = True,
                        metric: str = "oblique",
+                       curvature: float = 1.0,
                        kv_valid: torch.Tensor | None = None):
     """Core attention: scores → (+mask) → softmax → @v.
 
@@ -168,7 +198,8 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           has_mask=mask is not None,
                           has_kv_valid=kv_valid is not None, compat=compat,
                           fused=fused, need_weights=need_weights,
-                          metric=metric, on_cuda=q.is_cuda)
+                          metric=metric, on_cuda=q.is_cuda,
+                          curvature=curvature)
     swapped = compat == "reference" and q.shape[-2] == k.shape[-2]
     kv_as_mask = kv_valid is not None and (
         swapped or route not in ("packed", "flash"))
@@ -185,6 +216,8 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             else "")
     if route is not None:
         qq, kk = (k, q) if swapped else (q, k)
+        if metric == "poincare":
+            qq, kk = to_ball(qq, curvature), to_ball(kk, curvature)
         if route == "packed":
             if mask is not None:
                 raise ValueError(
@@ -203,10 +236,12 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 while kv_valid.ndim < qq.ndim - 1:   # insert axes before S
                     kv_valid = kv_valid[..., None, :]   # (e.g. the heads)
             return flash_geodesic_attention(qq, kk, v, kv_valid=kv_valid,
-                                            metric=metric), None
-        return fused_geodesic_attention(qq, kk, v, mask=mask,
-                                        metric=metric), None
-    scores = geodesic_scores(q, k, compat=compat, metric=metric)
+                                            metric=metric,
+                                            curvature=curvature), None
+        return fused_geodesic_attention(qq, kk, v, mask=mask, metric=metric,
+                                        curvature=curvature), None
+    scores = geodesic_scores(q, k, compat=compat, metric=metric,
+                             curvature=curvature)
     if mask is not None:
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)
@@ -220,6 +255,7 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           need_weights: bool = False,
           fused: str | bool = "auto",
           metric: str = "oblique",
+          curvature: float = 1.0,
           kv_valid: torch.Tensor | None = None):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
@@ -237,7 +273,8 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
         bq, bk, bv = params.in_proj_b.chunk(3)
         q, k, v = query @ wq + bq, key @ wk + bk, value @ wv + bv
     # quirk Q10: a forward no-op after the row normalization, kept so the
-    # numerics follow the reference's operation order
+    # numerics follow the reference's operation order; oblique only: under
+    # poincaré it would pull q toward the ball's origin and skew distances
     if metric == "oblique":
         q = q * (head_dim ** -0.5)
     if mask is not None:
@@ -246,7 +283,7 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
         split_heads(q, num_heads), split_heads(k, num_heads),
         split_heads(v, num_heads), mask=mask, compat=compat,
         fused=fused, need_weights=need_weights, metric=metric,
-        kv_valid=kv_valid)
+        curvature=curvature, kv_valid=kv_valid)
     out = merge_heads(out_h) @ params.out_proj_w + params.out_proj_b
     if need_weights and w is not None:
         return out, w.mean(dim=-3)

@@ -81,6 +81,7 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
                     mask: torch.Tensor | None = None,
                     compat: str = "reference", need_weights: bool = False,
                     fused: str | bool = "auto", metric: str = "oblique",
+                    curvature: float = 1.0,
                     kv_valid: torch.Tensor | None = None):
     """Gated geodesic attention over [L, N, S, D]: MHGSA on [N·S, L, D],
     then the ``tanh(info(a)) * sigmoid(gate(a))`` gate. ``kv_valid``
@@ -101,7 +102,7 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
         mask = kv_valid = None   # quirk Q2: masks never reach the kernel
     out, w = mhgsa(params.attn, q, k, v, num_heads, mask=mask, compat=compat,
                    need_weights=need_weights, fused=fused, metric=metric,
-                   kv_valid=kv_valid)
+                   curvature=curvature, kv_valid=kv_valid)
     gated = torch.tanh(core.dense(params.info, out)) * \
         torch.sigmoid(core.dense(params.gate, out))
     return gated.transpose(0, 1).reshape(L, N, S, D), w
@@ -119,7 +120,7 @@ def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
     attn_out, _ = gated_attention(
         params.self_attn, src, src, src, cfg.num_heads, mask=mask,
         compat=cfg.compat, fused=_ATTN_IMPL_TO_FUSED[cfg.attn_impl],
-        metric=cfg.attn_metric, kv_valid=kv_valid)
+        metric=cfg.attn_metric, curvature=cfg.curvature, kv_valid=kv_valid)
     src = core.layer_norm(params.norm1, src + attn_out)
     act = core.ACTIVATIONS[cfg.activation]
     ffn_out = core.dense(params.ffn.linear2,

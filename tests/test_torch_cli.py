@@ -337,8 +337,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     for flag in (["--async_ckpt"], ["--scenes_per_batch", "2"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             cli_train.main(_cli_args(tmp_path, *flag))
-    with pytest.raises(NotImplementedError, match="poincar"):
-        cli_train.main(_cli_args(tmp_path, "--attn_metric", "poincare"))
+    # poincaré trains (test_torch_poincare.py); a curvature ≤ 0 is refused
+    with pytest.raises(ValueError, match="curvature"):
+        cli_train.main(_cli_args(tmp_path, "--attn_metric", "poincare",
+                                 "--curvature", "0"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_train.main(["--dataset", "nba", "--data_root",

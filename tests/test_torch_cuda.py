@@ -27,6 +27,7 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.kernels import select_decode as tsd
 from sttode_tpu_torch.models import sttode as tm
+from sttode_tpu_torch.nn.attention import to_ball
 from sttode_tpu_torch.serving import Predictor
 from sttode_tpu_torch.train import make_train_step
 
@@ -83,8 +84,9 @@ def test_attention_kernel_matches_plain(cuda_device, shape_q, S, mask_kind):
 @pytest.mark.cuda
 def test_attention_kernel_refuses_grad_and_oversized_keys(cuda_device):
     """Gradients are taken through the backward kernel (and equal the plain
-    backward's); keys that do not fit in shared memory are refused by both
-    kernels."""
+    backward's); keys that do not fit in shared memory are refused by the
+    forward kernel, while the backward kernel stages such a problem in a
+    device workspace and equals its plain version."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32))
     q = x.to(cuda_device).requires_grad_()
@@ -103,8 +105,13 @@ def test_attention_kernel_refuses_grad_and_oversized_keys(cuda_device):
     kv = torch.randn(1, 100_000, 64, device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tmhgsa.fused_geodesic_attention(q, kv, kv)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tmhgsa.fused_geodesic_attention_backward(q, kv, kv, None, q)
+    assert max(tmhgsa.whole_s_smem_bytes(8, 100_000, 64)) > \
+        tmhgsa.SMEM_OPTIN_BYTES
+    got = tmhgsa.fused_geodesic_attention_backward(q, kv, kv, None, q)
+    torch.cuda.synchronize()
+    want = tmhgsa.fused_geodesic_attention_backward(
+        q.cpu(), kv.cpu(), kv.cpu(), None, q.cpu())
+    _grad_check([g if g is None else g.cpu() for g in got], want)
 
 
 def _grad_check(got, want):
@@ -746,3 +753,273 @@ def test_predictor_on_card_is_deterministic(cuda_device):
         assert a.shape == (4, len(s), cfg.future_length, 2)
         assert np.isfinite(a).all()
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# the poincaré metric (ball points; tolerances as for the oblique kernels)     #
+# --------------------------------------------------------------------------- #
+
+def _ball_inputs(rng, lead, L, S, Dh, c, scale=0.5):
+    """q, k as ball points (the map the attention layer applies before the
+    kernels, to rows of norm ~scale/√c: mid-ball, since near the edge
+    artanh amplifies the fp32 Gram's summation-order differences), v and
+    the output cotangent."""
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, k = (to_ball(scale / (c * Dh) ** 0.5 * arr(*lead, n, Dh), c)
+            for n in (L, S))
+    return q, k, arr(*lead, S, Dh), arr(*lead, L, Dh)
+
+
+def _poincare_launches():
+    f = tmhgsa.flash_geodesic_attention_backward
+    return (tmhgsa.fused_geodesic_attention.launches_by_metric["poincare"],
+            tmhgsa.fused_geodesic_attention_backward.launches_by_metric[
+                "poincare"],
+            tmhgsa.flash_geodesic_attention.launches_by_metric["poincare"],
+            f.launches_dq_by_metric["poincare"],
+            f.launches_dkv_by_metric["poincare"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=88, L=32, S=32, c=1.0, mask="none"),     # NBA training, B = 32
+    dict(B=88, L=128, S=128, c=1.0, mask="none"),   # NBA evaluation
+    dict(B=512, L=8, S=8, c=1.0, mask="finfo_min"),  # agent-axis serving
+    dict(B=3, L=5, S=9, c=0.7, mask="all_excluded"),
+    dict(B=2, L=40, S=70, c=2.0, mask="finite"),
+    dict(B=2, L=6, S=6, c=1.0, mask="identical_qk")])
+def test_poincare_whole_s_kernels_match_plain(cuda_device, case):
+    """The poincaré forward and backward kernels (csrc/mhgsa_fwd.cu,
+    csrc/mhgsa_bwd.cu) against their plain versions on the same inputs:
+    forward 1e-5, gradients and dmask 5e-5 × max(1, max |g|); an
+    all-excluded row outputs 0 and gets zero gradients; q = k is held to
+    finiteness only: its diagonal x2 − 2g + y2 cancels to rounding noise,
+    which the 1e-15 guard keeps finite and √ turns into ~1e-4 distances
+    that differ between any two summation orders."""
+    rng = np.random.default_rng(case["B"] * 7 + case["S"])
+    B, L, S, c = case["B"], case["L"], case["S"], case["c"]
+    q, k, v, do = _ball_inputs(rng, (B,), L, S, 8, c)
+    mask = None
+    if case["mask"] == "finfo_min":
+        mask = torch.where(torch.from_numpy(rng.random((B, 1, S))) < 0.3,
+                           torch.finfo(torch.float32).min, 0.0) \
+            .expand(B, L, S)
+    elif case["mask"] == "all_excluded":
+        mask = 2.0 * torch.from_numpy(
+            rng.standard_normal((B, L, S)).astype(np.float32))
+        mask[:, 0] = torch.finfo(torch.float32).min
+    elif case["mask"] == "finite":
+        mask = 3.0 * torch.from_numpy(
+            rng.standard_normal((B, L, S)).astype(np.float32))
+    elif case["mask"] == "identical_qk":
+        k = q.clone()
+    m3 = None if mask is None else tmhgsa._canonicalize_mask(mask)
+    kw = dict(metric="poincare", curvature=c)
+    want = tmhgsa.fused_geodesic_attention_reference(q, k, v, m3, **kw)
+    want_b = tmhgsa.fused_geodesic_attention_backward(q, k, v, m3, do,
+                                                      need_dmask=True, **kw)
+    before = _poincare_launches()
+    dev = [t.to(cuda_device) for t in (q, k, v)]
+    md = None if m3 is None else m3.to(cuda_device)
+    got = tmhgsa._forward(*dev, md, "poincare", c)
+    got_b = tmhgsa.fused_geodesic_attention_backward(
+        *dev, md, do.to(cuda_device), need_dmask=True, **kw)
+    torch.cuda.synchronize()
+    assert _poincare_launches() == (before[0] + 1, before[1] + 1,
+                                    *before[2:])
+    assert torch.isfinite(got).all()
+    assert all(bool(torch.isfinite(g).all()) for g in got_b if g is not None)
+    if case["mask"] == "identical_qk":
+        return   # a diagonal distance is fp32 cancellation noise: finite only
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    _grad_check([None if g is None else g.cpu() for g in got_b], want_b)
+    if case["mask"] == "all_excluded":
+        assert torch.all(got[:, 0] == 0)
+        assert torch.all(got_b[0][:, 0] == 0) and torch.all(got_b[3][:, 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(lead=(88,), L=2304, S=2304, Dh=8, c=1.0, valid="none"),  # B = 2304
+    dict(lead=(8,), L=4096, S=4096, Dh=64, c=1.0, valid="none"),
+    dict(lead=(1,), L=300, S=1100, Dh=5, c=0.7, valid="none"),    # ragged
+    dict(lead=(4, 2), L=90, S=700, Dh=8, c=2.0, valid="all_invalid"),
+    dict(lead=(2,), L=12, S=12, Dh=8, c=1.0, valid="identical_qk")])
+def test_poincare_flash_kernels_match_plain(cuda_device, case):
+    """The poincaré flash forward, dq and dk/dv kernels against the plain
+    versions on the same device: forward 1e-5, gradients 5e-5 ×
+    max(1, max |g|); a problem with no valid key gets exact zeros; q = k is
+    held to finiteness only (as in the whole-S test)."""
+    rng = np.random.default_rng(case["L"] + case["S"] + case["Dh"])
+    lead, L, S, Dh, c = (case[x] for x in ("lead", "L", "S", "Dh", "c"))
+    q, k, v, do = _ball_inputs(rng, lead, L, S, Dh, c)
+    kv = None
+    if case["valid"] == "all_invalid":
+        kv = torch.from_numpy((rng.random((*lead, S)) < 0.7)
+                              .astype(np.float32))
+        kv.view(-1, S)[0] = 0.0
+    elif case["valid"] == "identical_qk":
+        k = q.clone()
+    before = _poincare_launches()
+    leaves = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
+    out = tmhgsa.flash_geodesic_attention(
+        *leaves, kv_valid=None if kv is None else kv.to(cuda_device),
+        metric="poincare", curvature=c)
+    got = [out.detach(), *torch.autograd.grad(out, leaves, do.to(cuda_device))]
+    torch.cuda.synchronize()
+    assert _poincare_launches() == (*before[:2],
+                                    *(b + 1 for b in before[2:]))
+    B = int(np.prod(lead))
+    with torch.no_grad():
+        q3, k3, v3, do3 = (t.to(cuda_device).reshape(B, -1, Dh)
+                           for t in (q, k, v, do))
+        val = None if kv is None else kv.to(cuda_device).reshape(B, S)
+        w_out, lse = tmhgsa.flash_geodesic_attention_reference(
+            q3, k3, v3, val, "poincare", c)
+        want = [w_out, *tmhgsa.flash_geodesic_attention_backward_reference(
+            q3, k3, v3, val, do3, lse, (do3 * w_out).sum(-1), "poincare", c)]
+    got = [t.reshape(B, -1, Dh).cpu() for t in got]
+    want = [t.cpu() for t in want]
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    if case["valid"] == "identical_qk":
+        return   # a diagonal distance is fp32 cancellation noise: finite only
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-5)
+    _grad_check(got[1:], want[1:])
+    if case["valid"] == "all_invalid":
+        assert all(bool(torch.all(t[0] == 0)) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sweep(12, 19, lambda r: dict(
+    B=int(r.integers(1, 5)), L=int(r.integers(1, 300)),
+    S=int(r.integers(1, 300)), Dh=int(r.choice([1, 3, 8, 16, 33, 64])),
+    c=float(r.choice([0.05, 0.7, 1.0, 2.0])),
+    kind=str(r.choice(["fused", "flash"])))))
+def test_poincare_kernels_randomized_sweep(cuda_device, case):
+    """Random shapes, head dims and curvatures down to near the maxless
+    bound, through the public wrappers and autograd (the whole-S kernels
+    with a finite mask, the flash kernels with a random key validity),
+    against the plain versions on the CPU."""
+    rng = np.random.default_rng(case["L"] * 131 + case["S"] * 7 + case["Dh"])
+    B, L, S, Dh, c = (case[x] for x in ("B", "L", "S", "Dh", "c"))
+    q, k, v, do = _ball_inputs(rng, (B,), L, S, Dh, c)
+    mask = torch.from_numpy(rng.standard_normal((B, L, S)).astype(np.float32))
+    kv = torch.from_numpy((rng.random((B, S)) < 0.7).astype(np.float32))
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        if case["kind"] == "fused":
+            out = tmhgsa.fused_geodesic_attention(
+                *leaves, mask=mask.to(dev), metric="poincare", curvature=c)
+        else:
+            out = tmhgsa.flash_geodesic_attention(
+                *leaves, kv_valid=kv.to(dev), metric="poincare", curvature=c)
+        return [out.detach().cpu(),
+                *(g.cpu() for g in torch.autograd.grad(out, leaves,
+                                                       do.to(dev)))]
+
+    want = run("cpu")
+    got = run(cuda_device)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-5)
+    _grad_check(got[1:], want[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+def test_masked_backward_beyond_shared_memory(cuda_device, metric):
+    """A masked 8 × 1500² × 8 problem, whose whole-S backward staging
+    (224·S + 256 bytes) passes the block's shared memory: the backward
+    kernel stages it in a device workspace and equals its plain version
+    (gradients and dmask 5e-5 × max(1, max |g|)), with exact zeros for an
+    all-excluded row. Before the workspace mode the kernel refused it."""
+    rng = np.random.default_rng(15)
+    B, L, c = 8, 1500, 1.0
+    _, staged = tmhgsa.whole_s_smem_bytes(L, L, 8, metric)
+    assert staged > tmhgsa.SMEM_OPTIN_BYTES
+    if metric == "poincare":
+        q, k, v, do = _ball_inputs(rng, (B,), L, L, 8, c)
+    else:
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, L, 8))
+                                        .astype(np.float32))
+                       for _ in range(4))
+    mask = torch.where(torch.from_numpy(rng.random((B, L, L))) < 0.2,
+                       torch.finfo(torch.float32).min,
+                       torch.from_numpy(rng.standard_normal((B, L, L))
+                                        .astype(np.float32)))
+    mask[:, 0] = torch.finfo(torch.float32).min
+    m3 = tmhgsa._canonicalize_mask(mask).to(cuda_device)
+    dev = [t.to(cuda_device) for t in (q, k, v, do)]
+    kw = dict(metric=metric, curvature=c)
+    before = tmhgsa.fused_geodesic_attention_backward.launches_by_metric[
+        metric]
+    got = tmhgsa.fused_geodesic_attention_backward(*dev[:3], m3, dev[3],
+                                                   need_dmask=True, **kw)
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention_backward.launches_by_metric[
+        metric] == before + 1
+    with torch.no_grad():
+        want = tmhgsa.fused_geodesic_attention_backward_reference(
+            *dev[:3], m3, dev[3], True, metric, c)
+    _grad_check([g.cpu() for g in got], [w.cpu() for w in want])
+    assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
+
+
+@pytest.mark.cuda
+def test_poincare_train_step_kernel_route_matches_dense(cuda_device):
+    """The NBA recipe's scene-axis step (32 scenes × 11 agents, reference
+    compat) with the poincaré metric: the forward and backward go through
+    the poincaré whole-S kernels (never the packed ones) and equal the dense
+    route with the same parameters, batch and noise: every loss term within
+    1e-4 × max(1, |loss|), every gradient leaf within 1e-4 of its largest
+    magnitude. The data are seed 9 of scripts/torch_route_agreement.py: on
+    some batches a decoder ReLU whose input lies within rounding of 0
+    switches between the routes and moves a row of one leaf discretely (on
+    an H100, at B = 32 one of 11 seeds on the oblique routes, 9.7e-4 of a
+    leaf's largest value; none of 7 seeds on the poincaré ones, where the
+    routes agree within 1e-5)."""
+    cfg = tm.STTODEConfig(past_length=5, future_length=10, min_clip=0.0,
+                          attn_metric="poincare", select_impl="xla").validate()
+    scenes = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=9)
+    batch, _ = prepare_scene_group(
+        np.stack([s["obs"] for s in scenes]),
+        np.stack([s["pred"] for s in scenes]), np.ones((32, 11), np.float32),
+        training=True, rng=np.random.default_rng(9))
+    batch = batch.to(cuda_device)
+    M = 32 * 11
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    noise = tm.TrainNoise(
+        torch.rand(M, 5, 64, device=cuda_device, generator=gen) >= 0.1,
+        torch.rand(M, 10, 64, device=cuda_device, generator=gen) >= 0.1,
+        torch.randn(M, 32, device=cuda_device, generator=gen),
+        torch.randn(M * 20, 32, device=cuda_device, generator=gen))
+    params0 = tm.sttode_init(9, cfg)
+
+    def run(c):
+        p = to_device(params0, cuda_device)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(p)]
+        out = tm.sttode_forward(p, c, batch, noise=noise)
+        out.total_loss.backward()
+        return out, [t.grad for t in leaves]
+
+    before = (_poincare_launches(), tpacked.packed_geodesic_attention.launches)
+    got, g_got = run(cfg)
+    torch.cuda.synchronize()
+    after = (_poincare_launches(), tpacked.packed_geodesic_attention.launches)
+    assert tuple(a - b for a, b in zip(after[0], before[0])) == \
+        (2, 2, 0, 0, 0)
+    assert after[1] == before[1]
+    want, g_want = run(cfg._replace(attn_impl="dense"))
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        a = float(getattr(got, name).detach())
+        b = float(getattr(want, name).detach())
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (name, a, b)
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert bool(torch.isfinite(a).all()), i
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a - b).abs().max()) <= 1e-4 * scale, i

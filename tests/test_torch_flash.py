@@ -241,8 +241,10 @@ def test_flash_refuses_additive_masks_and_poincare():
     with pytest.raises(ValueError, match="Q3"):
         tattn.geodesic_attention(q, q, q, kv_valid=torch.ones(2, 16),
                                  compat="reference", fused="flash")
-    with pytest.raises(NotImplementedError, match="poincar"):
-        flash_geodesic_attention(q, q, q, metric="poincare")
+    # poincaré is ported; below the maxless softmax's curvature it is
+    # refused, as by JAX's kernel
+    with pytest.raises(ValueError, match="curvature"):
+        flash_geodesic_attention(q, q, q, metric="poincare", curvature=0.005)
 
 
 @pytest.mark.parametrize("B", [1036, 1037, 2048, 2049, 2304])

@@ -229,8 +229,15 @@ def test_unported_routes_raise(rng):
     q = T(randn(rng, 2, 4, 8))
     with pytest.raises(NotImplementedError):
         tattn.geodesic_attention(q, q, q, fused="ring")
-    with pytest.raises(NotImplementedError):
-        tattn.geodesic_scores(q, q, metric="poincare")
+    # the poincaré metric is ported (held to JAX in test_torch_poincare.py);
+    # a metric neither package has is refused
+    # (mid-ball points: near the edge artanh amplifies fp32 rounding ~1e4×)
+    x, y = 0.3 * randn(rng, 2, 4, 8), 0.3 * randn(rng, 2, 4, 8)
+    np.testing.assert_allclose(
+        tattn.geodesic_scores(T(x), T(y), metric="poincare").numpy(),
+        jrun(jattn.geodesic_scores, x, y, metric="poincare"), **TOL)
+    with pytest.raises(ValueError, match="metric"):
+        tattn.geodesic_scores(q, q, metric="euclidean")
     with pytest.raises(NotImplementedError):
         ttr.encoder_layer(None, T(randn(rng, 2, 2, 1, 8)),
                           ttr.LayerConfig(d_model=8, attn_impl="ring"))

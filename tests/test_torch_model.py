@@ -173,7 +173,6 @@ def test_bridge_rejects_unknown_namedtuples():
 
 @pytest.mark.parametrize("field,value", [
     ("attn_impl", "ulysses"), ("attn_impl", "ring"),
-    ("attn_metric", "poincare"),
     ("ode_method", "dopri5"), ("ode_adjoint", True), ("learn_prior", True),
     ("compute_dtype", "bfloat16"), ("dropout", 0.1), ("num_decompose", 3)])
 def test_config_refuses_unported_settings(field, value):
@@ -182,6 +181,16 @@ def test_config_refuses_unported_settings(field, value):
     # num_decompose != 2 runs on the plain decode
     if field == "num_decompose":
         tm.STTODEConfig(num_decompose=3, select_impl="xla").validate()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attn_metric", "euclidean"), ("curvature", 0.0), ("curvature", -1.0)])
+def test_config_refuses_bad_metric_and_curvature(field, value):
+    """JAX's asserts on the metric and the curvature, as ValueErrors; the
+    poincaré metric itself is ported."""
+    with pytest.raises(ValueError, match=field):
+        tm.STTODEConfig(**{field: value}).validate()
+    tm.STTODEConfig(attn_metric="poincare", curvature=0.005).validate()
 
 
 def test_config_fields_mirror_jax():
