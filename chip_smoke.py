@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sttode_tpu_torch/csrc`` (nvcc,
-sm_90a, one compiler process per source, started together), holds each
+sm_90a, one compiler process per source, started together; prints kernel
+B's registers and spills and the HMMA instructions of its SASS), holds each
 against its plain PyTorch version at the shapes of the serving and training
 paths, then drives both paths at the full width of the repo's model
 (hidden 64, 8 heads, ff 1024, zdim 32, K = 20, random weights from a seed):
 
   phase 2  geodesic attention forward kernel (serving and training shapes);
-  phase 3  fp32 selection decode kernel (serving and training shapes);
+  phase 3  fp32 selection decode kernel (serving and training shapes, and
+           the B = 2304 scene batch's M = 25,344), with its achieved
+           TFLOP/s and share of its tensor-core bound;
   phase 4  agent-axis server: ``Predictor(max_group=64)`` answering 64
            synthetic scenes of 8 agents per call;
   phase 5  reference compat: ``sttode_inference`` on 32 scenes × 11 agents
@@ -18,8 +21,8 @@ paths, then drives both paths at the full width of the repo's model
   phase 6  geodesic attention backward kernel: the training shape
            (88 × 128 × 8, q/k swapped, no mask), the agent-axis shape with a
            key mask that takes a gradient, and an all-excluded row;
-  phase 7  bf16 selection decode kernel at the training step's M = 1408,
-           K = 20, mode "dist";
+  phase 7  bf16 selection decode kernel at the training step's M = 1408
+           and at M = 25,344, K = 20, mode "dist", likewise;
   phase 8  the stage-1 training step at B = 128 scenes × 11 agents: the fp32
            variant once on the kernel route against the plain route (same
            parameters, batch and noise; every loss term and every parameter
@@ -43,13 +46,20 @@ paths, then drives both paths at the full width of the repo's model
            8 × 4096² × 64 (forward, and forward + backward), a ragged
            L = 300, S = 1100, Dh = 5, a key validity with an all-invalid
            problem (exact zeros) and L = S = 1152; then against kernels A
-           and C at L = S = 1024 and 2048 (wrapper ms and device µs);
+           and C at L = S = 1024 and 2048 (wrapper ms and device µs); then
+           the masked whole-S forward beyond shared memory (its
+           key-streaming mode) at 8 × 1569² × 16, 8 × 2048² × 64 and
+           8 × 512² × 256, and the flash kernels at Dh = 256
+           (4 × 1024 × 1100, ragged validity);
   phase 12 the large-batch path: ``cli.train --batch_size 2304`` (1 epoch of
            2 steps on synthetic NBA files; the flash kernels, not A or C)
            and ``cli.test`` on its checkpoint; the fp32 step at B = 2304 on
            the kernel route against the dense route; one step at B = 1152,
            beyond the whole-S backward kernel's shared memory; step time,
-           train scenes/s and idle share of both routes at B = 2304;
+           train scenes/s and idle share of both routes at B = 2304; the
+           fp32 step with kernel B (select_impl "auto") against the plain
+           decode, and the step's time, idle share and kernel B's share
+           under select_impl "xla", "auto" fp32 and "auto" bf16;
   phase 13 the poincaré branches of the geodesic-attention kernels against
            their plain versions, on ball points: the whole-S forward and
            backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
@@ -57,7 +67,8 @@ paths, then drives both paths at the full width of the repo's model
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
            swapped) and 8 × 4096² × 64; then the masked whole-S backward at
            8 × 1500² × 8, beyond shared memory (its device-workspace mode),
-           in both metrics;
+           in both metrics; then phase 11's two repairs in the poincaré
+           metric;
   phase 14 the poincaré path end to end: ``cli.train --attn_metric
            poincare`` for 2 epochs at B = 32, a resume from epoch 1, and
            ``cli.test`` on its checkpoint (the poincaré whole-S kernels); the fp32 step at B = 32
@@ -106,6 +117,7 @@ TRAIN_STEPS = 20
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 
@@ -193,20 +205,82 @@ def flash_bwd_work(B, L, S, Dh, has_val, metric="oblique"):
 
 def select_work(weights, M, K, D2, Z, Tp, Tf, mode):
     """Bytes: the per-agent operands, z, the weights (in their storage type)
-    read once and the output written once. Operations: the prologue's
-    z-independent first-layer partials per agent, then per (m, k) row the
-    z part of both block-0 first layers, both block-0 tails, the conv, the
-    T_p GRU steps, block 1's first layer (z and state rows) and tail, and
-    the distance."""
+    read once and the output written once. Operations, as (matrix, other):
+    the matrix products, which the kernel runs on the tensor cores — the
+    prologue's z-independent first-layer partials per agent, then per (m, k)
+    row the z part of both block-0 first layers, both block-0 tails, the
+    T_p GRU products, block 1's first layer (z and state rows) and tail —
+    and the rest, on the fp32 cores: the conv and the distance."""
     w_bytes = sum(w.numel() * w.element_size() for w in weights)
     out = M * K if mode == "dist" else K * M * 2 * Tf
     nbytes = w_bytes + 4 * (M * (D2 + 96 + 2 * Tp + 2 * Tf) + K * M * Z
                             + out)
     pro = 2 * M * (3 * D2 * 512 + 2 * 96 * 512)
     row = 2 * (2 * Z * 512 + 2 * 512 * 256 + 256 * 2 * Tf + 256 * 2 * Tp
-               + Tp * 6 * 32 + Tp * (32 + 96) * 288 + (Z + 96) * 512
-               + 512 * 256 + 256 * 2 * Tf) + 3 * 2 * Tf
-    return nbytes, pro + M * K * row
+               + Tp * (32 + 96) * 288 + (Z + 96) * 512 + 512 * 256
+               + 256 * 2 * Tf)
+    other = M * K * (2 * Tp * 6 * 32 + 3 * 2 * Tf)
+    return nbytes, pro + M * K * row, other
+
+
+def select_bound(work, dtype, simt=False):
+    """Kernel B's bound in ms and what sets it. Its design runs the matrix
+    products on the tensor cores: bf16 operands at the bf16 peak, fp32 as
+    3xTF32 (three TF32 products per product, at a third of the TF32 peak);
+    the rest at the fp32 peak. ``simt`` gives the bound of a design that
+    runs everything on the fp32 cores (kernel B's earlier, SIMT design)."""
+    nbytes, matrix, other = work
+    if simt:
+        return bound(nbytes, matrix + other, FP32_FLOP_PER_S)
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+        TF32_FLOP_PER_S / 3
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = matrix / peak + other / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_b_name(mangled: str) -> str:
+    """select_{main,base}_kernel<float|bf16, BM> from a mangled name."""
+    import re
+    m = re.search(r"(select_[a-z]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m is None:
+        return mangled[:60]
+    return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
+            f"{m.group(3)}>")
+
+
+def build_report(lib) -> None:
+    """Print kernel B's registers and spills from the build log (``-Xptxas
+    -v``) and the tensor-core MMA instructions (HMMA) in its SASS, from
+    ``cuobjdump`` where the toolkit has it."""
+    log = lib.with_name(lib.name + ".log").read_text().splitlines()
+    entry = None
+    for line in log:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "select_" in line else None
+        elif entry and ("spill" in line or "Used" in line):
+            print(f"ptxas {kernel_b_name(entry)}: "
+                  f"{line.split(':', 1)[-1].strip()}")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("cuobjdump: not in the toolkit; SASS not shown")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "select_" in fn and "HMMA" in line:
+            op = line.split("HMMA")[1].split()[0]
+            counts.setdefault(fn, {}).setdefault("HMMA" + op, 0)
+            counts[fn]["HMMA" + op] += 1
+    for fn, ops in sorted(counts.items()):
+        print(f"sass {kernel_b_name(fn)}: {ops}")
+    require(counts, "kernel B's SASS holds no HMMA instruction")
 
 
 def require(cond: bool, what: str) -> None:
@@ -307,30 +381,34 @@ def compare_routes(out_k, g_k, out_p, g_p, what, kinks=False):
     return loss_err, grad_ratio, worst, l2
 
 
-def step_times(routes, batch, gen, B, label, card, rounds=6):
-    """Train step ms, train scenes/s and the device's idle share of two
-    routes ``[[step, params, opt], ...]`` (kernel route first), timed in
-    alternating rounds of 5 synchronized steps on ``batch``; then 5 steps of
-    each under the profiler for the device busy time. Prints one line per
+def step_times(routes, batch, gen, B, label, card, rounds=6,
+               names=("kernel route", "plain route")):
+    """Train step ms, train scenes/s and the device's idle share of the
+    routes ``[[step, params, opt], ...]`` (named by ``names``), timed in
+    alternating rounds of 5 synchronized steps on ``batch`` (the order
+    reversed every other round); then 5 steps of each under the profiler for
+    the device busy time and kernel B's share of it. Prints one line per
     route and returns the median step ms of each."""
-    def run_steps(i, n):
+    n = len(routes)
+
+    def run_steps(i, steps):
         st, p, o = routes[i]
-        for _ in range(n):
+        for _ in range(steps):
             p, o, _ = st(p, o, batch, gen)
         routes[i][1:] = [p, o]
 
-    for i in (0, 1):
+    for i in range(n):
         run_steps(i, 2)
     torch.cuda.synchronize()
-    step_ms: tuple[list, list] = ([], [])
+    step_ms: list[list] = [[] for _ in range(n)]
     for r in range(rounds):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+        for i in (range(n) if r % 2 == 0 else reversed(range(n))):
             t = time.perf_counter()
             run_steps(i, 5)
             torch.cuda.synchronize()
             step_ms[i].append((time.perf_counter() - t) / 5 * 1e3)
     busy = []
-    for i in (0, 1):
+    for i in range(n):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -344,23 +422,27 @@ def step_times(routes, batch, gen, B, label, card, rounds=6):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
         dev_us = sum(e.self_device_time_total for e in kernels)
+        sel_us = sum(e.self_device_time_total for e in kernels
+                     if "select_" in e.key and "_kernel" in e.key)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         busy.append(None if dev_us <= 0 else (
             dev_us / 5 / 1e3, wall, sum(e.count for e in kernels) / 5,
+            sel_us / dev_us,
             "; ".join(f"{e.self_device_time_total / 5 / 1e3:.3f} ms "
                       f"x{e.count // 5} {e.key[:60]}" for e in top)))
     medians = []
-    for i, route in enumerate(("kernel route", "plain route")):
+    for i, route in enumerate(names):
         ms = statistics.median(step_ms[i])
         medians.append(ms)
         if busy[i] is None:
             idle = "device busy not measured (no device time in the trace)"
         else:
-            dev_ms, t_ms, n_k, top = busy[i]
+            dev_ms, t_ms, n_k, sel, top = busy[i]
             idle = (f"device busy {dev_ms:.3f} ms/step, idle share "
                     f"{1 - dev_ms / ms:.3f} of the untraced step "
                     f"({1 - dev_ms / t_ms:.3f} of the traced {t_ms:.3f} ms); "
-                    f"{n_k:.0f} kernels/step; top: {top}")
+                    f"{n_k:.0f} kernels/step; kernel B {sel:.3f} of the "
+                    f"device time; top: {top}")
         print(f"{label}, {route}: {ms:.3f} ms/step, "
               f"{B * 1e3 / ms:.1f} train scenes/s; {idle}  [{card}]")
     return medians
@@ -398,6 +480,7 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name}, one nvcc per source)")
+    build_report(_build.library_path())
 
     def counts():
         return {"attn": km.fused_geodesic_attention.launches,
@@ -442,6 +525,104 @@ def main() -> int:
     def randn(*shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def repairs(metric, make_qk, label):
+        """The masked whole-S forward beyond shared memory (its key-streaming
+        mode) at 8 × 1569² × 16, 8 × 2048² × 64 and 8 × 512² × 256, row 0 of
+        every problem all excluded, and the flash forward, dq and dk/dv
+        sweeps at Dh = 256 with a ragged key validity, in one metric,
+        against their plain versions; returns the worst errors (forward,
+        flash forward, dq, dk/dv)."""
+        kw = dict(metric=metric, curvature=1.0)
+        worst = [0.0, 0.0, 0.0, 0.0]
+        for B_, S_, Dh_ in ((8, 1569, 16), (8, 2048, 64), (8, 512, 256)):
+            require(km.whole_s_smem_bytes(S_, S_, Dh_, metric)[0]
+                    > km.SMEM_OPTIN_BYTES, f"{label}: {S_}² x {Dh_} fits")
+            q, k = make_qk(B_, S_, Dh_)
+            v = randn(B_, S_, Dh_)
+            mask = torch.where(torch.from_numpy(rng.random((B_, S_, S_))
+                                                < 0.2).to(dev), fmin,
+                               randn(B_, S_, S_))
+            mask[:, 0] = fmin
+            m3 = km._canonicalize_mask(mask)
+            del mask
+            with torch.inference_mode():
+                got = km.fused_geodesic_attention(q, k, v, mask=m3, **kw)
+                want = km.fused_geodesic_attention_reference(q, k, v, m3,
+                                                             metric, 1.0)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL,
+                        f"{label} masked {B_} x {S_}² x {Dh_}: max abs err "
+                        f"{err} > {ATTN_TOL}")
+                require(bool((got[:, 0] == 0).all()),
+                        f"{label}: an all-excluded row must output 0")
+                t = paired_ms(
+                    lambda: km.fused_geodesic_attention(q, k, v, mask=m3,
+                                                        **kw),
+                    lambda: km.fused_geodesic_attention_reference(
+                        q, k, v, m3, metric, 1.0), calls=3, rounds=4)
+            worst[0] = max(worst[0], err)
+            nb = attn_fwd_work(B_, S_, S_, Dh_, True, metric)
+            print(f"{label} masked whole-S forward {B_} x {S_} x {S_} x "
+                  f"{Dh_} (key-streaming mode): max_abs_err {err:.3e}; "
+                  f"kernel {t[0]:.4f} ms plain {t[1]:.4f} ms; bound "
+                  f"{bound(*nb, FP32_FLOP_PER_S)[0]:.4f} ms  [{card}]")
+            del q, k, v, m3, got, want
+        B_, L_, S_, Dh_ = 4, 1024, 1100, 256
+        q, k = make_qk(B_, L_, Dh_)[0], make_qk(B_, S_, Dh_)[1]
+        v, do = randn(B_, S_, Dh_), randn(B_, L_, Dh_)
+        val = torch.from_numpy(rng.random((B_, S_)) < 0.7).to(dev).float()
+        val[0] = 0.0                                # no valid key at all
+        with torch.inference_mode():
+            out, lse = km._flash_forward(q, k, v, val, **kw)
+            want = km.flash_geodesic_attention_reference(q, k, v, val, **kw)
+            args = (q, k, v, val, do, lse, torch.sum(do * out, dim=-1),
+                    metric, 1.0)
+            got_b = (km._launch_flash_dq(*args), *km._launch_flash_dkv(*args))
+            want_b = (km.flash_dq_reference(*args),
+                      *km.flash_dkv_reference(*args))
+            torch.cuda.synchronize()
+        errs = {}
+        for g_name, g, w, tol in (
+                ("out", out, want[0], ATTN_TOL),
+                ("lse", lse, want[1], ATTN_TOL),
+                *((n, g, w, ATTN_GRAD_TOL * max(1.0, float(w.abs().max())))
+                  for n, g, w in zip(("dq", "dk", "dv"), got_b, want_b))):
+            require(bool(torch.isfinite(g).all()), f"{label}: {g_name} NaN")
+            errs[g_name] = max_err(g, w)
+            require(errs[g_name] <= tol, f"{label} flash Dh 256 {g_name}: "
+                    f"max abs err {errs[g_name]} > {tol}")
+        require(bool((out[0] == 0).all()) and all(
+            bool((g[0] == 0).all()) for g in got_b),
+            f"{label}: a problem with no valid key must get exact zeros")
+        worst[1] = max(errs["out"], errs["lse"])
+        worst[2] = errs["dq"]
+        worst[3] = max(errs["dk"], errs["dv"])
+        with torch.inference_mode():
+            t = {"fwd": paired_ms(
+                lambda: km._flash_forward(q, k, v, val, **kw),
+                lambda: km.flash_geodesic_attention_reference(q, k, v, val,
+                                                              **kw),
+                calls=3, rounds=4),
+                 "dq": paired_ms(lambda: km._launch_flash_dq(*args),
+                                 lambda: km.flash_dq_reference(*args),
+                                 calls=3, rounds=4),
+                 "dkv": paired_ms(lambda: km._launch_flash_dkv(*args),
+                                  lambda: km.flash_dkv_reference(*args),
+                                  calls=3, rounds=4)}
+        bnd = [bound(*w(B_, L_, S_, Dh_, True, metric), FP32_FLOP_PER_S)[0]
+               for w in (flash_fwd_work, flash_dq_work, flash_dkv_work)]
+        print(f"{label} flash {B_} x {L_} x {S_} x {Dh_}, ragged validity "
+              f"(wide mode): max_abs_err " + ", ".join(
+                  f"{k_} {v_:.3e}" for k_, v_ in errs.items()) + "; "
+              + ", ".join(f"{k_} kernel {v_[0]:.4f} ms plain {v_[1]:.4f} ms"
+                          for k_, v_ in t.items())
+              + "; bounds fwd {:.4f}, dq {:.4f}, dkv {:.4f} ms".format(*bnd)
+              + f"  [{card}]")
+        del q, k, v, do, val, out, lse, want, got_b, want_b, args
+        torch.cuda.empty_cache()
+        return worst
 
     # 2. kernel A against its plain version, at the paths' shapes
     def flat_mask(mask, lead, L, S):
@@ -498,13 +679,29 @@ def main() -> int:
         require(bool((km.fused_geodesic_attention(qc, kc, vc, mask=mask_c)[1]
                       == 0).all()), "all-excluded rows must output 0")
 
+    def select_rate(params, cfg, M, K, mode, ms, dtype):
+        """Kernel B's achieved matrix TFLOP/s at ``ms`` and its share of
+        the tensor-core bound (and of the fp32-core bound of kernel B's
+        earlier, SIMT design)."""
+        work = select_work(
+            ks.prep_select_weights(params, 2 * cfg.hidden_dim, cfg.zdim,
+                                   cfg.past_length, cfg.future_length,
+                                   dtype), M, K, 2 * cfg.hidden_dim,
+            cfg.zdim, cfg.past_length, cfg.future_length, mode)
+        tc, simt = select_bound(work, dtype), select_bound(work, dtype, True)
+        return (f"{work[1] / ms / 1e9:.2f} TFLOP/s of matrix products; "
+                f"bound {tc[0]:.4f} ms ({tc[1]}; {tc[0] / ms:.3f} of it), "
+                f"fp32-core bound {simt[0]:.4f} ms ({simt[0] / ms:.3f})")
+
     # 3. kernel B (fp32) against its plain version; the training step's
     #    shape (M = 1408, K = 20, 5 / 10 steps) runs in mode "dist"
     select_cases = {}
     for name, (M, K, t_past, t_fut, modes) in {
             "M512_K20": (512, 20, 8, 12, ("traj", "dist")),
             "M352_K20": (352, 20, 5, 10, ("traj", "dist")),
-            "M1408_K20": (1408, 20, 5, 10, ("dist",))}.items():
+            "M1408_K20": (1408, 20, 5, 10, ("dist",)),
+            # the NBA recipe at B = 2304 scenes × 11 agents
+            "M25344_K20": (25344, 20, 5, 10, ("dist",))}.items():
         cfg = tm.STTODEConfig(past_length=t_past, future_length=t_fut)
         select_cases[name] = (cfg, bridge.to_device(tm.sttode_init(7, cfg),
                                                     dev), M, K, modes)
@@ -543,13 +740,16 @@ def main() -> int:
                     require(bool((gap <= 2 * SELECT_TOL).all()),
                             f"{name}: argmin winners differ beyond near-ties")
                     extra = f", winners differ at {ties} near-ties"
-                if mode == "traj" or name == "M1408_K20":
+                if mode == "traj" or name in ("M1408_K20", "M25344_K20"):
+                    big = name == "M25344_K20"
                     ms, plain_ms = paired_ms(
                         lambda: ks.select_decode(params, *ops, mode=mode),
-                        lambda: plain(mode), calls=10, rounds=6)
+                        lambda: plain(mode), calls=3 if big else 10,
+                        rounds=4 if big else 6)
                     select_times[f"{mode}_{name}"] = (ms, plain_ms)
                     extra += (f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-                              f"ms  [{card}]")
+                              f"ms; {select_rate(params, cfg, M, K, mode, ms, torch.float32)}"
+                              f"  [{card}]")
                 print(f"select {mode}_{name}: max_abs_err {err:.3e}{extra}")
 
     def serve_ab(kernel_pred, plain_pred, scenes, rounds, single=False):
@@ -730,41 +930,60 @@ def main() -> int:
           f"kernels {route_ms[0]:.4f} ms, dense {route_ms[1]:.4f} ms "
           f"(gradients agree to {route_err:.3e})  [{card}]")
 
-    # 7. kernel B in bf16 against its bf16 plain version, training shape
+    # 7. kernel B in bf16 against its bf16 plain version: the training
+    #    step's shape and the B = 2304 scene batch's
     cfg7 = select_cases["M1408_K20"][0]
     params7, ops7 = select_ops["M1408_K20"]
     weights7 = ks.prep_select_weights(params7, 2 * cfg7.hidden_dim,
                                       cfg7.zdim, cfg7.past_length,
                                       cfg7.future_length, bf16)
-    with torch.inference_mode():
-        got = ks.select_decode(params7, *ops7, mode="dist", dtype=bf16)
-        want = ks.select_decode_reference(weights7, *ops7, mode="dist")
-        fp32 = ks.select_decode(params7, *ops7, mode="dist")
-        torch.cuda.synchronize()
-        sel16_err = max_err(got, want)
-        scale = float(want.abs().max())
-        require(bool(torch.isfinite(got).all()), "bf16 select: non-finite")
-        require(sel16_err <= SELECT_BF16_TOL * scale,
-                f"bf16 select: max abs err {sel16_err} > "
-                f"{SELECT_BF16_TOL} x {scale}")
-        rows = torch.arange(got.shape[0], device=dev)
-        g_win, w_win = got.argmin(1), want.argmin(1)
-        gap = (want[rows, g_win] - want[rows, w_win]).abs()
-        flips = int((g_win != w_win).sum())
-        require(bool((gap <= 2 * SELECT_BF16_TOL * scale).all()),
-                "bf16 select: winners differ beyond near-ties")
-        vs32 = int((g_win != fp32.argmin(1)).sum())
-        sel16_ms, sel16_plain = paired_ms(
-            lambda: ks.select_decode(params7, *ops7, mode="dist", dtype=bf16),
-            lambda: ks.select_decode_reference(
-                ks.prep_select_weights(params7, 2 * cfg7.hidden_dim,
+    sel16_err, sel16_times = 0.0, {}
+    for name in ("M1408_K20", "M25344_K20"):
+        params_, ops_ = select_ops[name]
+        M_ = ops_[0].shape[0]
+        big = name == "M25344_K20"
+        with torch.inference_mode():
+            got = ks.select_decode(params_, *ops_, mode="dist", dtype=bf16)
+            want = ks.select_decode_reference(
+                ks.prep_select_weights(params_, 2 * cfg7.hidden_dim,
                                        cfg7.zdim, cfg7.past_length,
                                        cfg7.future_length, bf16),
-                *ops7, mode="dist"), calls=10, rounds=6)
-    print(f"select bf16 dist_M1408_K20: max_abs_err {sel16_err:.3e} "
-          f"(distance scale {scale:.1f}), winners differ from the bf16 plain "
-          f"version at {flips} near-ties (from fp32 at {vs32}); kernel "
-          f"{sel16_ms:.4f} ms  plain {sel16_plain:.4f} ms  [{card}]")
+                *ops_, mode="dist")
+            fp32 = ks.select_decode(params_, *ops_, mode="dist")
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            scale = float(want.abs().max())
+            require(bool(torch.isfinite(got).all()),
+                    f"bf16 select {name}: non-finite")
+            require(err <= SELECT_BF16_TOL * scale,
+                    f"bf16 select {name}: max abs err {err} > "
+                    f"{SELECT_BF16_TOL} x {scale}")
+            sel16_err = max(sel16_err, err)
+            rows = torch.arange(got.shape[0], device=dev)
+            g_win, w_win = got.argmin(1), want.argmin(1)
+            gap = (want[rows, g_win] - want[rows, w_win]).abs()
+            flips = int((g_win != w_win).sum())
+            require(bool((gap <= 2 * SELECT_BF16_TOL * scale).all()),
+                    f"bf16 select {name}: winners differ beyond near-ties")
+            vs32 = int((g_win != fp32.argmin(1)).sum())
+            ms, plain_ms = paired_ms(
+                lambda: ks.select_decode(params_, *ops_, mode="dist",
+                                         dtype=bf16),
+                lambda: ks.select_decode_reference(
+                    ks.prep_select_weights(params_, 2 * cfg7.hidden_dim,
+                                           cfg7.zdim, cfg7.past_length,
+                                           cfg7.future_length, bf16),
+                    *ops_, mode="dist"),
+                calls=3 if big else 10, rounds=4 if big else 6)
+            sel16_times[name] = (ms, plain_ms)
+        print(f"select bf16 dist_{name}: max_abs_err {err:.3e} (distance "
+              f"scale {scale:.1f}), winners differ from the bf16 plain "
+              f"version at {flips} near-ties (from fp32 at {vs32}); kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms; "
+              f"{select_rate(params_, cfg7, M_, 20, 'dist', ms, bf16)}"
+              f"  [{card}]")
+    sel16_ms, sel16_plain = sel16_times["M1408_K20"]
+    del got, want, fp32
 
     # 8. the stage-1 training step, B = 128 scenes × 11 agents
     B8, N8 = 128, 11
@@ -1194,6 +1413,16 @@ def main() -> int:
     del flash_cases, qf, kf
     torch.cuda.empty_cache()
 
+    # the two repairs, oblique: the masked whole-S forward beyond shared
+    # memory and the flash kernels at Dh = 256
+    rep = repairs("oblique", lambda B_, S_, Dh_: (randn(B_, S_, Dh_),
+                                                  randn(B_, S_, Dh_)),
+                  "phase 11")
+    attn_err = max(attn_err, rep[0])
+    flash_err["fwd"] = max(flash_err["fwd"], rep[1])
+    flash_err["dq"] = max(flash_err["dq"], rep[2])
+    flash_err["dkv"] = max(flash_err["dkv"], rep[3])
+
     # 12. the large-batch path: the NBA recipe at B = 2304 scenes through the
     #     CLIs (the scene-axis attention is 88 problems of 2304² × 8, on
     #     flash), then the step on both routes and at B = 1152
@@ -1284,6 +1513,41 @@ def main() -> int:
                 [step_p12, *step_p12.init(params12)]],
                batch12, gen12, B12, f"phase 12 NBA recipe step at B = {B12}",
                card, rounds=4)
+
+    # the best-of-K selection decode at B = 2304 (506,880 rows) three ways,
+    # all on the flash attention kernels: the plain decode (the CLI's
+    # default select_impl "xla"), kernel B in fp32 and kernel B in bf16
+    auto12 = cfg12._replace(select_impl="auto").validate()
+    auto12_16 = auto12._replace(select_dtype="bfloat16").validate()
+    require(cfg12.select_impl == "xla", f"phase 12: {cfg12.select_impl}")
+    before = counts()
+    _, out_a12, g_a12 = forward_backward(params12, auto12, batch12, noise12,
+                                         dev)
+    _, out_x12, g_x12 = forward_backward(params12, cfg12, batch12, noise12,
+                                         dev)
+    torch.cuda.synchronize()
+    moved = {n: counts()[n] - before[n] for n in before}
+    require(moved["select_fp32"] == 1,
+            f"phase 12: select_impl='auto' did not launch kernel B {moved}")
+    loss_a12, grad_a12, worst_a12, l2_a12 = compare_routes(
+        out_a12, g_a12, out_x12, g_x12, "phase 12 select_impl auto vs xla",
+        kinks=True)
+    print(f"phase 12 fp32 forward+backward at B = {B12}, kernel B vs the "
+          f"plain decode: loss terms within {loss_a12:.3e} (relative), "
+          f"gradients within {l2_a12:.3e} in relative L2, each element "
+          f"within {grad_a12:.3e} of its leaf's largest magnitude (worst "
+          f"leaf {worst_a12})")
+    del out_a12, g_a12, out_x12, g_x12
+    torch.cuda.empty_cache()
+    steps12 = [make_train_step(c, 1e-4, device=dev)
+               for c in (cfg12, auto12, auto12_16)]
+    step_times([[st, *st.init(params12)] for st in steps12], batch12, gen12,
+               B12, f"phase 12 NBA recipe step at B = {B12}", card, rounds=4,
+               names=("select_impl xla (plain decode)",
+                      "select_impl auto fp32 (kernel B)",
+                      "select_impl auto bf16 (kernel B)"))
+    del steps12
+    torch.cuda.empty_cache()
 
     # 13. the poincaré kernels against their plain versions, on ball points
     #     (the attention layer's map of rows of norm ~0.5: mid-ball, where
@@ -1471,6 +1735,15 @@ def main() -> int:
               f"{ws_times[metric][1]:.4f} ms  [{card}]")
     bwd_err = max(bwd_err, ws_err["oblique"])
     perr["bwd"] = max(perr["bwd"], ws_err["poincare"])
+
+    # the two repairs, poincaré, on ball points
+    rep = repairs("poincare", lambda B_, S_, Dh_: (ball(B_, S_, Dh_),
+                                                   ball(B_, S_, Dh_)),
+                  "phase 13 poincare")
+    perr["fwd"] = max(perr["fwd"], rep[0])
+    pflash_err["fwd"] = max(pflash_err["fwd"], rep[1])
+    pflash_err["dq"] = max(pflash_err["dq"], rep[2])
+    pflash_err["dkv"] = max(pflash_err["dkv"], rep[3])
     del mask, args, got, want
     torch.cuda.empty_cache()
 
@@ -1665,10 +1938,10 @@ def main() -> int:
                                  5, 10)
     a_bound = bound(*attn_fwd_work(88, 128, 128, 8, False), FP32_FLOP_PER_S)
     b_bound = bound(*attn_bwd_work(88, 128, 128, 8, False), FP32_FLOP_PER_S)
-    s_bound = bound(*select_work(w32, 1408, 20, 128, 32, 5, 10, "dist"),
-                    FP32_FLOP_PER_S)
-    s16_bound = bound(*select_work(weights7, 1408, 20, 128, 32, 5, 10,
-                                   "dist"), BF16_FLOP_PER_S)
+    s_bound = select_bound(select_work(w32, 1408, 20, 128, 32, 5, 10,
+                                       "dist"), torch.float32)
+    s16_bound = select_bound(select_work(weights7, 1408, 20, 128, 32, 5, 10,
+                                         "dist"), bf16)
 
     (p_ms, p_plain), (pb_ms, pb_plain) = \
         packed_times["nba_recipe_q11x8x32x8_swapped"]

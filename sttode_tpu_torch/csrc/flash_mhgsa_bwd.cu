@@ -55,7 +55,10 @@
 // invalid key has p ≡ 0 and zero dk and dv; a row with no valid key gets
 // dq = 0. The metric is a template parameter: the oblique instantiations
 // are the kernels of before; the poincaré ones carry two more scalars per
-// thread (x2 or y2, and the running dx2 or dy2).
+// thread (x2 or y2, and the running dx2 or dy2). Those register kernels
+// hold the head dim rounded up to 8/16/32/64/128; a head dim above 128 (JAX
+// pads any Dh to a multiple of 128) runs the wide sweeps below, which keep
+// the row's vectors in shared memory instead.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -339,6 +342,350 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 128: the row's vectors would not fit a thread's registers,
+// so both sweeps keep them in shared memory (sized by Dh, `rows` rows per
+// block) and give a warp one output row at a time and a lane one row of the
+// other axis of a `tile` ≤ 32 tile: lane jj's Gram and do·v are dot products
+// over staged rows (an odd stride, conflict-free), pair_grad turns them into
+// (p, dg), the warp's row of shared memory holds them, and the lanes then
+// split the head dim to accumulate. The same functions, validity and
+// finishing as the register kernels above.
+
+constexpr int kWideWarps = 4;
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Stage row x[0..Dh) into dst, unit-normalized (oblique) or raw (poincaré),
+// a warp's lanes over the head dim; returns the norm (oblique, unfloored)
+// or the squared norm (poincaré) to every lane.
+template <bool POINCARE>
+__device__ __forceinline__ float stage_row(const float* __restrict__ x,
+                                           int Dh, float* __restrict__ dst,
+                                           int lane) {
+  float ss = 0.f;
+  for (int d = lane; d < Dh; d += 32) ss = fmaf(x[d], x[d], ss);
+  ss = warp_sum(ss);
+  const float n = POINCARE ? ss : sqrtf(ss);
+  const float f = POINCARE ? 1.f : fmaxf(n, kNormFloor);
+  for (int d = lane; d < Dh; d += 32) dst[d] = POINCARE ? x[d] : x[d] / f;
+  return n;
+}
+
+// finish_row for a row in shared memory, a warp's lanes over the head dim
+template <bool POINCARE>
+__device__ __forceinline__ void finish_row_warp(const float* __restrict__ dxh,
+                                                const float* __restrict__ xh,
+                                                float n, int Dh,
+                                                float* __restrict__ out,
+                                                int lane) {
+  if (POINCARE) {
+    for (int d = lane; d < Dh; d += 32) out[d] = dxh[d] + 2.f * n * xh[d];
+    return;
+  }
+  float r = 0.f;
+  for (int d = lane; d < Dh; d += 32) r = fmaf(dxh[d], xh[d], r);
+  r = warp_sum(r);
+  const float f = fmaxf(n, kNormFloor);
+  for (int d = lane; d < Dh; d += 32) out[d] = (dxh[d] - xh[d] * r) / f;
+}
+
+inline size_t wide_dq_floats(int rows, int tile, int Dh) {
+  return 3 * (size_t)rows * Dh + 4 * (size_t)rows
+         + (size_t)tile * (2 * (Dh | 1) + 2) + (size_t)kWideWarps * tile;
+}
+
+inline size_t wide_dkv_floats(int rows, int tile, int Dh) {
+  return 4 * (size_t)rows * Dh + 3 * (size_t)rows
+         + (size_t)tile * (2 * (Dh | 1) + 3) + 2 * (size_t)kWideWarps * tile;
+}
+
+template <bool POINCARE>
+__global__ void __launch_bounds__(kWideWarps * 32)
+wide_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ val,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq, int L,
+               int S, int Dh, int rows, int tile, int row_tiles,
+               poincare::Curv curv) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = Dh | 1;
+  float* qs = smem;                       // [rows][Dh] unit (ball) q rows
+  float* dos = qs + rows * Dh;            // [rows][Dh] do rows
+  float* dqh = dos + rows * Dh;           // [rows][Dh] dq̂ accumulators
+  float* qn = dqh + rows * Dh;            // [rows] norm (poincaré: x2)
+  float* li = qn + rows;                  // [rows] lse
+  float* di = li + rows;                  // [rows] δ
+  float* dx2 = di + rows;                 // [rows] poincaré: Σ dx2
+  float* ks = dx2 + rows;                 // [tile][ld] unit (ball) keys
+  float* vs = ks + tile * ld;             // [tile][ld] values
+  float* y2 = vs + tile * ld;             // [tile] poincaré: ‖k_j‖²
+  float* ok = y2 + tile;                  // [tile] 1 = valid key
+  float* pg = ok + tile;                  // [kWideWarps][tile] dg of a row
+
+  const int b = blockIdx.x / row_tiles;
+  const int i0 = (blockIdx.x % row_tiles) * rows;
+  const int nr = min(rows, L - i0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* kb = k + (size_t)b * S * Dh;
+  const float* vb = v + (size_t)b * S * Dh;
+  const float* valb = val ? val + (size_t)b * S : nullptr;
+
+  for (int r = warp; r < nr; r += kWideWarps) {
+    const size_t ri = (size_t)b * L + i0 + r;
+    const float n = stage_row<POINCARE>(q + ri * Dh, Dh, qs + r * Dh, lane);
+    for (int d = lane; d < Dh; d += 32) {
+      dos[r * Dh + d] = dout[ri * Dh + d];
+      dqh[r * Dh + d] = 0.f;
+    }
+    if (lane == 0) {
+      qn[r] = n;
+      li[r] = lse[ri];
+      di[r] = delta[ri];
+      dx2[r] = 0.f;
+    }
+  }
+
+  float* pw = pg + warp * tile;
+  for (int j0 = 0; j0 < S; j0 += tile) {
+    const int n = min(tile, S - j0);
+    __syncthreads();                      // the previous tile is consumed
+    for (int jj = warp; jj < n; jj += kWideWarps) {
+      const size_t j = (size_t)j0 + jj;
+      const float kn = stage_row<POINCARE>(kb + j * Dh, Dh, ks + jj * ld,
+                                           lane);
+      for (int d = lane; d < Dh; d += 32) vs[jj * ld + d] = vb[j * Dh + d];
+      if (lane == 0) {
+        y2[jj] = kn;
+        ok[jj] = (valb == nullptr || valb[j] > 0.f) ? 1.f : 0.f;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWideWarps) {
+      const float* qr = qs + r * Dh;
+      const float* dr = dos + r * Dh;
+      float dg = 0.f, part = 0.f;
+      if (lane < n && ok[lane] != 0.f) {
+        const float* kr = ks + lane * ld;
+        const float* vr = vs + lane * ld;
+        float g = 0.f, dp = 0.f;
+        for (int d = 0; d < Dh; ++d) {
+          g = fmaf(qr[d], kr[d], g);
+          dp = fmaf(dr[d], vr[d], dp);
+        }
+        const float yj = POINCARE ? y2[lane] : 0.f;
+        float p, a = 0.f, bb = 0.f;
+        pair_grad<POINCARE>(g, qn[r], yj, li[r], di[r], dp, curv, &p, &dg,
+                            &a, &bb);
+        part = a + bb * yj;
+      }
+      if (lane < n) pw[lane] = dg;
+      if (POINCARE) {
+        part = warp_sum(part);
+        if (lane == 0) dx2[r] += part;
+      }
+      __syncwarp();
+      float* ar = dqh + r * Dh;
+      for (int d = lane; d < Dh; d += 32) {
+        float a = ar[d];
+        for (int jj = 0; jj < n; ++jj) a = fmaf(pw[jj], ks[jj * ld + d], a);
+        ar[d] = a;
+      }
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  for (int r = warp; r < nr; r += kWideWarps)
+    finish_row_warp<POINCARE>(dqh + r * Dh, qs + r * Dh,
+                              POINCARE ? dx2[r] : qn[r], Dh,
+                              dq + ((size_t)b * L + i0 + r) * Dh, lane);
+}
+
+template <bool POINCARE>
+__global__ void __launch_bounds__(kWideWarps * 32)
+wide_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ val,
+                const float* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int L, int S, int Dh, int rows,
+                int tile, int col_tiles, poincare::Curv curv) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = Dh | 1;
+  float* kh = smem;                       // [rows][Dh] unit (ball) keys
+  float* vr = kh + rows * Dh;             // [rows][Dh] values
+  float* dkh = vr + rows * Dh;            // [rows][Dh] dk̂ accumulators
+  float* dvr = dkh + rows * Dh;           // [rows][Dh] dv accumulators
+  float* kn = dvr + rows * Dh;            // [rows] norm (poincaré: y2)
+  float* dy2 = kn + rows;                 // [rows] poincaré: Σ dy2
+  float* live = dy2 + rows;               // [rows] 1 = a valid key
+  float* qs = live + rows;                // [tile][ld] unit (ball) q rows
+  float* ds = qs + tile * ld;             // [tile][ld] their do rows
+  float* ls = ds + tile * ld;             // [tile] lse
+  float* dl = ls + tile;                  // [tile] δ
+  float* x2 = dl + tile;                  // [tile] poincaré: ‖q_i‖²
+  float* pp = x2 + tile;                  // [kWideWarps][tile] p of a key
+  float* pg = pp + kWideWarps * tile;     // [kWideWarps][tile] dg of a key
+
+  const int b = blockIdx.x / col_tiles;
+  const int j0 = (blockIdx.x % col_tiles) * rows;
+  const int nc = min(rows, S - j0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t qo = (size_t)b * L;
+
+  for (int r = warp; r < nc; r += kWideWarps) {
+    const size_t rj = (size_t)b * S + j0 + r;
+    const float n = stage_row<POINCARE>(k + rj * Dh, Dh, kh + r * Dh, lane);
+    for (int d = lane; d < Dh; d += 32) {
+      vr[r * Dh + d] = v[rj * Dh + d];
+      dkh[r * Dh + d] = 0.f;
+      dvr[r * Dh + d] = 0.f;
+    }
+    if (lane == 0) {
+      kn[r] = n;
+      dy2[r] = 0.f;
+      live[r] = (val == nullptr || val[rj] > 0.f) ? 1.f : 0.f;
+    }
+  }
+
+  float* pw = pp + warp * tile;
+  float* gw = pg + warp * tile;
+  for (int i0 = 0; i0 < L; i0 += tile) {
+    const int n = min(tile, L - i0);
+    __syncthreads();                      // the previous tile is consumed
+    for (int ii = warp; ii < n; ii += kWideWarps) {
+      const size_t ri = qo + i0 + ii;
+      const float qn = stage_row<POINCARE>(q + ri * Dh, Dh, qs + ii * ld,
+                                           lane);
+      for (int d = lane; d < Dh; d += 32) ds[ii * ld + d] = dout[ri * Dh + d];
+      if (lane == 0) {
+        x2[ii] = qn;
+        ls[ii] = lse[ri];
+        dl[ii] = delta[ri];
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < nc; r += kWideWarps) {
+      if (live[r] == 0.f) continue;       // warp-uniform
+      const float* kr = kh + r * Dh;
+      const float* vv = vr + r * Dh;
+      float p = 0.f, dg = 0.f, part = 0.f;
+      if (lane < n) {
+        const float* qr = qs + lane * ld;
+        const float* dr = ds + lane * ld;
+        float g = 0.f, dp = 0.f;
+        for (int d = 0; d < Dh; ++d) {
+          g = fmaf(kr[d], qr[d], g);
+          dp = fmaf(vv[d], dr[d], dp);
+        }
+        const float xi = POINCARE ? x2[lane] : 0.f;
+        float a = 0.f, bb = 0.f;
+        pair_grad<POINCARE>(g, xi, kn[r], ls[lane], dl[lane], dp, curv, &p,
+                            &dg, &a, &bb);
+        part = a + bb * xi;
+        pw[lane] = p;
+        gw[lane] = dg;
+      }
+      if (POINCARE) {
+        part = warp_sum(part);
+        if (lane == 0) dy2[r] += part;
+      }
+      __syncwarp();
+      float* ak = dkh + r * Dh;
+      float* av = dvr + r * Dh;
+      for (int d = lane; d < Dh; d += 32) {
+        float a = ak[d], c = av[d];
+        for (int ii = 0; ii < n; ++ii) {
+          a = fmaf(gw[ii], qs[ii * ld + d], a);
+          c = fmaf(pw[ii], ds[ii * ld + d], c);
+        }
+        ak[d] = a;
+        av[d] = c;
+      }
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  for (int r = warp; r < nc; r += kWideWarps) {
+    const size_t rj = (size_t)b * S + j0 + r;
+    finish_row_warp<POINCARE>(dkh + r * Dh, kh + r * Dh,
+                              POINCARE ? dy2[r] : kn[r], Dh, dk + rj * Dh,
+                              lane);
+    for (int d = lane; d < Dh; d += 32) dv[rj * Dh + d] = dvr[r * Dh + d];
+  }
+}
+
+// The largest (rows, tile) — rows from 16 down to kWideWarps, then tile
+// from 32 down to 1 — whose `floats(rows, tile, Dh)` fit the block's opt-in
+// shared memory; false when none does.
+template <typename Floats>
+int wide_config(Floats floats, int Dh, int* rows, int* tile, size_t* smem) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  for (int r = 16; r >= kWideWarps; r /= 2)
+    for (int t = 32; t >= 1; t /= 2) {
+      *smem = sizeof(float) * floats(r, t, Dh);
+      if (*smem <= (size_t)max_smem) {
+        *rows = r;
+        *tile = t;
+        return cudaSuccess;
+      }
+    }
+  return cudaErrorInvalidValue;
+}
+
+template <bool POINCARE>
+int launch_wide_dq(const float* q, const float* k, const float* v,
+                   const float* val, const float* dout, const float* lse,
+                   const float* delta, float* dq, int B, int L, int S, int Dh,
+                   float c, cudaStream_t stream) {
+  int rows = 0, tile = 0;
+  size_t smem = 0;
+  int err = wide_config(wide_dq_floats, Dh, &rows, &tile, &smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wide_dq_kernel<POINCARE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (L + rows - 1) / rows;
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wide_dq_kernel<POINCARE><<<(unsigned)blocks, kWideWarps * 32, smem,
+                             stream>>>(q, k, v, val, dout, lse, delta, dq, L,
+                                       S, Dh, rows, tile, tiles,
+                                       poincare::make_curv(c));
+  return cudaGetLastError();
+}
+
+template <bool POINCARE>
+int launch_wide_dkv(const float* q, const float* k, const float* v,
+                    const float* val, const float* dout, const float* lse,
+                    const float* delta, float* dk, float* dv, int B, int L,
+                    int S, int Dh, float c, cudaStream_t stream) {
+  int rows = 0, tile = 0;
+  size_t smem = 0;
+  int err = wide_config(wide_dkv_floats, Dh, &rows, &tile, &smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wide_dkv_kernel<POINCARE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + rows - 1) / rows;
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wide_dkv_kernel<POINCARE><<<(unsigned)blocks, kWideWarps * 32, smem,
+                              stream>>>(q, k, v, val, dout, lse, delta, dk,
+                                        dv, L, S, Dh, rows, tile, tiles,
+                                        poincare::make_curv(c));
+  return cudaGetLastError();
+}
+
 template <bool POINCARE>
 constexpr size_t kSmem(int dh) {
   return sizeof(float) * (2 * kTile * dh + (POINCARE ? 3 : 2) * kTile);
@@ -405,7 +752,10 @@ int dispatch_dq(const float* q, const float* k, const float* v,
   if (Dh <= 64)
     return launch_dq<64, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
                                    S, Dh, c, st);
-  return launch_dq<128, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
+  if (Dh <= 128)
+    return launch_dq<128, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
+                                    S, Dh, c, st);
+  return launch_wide_dq<POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
                                   Dh, c, st);
 }
 
@@ -426,7 +776,10 @@ int dispatch_dkv(const float* q, const float* k, const float* v,
   if (Dh <= 64)
     return launch_dkv<64, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
                                     L, S, Dh, c, st);
-  return launch_dkv<128, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
+  if (Dh <= 128)
+    return launch_dkv<128, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv,
+                                     B, L, S, Dh, c, st);
+  return launch_wide_dkv<POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
                                    L, S, Dh, c, st);
 }
 
@@ -436,15 +789,15 @@ int dispatch_dkv(const float* q, const float* k, const float* v,
 // or null, dout [B,L,Dh], lse and delta [B,L]; output dq [B,L,Dh]. All fp32,
 // contiguous, on the current device; metric 0 = oblique, 1 = poincaré at
 // curvature c (q and k ball points). Launches on `stream` and returns
-// cudaGetLastError() (0 on success). A head dim outside 1..128 or another
-// metric is refused with cudaErrorInvalidValue.
+// cudaGetLastError() (0 on success). Any head dim from 1 to the wide
+// sweeps' shared-memory limit (~4,300 for dk/dv) runs; another metric is
+// refused with cudaErrorInvalidValue.
 extern "C" int flash_mhgsa_dq(const float* q, const float* k, const float* v,
                               const float* val, const float* dout,
                               const float* lse, const float* delta, float* dq,
                               int B, int L, int S, int Dh, int metric,
                               float c, void* stream) {
-  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128 ||
-      (metric != 0 && metric != 1))
+  if (B < 0 || L < 0 || S < 0 || Dh < 1 || (metric != 0 && metric != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
@@ -460,8 +813,7 @@ extern "C" int flash_mhgsa_dkv(const float* q, const float* k, const float* v,
                                const float* lse, const float* delta,
                                float* dk, float* dv, int B, int L, int S,
                                int Dh, int metric, float c, void* stream) {
-  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128 ||
-      (metric != 0 && metric != 1))
+  if (B < 0 || L < 0 || S < 0 || Dh < 1 || (metric != 0 && metric != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;

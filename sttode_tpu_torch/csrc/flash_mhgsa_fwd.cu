@@ -34,7 +34,11 @@
 // their squared norms y2) and staged with their values 128 at a time in
 // shared memory, each thread staging one key, and every thread then reads
 // the same key, a broadcast with no bank conflict and no reduction in the
-// inner loop. The Gram uses fp32 FMAs, no TF32 and no tensor cores: acos'
+// inner loop. A head dim above 128 (JAX pads any Dh to a multiple of 128)
+// would not fit a thread's registers: it runs the key-streaming forward of
+// stream_fwd.cuh instead — a warp per query row, q and the accumulator in
+// shared memory, a lane per key of a 32-key tile — the same function with
+// the validity and the lse, for any Dh up to ~5,800. The Gram uses fp32 FMAs, no TF32 and no tensor cores: acos'
 // amplifies Gram error near ±1, the poincaré x2 − 2g + y2 cancels for close
 // points (the TPU kernel's compensated 3-pass bf16 Gram, kept at HIGHEST
 // for the poincaré scores, is an MXU device; the card's analogue, tf32x3
@@ -50,6 +54,7 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "stream_fwd.cuh"
 
 namespace {
 
@@ -218,7 +223,10 @@ int dispatch(const float* q, const float* k, const float* v, const float* val,
     return launch<32, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
   if (Dh <= 64)
     return launch<64, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
-  return launch<128, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+  if (Dh <= 128)
+    return launch<128, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+  return stream_fwd::launch<POINCARE>(q, k, v, nullptr, val, out, lse, B, L,
+                                      S, Dh, c, st);
 }
 
 }  // namespace
@@ -227,14 +235,14 @@ int dispatch(const float* q, const float* k, const float* v, const float* val,
 // or null; outputs out [B,L,Dh] and lse [B,L]. All fp32, contiguous, on the
 // current device; metric 0 = oblique, 1 = poincaré at curvature c (q and k
 // ball points). Launches on `stream` and returns cudaGetLastError() (0 on
-// success). Any L and S run; a head dim outside 1..128 or another metric is
-// refused with cudaErrorInvalidValue.
+// success). Any L and S run, and any head dim from 1 to the key-streaming
+// mode's shared-memory limit (~5,800); another metric is refused with
+// cudaErrorInvalidValue.
 extern "C" int flash_mhgsa_fwd(const float* q, const float* k, const float* v,
                                const float* val, float* out, float* lse,
                                int B, int L, int S, int Dh, int metric,
                                float c, void* stream) {
-  if (B < 0 || L < 0 || S < 0 || Dh < 1 || Dh > 128 ||
-      (metric != 0 && metric != 1))
+  if (B < 0 || L < 0 || S < 0 || Dh < 1 || (metric != 0 && metric != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;

@@ -35,6 +35,14 @@
 // CUDA's (≤ 2 ulp), where the TPU needed a polynomial for acos. The metric is
 // a template parameter: the oblique instantiation is the kernel of before.
 //
+// Beyond shared memory — a problem whose keys and values pass the block's
+// 232,448 bytes: oblique from S ≥ 1569 at Dh = 16, S ≥ 436 at Dh = 64; any
+// masked problem up to S = 2048 that the route keeps here, as JAX keeps it
+// on its fused kernel — the same function runs in the key-streaming mode of
+// stream_fwd.cuh: a block per (problem, 16 query rows), the keys, values and
+// the mask's row segment streamed 32 keys at a time, q and the accumulator
+// in shared memory sized by Dh, so any head dim fits.
+//
 // The score orientation is always scores[i,j] = score(q_i, k_j); the
 // reference-compat transposed square case (quirk Q3) is the caller swapping
 // q and k.
@@ -43,6 +51,7 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "stream_fwd.cuh"
 
 namespace {
 
@@ -142,7 +151,9 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  if (smem > (size_t)max_smem)   // beyond shared memory: stream the keys
+    return stream_fwd::launch<POINCARE>(q, k, v, mask, nullptr, out, nullptr,
+                                        B, L, S, Dh, c, stream);
   err = cudaFuncSetAttribute(mhgsa_fwd_kernel<POINCARE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -158,8 +169,8 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 // out [B,L,Dh]; all fp32, contiguous, on the current device; metric 0 =
 // oblique, 1 = poincaré at curvature c (q and k ball points). Launches on
 // `stream` and returns cudaGetLastError() (0 on success). An S whose keys and
-// values do not fit in shared memory, or another metric, is refused with
-// cudaErrorInvalidValue.
+// values do not fit in shared memory runs in the key-streaming mode; another
+// metric is refused with cudaErrorInvalidValue.
 extern "C" int mhgsa_fwd(const float* q, const float* k, const float* v,
                          const float* mask, float* out, int B, int L, int S,
                          int Dh, int metric, float c, void* stream) {

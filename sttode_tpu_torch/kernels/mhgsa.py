@@ -6,9 +6,9 @@ replaces, what bounds it on the H100 and what its design does about it:
 
 - ``fused_geodesic_attention``, the whole-S kernels ``csrc/mhgsa_fwd.cu``
   and ``csrc/mhgsa_bwd.cu``: every key of a problem is staged at once
-  (``whole_s_smem_bytes``), so the forward refuses long contexts; the
-  backward stages in a device workspace instead of shared memory where
-  shared memory is too small; additive masks.
+  (``whole_s_smem_bytes``); where shared memory is too small the forward
+  streams the keys, values and mask in tiles (any head dim) and the backward
+  stages in a device workspace; additive masks.
 - ``flash_geodesic_attention``, the S-tiled kernels
   ``csrc/flash_mhgsa_fwd.cu`` (forward, with the per-row lse) and
   ``csrc/flash_mhgsa_bwd.cu`` (the dq and the dk/dv sweeps, which replay
@@ -75,12 +75,15 @@ def whole_s_smem_bytes(L: int, S: int, Dh: int,
                        metric: str = "oblique") -> tuple[int, int]:
     """Bytes the whole-S kernels stage per problem: (forward, backward), as
     ``csrc/mhgsa_fwd.cu`` and ``csrc/mhgsa_bwd.cu`` compute them at launch.
-    The forward refuses a shape above ``SMEM_OPTIN_BYTES`` (at Dh = 8:
-    S > 2765 oblique, S > 2640 poincaré, which also stages the keys'
-    squared norms); the backward stages in a device workspace of that size
-    per problem instead of shared memory from there (at Dh = 8: L = S >
-    1036, both metrics — poincaré keeps squared norms where oblique keeps
-    norms)."""
+    Above ``SMEM_OPTIN_BYTES`` (forward at Dh = 8: S > 2765 oblique,
+    S > 2640 poincaré, which also stages the keys' squared norms; at Dh = 16
+    from S = 1569, at Dh = 64 from S = 436 oblique, 432 poincaré) the
+    forward streams the keys, values and the mask's row segments through
+    shared memory 32 keys at a time, a block per (problem, 16 query rows),
+    with q and the accumulator sized by Dh (``csrc/stream_fwd.cuh``); the
+    backward stages in a device workspace of its size per problem instead
+    of shared memory (at Dh = 8: L = S > 1036, both metrics — poincaré
+    keeps squared norms where oblique keeps norms)."""
     ld = Dh | 1
     fwd = 4 * (S * ld + S * Dh + 4 * Dh + 4 * S
                + (S if metric == "poincare" else 0))
@@ -571,7 +574,9 @@ def flash_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
     """S-tiled softmax_j(score(q_i, k_j))·V over q [..., L, Dh], k/v [..., S,
     Dh] with key validity ``kv_valid`` broadcastable to [..., S] (1 = real
     key) or None; fp32; the metric as in ``fused_geodesic_attention``. Any L
-    and S: the context is bounded by device memory, not shared memory."""
+    and S: the context is bounded by device memory, not shared memory; any
+    head dim (above 128 the kernels keep the row vectors in shared memory
+    instead of registers)."""
     _check_maxless_bounds(metric, curvature)
     lead, B, L, S, Dh, (q3, k3, v3) = _flatten(q, k, v)
     val = None if kv_valid is None else torch.broadcast_to(

@@ -27,9 +27,11 @@ tensor ``fused="auto"`` sends
   where JAX runs its fused kernel — an H100 routing decision, flash being
   ~10× faster there; the backward's fit is used since the route cannot
   know whether a gradient follows);
-- an additive mask with S > 2048 to the plain path, as in JAX (up to 2048
-  the whole-S backward stages a problem that does not fit in shared memory
-  in a device workspace);
+- an additive mask with S > 2048 to the plain path, as in JAX; up to 2048
+  to the whole-S kernel, whatever the head dim, as JAX sends it to its fused
+  kernel: where a problem does not fit in shared memory the forward streams
+  its keys, values and mask in tiles and the backward stages it in a device
+  workspace;
 - poincaré below ``MIN_MAXLESS_CURVATURE`` to the plain path, as in JAX:
   the kernels' maxless softmax needs the scores bounded below;
 - everything else to the whole-S kernel
@@ -170,6 +172,9 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
             and q_shape[-3] * Dh <= 128 and L * S <= 32 * 32):
         return "packed"
     if has_mask:
+        # JAX's rule, any head dim: beyond shared memory the whole-S forward
+        # streams keys, values and mask in tiles, the backward stages in a
+        # device workspace
         return None if S > 2048 else "fused"
     if S > 2048 or max(whole_s_smem_bytes(L, S, Dh, metric)) > \
             SMEM_OPTIN_BYTES:

@@ -84,9 +84,10 @@ def test_attention_kernel_matches_plain(cuda_device, shape_q, S, mask_kind):
 @pytest.mark.cuda
 def test_attention_kernel_refuses_grad_and_oversized_keys(cuda_device):
     """Gradients are taken through the backward kernel (and equal the plain
-    backward's); keys that do not fit in shared memory are refused by the
-    forward kernel, while the backward kernel stages such a problem in a
-    device workspace and equals its plain version."""
+    backward's); keys that do not fit in shared memory, which the forward
+    kernel refused before its key-streaming mode, now run in that mode and
+    equal the plain forward, and the backward kernel stages such a problem
+    in a device workspace and equals its plain version."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32))
     q = x.to(cuda_device).requires_grad_()
@@ -103,10 +104,13 @@ def test_attention_kernel_refuses_grad_and_oversized_keys(cuda_device):
                                atol=5e-5)
     q = torch.randn(1, 8, 64, device=cuda_device)
     kv = torch.randn(1, 100_000, 64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tmhgsa.fused_geodesic_attention(q, kv, kv)
     assert max(tmhgsa.whole_s_smem_bytes(8, 100_000, 64)) > \
         tmhgsa.SMEM_OPTIN_BYTES
+    got = tmhgsa.fused_geodesic_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    want = tmhgsa.fused_geodesic_attention_reference(q, kv, kv, None)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-5)
     got = tmhgsa.fused_geodesic_attention_backward(q, kv, kv, None, q)
     torch.cuda.synchronize()
     want = tmhgsa.fused_geodesic_attention_backward(
@@ -444,9 +448,15 @@ def test_flash_kernels_randomized_sweep(cuda_device, case):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_wide_heads(cuda_device):
+    """A head dim of 130, which the flash forward refused before its wide
+    mode, now runs and equals the plain forward (out and lse)."""
     q = torch.randn(1, 4, 130, device=cuda_device)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tmhgsa._launch_flash(q, q, q, None)
+    got = tmhgsa._launch_flash(q, q, q, None)
+    torch.cuda.synchronize()
+    want = tmhgsa.flash_geodesic_attention_reference(q, q, q, None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -543,33 +553,97 @@ def test_select_decode_kernel_matches_plain(cuda_device, decoder, mode, M, K):
                           *[o.to(cuda_device) for o in ops[1:]], mode=mode)
 
 
+@pytest.fixture(scope="module")
+def decoders():
+    """The full-width decoder at (T_p, T_f) = (5, 10) and (8, 12)."""
+    out = {}
+    for tp, tf in ((5, 10), (8, 12)):
+        cfg = tm.STTODEConfig(past_length=tp, future_length=tf).validate()
+        out[tp, tf] = (cfg, tm.sttode_init(tp * 10 + tf, cfg))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dist", "traj"])
+@pytest.mark.parametrize("horizon", [(5, 10), (8, 12)])
+@pytest.mark.parametrize("K", [1, 3, 20])
+@pytest.mark.parametrize("M", [1, 17, 353, 1409])
+def test_select_decode_tensor_core_kernel_matches_plain(cuda_device, decoders,
+                                                        dtype, mode, horizon,
+                                                        K, M):
+    """Kernel B on the tensor cores (3xTF32 for fp32, bf16 MMA) against its
+    plain version on the card at full width: agent counts that are not
+    multiples of the 32- or 64-row tiles (M·K from 1 to 28,180, so both
+    tiles run), K = 1, 3, 20, both horizons, both modes. fp32 within 1e-4;
+    bf16 within 1e-3 of the distance (or trajectory) scale; in mode "dist"
+    a winner differs from the plain version's only where the plain
+    version's two distances are within twice that."""
+    cfg, params = decoders[horizon]
+    tp, tf = horizon
+    rng = np.random.default_rng(M * 31 + K * 7 + tp)
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    p = to_device(params, cuda_device)
+    past = arr(M, tp, 2)
+    with torch.no_grad():
+        ops = [arr(M, 2 * cfg.hidden_dim), arr(K, M, cfg.zdim),
+               tm.decode_block0_state(p, past), past.reshape(M, -1),
+               arr(M, 2 * tf)]
+        want = tsd.select_decode_reference(
+            tsd.prep_select_weights(p, 2 * cfg.hidden_dim, cfg.zdim, tp, tf,
+                                    dtype), *ops, mode=mode)
+        before = tsd.select_decode.launches_by_dtype[dtype]
+        got = tsd.select_decode(p, *ops, mode=mode, dtype=dtype)
+        torch.cuda.synchronize()
+    assert tsd.select_decode.launches_by_dtype[dtype] == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    tol = 1e-4 if dtype == torch.float32 else \
+        1e-3 * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+    if mode == "dist":
+        rows = torch.arange(M, device=cuda_device)
+        g_win, w_win = got.argmin(1), want.argmin(1)
+        gap = (want[rows, g_win] - want[rows, w_win]).abs()
+        assert bool(((g_win == w_win) | (gap <= 2 * tol)).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _sweep(16, 11, lambda r: dict(
-    lead=tuple(int(x) for x in r.integers(1, 6, size=int(r.integers(1, 3)))),
-    L=int(r.integers(1, 70)), S=int(r.integers(1, 70)),
-    Dh=int(r.choice([1, 3, 5, 8, 13, 32, 33, 64])),
+    lead=tuple(int(x) for x in r.integers(1, 4, size=int(r.integers(1, 3)))),
+    L=int(r.choice([r.integers(1, 70), r.integers(1, 2049)])),
+    S=int(r.choice([r.integers(1, 70), r.integers(1, 2049)])),
+    Dh=int(r.choice([1, 3, 5, 8, 13, 32, 33, 64, 129, 256])),
     mask=str(r.choice(["none", "finite", "finfo_min"])))))
 def test_attention_kernel_randomized_sweep(cuda_device, case):
-    """Random shapes (odd head dims, L ≠ S, one leading dim or two) and mask
-    kinds against the plain version."""
+    """Random shapes (odd head dims up to 256, L ≠ S up to 2048, one leading
+    dim or two) and mask kinds against the plain version on the card: the
+    whole-S forward in shared memory and, where the keys do not fit, in its
+    key-streaming mode."""
     rng = np.random.default_rng(case["L"] * 131 + case["S"])
     lead, L, S, Dh = case["lead"], case["L"], case["S"], case["Dh"]
     arr = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32))
+        rng.standard_normal(s).astype(np.float32)).to(cuda_device)
     q, k, v = arr(*lead, L, Dh), arr(*lead, S, Dh), arr(*lead, S, Dh)
     mask = None
     if case["mask"] == "finite":
         mask = 20 * arr(*lead, L, S)
     elif case["mask"] == "finfo_min":
-        mask = torch.where(torch.from_numpy(rng.random((*lead, 1, S))) < 0.4,
+        mask = torch.where(torch.from_numpy(rng.random((*lead, 1, S)))
+                           .to(cuda_device) < 0.4,
                            torch.finfo(torch.float32).min, 0.0)
-    want = tmhgsa.fused_geodesic_attention(q, k, v, mask=mask)
-    got = tmhgsa.fused_geodesic_attention(
-        q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
-        mask=None if mask is None else mask.to(cuda_device))
+    got = tmhgsa.fused_geodesic_attention(q, k, v, mask=mask)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    B = int(np.prod(lead))
+    m3 = None if mask is None else tmhgsa._canonicalize_mask(
+        torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S))
+    with torch.no_grad():
+        want = tmhgsa.fused_geodesic_attention_reference(
+            q.reshape(B, L, Dh), k.reshape(B, S, Dh), v.reshape(B, S, Dh),
+            m3).reshape(*lead, L, Dh)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -964,6 +1038,116 @@ def test_masked_backward_beyond_shared_memory(cuda_device, metric):
     with torch.no_grad():
         want = tmhgsa.fused_geodesic_attention_backward_reference(
             *dev[:3], m3, dev[3], True, metric, c)
+    _grad_check([g.cpu() for g in got], [w.cpu() for w in want])
+    assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
+
+
+def _masked_problem(rng, B, S, Dh, metric, c=1.0):
+    """q, k, v, do of B problems of S × S × Dh (ball points for poincaré)
+    and a canonicalized mask: a fifth of the entries excluded, the rest
+    finite, row 0 of every problem all excluded."""
+    if metric == "poincare":
+        q, k, v, do = _ball_inputs(rng, (B,), S, S, Dh, c)
+    else:
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, Dh))
+                                        .astype(np.float32))
+                       for _ in range(4))
+    mask = torch.where(torch.from_numpy(rng.random((B, S, S))) < 0.2,
+                       torch.finfo(torch.float32).min,
+                       torch.from_numpy(rng.standard_normal((B, S, S))
+                                        .astype(np.float32)))
+    mask[:, 0] = torch.finfo(torch.float32).min
+    return q, k, v, do, tmhgsa._canonicalize_mask(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+@pytest.mark.parametrize("S", [436, 841, 1569, 2048])
+@pytest.mark.parametrize("Dh", [16, 64, 256])
+def test_masked_forward_beyond_shared_memory(cuda_device, S, Dh, metric):
+    """The masked whole-S forward at 8 × S² × Dh, the route's masked range
+    (S ≤ 2048) at head dims whose keys and values pass the block's shared
+    memory (all but 436 at Dh = 16), where the kernel refused to run before
+    its key-streaming mode: equal to the plain forward within 1e-5, and an
+    all-excluded row outputs exactly 0, as in the plain version."""
+    rng = np.random.default_rng(S * 3 + Dh)
+    c = 1.0
+    q, k, v, _, m3 = (t.to(cuda_device)
+                      for t in _masked_problem(rng, 8, S, Dh, metric, c))
+    before = tmhgsa.fused_geodesic_attention.launches_by_metric[metric]
+    got = tmhgsa.fused_geodesic_attention(q, k, v, mask=m3, metric=metric,
+                                          curvature=c)
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention.launches_by_metric[metric] == \
+        before + 1
+    with torch.no_grad():
+        want = tmhgsa.fused_geodesic_attention_reference(q, k, v, m3, metric,
+                                                         c)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-5)
+    assert torch.all(got[:, 0] == 0) and torch.all(want[:, 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+@pytest.mark.parametrize("Dh", [129, 192, 256])
+def test_flash_kernels_wide_heads(cuda_device, Dh, metric):
+    """The flash forward, dq and dk/dv sweeps at head dims above 128, which
+    they refused before their wide modes, through the public wrapper and
+    autograd, against the plain versions on the same device: a ragged
+    L = 300, S = 700 with a random key validity and one problem with no
+    valid key (exact zeros); forward 1e-5, gradients 5e-5 × max(1, max
+    |g|)."""
+    rng = np.random.default_rng(Dh)
+    lead, L, S, c = (3,), 300, 700, 1.0
+    if metric == "poincare":
+        q, k, v, do = _ball_inputs(rng, lead, L, S, Dh, c)
+    else:
+        q, k, v, do, _ = _flash_inputs(rng, lead, L, S, Dh, "none")
+    kv = torch.from_numpy((rng.random((*lead, S)) < 0.7).astype(np.float32))
+    kv[0] = 0.0
+    before = _flash_launches()
+    leaves = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
+    out = tmhgsa.flash_geodesic_attention(
+        *leaves, kv_valid=kv.to(cuda_device), metric=metric, curvature=c)
+    got = [out.detach(), *torch.autograd.grad(out, leaves, do.to(cuda_device))]
+    torch.cuda.synchronize()
+    assert _flash_launches() == tuple(b + 1 for b in before)
+    with torch.no_grad():
+        q3, k3, v3, do3 = (t.to(cuda_device) for t in (q, k, v, do))
+        val = kv.to(cuda_device)
+        w_out, lse = tmhgsa.flash_geodesic_attention_reference(
+            q3, k3, v3, val, metric, c)
+        want = [w_out, *tmhgsa.flash_geodesic_attention_backward_reference(
+            q3, k3, v3, val, do3, lse, (do3 * w_out).sum(-1), metric, c)]
+    got, want = [t.cpu() for t in got], [t.cpu() for t in want]
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-5)
+    _grad_check(got[1:], want[1:])
+    assert all(bool(torch.all(t[0] == 0)) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+def test_masked_backward_wide_heads(cuda_device, metric):
+    """The masked whole-S backward at 8 × 512² × 256, beyond shared memory
+    (its device-workspace mode): equal to its plain version (gradients and
+    dmask 5e-5 × max(1, max |g|)), exact zeros for an all-excluded row."""
+    rng = np.random.default_rng(256)
+    c = 1.0
+    q, k, v, do, m3 = (t.to(cuda_device)
+                       for t in _masked_problem(rng, 8, 512, 256, metric, c))
+    assert tmhgsa.whole_s_smem_bytes(512, 512, 256, metric)[1] > \
+        tmhgsa.SMEM_OPTIN_BYTES
+    kw = dict(metric=metric, curvature=c)
+    got = tmhgsa.fused_geodesic_attention_backward(q, k, v, m3, do,
+                                                   need_dmask=True, **kw)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = tmhgsa.fused_geodesic_attention_backward_reference(
+            q, k, v, m3, do, True, metric, c)
     _grad_check([g.cpu() for g in got], [w.cpu() for w in want])
     assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
 
