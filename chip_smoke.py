@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sttode_tpu_torch/csrc`` (nvcc,
-sm_90a, one compiler process per source, started together; prints kernel
-B's registers and spills and the HMMA instructions of its SASS), holds each
+sm_90a, one compiler process per source, started together; prints the
+registers and spills of kernel B and of the flash backward sweeps, and the
+HMMA instructions of kernel B's SASS), holds each
 against its plain PyTorch version at the shapes of the serving and training
 paths, then drives both paths at the full width of the repo's model
 (hidden 64, 8 heads, ff 1024, zdim 32, K = 20, random weights from a seed):
@@ -65,7 +66,9 @@ paths, then drives both paths at the full width of the repo's model
            backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
            88 × 128² × 8, the forward with the agent-axis server's key mask;
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
-           swapped) and 8 × 4096² × 64; then the masked whole-S backward at
+           swapped) and 8 × 4096² × 64; the sweeps' general form at
+           c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows at the ball's
+           edge and close pairs; then the masked whole-S backward at
            8 × 1500² × 8, beyond shared memory (its device-workspace mode),
            in both metrics; then phase 11's two repairs in the poincaré
            metric;
@@ -78,7 +81,8 @@ paths, then drives both paths at the full width of the repo's model
            against the dense route at the largest of B = 2304 and 1152 that
            the dense route's memory allows; the agent-axis ``Predictor`` with
            the poincaré metric against the dense route; step time, train
-           scenes/s and idle share of both routes at B = 32 and B = 2304.
+           scenes/s and idle share of both routes at B = 32 and B = 2304,
+           and of the oblique flash route beside them at B = 2304.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -96,6 +100,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -251,18 +256,35 @@ def kernel_b_name(mangled: str) -> str:
             f"{m.group(3)}>")
 
 
+def sweep_name(mangled: str) -> str:
+    """flash_{mhgsa,poincare}_d{q,kv}_kernel<...> from a mangled name."""
+    import re
+    m = re.search(r"(flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel)"
+                  r"I((?:L[ib]\d+E)+)E", mangled)
+    if m is None:
+        return mangled[:60]
+    args = re.findall(r"L([ib])(\d+)E", m.group(2))
+    return (f"{m.group(1)}<" + ", ".join(
+        v if t == "i" else ("true" if v == "1" else "false")
+        for t, v in args) + ">")
+
+
 def build_report(lib) -> None:
-    """Print kernel B's registers and spills from the build log (``-Xptxas
-    -v``) and the tensor-core MMA instructions (HMMA) in its SASS, from
+    """Print the registers and spills of kernel B and of the flash backward
+    sweeps' register kernels from the build log (``-Xptxas -v``) and the
+    tensor-core MMA instructions (HMMA) in kernel B's SASS, from
     ``cuobjdump`` where the toolkit has it."""
     log = lib.with_name(lib.name + ".log").read_text().splitlines()
     entry = None
     for line in log:
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "select_" in line else None
+            name = line.split("'")[1]
+            entry = (kernel_b_name(name) if "select_" in name else
+                     sweep_name(name) if re.search(
+                         r"flash_(mhgsa|poincare)_d(q|kv)_kernel", name)
+                     else None)
         elif entry and ("spill" in line or "Used" in line):
-            print(f"ptxas {kernel_b_name(entry)}: "
-                  f"{line.split(':', 1)[-1].strip()}")
+            print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -328,7 +350,7 @@ def device_us(fn, calls: int = 20):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "_kernel" in e.key
-             and ("packed_" in e.key or "mhgsa_" in e.key))
+             and any(n in e.key for n in ("packed_", "mhgsa_", "poincare_")))
     return us / calls if us > 0 else None
 
 
@@ -1690,6 +1712,78 @@ def main() -> int:
     del pflash, qf, kf, out, lse, want, got_b, want_b, args
     torch.cuda.empty_cache()
 
+    # the sweeps' general form (c ≠ 1) at the recipe's shape, timed; then
+    # rows at the ball's edge (every zc clamped at 1 − 1e-5) and close
+    # pairs (k = q + 1e-4·noise), on an exact-Gram grid: dv to the
+    # tolerance, dq and dk finite (there the plain formulas' own dq and dk
+    # move by more than the tolerance when one fp32 rounding moves;
+    # tests/test_torch_poincare_sweep.py)
+    def grid(x, c):
+        s_ = 2.0 ** np.floor(12 + np.log2(c) / 2)
+        return torch.trunc(x * s_) / s_
+
+    def sweeps(q, k, v, do, c):
+        with torch.inference_mode():
+            out, lse = km._flash_forward(q, k, v, None, "poincare", c)
+            a = (q, k, v, None, do, lse, torch.sum(do * out, dim=-1),
+                 "poincare", c)
+            got = (km._launch_flash_dq(*a), *km._launch_flash_dkv(*a))
+            want = (km.flash_dq_reference(*a), *km.flash_dkv_reference(*a))
+            torch.cuda.synchronize()
+        return a, got, want
+
+    axis = torch.zeros(8, device=dev)
+    axis[0] = 1.0
+    for c_, kind in ((0.7, "mid"), (0.05, "mid"), (1.0, "edge"),
+                     (0.7, "edge"), (1.0, "close"), (0.7, "close")):
+        if kind == "mid":
+            shape = (88, 2304, 8)
+            q = to_ball(randn(*shape) * (0.5 / (8 * c_) ** 0.5), c_)
+            k = to_ball(randn(*shape) * (0.5 / (8 * c_) ** 0.5), c_)
+        elif kind == "edge":
+            shape = (8, 1100, 8)
+            q, k = (grid(to_ball(40.0 * (sgn * axis + 0.2 / 8 ** 0.5
+                                         * randn(*shape)), c_), c_)
+                    for sgn in (1.0, -1.0))
+        else:
+            shape = (8, 1100, 8)
+            q = grid(to_ball(randn(*shape) * (0.5 / (8 * c_) ** 0.5), c_), c_)
+            k = grid(q + 1e-4 * randn(*shape), c_)
+        a, got, want = sweeps(q, k, randn(*shape), randn(*shape), c_)
+        label = f"poincare flash sweeps {kind} c = {c_} {shape}"
+        require(all(bool(torch.isfinite(g).all()) for g in got),
+                f"{label}: non-finite gradient")
+        if kind == "edge":
+            zc = km._poincare_pieces(q[:1], k[:1], c_)[-1]
+            require(bool(torch.all(zc == float(np.float32(1.0 - km.ARTANH_EPS)))),
+                    f"{label}: a pair does not clamp")
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[g_name] = max_err(g, w)
+            if kind == "mid" or g_name == "dv":
+                tol = ATTN_GRAD_TOL * max(1.0, float(w.abs().max()))
+                require(errs[g_name] <= tol, f"{label} {g_name}: max abs "
+                        f"err {errs[g_name]} > {tol}")
+                part = "dq" if g_name == "dq" else "dkv"
+                pflash_err[part] = max(pflash_err[part], errs[g_name])
+        line = f"{label}: max_abs_err " + ", ".join(
+            f"{k_} {v_:.3e}" for k_, v_ in errs.items()) + (
+            " (dq, dk held to finiteness)" if kind != "mid" else "")
+        if kind == "mid":
+            with torch.inference_mode():
+                t = {"dq": paired_ms(lambda: km._launch_flash_dq(*a),
+                                     lambda: km.flash_dq_reference(*a),
+                                     calls=3, rounds=4),
+                     "dkv": paired_ms(lambda: km._launch_flash_dkv(*a),
+                                      lambda: km.flash_dkv_reference(*a),
+                                      calls=3, rounds=4)}
+            line += "; " + ", ".join(
+                f"{k_} kernel {v_[0]:.4f} ms plain {v_[1]:.4f} ms"
+                for k_, v_ in t.items())
+        print(line + f"  [{card}]")
+        del a, got, want, q, k
+    torch.cuda.empty_cache()
+
     # the masked whole-S backward at 8 × 1500² × 8: its staging (224·S + 256
     # bytes) passes the block's shared memory, so the kernel stages each
     # problem in a device workspace; one row of each problem is all excluded
@@ -1895,13 +1989,19 @@ def main() -> int:
           f"largest magnitude (worst leaf {worstL})")
     del out_kL, g_kL, out_pL, g_pL
     torch.cuda.empty_cache()
+    # both poincaré routes and, beside them in the same rounds, the oblique
+    # flash route on the same parameters and batch
     step_kL = make_train_step(cfg14L, 1e-4, device=dev)
     step_pL = make_train_step(dense14L, 1e-4, device=dev)
+    step_oL = make_train_step(cfg14L._replace(attn_metric="oblique"), 1e-4,
+                              device=dev)
     step_times([[step_kL, *step_kL.init(params14L)],
-                [step_pL, *step_pL.init(params14L)]],
+                [step_pL, *step_pL.init(params14L)],
+                [step_oL, *step_oL.init(params14L)]],
                batchL, genL, B_cmp,
                f"phase 14 poincaré NBA recipe step at B = {B_cmp}", card,
-               rounds=4)
+               rounds=4, names=("kernel route", "plain route",
+                                "oblique kernel route"))
     del batchL, noiseL
     torch.cuda.empty_cache()
 

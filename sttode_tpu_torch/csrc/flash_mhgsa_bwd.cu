@@ -32,36 +32,38 @@
 // exp of every pair, so together they do 6.3e10 operations on 2.5 MB of
 // inputs and outputs (chip_smoke.py, flash_dq_work and flash_dkv_work; the
 // poincaré epilogue and its VJP, their metric "poincare", add ~25 per pair
-// and sweep): bound by operations, ~0.9 ms at the fp32 peak. On
-// the TPU each sweep is a grid whose innermost axis runs in order and
-// carries the sum in VMEM scratch; on Hopper blocks run in parallel, so
-// each sweep gives one thread one output row and loops over the other axis
-// inside the block, and nothing needs atomics or anything of size L·S:
+// and sweep): bound by operations, ~0.9 ms at the fp32 peak; in practice
+// by issuing each pair's epilogue, whose instructions outnumber its FMAs
+// at Dh = 8. On the TPU each sweep is a grid whose innermost axis runs in
+// order and carries the sum in VMEM scratch; on Hopper blocks run in
+// parallel, so each sweep gives a thread its own output rows and loops over
+// the other axis inside the block, and nothing needs atomics or anything of
+// size L·S:
 //   dq sweep: a block per (problem, 128 query rows), a thread per query row
-//     i holding q̂_i (or the ball row and x2_i), do_i, dq̂_i and, poincaré,
-//     the running dx2_i in registers; the keys are normalized (or kept raw
-//     with their y2) and staged with their values and validity 128 at a time
-//     in shared memory and read as broadcasts; the q-side normalize VJP (or
-//     the 2·dx2_i·q_i term) ends the row;
+//     i holding q̂_i, do_i and dq̂_i in registers; the keys are normalized
+//     and staged with their values and validity 128 at a time in shared
+//     memory and read as broadcasts; the q-side normalize VJP ends the row;
 //   dk/dv sweep: a block per (problem, 128 keys), a thread per key j holding
-//     k̂_j (or the ball row and y2_j), v_j, dk̂_j, dv_j and, poincaré, the
-//     running dy2_j in registers; the query rows (q̂ or ball rows with x2,
-//     do, lse, δ) are staged 128 at a time; the k-side normalize VJP (or the
-//     2·dy2_j·k_j term) ends the key.
+//     k̂_j, v_j, dk̂_j and dv_j in registers; the unit query rows, do, lse
+//     and δ are staged 128 at a time; the k-side normalize VJP ends the key;
+//   poincaré (flash_poincare_dq_kernel, flash_poincare_dkv_kernel, below):
+//     the same with ball rows and their x2 / y2, the running dx2 / dy2, and
+//     the design the section before them describes (two rows per thread,
+//     cp.async staging, the SFU epilogue of poincare.cuh); the 2·dx2_i·q_i
+//     (2·dy2_j·k_j) term ends the row (key).
 // fp32 FMAs throughout, no TF32 (acos' amplifies Gram error near ±1; the
 // poincaré x2 − 2g + y2 cancels for close points). The oblique gate takes
 // rsqrtf(max(1 − gc², 1e-12)), so q = k rows (g ≈ 1) get an exactly zero,
 // finite gradient; poincaré q = k rows stay finite through n ≥ √1e-15; an
 // invalid key has p ≡ 0 and zero dk and dv; a row with no valid key gets
-// dq = 0. The metric is a template parameter: the oblique instantiations
-// are the kernels of before; the poincaré ones carry two more scalars per
-// thread (x2 or y2, and the running dx2 or dy2). Those register kernels
-// hold the head dim rounded up to 8/16/32/64/128; a head dim above 128 (JAX
-// pads any Dh to a multiple of 128) runs the wide sweeps below, which keep
-// the row's vectors in shared memory instead.
+// dq = 0. These register kernels hold the head dim rounded up to
+// 8/16/32/64/128; a head dim above 128 (JAX pads any Dh to a multiple of
+// 128) runs the wide sweeps below, both metrics, which keep the row's
+// vectors in shared memory instead.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "poincare.cuh"
 
@@ -96,13 +98,6 @@ __device__ __forceinline__ float to_unit(float (&r)[DH]) {
 #pragma unroll
   for (int d = 0; d < DH; ++d) r[d] = r[d] / f;
   return n;
-}
-
-// oblique: scale to unit norm, return the norm; poincaré: keep the ball
-// row, return its squared norm
-template <int DH, bool POINCARE>
-__device__ __forceinline__ float prep_row(float (&r)[DH]) {
-  return POINCARE ? sq_norm(r) : to_unit(r);
 }
 
 // a · b[0..DH) with b a 16-byte aligned row of shared memory
@@ -160,20 +155,12 @@ __device__ __forceinline__ void pair_grad(float g, float x2, float y2,
   }
 }
 
-// The row's gradient from its accumulated Gram cotangent dxh, its row xh
-// (unit or ball) and n (the norm, or the squared norm's cotangent sum),
-// written to out[0..Dh): oblique (dx̂ − x̂ (dx̂·x̂)) / max(n, floor),
-// poincaré dx + 2·n·x.
-template <int DH, bool POINCARE>
+// The row's gradient from its accumulated Gram cotangent dxh, its unit row
+// xh and its norm n, written to out[0..Dh): (dx̂ − x̂ (dx̂·x̂)) / max(n, floor).
+template <int DH>
 __device__ __forceinline__ void finish_row(const float (&dxh)[DH],
                                            const float (&xh)[DH], float n,
                                            int Dh, float* __restrict__ out) {
-  if (POINCARE) {
-#pragma unroll
-    for (int d = 0; d < DH; ++d)
-      if (d < Dh) out[d] = dxh[d] + 2.f * n * xh[d];
-    return;
-  }
   float r = 0.f;
 #pragma unroll
   for (int d = 0; d < DH; ++d) r = fmaf(dxh[d], xh[d], r);
@@ -183,7 +170,7 @@ __device__ __forceinline__ void finish_row(const float (&dxh)[DH],
     if (d < Dh) out[d] = (dxh[d] - xh[d] * r) / f;
 }
 
-template <int DH, bool POINCARE>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -191,13 +178,11 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
-                      int L, int S, int Dh, int row_tiles,
-                      poincare::Curv curv) {
+                      int L, int S, int Dh, int row_tiles) {
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // [kTile][DH] unit (ball) keys
+  float* ks = smem;                       // [kTile][DH] unit keys
   float* vs = ks + kTile * DH;            // [kTile][DH] values
   float* ok = vs + kTile * DH;            // [kTile] 1 = valid key
-  float* y2 = ok + kTile;                 // [kTile] poincaré: ‖k_j‖²
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / row_tiles;
@@ -219,9 +204,7 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) qh[d] = dor[d] = 0.f;
   }
-  // oblique: the norm; poincaré: x2
-  const float qn = prep_row<DH, POINCARE>(qh);
-  float dx2 = 0.f;
+  const float qn = to_unit(qh);
   float dqh[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) dqh[d] = 0.f;
@@ -233,8 +216,7 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = j0 + t;
       float r[DH];
       load_row(kb + (size_t)j * Dh, Dh, r);
-      const float kn = prep_row<DH, POINCARE>(r);
-      if (POINCARE) y2[t] = kn;
+      to_unit(r);
 #pragma unroll
       for (int d = 0; d < DH; ++d) ks[t * DH + d] = r[d];
       load_row(vb + (size_t)j * Dh, Dh, r);
@@ -247,21 +229,18 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < n; ++jj) {
         if (ok[jj] == 0.f) continue;      // the same key for every thread
         const float* kr = ks + jj * DH;
-        const float yj = POINCARE ? y2[jj] : 0.f;
         float p, dg, a = 0.f, bb = 0.f;
-        pair_grad<POINCARE>(dot_smem(qh, kr), qn, yj, li, di,
-                            dot_smem(dor, vs + jj * DH), curv, &p, &dg, &a,
-                            &bb);
-        if (POINCARE) dx2 += a + bb * yj;
+        pair_grad<false>(dot_smem(qh, kr), 0.f, 0.f, li, di,
+                         dot_smem(dor, vs + jj * DH), poincare::Curv{}, &p,
+                         &dg, &a, &bb);
         axpy_smem(dg, kr, dqh);
       }
     }
   }
-  if (row) finish_row<DH, POINCARE>(dqh, qh, POINCARE ? dx2 : qn, Dh,
-                                    dq + ri * Dh);
+  if (row) finish_row<DH>(dqh, qh, qn, Dh, dq + ri * Dh);
 }
 
-template <int DH, bool POINCARE>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -271,13 +250,12 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int L,
-                       int S, int Dh, int col_tiles, poincare::Curv curv) {
+                       int S, int Dh, int col_tiles) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [kTile][DH] unit (ball) query rows
+  float* qs = smem;                       // [kTile][DH] unit query rows
   float* ds = qs + kTile * DH;            // [kTile][DH] their do rows
   float* ls = ds + kTile * DH;            // [kTile] lse
   float* dl = ls + kTile;                 // [kTile] δ
-  float* x2 = dl + kTile;                 // [kTile] poincaré: ‖q_i‖²
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / col_tiles;
@@ -295,9 +273,7 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int d = 0; d < DH; ++d) kh[d] = vr[d] = 0.f;
   }
-  // oblique: the norm; poincaré: y2
-  const float kn = prep_row<DH, POINCARE>(kh);
-  float dy2 = 0.f;
+  const float kn = to_unit(kh);
   float dkh[DH], dvr[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) dkh[d] = dvr[d] = 0.f;
@@ -309,8 +285,7 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
       const size_t ri = qo + i0 + t;
       float r[DH];
       load_row(q + ri * Dh, Dh, r);
-      const float qn = prep_row<DH, POINCARE>(r);
-      if (POINCARE) x2[t] = qn;
+      to_unit(r);
 #pragma unroll
       for (int d = 0; d < DH; ++d) qs[t * DH + d] = r[d];
       load_row(dout + ri * Dh, Dh, r);
@@ -324,21 +299,341 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
       for (int ii = 0; ii < n; ++ii) {
         const float* qr = qs + ii * DH;
         const float* dr = ds + ii * DH;
-        const float xi = POINCARE ? x2[ii] : 0.f;
         float p, dg, a = 0.f, bb = 0.f;
-        pair_grad<POINCARE>(dot_smem(kh, qr), xi, kn, ls[ii], dl[ii],
-                            dot_smem(vr, dr), curv, &p, &dg, &a, &bb);
-        if (POINCARE) dy2 += a + bb * xi;
+        pair_grad<false>(dot_smem(kh, qr), 0.f, 0.f, ls[ii], dl[ii],
+                         dot_smem(vr, dr), poincare::Curv{}, &p, &dg, &a,
+                         &bb);
         axpy_smem(p, dr, dvr);
         axpy_smem(dg, qr, dkh);
       }
     }
   }
   if (col) {
-    finish_row<DH, POINCARE>(dkh, kh, POINCARE ? dy2 : kn, Dh, dk + rj * Dh);
+    finish_row<DH>(dkh, kh, kn, Dh, dk + rj * Dh);
 #pragma unroll
     for (int d = 0; d < DH; ++d)
       if (d < Dh) dv[rj * Dh + d] = dvr[d];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The poincaré register sweeps (head dims up to 128), redesigned for the
+// H100. Both replay each pair's epilogue, and at the NBA recipe's Dh = 8 a
+// pair's FMAs (the Gram, do·v and the accumulations, 24–32) are few beside
+// its epilogue, so the sweeps are bound by issuing the epilogue's
+// instructions, not by memory or the FMA rate. So:
+//   - the epilogue is poincare::sweep_grad, on the SFU's native reciprocal,
+//     rsqrt, log2 and exp2 (three to five MUFU ops and ~45 other
+//     instructions a pair, against six IEEE divisions, sqrtf, logf and
+//     expf), with no log or exp at all at c = 1 (a template parameter
+//     chosen at launch from the curvature's value);
+//   - each thread owns sweep_rows(DH) output rows (dq) or keys (dk/dv), so
+//     each staged row read from shared memory serves that many pairs, and
+//     the rows' independent epilogue chains hide the MUFU latency;
+//   - the other axis is staged with cp.async, raw, into a ring of kStages
+//     tiles of shared memory, with no registers or instructions of the
+//     threads; the squared norms (and the rows' lse constants) are
+//     computed from shared memory once a tile has landed. One stage: a
+//     second, which overlaps the next tile's copies with this tile's pairs,
+//     measured no faster at the recipe's c = 1, Dh = 8 (PERF.md §6, PR 7).
+
+constexpr int kStages = 1;
+
+// output rows per thread: two where registers allow (no spills at DH ≤ 16)
+constexpr int sweep_rows(int dh) { return dh <= 16 ? 2 : 1; }
+
+// rows of the other axis per ring stage: 128, fewer above DH = 32, so that a
+// stage's two [rows][DH] arrays stay within 32 KB
+__host__ __device__ constexpr int sweep_tile(int dh) {
+  return dh <= 32 ? kTile : 4096 / dh;
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool full, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Start copying rows [0, n) of the [*, Dh] array src into the [T][DH] tile
+// dst, the columns from Dh up to DH zero-filled: 16 bytes a copy when the
+// rows are 16-byte aligned (vec), else 4.
+template <int DH>
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
+                                           const float* __restrict__ src,
+                                           int n, int Dh, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < n * (DH / 4); e += kThreads) {
+      const int r = e / (DH / 4), d = e % (DH / 4) * 4;
+      const bool in = d < Dh;
+      cp_async(dst + r * DH + d, in ? src + (size_t)r * Dh + d : src, in, 16);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * DH; e += kThreads) {
+      const int r = e / DH, d = e % DH;
+      const bool in = d < Dh;
+      cp_async(dst + r * DH + d, in ? src + (size_t)r * Dh + d : src, in, 4);
+    }
+  }
+}
+
+// the squared norm of a 16-byte aligned row of shared memory
+template <int DH>
+__device__ __forceinline__ float sq_norm_smem(const float* __restrict__ x) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float ss = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH / 4; ++d) {
+    const float4 u = x4[d];
+    ss = fmaf(u.x, u.x, ss);
+    ss = fmaf(u.y, u.y, ss);
+    ss = fmaf(u.z, u.z, ss);
+    ss = fmaf(u.w, u.w, ss);
+  }
+  return ss;
+}
+
+// floats of shared memory of a poincaré sweep: the ring's stages, each two
+// [T][DH] arrays and `scalars` [T] arrays staged raw, and two [T] arrays
+// derived once a tile has landed
+template <int DH>
+constexpr size_t poincare_sweep_floats(int scalars) {
+  return (size_t)sweep_tile(DH) * (kStages * (2 * DH + scalars) + 2);
+}
+
+template <int DH, int R, bool C1>
+__global__ void __launch_bounds__(kThreads)
+flash_poincare_dq_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ val,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int L, int S, int Dh,
+                         int row_tiles, poincare::Curv curv) {
+  constexpr int T = sweep_tile(DH);
+  constexpr int kStage = T * (2 * DH + 1);
+  extern __shared__ __align__(16) float smem[];
+  float* y2 = smem;                       // [T] ‖k_j‖² of the tile
+  float* ok = y2 + T;                     // [T] 1 = valid key
+  float* ring = ok + T;                   // [kStages] × (keys [T][DH],
+                                          //   values [T][DH], validity [T])
+
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / row_tiles;
+  const int i0 = (blockIdx.x % row_tiles) * kThreads * R + t;
+  const float* kb = k + (size_t)b * S * Dh;
+  const float* vb = v + (size_t)b * S * Dh;
+  const float* valb = val ? val + (size_t)b * S : nullptr;
+  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(kb) |
+                                   reinterpret_cast<uintptr_t>(vb)) % 16 == 0;
+
+  // R rows i0 + r·kThreads: the ball row, do, and the running dq and dx2
+  float qb[R][DH], dor[R][DH], dqa[R][DH], x2[R], lr[R], di[R], dx2[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    const size_t ri = (size_t)b * L + i;
+    lr[r] = di[r] = dx2[r] = 0.f;
+    if (i < L) {
+      load_row(q + ri * Dh, Dh, qb[r]);
+      load_row(dout + ri * Dh, Dh, dor[r]);
+      lr[r] = poincare::sweep_row<C1>(lse[ri]);
+      di[r] = delta[ri];
+      any = true;
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; ++d) qb[r][d] = dor[r][d] = 0.f;
+    }
+    x2[r] = sq_norm(qb[r]);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dqa[r][d] = 0.f;
+  }
+
+  const int tiles = (S + T - 1) / T;
+  auto stage = [&](int it) {
+    float* st = ring + (it % kStages) * kStage;
+    const int j0 = it * T, n = min(T, S - j0);
+    stage_rows<DH>(st, kb + (size_t)j0 * Dh, n, Dh, vec);
+    stage_rows<DH>(st + T * DH, vb + (size_t)j0 * Dh, n, Dh, vec);
+    if (valb != nullptr && t < n) cp_async(st + 2 * T * DH + t, valb + j0 + t,
+                                           true, 4);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) stage(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < tiles; ++it) {
+    if (it + kStages - 1 < tiles) stage(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();                      // tile `it` has landed
+    const float* ks = ring + (it % kStages) * kStage;
+    const float* vs = ks + T * DH;
+    const int n = min(T, S - it * T);
+    if (t < n) {
+      y2[t] = sq_norm_smem<DH>(ks + t * DH);
+      ok[t] = (valb == nullptr || vs[T * DH + t] > 0.f) ? 1.f : 0.f;
+    }
+    __syncthreads();
+    if (any) {
+      for (int jj = 0; jj < n; ++jj) {
+        if (ok[jj] == 0.f) continue;      // the same key for every thread
+        const float* kr = ks + jj * DH;
+        const float* vr = vs + jj * DH;
+        const float yj = y2[jj];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float p, a, bb;
+          const float dg = poincare::sweep_grad<C1>(
+              dot_smem(qb[r], kr), x2[r], yj, lr[r], di[r],
+              dot_smem(dor[r], vr), curv, &p, &a, &bb);
+          dx2[r] += a + bb * yj;
+          axpy_smem(dg, kr, dqa[r]);
+        }
+      }
+    }
+    __syncthreads();                      // tile `it` is consumed
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    if (i >= L) continue;
+    float* out = dq + ((size_t)b * L + i) * Dh;
+#pragma unroll
+    for (int d = 0; d < DH; ++d)
+      if (d < Dh) out[d] = dqa[r][d] + 2.f * dx2[r] * qb[r][d];
+  }
+}
+
+template <int DH, int R, bool C1>
+__global__ void __launch_bounds__(kThreads)
+flash_poincare_dkv_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ val,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int L, int S, int Dh, int col_tiles,
+                          poincare::Curv curv) {
+  constexpr int T = sweep_tile(DH);
+  constexpr int kStage = T * (2 * DH + 2);
+  extern __shared__ __align__(16) float smem[];
+  float* x2 = smem;                       // [T] ‖q_i‖² of the tile
+  float* lr = x2 + T;                     // [T] sweep_row(lse_i)
+  float* ring = lr + T;                   // [kStages] × (ball rows [T][DH],
+                                          //   do rows [T][DH], lse [T], δ [T])
+
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / col_tiles;
+  const int j0 = (blockIdx.x % col_tiles) * kThreads * R + t;
+  const float* qb = q + (size_t)b * L * Dh;
+  const float* db = dout + (size_t)b * L * Dh;
+  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(qb) |
+                                   reinterpret_cast<uintptr_t>(db)) % 16 == 0;
+
+  // R keys j0 + r·kThreads: the ball row, v, and the running dk, dv, dy2
+  float kb[R][DH], vr[R][DH], dka[R][DH], dva[R][DH], y2[R], dy2[R];
+  bool live[R], any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r * kThreads;
+    const size_t rj = (size_t)b * S + j;
+    live[r] = j < S && (val == nullptr || val[rj] > 0.f);
+    any |= live[r];
+    if (j < S) {
+      load_row(k + rj * Dh, Dh, kb[r]);
+      load_row(v + rj * Dh, Dh, vr[r]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; ++d) kb[r][d] = vr[r][d] = 0.f;
+    }
+    y2[r] = sq_norm(kb[r]);
+    dy2[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dka[r][d] = dva[r][d] = 0.f;
+  }
+
+  const int tiles = (L + T - 1) / T;
+  auto stage = [&](int it) {
+    float* st = ring + (it % kStages) * kStage;
+    const int i0 = it * T, n = min(T, L - i0);
+    stage_rows<DH>(st, qb + (size_t)i0 * Dh, n, Dh, vec);
+    stage_rows<DH>(st + T * DH, db + (size_t)i0 * Dh, n, Dh, vec);
+    if (t < n) {
+      const size_t ri = (size_t)b * L + i0 + t;
+      cp_async(st + 2 * T * DH + t, lse + ri, true, 4);
+      cp_async(st + 2 * T * DH + T + t, delta + ri, true, 4);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) stage(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < tiles; ++it) {
+    if (it + kStages - 1 < tiles) stage(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();                      // tile `it` has landed
+    const float* qs = ring + (it % kStages) * kStage;
+    const float* ds = qs + T * DH;
+    const float* dl = ds + T * DH + T;
+    const int n = min(T, L - it * T);
+    if (t < n) {
+      x2[t] = sq_norm_smem<DH>(qs + t * DH);
+      lr[t] = poincare::sweep_row<C1>(ds[T * DH + t]);
+    }
+    __syncthreads();
+    if (any) {
+      for (int ii = 0; ii < n; ++ii) {
+        const float* qr = qs + ii * DH;
+        const float* dr = ds + ii * DH;
+        const float xi = x2[ii], li = lr[ii], di = dl[ii];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float p, a, bb;
+          const float dg = poincare::sweep_grad<C1>(
+              dot_smem(kb[r], qr), xi, y2[r], li, di, dot_smem(vr[r], dr),
+              curv, &p, &a, &bb);
+          dy2[r] += a + bb * xi;
+          axpy_smem(p, dr, dva[r]);
+          axpy_smem(dg, qr, dka[r]);
+        }
+      }
+    }
+    __syncthreads();                      // tile `it` is consumed
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r * kThreads;
+    if (j >= S) continue;
+    const size_t rj = (size_t)b * S + j;
+    // an invalid key has p ≡ 0: exact zeros
+#pragma unroll
+    for (int d = 0; d < DH; ++d)
+      if (d < Dh) {
+        dk[rj * Dh + d] = live[r] ? dka[r][d] + 2.f * dy2[r] * kb[r][d] : 0.f;
+        dv[rj * Dh + d] = live[r] ? dva[r][d] : 0.f;
+      }
   }
 }
 
@@ -686,9 +981,8 @@ int launch_wide_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-template <bool POINCARE>
 constexpr size_t kSmem(int dh) {
-  return sizeof(float) * (2 * kTile * dh + (POINCARE ? 3 : 2) * kTile);
+  return sizeof(float) * (2 * kTile * dh + 2 * kTile);
 }
 
 template <typename Kernel>
@@ -699,88 +993,168 @@ int allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int DH, bool POINCARE>
+template <int DH>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* val, const float* dout, const float* lse,
               const float* delta, float* dq, int B, int L, int S, int Dh,
-              float c, cudaStream_t stream) {
-  constexpr size_t smem = kSmem<POINCARE>(DH);
-  int err = allow_smem(flash_mhgsa_dq_kernel<DH, POINCARE>, smem);
+              cudaStream_t stream) {
+  constexpr size_t smem = kSmem(DH);
+  int err = allow_smem(flash_mhgsa_dq_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (L + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dq_kernel<DH, POINCARE>
+  flash_mhgsa_dq_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, val, dout, lse, delta, dq, L, S, Dh, tiles);
+  return cudaGetLastError();
+}
+
+template <int DH>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const float* val, const float* dout, const float* lse,
+               const float* delta, float* dk, float* dv, int B, int L, int S,
+               int Dh, cudaStream_t stream) {
+  constexpr size_t smem = kSmem(DH);
+  int err = allow_smem(flash_mhgsa_dkv_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + kThreads - 1) / kThreads;
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_mhgsa_dkv_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, val, dout, lse, delta, dk, dv, L, S, Dh, tiles);
+  return cudaGetLastError();
+}
+
+template <int DH, bool C1>
+int launch_poincare_dq(const float* q, const float* k, const float* v,
+                       const float* val, const float* dout, const float* lse,
+                       const float* delta, float* dq, int B, int L, int S,
+                       int Dh, float c, cudaStream_t stream) {
+  constexpr int R = sweep_rows(DH);
+  constexpr size_t smem = sizeof(float) * poincare_sweep_floats<DH>(1);
+  int err = allow_smem(flash_poincare_dq_kernel<DH, R, C1>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (L + kThreads * R - 1) / (kThreads * R);
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_poincare_dq_kernel<DH, R, C1>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(
           q, k, v, val, dout, lse, delta, dq, L, S, Dh, tiles,
           poincare::make_curv(c));
   return cudaGetLastError();
 }
 
-template <int DH, bool POINCARE>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* val, const float* dout, const float* lse,
-               const float* delta, float* dk, float* dv, int B, int L, int S,
-               int Dh, float c, cudaStream_t stream) {
-  constexpr size_t smem = kSmem<POINCARE>(DH);
-  int err = allow_smem(flash_mhgsa_dkv_kernel<DH, POINCARE>, smem);
+template <int DH, bool C1>
+int launch_poincare_dkv(const float* q, const float* k, const float* v,
+                        const float* val, const float* dout,
+                        const float* lse, const float* delta, float* dk,
+                        float* dv, int B, int L, int S, int Dh, float c,
+                        cudaStream_t stream) {
+  constexpr int R = sweep_rows(DH);
+  constexpr size_t smem = sizeof(float) * poincare_sweep_floats<DH>(2);
+  int err = allow_smem(flash_poincare_dkv_kernel<DH, R, C1>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + kThreads - 1) / kThreads;
+  const int tiles = (S + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dkv_kernel<DH, POINCARE>
+  flash_poincare_dkv_kernel<DH, R, C1>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(
           q, k, v, val, dout, lse, delta, dk, dv, L, S, Dh, tiles,
           poincare::make_curv(c));
   return cudaGetLastError();
 }
 
-template <bool POINCARE>
 int dispatch_dq(const float* q, const float* k, const float* v,
                 const float* val, const float* dout, const float* lse,
                 const float* delta, float* dq, int B, int L, int S, int Dh,
-                float c, cudaStream_t st) {
+                cudaStream_t st) {
   if (Dh <= 8)
-    return launch_dq<8, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
-                                  Dh, c, st);
+    return launch_dq<8>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
   if (Dh <= 16)
-    return launch_dq<16, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
-                                   S, Dh, c, st);
+    return launch_dq<16>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
   if (Dh <= 32)
-    return launch_dq<32, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
-                                   S, Dh, c, st);
+    return launch_dq<32>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
   if (Dh <= 64)
-    return launch_dq<64, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
-                                   S, Dh, c, st);
+    return launch_dq<64>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
   if (Dh <= 128)
-    return launch_dq<128, POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L,
-                                    S, Dh, c, st);
-  return launch_wide_dq<POINCARE>(q, k, v, val, dout, lse, delta, dq, B, L, S,
-                                  Dh, c, st);
+    return launch_dq<128>(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh,
+                          st);
+  return launch_wide_dq<false>(q, k, v, val, dout, lse, delta, dq, B, L, S,
+                               Dh, 1.f, st);
 }
 
-template <bool POINCARE>
+// C1: the curvature is 1 (the sweeps' c = 1 form)
+template <bool C1>
+int dispatch_poincare_dq(const float* q, const float* k, const float* v,
+                         const float* val, const float* dout,
+                         const float* lse, const float* delta, float* dq,
+                         int B, int L, int S, int Dh, float c,
+                         cudaStream_t st) {
+  if (Dh <= 8)
+    return launch_poincare_dq<8, C1>(q, k, v, val, dout, lse, delta, dq, B,
+                                     L, S, Dh, c, st);
+  if (Dh <= 16)
+    return launch_poincare_dq<16, C1>(q, k, v, val, dout, lse, delta, dq, B,
+                                      L, S, Dh, c, st);
+  if (Dh <= 32)
+    return launch_poincare_dq<32, C1>(q, k, v, val, dout, lse, delta, dq, B,
+                                      L, S, Dh, c, st);
+  if (Dh <= 64)
+    return launch_poincare_dq<64, C1>(q, k, v, val, dout, lse, delta, dq, B,
+                                      L, S, Dh, c, st);
+  if (Dh <= 128)
+    return launch_poincare_dq<128, C1>(q, k, v, val, dout, lse, delta, dq, B,
+                                       L, S, Dh, c, st);
+  return launch_wide_dq<true>(q, k, v, val, dout, lse, delta, dq, B, L, S,
+                              Dh, c, st);
+}
+
 int dispatch_dkv(const float* q, const float* k, const float* v,
                  const float* val, const float* dout, const float* lse,
                  const float* delta, float* dk, float* dv, int B, int L,
-                 int S, int Dh, float c, cudaStream_t st) {
+                 int S, int Dh, cudaStream_t st) {
   if (Dh <= 8)
-    return launch_dkv<8, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
-                                   L, S, Dh, c, st);
+    return launch_dkv<8>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
+                         st);
   if (Dh <= 16)
-    return launch_dkv<16, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
-                                    L, S, Dh, c, st);
+    return launch_dkv<16>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S,
+                          Dh, st);
   if (Dh <= 32)
-    return launch_dkv<32, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
-                                    L, S, Dh, c, st);
+    return launch_dkv<32>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S,
+                          Dh, st);
   if (Dh <= 64)
-    return launch_dkv<64, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
-                                    L, S, Dh, c, st);
+    return launch_dkv<64>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S,
+                          Dh, st);
   if (Dh <= 128)
-    return launch_dkv<128, POINCARE>(q, k, v, val, dout, lse, delta, dk, dv,
-                                     B, L, S, Dh, c, st);
-  return launch_wide_dkv<POINCARE>(q, k, v, val, dout, lse, delta, dk, dv, B,
-                                   L, S, Dh, c, st);
+    return launch_dkv<128>(q, k, v, val, dout, lse, delta, dk, dv, B, L, S,
+                           Dh, st);
+  return launch_wide_dkv<false>(q, k, v, val, dout, lse, delta, dk, dv, B, L,
+                                S, Dh, 1.f, st);
+}
+
+template <bool C1>
+int dispatch_poincare_dkv(const float* q, const float* k, const float* v,
+                          const float* val, const float* dout,
+                          const float* lse, const float* delta, float* dk,
+                          float* dv, int B, int L, int S, int Dh, float c,
+                          cudaStream_t st) {
+  if (Dh <= 8)
+    return launch_poincare_dkv<8, C1>(q, k, v, val, dout, lse, delta, dk, dv,
+                                      B, L, S, Dh, c, st);
+  if (Dh <= 16)
+    return launch_poincare_dkv<16, C1>(q, k, v, val, dout, lse, delta, dk,
+                                       dv, B, L, S, Dh, c, st);
+  if (Dh <= 32)
+    return launch_poincare_dkv<32, C1>(q, k, v, val, dout, lse, delta, dk,
+                                       dv, B, L, S, Dh, c, st);
+  if (Dh <= 64)
+    return launch_poincare_dkv<64, C1>(q, k, v, val, dout, lse, delta, dk,
+                                       dv, B, L, S, Dh, c, st);
+  if (Dh <= 128)
+    return launch_poincare_dkv<128, C1>(q, k, v, val, dout, lse, delta, dk,
+                                        dv, B, L, S, Dh, c, st);
+  return launch_wide_dkv<true>(q, k, v, val, dout, lse, delta, dk, dv, B, L,
+                               S, Dh, c, st);
 }
 
 }  // namespace
@@ -801,10 +1175,13 @@ extern "C" int flash_mhgsa_dq(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return metric == 1 ? dispatch_dq<true>(q, k, v, val, dout, lse, delta, dq,
-                                         B, L, S, Dh, c, st)
-                     : dispatch_dq<false>(q, k, v, val, dout, lse, delta, dq,
-                                          B, L, S, Dh, c, st);
+  if (metric == 0)
+    return dispatch_dq(q, k, v, val, dout, lse, delta, dq, B, L, S, Dh, st);
+  return c == 1.f ? dispatch_poincare_dq<true>(q, k, v, val, dout, lse,
+                                               delta, dq, B, L, S, Dh, c, st)
+                  : dispatch_poincare_dq<false>(q, k, v, val, dout, lse,
+                                                delta, dq, B, L, S, Dh, c,
+                                                st);
 }
 
 // The dk/dv sweep: the same operands; outputs dk and dv [B,S,Dh].
@@ -817,8 +1194,13 @@ extern "C" int flash_mhgsa_dkv(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return metric == 1 ? dispatch_dkv<true>(q, k, v, val, dout, lse, delta, dk,
-                                          dv, B, L, S, Dh, c, st)
-                     : dispatch_dkv<false>(q, k, v, val, dout, lse, delta, dk,
-                                           dv, B, L, S, Dh, c, st);
+  if (metric == 0)
+    return dispatch_dkv(q, k, v, val, dout, lse, delta, dk, dv, B, L, S, Dh,
+                        st);
+  return c == 1.f ? dispatch_poincare_dkv<true>(q, k, v, val, dout, lse,
+                                                delta, dk, dv, B, L, S, Dh, c,
+                                                st)
+                  : dispatch_poincare_dkv<false>(q, k, v, val, dout, lse,
+                                                 delta, dk, dv, B, L, S, Dh,
+                                                 c, st);
 }

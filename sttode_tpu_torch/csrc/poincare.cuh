@@ -1,5 +1,6 @@
 // The poincaré score epilogue of the geodesic-attention kernels, shared by
-// mhgsa_fwd.cu, mhgsa_bwd.cu, flash_mhgsa_fwd.cu and flash_mhgsa_bwd.cu.
+// mhgsa_fwd.cu, mhgsa_bwd.cu, flash_mhgsa_fwd.cu and flash_mhgsa_bwd.cu
+// (whose register sweeps take sweep_grad, at the end of this file).
 //
 // Device form of sttode_tpu/kernels/mhgsa.py::_poincare_pieces (:211),
 // _poincare_score_from_pieces (:228) and _poincare_grad_pieces (:241),
@@ -76,6 +77,82 @@ __device__ __forceinline__ float grad(const Pair& p, float ds, const Curv& k,
   const float A = p.den / (de * de);
   const float Bd = p.m * (kDenomEps - p.den) / (de * de * de);
   *a = p.raw > 0.f ? dn2 * A : 0.f;
+  *b = dn2 * k.c2 * Bd;
+  return -2.f * *a - 2.f * k.c * dn2 * Bd;
+}
+
+// ---------------------------------------------------------------------------
+// The flash backward sweeps' form of pair + score + grad (flash_mhgsa_bwd.cu).
+// The sweeps replay every pair twice and are bound by issuing the epilogue's
+// instructions: an IEEE division, sqrtf, logf or expf is a sequence of many
+// instructions around one SFU (MUFU) op. Here the SFU's own approximations
+// (PTX rcp/rsqrt/lg2/ex2 .approx.ftz, ~2 ulp; every argument is a normal
+// number: den + ε ≥ 1e-5, n² + 1e-15, 1 − zc² ≥ 2e-5) carry the epilogue:
+//
+//   r   = 1/(den + ε)                       A = den·r²,  n² = m·A
+//   ρ   = 1/√(n² + 1e-15)                   n = (n² + 1e-15)·ρ, ½/n = ½ρ
+//   w   = 1/max((1 − zc)(1 + zc), 1e-12)    (1 + zc)/(1 − zc) = (1 + zc)²·w
+//   p   = 2^(−log2((1 + zc)/(1 − zc))/√c − lse·log2 e)
+//       = e^(−lse)·(1 − zc)²·w               at c = 1 (no log, no exp)
+//   dn2 = −p·(dp − δ)·w·ρ,  Bd = m·(ε − den)·r³
+//
+// with the row's lse·log2 e (or, at c = 1, e^(−lse)) computed once per row
+// by the caller (sweep_row). The Gram g, the squared norms, x2 − 2g + y2,
+// den, its gate and the clamps are those of pair() and grad(), in fp32.
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// what sweep_grad takes of a row's lse: e^(−lse) at c = 1, else lse·log2 e
+template <bool C1>
+__device__ __forceinline__ float sweep_row(float lse) {
+  return C1 ? expf(-lse) : lse * 1.4426950408889634f;
+}
+
+// dg of the pair and its replayed probability p, with a and b as in grad();
+// `row` is sweep_row<C1>(lse_i), C1 the curvature c = 1
+template <bool C1>
+__device__ __forceinline__ float sweep_grad(float g, float x2, float y2,
+                                            float row, float delta, float dp,
+                                            const Curv& k, float* p, float* a,
+                                            float* b) {
+  const float raw = x2 - 2.f * g + y2;
+  const float m = fmaxf(raw, 0.f);
+  const float den = 1.f - 2.f * k.c * g + k.c2 * x2 * y2;
+  const float r = rcp_approx(den + kDenomEps);
+  const float r2 = r * r;
+  const float A = den * r2;
+  const float t = m * A + 1e-15f;
+  const float rho = rsqrt_approx(t);
+  const float zc = fminf(k.sqrt_c * (t * rho), 1.f - kArtanhEps);
+  const float om = 1.f - zc, op = 1.f + zc;
+  const float w = rcp_approx(fmaxf(om * op, 1e-12f));
+  *p = C1 ? row * (om * om * w)
+          : ex2_approx(fmaf(-k.inv_sqrt_c, lg2_approx(op * op * w), -row));
+  const float dn2 = -(*p * (dp - delta)) * (w * rho);
+  const float Bd = m * (kDenomEps - den) * (r2 * r);
+  *a = raw > 0.f ? dn2 * A : 0.f;
   *b = dn2 * k.c2 * Bd;
   return -2.f * *a - 2.f * k.c * dn2 * Bd;
 }

@@ -914,28 +914,78 @@ def test_poincare_whole_s_kernels_match_plain(cuda_device, case):
         assert torch.all(got_b[0][:, 0] == 0) and torch.all(got_b[3][:, 0] == 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
+def _grid(x, c):
+    """x truncated to a grid of 2^-b with 2^2b/c < 2²⁴, on which the Gram,
+    the squared norms and x2 − 2g + y2 of ball rows are exact in fp32 in
+    any summation order (tests/test_torch_poincare_sweep.py)."""
+    s = 2.0 ** np.floor(12 + np.log2(c) / 2)
+    return torch.trunc(x * s) / s
+
+
+def _edge_inputs(rng, lead, L, S, Dh, c):
+    """Ball rows at the edge, q in one cone and k in the opposite one, so
+    that every pair's zc clamps at 1 − 1e-5; v and do standard normal."""
+    arr = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    axis = torch.zeros(Dh)
+    axis[0] = 1.0
+    q, k = (_grid(to_ball(40.0 * (sign * axis + 0.2 / Dh ** 0.5
+                                  * arr(*lead, n, Dh)), c), c)
+            for sign, n in ((1.0, L), (-1.0, S)))
+    return q, k, arr(*lead, S, Dh), arr(*lead, L, Dh)
+
+
+_POINCARE_FLASH_CASES = [
     dict(lead=(88,), L=2304, S=2304, Dh=8, c=1.0, valid="none"),  # B = 2304
     dict(lead=(8,), L=4096, S=4096, Dh=64, c=1.0, valid="none"),
     dict(lead=(1,), L=300, S=1100, Dh=5, c=0.7, valid="none"),    # ragged
     dict(lead=(4, 2), L=90, S=700, Dh=8, c=2.0, valid="all_invalid"),
-    dict(lead=(2,), L=12, S=12, Dh=8, c=1.0, valid="identical_qk")])
+    dict(lead=(2,), L=12, S=12, Dh=8, c=1.0, valid="identical_qk")] + [
+    # ragged row and key counts around the sweeps' 128 and 256 rows per
+    # block, head dims 8, 16, 64, the c = 1 form and the general one
+    dict(lead=(3,), L=L, S=S, Dh=Dh, c=c,
+         valid="random" if L == 129 else "none")
+    for L, S in ((1, 257), (127, 129), (129, 127), (257, 1))
+    for Dh in (8, 16, 64) for c in (1.0, 0.7, 0.05)] + [
+    # rows at the ball's edge (every zc clamped) and close pairs
+    # (k = q + 1e-4·noise)
+    dict(lead=(3,), L=129, S=257 if valid == "edge" else 129, Dh=Dh, c=c,
+         valid=valid)
+    for valid in ("edge", "close") for Dh in (8, 16, 64)
+    for c in (1.0, 0.7, 0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _POINCARE_FLASH_CASES)
 def test_poincare_flash_kernels_match_plain(cuda_device, case):
     """The poincaré flash forward, dq and dk/dv kernels against the plain
     versions on the same device: forward 1e-5, gradients 5e-5 ×
     max(1, max |g|); a problem with no valid key gets exact zeros; q = k is
-    held to finiteness only (as in the whole-S test)."""
+    held to finiteness only (as in the whole-S test). At the ball's edge
+    and for close pairs (rows on an exact-Gram grid) dq and dk are held to
+    finiteness only too, and the forward and dv to the tolerances: there
+    the plain formulas' own dq and dk move by more than the tolerance when
+    one fp32 rounding moves (tests/test_torch_poincare_sweep.py)."""
     rng = np.random.default_rng(case["L"] + case["S"] + case["Dh"])
     lead, L, S, Dh, c = (case[x] for x in ("lead", "L", "S", "Dh", "c"))
-    q, k, v, do = _ball_inputs(rng, lead, L, S, Dh, c)
+    if case["valid"] == "edge":
+        q, k, v, do = _edge_inputs(rng, lead, L, S, Dh, c)
+    else:
+        q, k, v, do = _ball_inputs(rng, lead, L, S, Dh, c)
     kv = None
     if case["valid"] == "all_invalid":
         kv = torch.from_numpy((rng.random((*lead, S)) < 0.7)
                               .astype(np.float32))
         kv.view(-1, S)[0] = 0.0
+    elif case["valid"] == "random":
+        kv = torch.from_numpy((rng.random((*lead, S)) < 0.7)
+                              .astype(np.float32))
     elif case["valid"] == "identical_qk":
         k = q.clone()
+    elif case["valid"] == "close":
+        q = _grid(q, c)
+        k = _grid(q + 1e-4 * torch.from_numpy(
+            rng.standard_normal(q.shape).astype(np.float32)), c)
     before = _poincare_launches()
     leaves = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
     out = tmhgsa.flash_geodesic_attention(
@@ -961,6 +1011,9 @@ def test_poincare_flash_kernels_match_plain(cuda_device, case):
         return   # a diagonal distance is fp32 cancellation noise: finite only
     np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0,
                                atol=1e-5)
+    if case["valid"] in ("edge", "close"):
+        _grad_check([None, None, got[3]], [None, None, want[3]])
+        return
     _grad_check(got[1:], want[1:])
     if case["valid"] == "all_invalid":
         assert all(bool(torch.all(t[0] == 0)) for t in got)
