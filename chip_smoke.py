@@ -33,14 +33,17 @@ paths, then drives both paths at the full width of the repo's model
   phase 9  packed attention forward and backward kernels against their
            plain versions: the NBA recipe's 11 × 8 × 32 × 8 (q/k swapped),
            a key validity with an all-invalid problem (exact zeros),
-           L = S = 1, a rectangular case and H·Dh = 128; then both kernels
+           L = S = 1, a rectangular case and H·Dh = 128 (the forward's
+           host µs per call beside its wrapper ms), the forward's
+           launch-path floor (one 1 × 1 × 8 problem); then both kernels
            against kernels A and C at the recipe's shape and at L = S = 1;
   phase 10 the NBA reference recipe through the port's CLIs on synthetic
            NBA files: ``cli.train`` for 2 epochs (a checkpoint each), a
            resume from epoch 1 for one more, ``cli.test`` on the checkpoints
            (horizon table, B = 128); then the fp32 step at B = 32 on the
-           kernel route against the plain route, and step time, train
-           scenes/s and idle share of both routes;
+           kernel route against the plain route, and step time (beside the
+           step at commit 8079157), train scenes/s and idle share of both
+           routes;
   phase 11 the S-tiled (flash) attention kernels — forward, the dq sweep and
            the dk/dv sweep — against their plain versions: the NBA recipe at
            B = 2304 (11 × 8 × 2304 × 8, q/k swapped), the long-context
@@ -64,7 +67,8 @@ paths, then drives both paths at the full width of the repo's model
   phase 13 the poincaré branches of the geodesic-attention kernels against
            their plain versions, on ball points: the whole-S forward and
            backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
-           88 × 128² × 8, the forward with the agent-axis server's key mask;
+           88 × 128² × 8, the forward with the agent-axis server's key mask
+           (the forward's host µs per call; its launch-path floor);
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
            swapped) and 8 × 4096² × 64; the sweeps' general form at
            c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows at the ball's
@@ -81,7 +85,8 @@ paths, then drives both paths at the full width of the repo's model
            against the dense route at the largest of B = 2304 and 1152 that
            the dense route's memory allows; the agent-axis ``Predictor`` with
            the poincaré metric against the dense route; step time, train
-           scenes/s and idle share of both routes at B = 32 and B = 2304,
+           scenes/s and idle share of both routes at B = 32 (the step
+           beside the one at commit 8079157) and B = 2304,
            and of the oblique flash route beside them at B = 2304.
 
 Each serving or training phase is compared with the same computation on the
@@ -352,6 +357,39 @@ def device_us(fn, calls: int = 20):
              and "_kernel" in e.key
              and any(n in e.key for n in ("packed_", "mhgsa_", "poincare_")))
     return us / calls if us > 0 else None
+
+
+def host_us(fn, calls: int = 20) -> float:
+    """Host µs per call of ``fn``: the host clock around ``calls``
+    back-to-back calls, read before synchronizing (the wrapper's own work:
+    checks, allocation, the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_floor(fn, one, full, card, label) -> None:
+    """Print the launch-path floor of a wrapper: ``fn`` on ``one`` (one
+    problem of 1 × 1 × 8) in wrapper ms, host µs and device µs, timed in
+    alternating rounds with ``fn`` on ``full`` (the path's shape)."""
+    with torch.inference_mode():
+        ms = paired_ms(lambda: fn(*one), lambda: fn(*full))
+        h, d = host_us(lambda: fn(*one)), device_us(lambda: fn(*one))
+    print(f"{label} launch-path floor, one 1 x 1 x 8 problem: wrapper "
+          f"{ms[0]:.4f} ms (the path's shape {ms[1]:.4f} ms in the same "
+          f"rounds), host {h:.1f} µs/call, device "
+          + ("not measured" if d is None else f"{d:.2f} µs") + f"  [{card}]")
+
+
+# the B = 32 kernel-route step times of this script's run at commit 8079157
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+BASELINE_STEP_MS = {"phase 10": 32.155, "phase 14": 37.416}
+BASELINE = "at commit 8079157"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1150,11 +1188,18 @@ def main() -> int:
                                                               do),
                 lambda: kp.packed_geodesic_attention_backward_reference(
                     q, k, v, kv, do))
+            h_us = host_us(
+                lambda: kp.packed_geodesic_attention(q, k, v, kv_valid=kv))
         packed_times[name] = (fwd, bwd)
         print(f"packed {name}: forward max_abs_err {err:.3e}, kernel "
-              f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms; backward max_abs_err "
+              f"{fwd[0]:.4f} ms (host {h_us:.1f} µs/call), plain "
+              f"{fwd[1]:.4f} ms; backward max_abs_err "
               + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
               + f", kernel {bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms  [{card}]")
+    launch_floor(kp.packed_geodesic_attention,
+                 (randn(1, 1, 1, 8), randn(1, 1, 1, 8), randn(1, 1, 1, 8)),
+                 packed_cases["nba_recipe_q11x8x32x8_swapped"][:3], card,
+                 "packed forward (P)")
 
     def flat3(x):
         return x.reshape(-1, *x.shape[-2:])
@@ -1287,9 +1332,11 @@ def main() -> int:
           f"magnitude (worst leaf {worst10})")
     step_k10 = make_train_step(cfg10, 1e-4, device=dev)
     step_p10 = make_train_step(plain10, 1e-4, device=dev)
-    step_times([[step_k10, *step_k10.init(params10)],
-                [step_p10, *step_p10.init(params10)]],
-               batch10, gen10, 32, "phase 10 NBA recipe step", card)
+    ms10 = step_times([[step_k10, *step_k10.init(params10)],
+                       [step_p10, *step_p10.init(params10)]],
+                      batch10, gen10, 32, "phase 10 NBA recipe step", card)
+    print(f"phase 10 NBA recipe step, kernel route: {ms10[0]:.3f} ms/step "
+          f"against {BASELINE_STEP_MS['phase 10']:.3f} {BASELINE}")
 
     # 11. the flash kernels (forward, dq and dk/dv sweeps) against their
     #     plain versions on the same device; the plain versions replay the
@@ -1636,15 +1683,22 @@ def main() -> int:
                 lambda: km.fused_geodesic_attention(q, k, v, mask=mask, **P),
                 lambda: km.fused_geodesic_attention_backward(
                     *args, need_dmask=need, **P))]
+            h_us = host_us(lambda: km.fused_geodesic_attention(
+                q, k, v, mask=mask, **P))
         ptimes[name] = t
         print(f"poincare whole-S {name}: max_abs_err " + ", ".join(
             f"{k_} {v_:.3e}" for k_, v_ in errs.items())
-            + f"; forward kernel {t[0][0]:.4f} ms plain {t[0][1]:.4f} ms, "
+            + f"; forward kernel {t[0][0]:.4f} ms (host {h_us:.1f} µs/call) "
+            f"plain {t[0][1]:.4f} ms, "
             f"backward kernel {t[1][0]:.4f} ms plain {t[1][1]:.4f} ms; "
             + ("device time not measured (no device time in the trace)"
                if None in us else
                "device µs/launch forward {:.2f}, backward {:.2f}".format(*us))
             + f"  [{card}]")
+
+    launch_floor(lambda q, k, v: km.fused_geodesic_attention(q, k, v, **P),
+                 (ball(1, 1, 1, 8), ball(1, 1, 1, 8), randn(1, 1, 1, 8)),
+                 pcases[p32][:3], card, "poincare whole-S forward (1p)")
 
     qf, kf = ball(88, 2304, 8), ball(88, 2304, 8)
     pf2304 = "nba_b2304_q11x8x2304x8_swapped"
@@ -1929,9 +1983,13 @@ def main() -> int:
     del g_o14
     step_k14 = make_train_step(cfg14, 1e-4, device=dev)
     step_p14 = make_train_step(dense14, 1e-4, device=dev)
-    step_times([[step_k14, *step_k14.init(params14)],
-                [step_p14, *step_p14.init(params14)]],
-               batch14, gen14, 32, "phase 14 poincaré NBA recipe step", card)
+    ms14 = step_times([[step_k14, *step_k14.init(params14)],
+                       [step_p14, *step_p14.init(params14)]],
+                      batch14, gen14, 32, "phase 14 poincaré NBA recipe step",
+                      card)
+    print(f"phase 14 poincaré NBA recipe step at B = 32, kernel route: "
+          f"{ms14[0]:.3f} ms/step against "
+          f"{BASELINE_STEP_MS['phase 14']:.3f} {BASELINE}")
 
     B14 = 2304
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:

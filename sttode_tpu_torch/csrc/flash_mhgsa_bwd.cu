@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "poincare.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -917,11 +918,8 @@ wide_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // shared memory; false when none does.
 template <typename Floats>
 int wide_config(Floats floats, int Dh, int* rows, int* tile, size_t* smem) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = smem_attr::optin_limit(&max_smem);
   if (err != cudaSuccess) return err;
   for (int r = 16; r >= kWideWarps; r /= 2)
     for (int t = 32; t >= 1; t /= 2) {
@@ -944,9 +942,7 @@ int launch_wide_dq(const float* q, const float* k, const float* v,
   size_t smem = 0;
   int err = wide_config(wide_dq_floats, Dh, &rows, &tile, &smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wide_dq_kernel<POINCARE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = smem_attr::allow(wide_dq_kernel<POINCARE>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (L + rows - 1) / rows;
   const long long blocks = (long long)B * tiles;
@@ -967,9 +963,7 @@ int launch_wide_dkv(const float* q, const float* k, const float* v,
   size_t smem = 0;
   int err = wide_config(wide_dkv_floats, Dh, &rows, &tile, &smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wide_dkv_kernel<POINCARE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = smem_attr::allow(wide_dkv_kernel<POINCARE>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + rows - 1) / rows;
   const long long blocks = (long long)B * tiles;
@@ -985,21 +979,13 @@ constexpr size_t kSmem(int dh) {
   return sizeof(float) * (2 * kTile * dh + 2 * kTile);
 }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <int DH>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* val, const float* dout, const float* lse,
               const float* delta, float* dq, int B, int L, int S, int Dh,
               cudaStream_t stream) {
   constexpr size_t smem = kSmem(DH);
-  int err = allow_smem(flash_mhgsa_dq_kernel<DH>, smem);
+  int err = smem_attr::allow(flash_mhgsa_dq_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (L + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * tiles;
@@ -1015,7 +1001,7 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* delta, float* dk, float* dv, int B, int L, int S,
                int Dh, cudaStream_t stream) {
   constexpr size_t smem = kSmem(DH);
-  int err = allow_smem(flash_mhgsa_dkv_kernel<DH>, smem);
+  int err = smem_attr::allow(flash_mhgsa_dkv_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * tiles;
@@ -1032,7 +1018,7 @@ int launch_poincare_dq(const float* q, const float* k, const float* v,
                        int Dh, float c, cudaStream_t stream) {
   constexpr int R = sweep_rows(DH);
   constexpr size_t smem = sizeof(float) * poincare_sweep_floats<DH>(1);
-  int err = allow_smem(flash_poincare_dq_kernel<DH, R, C1>, smem);
+  int err = smem_attr::allow(flash_poincare_dq_kernel<DH, R, C1>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (L + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * tiles;
@@ -1052,7 +1038,7 @@ int launch_poincare_dkv(const float* q, const float* k, const float* v,
                         cudaStream_t stream) {
   constexpr int R = sweep_rows(DH);
   constexpr size_t smem = sizeof(float) * poincare_sweep_floats<DH>(2);
-  int err = allow_smem(flash_poincare_dkv_kernel<DH, R, C1>, smem);
+  int err = smem_attr::allow(flash_poincare_dkv_kernel<DH, R, C1>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * tiles;

@@ -54,6 +54,7 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "smem_attr.cuh"
 #include "stream_fwd.cuh"
 
 namespace {
@@ -195,12 +196,9 @@ int launch(const float* q, const float* k, const float* v, const float* val,
            cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * kTile * DH + (POINCARE ? 2 : 1) * kTile);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_mhgsa_fwd_kernel<DH, POINCARE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err =
+      smem_attr::allow(flash_mhgsa_fwd_kernel<DH, POINCARE>, smem);
+  if (err != cudaSuccess) return err;
   const int row_tiles = (L + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * row_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

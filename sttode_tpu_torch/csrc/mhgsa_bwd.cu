@@ -64,6 +64,7 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -291,16 +292,11 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
   size_t smem = 0;
   if (workspace == nullptr) {
     smem = sizeof(float) * staged_floats(L, S, Dh);
-    int dev = 0, max_smem = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    int max_smem = 0;
+    cudaError_t err = smem_attr::optin_limit(&max_smem);
     if (err != cudaSuccess) return err;
     if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(mhgsa_bwd_kernel<POINCARE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = smem_attr::allow(mhgsa_bwd_kernel<POINCARE>, smem);
     if (err != cudaSuccess) return err;
   }
   mhgsa_bwd_kernel<POINCARE><<<B, kWarps * 32, smem, stream>>>(

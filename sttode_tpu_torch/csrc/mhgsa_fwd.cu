@@ -43,6 +43,19 @@
 // the mask's row segment streamed 32 keys at a time, q and the accumulator
 // in shared memory sized by Dh, so any head dim fits.
 //
+// Small S — at Dh ≤ 8 up to S = 2048 keys (the NBA recipe's 88 × 32² × 8 in
+// both metrics and its evaluation's 88 × 128² × 8, the agent-axis server's
+// masked 512 × 8² × 8, the scene axis up to the flash route), at Dh ≤ 64
+// from S = 32 to 256 (small_s_mode) — runs
+// the small-shape body of small_fwd.cuh instead: a block per (problem, 32
+// query rows), lane = query row, the keys split across the block's warps,
+// the partial sums combined once, and the SFU epilogues (the TPU kernel's
+// acos polynomial; poincare::fwd_weight, no log or exp at c = 1). The range
+// is the measured crossover (scripts/torch_small_attn_bench.py at
+// 88 × S² × Dh, PERF.md §6): at Dh = 8 the mode is 2–14× faster from
+// S = 16 to 2048 and 4–6 % slower at S = 8; at Dh = 64, 1.3–2.9× faster from
+// S = 32 to 256, level at 16, and 2.3–2.6× slower at 8.
+//
 // The score orientation is always scores[i,j] = score(q_i, k_j); the
 // reference-compat transposed square case (quirk Q3) is the caller swapping
 // q and k.
@@ -51,7 +64,15 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "small_fwd.cuh"
+#include "smem_attr.cuh"
 #include "stream_fwd.cuh"
+
+// the small-S mode: -1 where small_s_mode says (the default), 0 never, 1 at
+// every S (Dh ≤ 128); the last two for timing its crossover
+#ifndef STTODE_SMALL_MODE
+#define STTODE_SMALL_MODE -1
+#endif
 
 namespace {
 
@@ -145,22 +166,68 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
       sizeof(float) * ((size_t)S * (Dh | 1) + (size_t)S * Dh +
                        (size_t)kWarps * Dh + (size_t)kWarps * S +
                        (POINCARE ? (size_t)S : 0));
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = smem_attr::optin_limit(&max_smem);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)max_smem)   // beyond shared memory: stream the keys
     return stream_fwd::launch<POINCARE>(q, k, v, mask, nullptr, out, nullptr,
                                         B, L, S, Dh, c, stream);
-  err = cudaFuncSetAttribute(mhgsa_fwd_kernel<POINCARE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = smem_attr::allow(mhgsa_fwd_kernel<POINCARE>, smem);
   if (err != cudaSuccess) return err;
   mhgsa_fwd_kernel<POINCARE><<<B, kWarps * 32, smem, stream>>>(
       q, k, v, mask, out, L, S, Dh, poincare::make_curv(c));
   return cudaGetLastError();
+}
+
+template <int DH, bool POINCARE, bool C1>
+__global__ void __launch_bounds__(small_fwd::max_threads<DH>())
+mhgsa_small_fwd_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ val,
+                       const float* __restrict__ mask,
+                       float* __restrict__ out, int H, int L, int S, int Dh,
+                       int rows, int slices, poincare::Curv curv) {
+  small_fwd::body<DH, POINCARE, C1>(q, k, v, val, mask, out, H, L, S, Dh,
+                                    rows, slices, curv);
+}
+
+template <int DH>
+int launch_small(const float* q, const float* k, const float* v,
+                 const float* mask, float* out, int B, int L, int S, int Dh,
+                 int metric, float c, cudaStream_t stream) {
+  auto kernel = metric == 0 ? mhgsa_small_fwd_kernel<DH, false, false>
+                : c == 1.f  ? mhgsa_small_fwd_kernel<DH, true, true>
+                            : mhgsa_small_fwd_kernel<DH, true, false>;
+  return small_fwd::launch<DH>(kernel, q, k, v, nullptr, mask, out, B, 1, L,
+                               S, Dh, c, stream);
+}
+
+// whether the small-S mode takes a problem of S keys at head dim Dh
+// (kernels/mhgsa.py::small_s_mode is its Python form), with a grid of
+// ceil(L / 32) ≤ 65535 row chunks
+bool small_s_mode(int L, int S, int Dh) {
+  if ((L + 31) / 32 > 65535 || Dh > 128) return false;
+  if (STTODE_SMALL_MODE >= 0) return STTODE_SMALL_MODE == 1;
+  return Dh <= 8 ? S <= 2048 : Dh <= 64 && S >= 32 && S <= 256;
+}
+
+int small_s(const float* q, const float* k, const float* v, const float* mask,
+            float* out, int B, int L, int S, int Dh, int metric, float c,
+            cudaStream_t stream) {
+  if (Dh <= 8)
+    return launch_small<8>(q, k, v, mask, out, B, L, S, Dh, metric, c, stream);
+  if (Dh <= 16)
+    return launch_small<16>(q, k, v, mask, out, B, L, S, Dh, metric, c,
+                            stream);
+  if (Dh <= 32)
+    return launch_small<32>(q, k, v, mask, out, B, L, S, Dh, metric, c,
+                            stream);
+  if (Dh <= 64)
+    return launch_small<64>(q, k, v, mask, out, B, L, S, Dh, metric, c,
+                            stream);
+  return launch_small<128>(q, k, v, mask, out, B, L, S, Dh, metric, c,
+                           stream);
 }
 
 }  // namespace
@@ -169,14 +236,17 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 // out [B,L,Dh]; all fp32, contiguous, on the current device; metric 0 =
 // oblique, 1 = poincaré at curvature c (q and k ball points). Launches on
 // `stream` and returns cudaGetLastError() (0 on success). An S whose keys and
-// values do not fit in shared memory runs in the key-streaming mode; another
-// metric is refused with cudaErrorInvalidValue.
+// values do not fit in shared memory runs in the key-streaming mode, a small
+// S in the small-S mode; another metric is refused with
+// cudaErrorInvalidValue.
 extern "C" int mhgsa_fwd(const float* q, const float* k, const float* v,
                          const float* mask, float* out, int B, int L, int S,
                          int Dh, int metric, float c, void* stream) {
   if (metric != 0 && metric != 1) return cudaErrorInvalidValue;
   if (B <= 0 || L <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  if (small_s_mode(L, S, Dh))
+    return small_s(q, k, v, mask, out, B, L, S, Dh, metric, c, st);
   return metric == 1 ? launch<true>(q, k, v, mask, out, B, L, S, Dh, c, st)
                      : launch<false>(q, k, v, mask, out, B, L, S, Dh, c, st);
 }

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -250,16 +252,11 @@ int launch(const float* q, const float* k, const float* v, const float* val,
            int P, int H, int L, int S, int Dh, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * (2 * 32 * DH + 64);
   if (smem > 48 * 1024) {
-    int dev = 0, max_smem = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    int max_smem = 0;
+    cudaError_t err = smem_attr::optin_limit(&max_smem);
     if (err != cudaSuccess) return err;
     if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(packed_bwd_kernel<DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = smem_attr::allow(packed_bwd_kernel<DH>, smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (P + kWarps - 1) / kWarps;

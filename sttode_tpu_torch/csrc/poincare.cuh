@@ -1,6 +1,7 @@
 // The poincaré score epilogue of the geodesic-attention kernels, shared by
 // mhgsa_fwd.cu, mhgsa_bwd.cu, flash_mhgsa_fwd.cu and flash_mhgsa_bwd.cu
-// (whose register sweeps take sweep_grad, at the end of this file).
+// (whose register sweeps take sweep_grad, at the end of this file) and by
+// the small-shape forward (small_fwd.cuh, fwd_weight).
 //
 // Device form of sttode_tpu/kernels/mhgsa.py::_poincare_pieces (:211),
 // _poincare_score_from_pieces (:228) and _poincare_grad_pieces (:241),
@@ -30,6 +31,8 @@
 #pragma once
 
 #include <math.h>
+
+#include "sfu.cuh"
 
 namespace poincare {
 
@@ -100,29 +103,10 @@ __device__ __forceinline__ float grad(const Pair& p, float ds, const Curv& k,
 // by the caller (sweep_row). The Gram g, the squared norms, x2 − 2g + y2,
 // den, its gate and the clamps are those of pair() and grad(), in fp32.
 
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rsqrt_approx(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using sfu::ex2_approx;
+using sfu::lg2_approx;
+using sfu::rcp_approx;
+using sfu::rsqrt_approx;
 
 // what sweep_grad takes of a row's lse: e^(−lse) at c = 1, else lse·log2 e
 template <bool C1>
@@ -155,6 +139,28 @@ __device__ __forceinline__ float sweep_grad(float g, float x2, float y2,
   *a = raw > 0.f ? dn2 * A : 0.f;
   *b = dn2 * k.c2 * Bd;
   return -2.f * *a - 2.f * k.c * dn2 * Bd;
+}
+
+// The small-shape forward's weight of one pair, e = exp(s) (small_fwd.cuh):
+// zc from pair(), in IEEE fp32 as the other kernels compute it, then the
+// transcendental tail on the SFU, with no log or exp at c = 1:
+//
+//   e = (1 − zc)·rcp(1 + zc)                           at c = 1 (C1)
+//   e = 2^(−log2((1 + zc)·rcp(1 − zc))/√c)             otherwise
+//
+// since exp(−(2/√c)·artanh(zc)) = ((1 − zc)/(1 + zc))^(1/√c); 1 ± zc lie in
+// [1e-5, 2]. zc keeps pair()'s division and sqrtf: near the ball's edge
+// 1 − zc magnifies zc's rounding by zc/(1 − zc), and zc from sweep_grad's
+// rcp and rsqrt (about twice pair()'s rounding) moved the NBA recipe's
+// B = 32 poincaré step across a decoder ReLU at rounding against the dense
+// route where the IEEE zc does not (PERF.md §6).
+template <bool C1>
+__device__ __forceinline__ float fwd_weight(float g, float x2, float y2,
+                                            const Curv& k) {
+  const float zc = pair(g, x2, y2, k).zc;
+  if (C1) return (1.f - zc) * rcp_approx(1.f + zc);
+  return ex2_approx(-k.inv_sqrt_c * lg2_approx((1.f + zc) *
+                                               rcp_approx(1.f - zc)));
 }
 
 }  // namespace poincare

@@ -86,6 +86,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;    // 8 warps
@@ -921,23 +923,16 @@ cudaError_t launch(const float* pf, const float* z_km, const float* state0,
                    const float* x_true, const float* fut_rel, const Packed& w,
                    float* base, float* out, const Dims& d, int mode,
                    cudaStream_t s) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = smem_attr::optin_limit(&max_smem);
   if (err != cudaSuccess) return err;
   const size_t smem0 = base_smem<WT, BM>(d);
   const size_t smem1 = (size_t)Layout<WT, BM>(d).total;
   if (smem0 > (size_t)max_smem || smem1 > (size_t)max_smem)
     return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(select_base_kernel<WT, BM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem0);
+  err = smem_attr::allow(select_base_kernel<WT, BM>, smem0);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(select_main_kernel<WT, BM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem1);
+  err = smem_attr::allow(select_main_kernel<WT, BM>, smem1);
   if (err != cudaSuccess) return err;
   select_base_kernel<WT, BM><<<dim3((d.M + BM - 1) / BM, 3), kThreads, smem0,
                                s>>>(pf, state0, w, d, base);

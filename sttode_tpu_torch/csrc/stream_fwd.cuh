@@ -34,6 +34,7 @@
 #include <math.h>
 
 #include "poincare.cuh"
+#include "smem_attr.cuh"
 
 // internal linkage: each including source keeps its own copy
 namespace {
@@ -175,18 +176,13 @@ template <bool POINCARE>
 int launch(const float* q, const float* k, const float* v, const float* mask,
            const float* val, float* out, float* lse, int B, int L, int S,
            int Dh, float c, cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = smem_attr::optin_limit(&max_smem);
   if (err != cudaSuccess) return err;
   int rows = 0, tile = 0;
   if (!config(Dh, max_smem, &rows, &tile)) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(rows, tile, Dh);
-  err = cudaFuncSetAttribute(stream_fwd_kernel<POINCARE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = smem_attr::allow(stream_fwd_kernel<POINCARE>, smem);
   if (err != cudaSuccess) return err;
   const int row_tiles = (L + rows - 1) / rows;
   const long long blocks = (long long)B * row_tiles;

@@ -146,6 +146,39 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream() -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream, as the C entry points take it."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+class Entry:
+    """One C entry point of the library, looked up at its first call and
+    kept, so that a launch does no library or symbol lookup. ``fn`` may be
+    set to another library's function of the same signature (a timing
+    script's variant build)."""
+
+    __slots__ = ("name", "fn")
+
+    def __init__(self, name: str):
+        self.name, self.fn = name, None
+
+    def __call__(self, *args) -> int:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = getattr(load(), self.name)
+        return fn(*args)
+
+
+# the raw handle of a device's current stream, read without building a
+# torch.cuda.Stream object (as PyTorch's own generated launchers read it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch(entry: Entry, device: torch.device, *args) -> int:
+    """Call ``entry(*args, stream)`` on ``device`` with the raw handle of
+    its current PyTorch stream, switching the current device only when it
+    differs; returns the entry's CUDA error code (0 on success). At the
+    model's small shapes a kernel takes a few µs on the card, so the host
+    path is kept lean: no ``torch.cuda.Stream`` object and no device
+    context per call."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return entry(*args, _raw_stream(index))
+    with torch.cuda.device(device):
+        return entry(*args, _raw_stream(index))

@@ -35,7 +35,10 @@ in JAX); ``_FlashCore`` saves q, k, v, the validity, out and the per-row
 lse, as the JAX residuals do, and nothing of size L·S. On a CPU tensor each
 direction runs its plain version (the ``*_reference`` functions); on a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its launches,
-in all and per metric (``launches_by_metric``).
+in all and per metric (``launches_by_metric``). A call of
+``fused_geodesic_attention`` that no gradient can flow through (grad mode
+off, or no input requiring one: evaluation and serving) runs the forward
+without the Function.
 """
 
 from __future__ import annotations
@@ -89,6 +92,36 @@ def whole_s_smem_bytes(L: int, S: int, Dh: int,
                + (S if metric == "poincare" else 0))
     bwd = 4 * (2 * (L + S) * ld + 3 * L + S + 2 * 8 * max(L, S) + 8 * Dh)
     return fwd, bwd
+
+
+def small_s_mode(L: int, S: int, Dh: int) -> bool:
+    """Whether the whole-S forward runs a problem in its small-S mode
+    (``csrc/mhgsa_fwd.cu::small_s_mode``, the measured crossover): at
+    Dh ≤ 8 up to S = 2048, at Dh ≤ 64 from S = 32 to 256."""
+    if -(-L // 32) > 65535 or Dh > 128:
+        return False
+    return S <= 2048 if Dh <= 8 else Dh <= 64 and 32 <= S <= 256
+
+
+def small_fwd_layout(L: int, S: int, Dh: int) -> dict:
+    """The block layout of the small-shape forward (``csrc/small_fwd.cuh``,
+    kernel P and the whole-S forward's small-S mode), as ``layout`` and
+    ``smem_bytes`` there compute it: ``rows`` query rows a block (lane =
+    row), ``slices`` key slices (thread t takes row t % rows and, of each
+    tile of ``tile`` staged keys, those ≡ t // rows mod slices), the
+    template head dim ``DH``, ``blocks_per_problem`` and the unmasked
+    block's shared-memory bytes. At 32 × 32 × 8: 32 rows × 8 slices of 4
+    keys, one warp per slice."""
+    DH = max(8, 1 << (Dh - 1).bit_length())
+    tile = 128 if DH <= 16 else 2048 // DH
+    rows = 1 << (min(L, 32) - 1).bit_length() if L > 0 else 1
+    want = 1 << (max(-(-S // 4), 1) - 1).bit_length()
+    slices = min(want, (256 if DH <= 32 else 128) // rows, tile)
+    ld = DH | 1
+    smem = 4 * max(tile * (2 * ld + 1),
+                   rows * slices * (DH + 1) if slices > 1 else 0)
+    return dict(rows=rows, slices=slices, tile=tile, DH=DH,
+                blocks_per_problem=-(-L // rows), smem_bytes=smem)
 
 
 def _unit(x: torch.Tensor):
@@ -248,20 +281,31 @@ def _count(fn, metric: str, attr: str = "launches") -> None:
     getattr(fn, f"{attr}_by_metric")[metric] += 1
 
 
+_FWD = _build.Entry("mhgsa_fwd")
+_BWD = _build.Entry("mhgsa_bwd")
+_FLASH_FWD = _build.Entry("flash_mhgsa_fwd")
+_FLASH_DQ = _build.Entry("flash_mhgsa_dq")
+_FLASH_DKV = _build.Entry("flash_mhgsa_dkv")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor | None, metric: str = "oblique",
             curvature: float = 1.0) -> torch.Tensor:
     _check_devices(q, k, v, mask)
-    B, L, Dh = q.shape
-    S = k.shape[1]
+    L, Dh = q.shape[-2:]
+    S = k.shape[-2]
+    B = q.shape[:-2].numel()
     out = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.mhgsa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
-    _build.check(err, f"mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, {metric})")
+    err = _build.launch(_FWD, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), _ptr(mask), out.data_ptr(), B, L, S, Dh,
+                        METRICS.index(metric), curvature)
+    if err:
+        _build.check(err, f"mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, "
+                          f"{metric})")
     _count(fused_geodesic_attention, metric)
     return out
 
@@ -278,16 +322,14 @@ def _launch_bwd(q, k, v, mask, do, need_dmask, metric="oblique",
     _, staged = whole_s_smem_bytes(L, S, Dh, metric)
     ws = torch.empty(B * staged // 4, device=q.device, dtype=torch.float32) \
         if staged > SMEM_OPTIN_BYTES else None
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.mhgsa_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if dmask is None else dmask.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
-    _build.check(err, f"mhgsa_bwd(B={B}, L={L}, S={S}, Dh={Dh}, {metric})")
+    err = _build.launch(
+        _BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _ptr(mask), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(dmask), _ptr(ws), B, L, S, Dh,
+        METRICS.index(metric), curvature)
+    if err:
+        _build.check(err, f"mhgsa_bwd(B={B}, L={L}, S={S}, Dh={Dh}, "
+                          f"{metric})")
     _count(fused_geodesic_attention_backward, metric)
     return dq, dk, dv, dmask
 
@@ -351,8 +393,8 @@ def _flatten(q, k, v):
     for d in lead:
         B *= d
     return lead, B, L, S, Dh, (
-        x.reshape(B, -1, Dh).to(torch.float32).contiguous()
-        for x in (q, k, v))
+        x.reshape(B, n, Dh).to(torch.float32).contiguous()
+        for x, n in ((q, L), (k, S), (v, S)))
 
 
 def fused_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
@@ -371,11 +413,24 @@ def fused_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
     values are shifted per row and floored at -30 before the kernel sees
     them, which leaves the softmax weights unchanged up to ~1e-13."""
     _check_maxless_bounds(metric, curvature)
+    *lead, L, Dh = q.shape
+    S = k.shape[-2]
+    m = None if mask is None else _canonicalize_mask(
+        torch.broadcast_to(mask, (*lead, L, S))).contiguous()
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad for t in (q, k, v, mask)):
+        # no gradient can flow: the forward without the Function, on the
+        # operands as they are when they are contiguous fp32 (the kernel
+        # takes any leading dims as its problem axis)
+        if (k.shape == v.shape and k.shape[:-2] == q.shape[:-2]
+                and k.shape[-1] == Dh and all(
+                    t.dtype == torch.float32 and t.is_contiguous()
+                    for t in (q, k, v))):
+            return _forward(q, k, v, m, metric, float(curvature))
     lead, B, L, S, Dh, (q3, k3, v3) = _flatten(q, k, v)
-    m3 = None if mask is None else _canonicalize_mask(
-        torch.broadcast_to(mask, (*lead, L, S)).reshape(B, L, S)).contiguous()
-    return _FusedCore.apply(q3, k3, v3, m3, metric, float(curvature)) \
-        .reshape(*lead, L, Dh)
+    m3 = None if m is None else m.reshape(B, L, S)
+    out = _FusedCore.apply(q3, k3, v3, m3, metric, float(curvature))
+    return out if len(lead) == 1 else out.reshape(*lead, L, Dh)
 
 
 # kernel launches, counted in _launch and _launch_bwd
@@ -453,24 +508,19 @@ def flash_geodesic_attention_backward_reference(q, k, v, val, do, lse,
     return (flash_dq_reference(*args), *flash_dkv_reference(*args))
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _launch_flash(q, k, v, val, metric="oblique", curvature=1.0):
     _check_devices(q, k, v, val)
     B, L, Dh = q.shape
     S = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((B, L), device=q.device, dtype=torch.float32)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.flash_mhgsa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
-            out.data_ptr(), lse.data_ptr(), B, L, S, Dh,
-            METRICS.index(metric), curvature, _build.stream())
-    _build.check(err, f"flash_mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, "
-                      f"{metric})")
+    err = _build.launch(_FLASH_FWD, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), _ptr(val), out.data_ptr(),
+                        lse.data_ptr(), B, L, S, Dh, METRICS.index(metric),
+                        curvature)
+    if err:
+        _build.check(err, f"flash_mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, "
+                          f"{metric})")
     _count(flash_geodesic_attention, metric)
     return out, lse
 
@@ -481,14 +531,13 @@ def _launch_flash_dq(q, k, v, val, do, lse, delta, metric="oblique",
     B, L, Dh = q.shape
     S = k.shape[1]
     dq = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.flash_mhgsa_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, L, S, Dh, METRICS.index(metric), curvature, _build.stream())
-    _build.check(err, f"flash_mhgsa_dq(B={B}, L={L}, S={S}, Dh={Dh}, "
-                      f"{metric})")
+    err = _build.launch(_FLASH_DQ, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), _ptr(val), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, L,
+                        S, Dh, METRICS.index(metric), curvature)
+    if err:
+        _build.check(err, f"flash_mhgsa_dq(B={B}, L={L}, S={S}, Dh={Dh}, "
+                          f"{metric})")
     _count(flash_geodesic_attention_backward, metric, "launches_dq")
     return dq
 
@@ -499,15 +548,14 @@ def _launch_flash_dkv(q, k, v, val, do, lse, delta, metric="oblique",
     B, L, Dh = q.shape
     S = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.flash_mhgsa_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(val),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, L, S, Dh, METRICS.index(metric), curvature,
-            _build.stream())
-    _build.check(err, f"flash_mhgsa_dkv(B={B}, L={L}, S={S}, Dh={Dh}, "
-                      f"{metric})")
+    err = _build.launch(_FLASH_DKV, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), _ptr(val), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), B, L, S, Dh, METRICS.index(metric),
+                        curvature)
+    if err:
+        _build.check(err, f"flash_mhgsa_dkv(B={B}, L={L}, S={S}, Dh={Dh}, "
+                          f"{metric})")
     _count(flash_geodesic_attention_backward, metric, "launches_dkv")
     return dk, dv
 

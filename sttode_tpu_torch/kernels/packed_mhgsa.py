@@ -21,7 +21,9 @@ saves q, k, v and the validity and recomputes the scores in its backward
 a CPU tensor each direction runs its plain version
 (``packed_geodesic_attention_reference``,
 ``packed_geodesic_attention_backward_reference``); on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. A call that no gradient can flow through
+(grad mode off, or no input requiring one: evaluation and serving) runs the
+forward without the Function.
 """
 
 from __future__ import annotations
@@ -74,19 +76,21 @@ def packed_geodesic_attention_backward_reference(q, k, v, val, do):
             p.transpose(-1, -2) @ do)
 
 
+_FWD = _build.Entry("packed_mhgsa_fwd")
+_BWD = _build.Entry("packed_mhgsa_bwd")
+
+
 def _launch(q, k, v, val):
     _check_devices(q, k, v, val)
     B, H, L, Dh = q.shape
     S = k.shape[2]
     out = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.packed_mhgsa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if val is None else val.data_ptr(), out.data_ptr(),
-            B, H, L, S, Dh, _build.stream())
-    _build.check(err, f"packed_mhgsa_fwd(B={B}, H={H}, L={L}, S={S}, "
-                      f"Dh={Dh})")
+    err = _build.launch(_FWD, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), None if val is None else val.data_ptr(),
+                        out.data_ptr(), B, H, L, S, Dh)
+    if err:
+        _build.check(err, f"packed_mhgsa_fwd(B={B}, H={H}, L={L}, S={S}, "
+                          f"Dh={Dh})")
     packed_geodesic_attention.launches += 1
     return out
 
@@ -97,15 +101,13 @@ def _launch_bwd(q, k, v, val, do):
     S = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((B, H, L, 2), device=q.device, dtype=torch.float32)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.packed_mhgsa_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if val is None else val.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            B, H, L, S, Dh, _build.stream())
-    _build.check(err, f"packed_mhgsa_bwd(B={B}, H={H}, L={L}, S={S}, "
-                      f"Dh={Dh})")
+    err = _build.launch(_BWD, q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), None if val is None else val.data_ptr(),
+                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), stats.data_ptr(), B, H, L, S, Dh)
+    if err:
+        _build.check(err, f"packed_mhgsa_bwd(B={B}, H={H}, L={L}, S={S}, "
+                          f"Dh={Dh})")
     packed_geodesic_attention_backward.launches += 1
     return dq, dk, dv
 
@@ -167,12 +169,20 @@ def packed_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
         B *= d
 
     def flat(x, n):
+        if (x.shape == (B, H, n, Dh) and x.dtype == torch.float32
+                and x.is_contiguous()):
+            return x
         return x.reshape(B, H, n, Dh).to(torch.float32).contiguous()
 
     val = None if kv_valid is None else torch.broadcast_to(
         kv_valid, (*lead, S)).reshape(B, S).to(torch.float32).contiguous()
-    out = _PackedCore.apply(flat(q, L), flat(k, S), flat(v, S), val)
-    return out.reshape(*lead, H, L, Dh)
+    q4, k4, v4 = flat(q, L), flat(k, S), flat(v, S)
+    if torch.is_grad_enabled() and (q4.requires_grad or k4.requires_grad
+                                    or v4.requires_grad):
+        out = _PackedCore.apply(q4, k4, v4, val)
+    else:   # no gradient can flow: the launch without the Function
+        out = _forward(q4, k4, v4, val)
+    return out if len(lead) == 1 else out.reshape(*lead, H, L, Dh)
 
 
 # kernel launches, counted in _launch and _launch_bwd

@@ -332,6 +332,9 @@ def select_decode(params: dict, past_feature: torch.Tensor,
                    future_rel_flat, mode, t_fut2, dtype)
 
 
+_FWD = _build.Entry("select_decode_fwd")
+
+
 def _launch(sources, past_feature, z_km, state0, x_true_flat,
             future_rel_flat, mode, t_fut2, dtype) -> torch.Tensor:
     dev = past_feature.device
@@ -361,16 +364,14 @@ def _launch(sources, past_feature, z_km, state0, x_true_flat,
     out = torch.empty((M, K) if mode == "dist" else (K, M, t_fut2),
                       device=dev, dtype=torch.float32)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.select_decode_fwd(
-            pf.data_ptr(), z_km.data_ptr(), state0.data_ptr(),
-            x_true_flat.data_ptr(), None if fut is None else fut.data_ptr(),
-            ctypes.cast(ptrs, ctypes.c_void_p), base.data_ptr(),
-            out.data_ptr(), M, K, d2, zw, t_past, t_fut2 // 2, _MODES[mode],
-            _DTYPES[dtype], _build.stream())
-    _build.check(err, f"select_decode_fwd(M={M}, K={K}, mode={mode}, "
-                      f"dtype={dtype})")
+    err = _build.launch(
+        _FWD, dev, pf.data_ptr(), z_km.data_ptr(), state0.data_ptr(),
+        x_true_flat.data_ptr(), None if fut is None else fut.data_ptr(),
+        ctypes.cast(ptrs, ctypes.c_void_p), base.data_ptr(), out.data_ptr(),
+        M, K, d2, zw, t_past, t_fut2 // 2, _MODES[mode], _DTYPES[dtype])
+    if err:
+        _build.check(err, f"select_decode_fwd(M={M}, K={K}, mode={mode}, "
+                          f"dtype={dtype})")
     select_decode.launches += 1
     select_decode.launches_by_dtype[dtype] += 1
     return out

@@ -1260,3 +1260,90 @@ def test_poincare_train_step_kernel_route_matches_dense(cuda_device):
         assert bool(torch.isfinite(a).all()), i
         scale = max(float(b.abs().max()), 1e-6)
         assert float((a - b).abs().max()) <= 1e-4 * scale, i
+
+
+_SMALL_LS = (1, 7, 31, 32, 33)
+_SMALL_DH = (1, 8, 16, 64, 128)
+# the packed route's L·S ≤ 32² extremes and the grid of L, S ∈ _SMALL_LS,
+# the head dims cycling through _SMALL_DH (H·Dh ≤ 128)
+_PACKED_SMALL_CASES = [
+    dict(L=L, S=S, Dh=_SMALL_DH[n % 5],
+         valid=("random", "all_invalid", "none")[n % 3])
+    for n, (L, S) in enumerate([(L, S) for L in _SMALL_LS for S in _SMALL_LS]
+                               + [(8, 128), (128, 8), (1024, 1), (1, 1024)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _PACKED_SMALL_CASES)
+def test_packed_forward_small_shapes(cuda_device, case):
+    """Kernel P (the small-shape body: rows × key slices, the SFU epilogue)
+    at L, S ∈ {1, 7, 31, 32, 33}, the route's L·S ≤ 32² extremes and head
+    dims 1..128, with a random key validity or a problem with none: the
+    forward within 1e-5 of its plain version, that problem exactly 0."""
+    L, S, Dh = case["L"], case["S"], case["Dh"]
+    H = max(1, min(4, 128 // Dh))
+    rng = np.random.default_rng(L * 131 + S * 7 + Dh)
+    q, k, v, _, kv = _packed_inputs(rng, 3, H, L, S, Dh, case["valid"])
+    want = tpacked.packed_geodesic_attention_reference(q, k, v, kv)
+    before = tpacked.packed_geodesic_attention.launches
+    with torch.inference_mode():
+        got = tpacked.packed_geodesic_attention(
+            q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+            kv_valid=None if kv is None else kv.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tpacked.packed_geodesic_attention.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    if case["valid"] == "all_invalid":
+        assert bool(torch.all(got[0] == 0))
+
+
+# the whole-S forward's small-S mode: L, S ∈ _SMALL_LS in both metrics (c = 1
+# takes the epilogue's c = 1 form, 0.7 the general one), with and without an
+# additive mask holding an all-excluded row; then S on either side of the
+# mode's range (kernels.mhgsa.small_s_mode)
+_FUSED_SMALL_CASES = [
+    dict(L=L, S=S, Dh=_SMALL_DH[n % 5] if Dh is None else Dh, metric=metric,
+         c=c, mask=("finfo_min", "finite", "none")[n % 3])
+    for n, (L, S, Dh, (metric, c)) in enumerate(
+        [(L, S, None, mc) for L in _SMALL_LS for S in _SMALL_LS
+         for mc in (("oblique", 1.0), ("poincare", 1.0), ("poincare", 0.7))]
+        + [(32, S, Dh, mc) for S, Dh in ((2048, 8), (2049, 8), (31, 64),
+                                         (32, 64), (256, 64), (257, 64))
+           for mc in (("oblique", 1.0), ("poincare", 1.0))]
+        + [(64, 8, 8, ("poincare", 1.0))])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FUSED_SMALL_CASES)
+def test_fused_forward_small_shapes(cuda_device, case):
+    """The whole-S forward at small S in both metrics, with and without a
+    mask (finfo.min exclusions, one all-excluded row, or finite entries):
+    within 1e-5 of its plain version, the all-excluded row exactly 0."""
+    L, S, Dh, c = case["L"], case["S"], case["Dh"], case["c"]
+    rng = np.random.default_rng(L * 131 + S * 7 + Dh + int(c * 10))
+    if case["metric"] == "poincare":
+        q, k, v, _ = _ball_inputs(rng, (5,), L, S, Dh, c)
+    else:
+        q, k, v, _ = _attn_inputs((5, L, Dh), S, None, seed=L * 7 + S)
+    mask = None
+    if case["mask"] == "finite":
+        mask = torch.from_numpy(
+            3.0 * rng.standard_normal((5, L, S)).astype(np.float32) + 2.0)
+    elif case["mask"] == "finfo_min":
+        mask = torch.where(torch.from_numpy(rng.random((5, L, S))) < 0.3,
+                           torch.finfo(torch.float32).min, 0.0)
+        mask[:, 0, :] = torch.finfo(torch.float32).min   # all excluded
+    kw = dict(metric=case["metric"], curvature=c)
+    want = tmhgsa.fused_geodesic_attention(q, k, v, mask=mask, **kw)
+    before = tmhgsa.fused_geodesic_attention.launches
+    with torch.inference_mode():
+        got = tmhgsa.fused_geodesic_attention(
+            q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+            mask=None if mask is None else mask.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert tmhgsa.fused_geodesic_attention.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    if case["mask"] == "finfo_min":
+        assert bool(torch.all(got[:, 0] == 0))
