@@ -21,7 +21,9 @@ paths, then drives both paths at the full width of the repo's model
            answering single-scene requests (both on the packed kernel);
   phase 6  geodesic attention backward kernel: the training shape
            (88 × 128 × 8, q/k swapped, no mask), the agent-axis shape with a
-           key mask that takes a gradient, and an all-excluded row;
+           key mask that takes a gradient, and an all-excluded row; then at
+           the training shape its mode (the small-S mode), wrapper ms, host
+           µs per call and device µs, and its launch-path floor;
   phase 7  bf16 selection decode kernel at the training step's M = 1408
            and at M = 25,344, K = 20, mode "dist", likewise;
   phase 8  the stage-1 training step at B = 128 scenes × 11 agents: the fp32
@@ -70,9 +72,9 @@ paths, then drives both paths at the full width of the repo's model
            88 × 128² × 8, the forward with the agent-axis server's key mask
            (the forward's host µs per call; its launch-path floor);
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
-           swapped) and 8 × 4096² × 64; the sweeps' general form at
-           c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows at the ball's
-           edge and close pairs; then the masked whole-S backward at
+           swapped) and 8 × 4096² × 64; the forward and the sweeps'
+           general form at c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows
+           at the ball's edge and close pairs; then the masked whole-S backward at
            8 × 1500² × 8, beyond shared memory (its device-workspace mode),
            in both metrics; then phase 11's two repairs in the poincaré
            metric;
@@ -261,11 +263,18 @@ def kernel_b_name(mangled: str) -> str:
             f"{m.group(3)}>")
 
 
+# the templated attention kernels whose registers the build report prints:
+# the flash backward sweeps, the poincaré flash forward (3p) and the oblique
+# backward's small-S mode (C)
+ATTN_KERNELS = (r"flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel|"
+                r"flash_poincare_fwd_kernel|mhgsa_small_bwd_kernel")
+
+
 def sweep_name(mangled: str) -> str:
-    """flash_{mhgsa,poincare}_d{q,kv}_kernel<...> from a mangled name."""
+    """kernel<template arguments> of an ``ATTN_KERNELS`` kernel from a
+    mangled name."""
     import re
-    m = re.search(r"(flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel)"
-                  r"I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(rf"({ATTN_KERNELS})I((?:L[ib]\d+E)+)E", mangled)
     if m is None:
         return mangled[:60]
     args = re.findall(r"L([ib])(\d+)E", m.group(2))
@@ -275,18 +284,17 @@ def sweep_name(mangled: str) -> str:
 
 
 def build_report(lib) -> None:
-    """Print the registers and spills of kernel B and of the flash backward
-    sweeps' register kernels from the build log (``-Xptxas -v``) and the
-    tensor-core MMA instructions (HMMA) in kernel B's SASS, from
-    ``cuobjdump`` where the toolkit has it."""
+    """Print the registers and spills of kernel B, the flash backward
+    sweeps' register kernels, 3p and C's small-S mode from the build log
+    (``-Xptxas -v``) and the tensor-core MMA instructions (HMMA) in kernel
+    B's SASS, from ``cuobjdump`` where the toolkit has it."""
     log = lib.with_name(lib.name + ".log").read_text().splitlines()
     entry = None
     for line in log:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             entry = (kernel_b_name(name) if "select_" in name else
-                     sweep_name(name) if re.search(
-                         r"flash_(mhgsa|poincare)_d(q|kv)_kernel", name)
+                     sweep_name(name) if re.search(ATTN_KERNELS, name)
                      else None)
         elif entry and ("spill" in line or "Used" in line):
             print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
@@ -971,6 +979,29 @@ def main() -> int:
             f"{k} {v:.3e}" for k, v in errs.items())
             + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
 
+    # C at the bench recipe's shape: its mode (the small-S mode of
+    # csrc/small_bwd.cuh takes it), wrapper ms, host µs per call and device
+    # µs; then its launch-path floor
+    c_args = bwd_cases["train_scene_axis_q11x8x128x8_swapped"]
+    require(km.small_bwd_mode(128, 128, 8),
+            "phase 6: the small-S mode does not take 88 x 128² x 8")
+    with torch.inference_mode():
+        c_host = host_us(lambda: km.fused_geodesic_attention_backward(
+            *c_args))
+        c_dev = device_us(lambda: km.fused_geodesic_attention_backward(
+            *c_args))
+    print("attention backward (C) at 88 x 128 x 128 x 8: small-S mode ("
+          + ", ".join(f"{k} {v}" for k, v in
+                      km.small_bwd_layout(128, 128, 8).items())
+          + f"), wrapper "
+          f"{bwd_times['train_scene_axis_q11x8x128x8_swapped'][0]:.4f} ms, "
+          f"host {c_host:.1f} µs/call, device "
+          + ("not measured" if c_dev is None else f"{c_dev:.2f} µs")
+          + f"  [{card}]")
+    launch_floor(lambda *a: km.fused_geodesic_attention_backward(*a),
+                 (randn(1, 1, 8), randn(1, 1, 8), randn(1, 1, 8), None,
+                  randn(1, 1, 8)), c_args, card, "attention backward (C)")
+
     # the attention route at the training shape, forward + backward: the
     # kernels (the port's route) against the dense plain path (the route the
     # JAX package's TPU crossover would pick at L = S = 128)
@@ -983,8 +1014,12 @@ def main() -> int:
                                     fused=fused, need_weights=False)
         return torch.autograd.grad(out, (qr, kr, vr), g_out)
 
-    route_err = max(max_err(a, b) for a, b in zip(attn_route(True),
-                                                  attn_route(False)))
+    g_kernel, g_dense = attn_route(True), attn_route(False)
+    route_err = max(max_err(a, b) for a, b in zip(g_kernel, g_dense))
+    route_tol = ATTN_GRAD_TOL * max(1.0, max(float(b.abs().max())
+                                             for b in g_dense))
+    require(route_err <= route_tol, f"attention route at the training "
+            f"shape: gradients differ by {route_err} > {route_tol}")
     route_ms = paired_ms(lambda: attn_route(True), lambda: attn_route(False))
     print(f"attention route at the training shape, forward + backward: "
           f"kernels {route_ms[0]:.4f} ms, dense {route_ms[1]:.4f} ms "
@@ -1779,12 +1814,15 @@ def main() -> int:
     def sweeps(q, k, v, do, c):
         with torch.inference_mode():
             out, lse = km._flash_forward(q, k, v, None, "poincare", c)
+            want_f = km.flash_geodesic_attention_reference(q, k, v, None,
+                                                           "poincare", c)
             a = (q, k, v, None, do, lse, torch.sum(do * out, dim=-1),
                  "poincare", c)
             got = (km._launch_flash_dq(*a), *km._launch_flash_dkv(*a))
             want = (km.flash_dq_reference(*a), *km.flash_dkv_reference(*a))
             torch.cuda.synchronize()
-        return a, got, want
+        f_err = max(max_err(out, want_f[0]), max_err(lse, want_f[1]))
+        return a, got, want, f_err
 
     axis = torch.zeros(8, device=dev)
     axis[0] = 1.0
@@ -1803,10 +1841,13 @@ def main() -> int:
             shape = (8, 1100, 8)
             q = grid(to_ball(randn(*shape) * (0.5 / (8 * c_) ** 0.5), c_), c_)
             k = grid(q + 1e-4 * randn(*shape), c_)
-        a, got, want = sweeps(q, k, randn(*shape), randn(*shape), c_)
+        a, got, want, f_err = sweeps(q, k, randn(*shape), randn(*shape), c_)
         label = f"poincare flash sweeps {kind} c = {c_} {shape}"
         require(all(bool(torch.isfinite(g).all()) for g in got),
                 f"{label}: non-finite gradient")
+        require(f_err <= ATTN_TOL,
+                f"{label}: forward max abs err {f_err} > {ATTN_TOL}")
+        pflash_err["fwd"] = max(pflash_err["fwd"], f_err)
         if kind == "edge":
             zc = km._poincare_pieces(q[:1], k[:1], c_)[-1]
             require(bool(torch.all(zc == float(np.float32(1.0 - km.ARTANH_EPS)))),
@@ -1820,12 +1861,16 @@ def main() -> int:
                         f"err {errs[g_name]} > {tol}")
                 part = "dq" if g_name == "dq" else "dkv"
                 pflash_err[part] = max(pflash_err[part], errs[g_name])
-        line = f"{label}: max_abs_err " + ", ".join(
+        line = f"{label}: max_abs_err fwd {f_err:.3e}, " + ", ".join(
             f"{k_} {v_:.3e}" for k_, v_ in errs.items()) + (
             " (dq, dk held to finiteness)" if kind != "mid" else "")
         if kind == "mid":
             with torch.inference_mode():
-                t = {"dq": paired_ms(lambda: km._launch_flash_dq(*a),
+                t = {"fwd": paired_ms(
+                    lambda: km._flash_forward(*a[:4], "poincare", c_),
+                    lambda: km.flash_geodesic_attention_reference(
+                        *a[:4], "poincare", c_), calls=3, rounds=4),
+                     "dq": paired_ms(lambda: km._launch_flash_dq(*a),
                                      lambda: km.flash_dq_reference(*a),
                                      calls=3, rounds=4),
                      "dkv": paired_ms(lambda: km._launch_flash_dkv(*a),

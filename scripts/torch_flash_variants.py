@@ -4,8 +4,9 @@ flash backward sweeps' design, to time each part alone.
     python3 scripts/torch_flash_variants.py DEST
 
 Each variant is a directory ``DEST/<name>`` holding ``chip_smoke.py`` and a
-copy of ``sttode_tpu_torch`` whose ``csrc/flash_mhgsa_bwd.cu`` or
-``csrc/poincare.cuh`` differs from the working tree's in one respect:
+copy of ``sttode_tpu_torch`` whose ``csrc/flash_mhgsa_bwd.cu``,
+``csrc/flash_tile.cuh`` or ``csrc/poincare.cuh`` differs from the working
+tree's in one respect:
 
 - ``ring2``: a ring of two stages, so that the next tile's copies overlap
   this tile's pairs;
@@ -32,6 +33,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BWD = "flash_mhgsa_bwd.cu"
 HDR = "poincare.cuh"
+TILE = "flash_tile.cuh"
 
 IEEE_ROW = """template <bool C1>
 __device__ __forceinline__ float sweep_row(float lse) {
@@ -48,13 +50,13 @@ IEEE_GRAD = """  const Pair pp = pair(g, x2, y2, k);
 VARIANTS = {
     "ring2": [(BWD, "constexpr int kStages = 1;",
                "constexpr int kStages = 2;")],
-    "rows1": [(BWD, "return dh <= 16 ? 2 : 1;", "return 1;")],
+    "rows1": [(TILE, "return dh <= 16 ? 2 : 1;", "return 1;")],
     "ieee_epilogue": [(HDR, None, None)],     # built in ieee() below
     "no_c1": [(BWD, "return c == 1.f ? dispatch_poincare_dq<true>",
                "return false ? dispatch_poincare_dq<true>"),
               (BWD, "return c == 1.f ? dispatch_poincare_dkv<true>",
                "return false ? dispatch_poincare_dkv<true>")],
-    "rows2_dh64": [(BWD, "return dh <= 16 ? 2 : 1;",
+    "rows2_dh64": [(TILE, "return dh <= 16 ? 2 : 1;",
                     "return dh <= 64 ? 2 : 1;")],
     "dkv_min4": [(BWD, "__global__ void __launch_bounds__(kThreads)\n"
                   "flash_poincare_dkv_kernel(",

@@ -92,15 +92,15 @@ ROUTE_SHAPES = ((32, 32, 8), (8, 128, 8), (128, 8, 8), (1024, 1, 8),
                 (32, 32, 128))
 
 
-def parent_package(parent: str, rev: str):
+def parent_package(parent: str, rev: str, work: str = WORK):
     """Import the parent's ``sttode_tpu_torch`` as
-    ``sttode_tpu_torch_parent``."""
+    ``sttode_tpu_torch_parent``, copied under ``work``."""
     if not os.path.isdir(parent):
         os.makedirs(parent)
         tar = subprocess.run(["git", "-C", ROOT, "archive", rev],
                              capture_output=True, check=True).stdout
         subprocess.run(["tar", "-x", "-C", parent], input=tar, check=True)
-    pkg = os.path.join(WORK, "pkg", "sttode_tpu_torch_parent")
+    pkg = os.path.join(work, "pkg", "sttode_tpu_torch_parent")
     shutil.rmtree(pkg, ignore_errors=True)
     shutil.copytree(os.path.join(parent, "sttode_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -113,19 +113,23 @@ def parent_package(parent: str, rev: str):
                 with open(path, "w") as fh:
                     fh.write(src.replace("sttode_tpu_torch",
                                          "sttode_tpu_torch_parent"))
-    sys.path.insert(0, os.path.join(WORK, "pkg"))
+    sys.path.insert(0, os.path.join(work, "pkg"))
     return (importlib.import_module("sttode_tpu_torch_parent.kernels._build"),
             importlib.import_module("sttode_tpu_torch_parent.kernels.mhgsa"),
             importlib.import_module(
                 "sttode_tpu_torch_parent.kernels.packed_mhgsa"))
 
 
-def build_variants(build) -> dict:
+def build_variants(build, variants: dict = VARIANTS, work: str = WORK,
+                   entries=("mhgsa_fwd", "packed_mhgsa_fwd"),
+                   load: bool = True) -> dict:
     """Each variant's library (this checkout's sources with its flags), as
-    {name: {entry: ctypes function}}."""
+    {name: {entry: ctypes function}} (loaded only with ``load``); the
+    compilers' output (registers and spills per kernel) is kept beside it
+    as ``build.log``."""
     jobs = []
-    for name, (flags, sources) in VARIANTS.items():
-        out = os.path.join(WORK, "variants", name)
+    for name, (flags, sources) in variants.items():
+        out = os.path.join(work, "variants", name)
         shutil.rmtree(out, ignore_errors=True)
         os.makedirs(out)
         for src in sources:
@@ -135,27 +139,41 @@ def build_variants(build) -> dict:
             jobs.append((name, obj, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+    logs = {name: [] for name in variants}
     for name, _, cmd, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name}: {' '.join(cmd)}\n{log}")
+        logs[name].append(log)
     libs = {}
-    for name in VARIANTS:
-        out = os.path.join(WORK, "variants", name)
-        so = os.path.join(out, f"lib_{name}.so")
+    for name in variants:
+        out = os.path.join(work, "variants", name)
+        with open(os.path.join(out, "build.log"), "w") as f:
+            f.write("\n".join(logs[name]))
         objs = [o for n, o, _, _ in jobs if n == name]
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS[:2], "-shared",
-                        "-o", so, *objs], check=True, capture_output=True)
-        lib = ctypes.CDLL(so)
-        libs[name] = {}
-        for entry in ("mhgsa_fwd", "packed_mhgsa_fwd"):
-            if not hasattr(lib, entry):
-                continue
+                        "-o", variant_path(work, name), *objs], check=True,
+                       capture_output=True)
+        if load:
+            libs[name] = load_variant(build, work, name, entries)
+    return libs
+
+
+def variant_path(work: str, name: str) -> str:
+    return os.path.join(work, "variants", name, f"lib_{name}.so")
+
+
+def load_variant(build, work: str, name: str, entries) -> dict:
+    """A built variant's entries, as {entry: ctypes function}."""
+    lib = ctypes.CDLL(variant_path(work, name))
+    fns = {}
+    for entry in entries:
+        if hasattr(lib, entry):
             fn = getattr(lib, entry)
             fn.argtypes = build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
-            libs[name][entry] = fn
-    return libs
+            fns[entry] = fn
+    return fns
 
 
 def sample(fn, calls):
@@ -187,7 +205,8 @@ def device_us(fn, calls=20):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "_kernel" in e.key
-             and any(n in e.key for n in ("packed_", "mhgsa_")))
+             and any(n in e.key
+                     for n in ("packed_", "mhgsa_", "poincare_")))
     return us / calls if us > 0 else None
 
 

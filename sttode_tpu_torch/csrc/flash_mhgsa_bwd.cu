@@ -63,8 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
+#include "flash_tile.cuh"
 #include "poincare.cuh"
 #include "smem_attr.cuh"
 
@@ -337,75 +337,19 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
 //     computed from shared memory once a tile has landed. One stage: a
 //     second, which overlaps the next tile's copies with this tile's pairs,
 //     measured no faster at the recipe's c = 1, Dh = 8 (PERF.md §6, PR 7).
+// The rows a thread owns, the tile and the cp.async staging are
+// flash_tile.cuh's, which the poincaré forward shares.
 
 constexpr int kStages = 1;
 
-// output rows per thread: two where registers allow (no spills at DH ≤ 16)
-constexpr int sweep_rows(int dh) { return dh <= 16 ? 2 : 1; }
-
-// rows of the other axis per ring stage: 128, fewer above DH = 32, so that a
-// stage's two [rows][DH] arrays stay within 32 KB
-__host__ __device__ constexpr int sweep_tile(int dh) {
-  return dh <= 32 ? kTile : 4096 / dh;
-}
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool full, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(full ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Start copying rows [0, n) of the [*, Dh] array src into the [T][DH] tile
-// dst, the columns from Dh up to DH zero-filled: 16 bytes a copy when the
-// rows are 16-byte aligned (vec), else 4.
-template <int DH>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int n, int Dh, bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < n * (DH / 4); e += kThreads) {
-      const int r = e / (DH / 4), d = e % (DH / 4) * 4;
-      const bool in = d < Dh;
-      cp_async(dst + r * DH + d, in ? src + (size_t)r * Dh + d : src, in, 16);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n * DH; e += kThreads) {
-      const int r = e / DH, d = e % DH;
-      const bool in = d < Dh;
-      cp_async(dst + r * DH + d, in ? src + (size_t)r * Dh + d : src, in, 4);
-    }
-  }
-}
-
-// the squared norm of a 16-byte aligned row of shared memory
-template <int DH>
-__device__ __forceinline__ float sq_norm_smem(const float* __restrict__ x) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float ss = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH / 4; ++d) {
-    const float4 u = x4[d];
-    ss = fmaf(u.x, u.x, ss);
-    ss = fmaf(u.y, u.y, ss);
-    ss = fmaf(u.z, u.z, ss);
-    ss = fmaf(u.w, u.w, ss);
-  }
-  return ss;
-}
+using flash_tile::cp_async;
+using flash_tile::cp_async_commit;
+using flash_tile::cp_async_wait;
+using flash_tile::sq_norm_smem;
+using flash_tile::stage_rows;
+using flash_tile::sweep_rows;
+using flash_tile::sweep_tile;
+using flash_tile::vec_rows;
 
 // floats of shared memory of a poincaré sweep: the ring's stages, each two
 // [T][DH] arrays and `scalars` [T] arrays staged raw, and two [T] arrays
@@ -440,8 +384,7 @@ flash_poincare_dq_kernel(const float* __restrict__ q,
   const float* kb = k + (size_t)b * S * Dh;
   const float* vb = v + (size_t)b * S * Dh;
   const float* valb = val ? val + (size_t)b * S : nullptr;
-  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(kb) |
-                                   reinterpret_cast<uintptr_t>(vb)) % 16 == 0;
+  const bool vec = vec_rows(kb, vb, Dh);
 
   // R rows i0 + r·kThreads: the ball row, do, and the running dq and dx2
   float qb[R][DH], dor[R][DH], dqa[R][DH], x2[R], lr[R], di[R], dx2[R];
@@ -548,8 +491,7 @@ flash_poincare_dkv_kernel(const float* __restrict__ q,
   const int j0 = (blockIdx.x % col_tiles) * kThreads * R + t;
   const float* qb = q + (size_t)b * L * Dh;
   const float* db = dout + (size_t)b * L * Dh;
-  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(qb) |
-                                   reinterpret_cast<uintptr_t>(db)) % 16 == 0;
+  const bool vec = vec_rows(qb, db, Dh);
 
   // R keys j0 + r·kThreads: the ball row, v, and the running dk, dv, dy2
   float kb[R][DH], vr[R][DH], dka[R][DH], dva[R][DH], y2[R], dy2[R];

@@ -27,24 +27,46 @@
 // two divisions — costs tens of instructions per pair. Unlike the whole-S
 // kernel (mhgsa_fwd.cu), which stages every key of a problem in shared
 // memory and refuses S > 2765 at Dh = 8, this one streams them, so any L
-// and S run. Design: a block per (problem, tile of 128 query rows), one
-// thread per row; q̂_i (or the ball row and its x2) and the output
-// accumulator live in registers (the head dim rounded up to a compile-time
-// 8/16/32/64/128); the keys are normalized (or, poincaré, kept raw with
-// their squared norms y2) and staged with their values 128 at a time in
-// shared memory, each thread staging one key, and every thread then reads
-// the same key, a broadcast with no bank conflict and no reduction in the
-// inner loop. A head dim above 128 (JAX pads any Dh to a multiple of 128)
-// would not fit a thread's registers: it runs the key-streaming forward of
+// and S run. Design (the oblique F): a block per (problem, tile of 128
+// query rows), one thread per row; q̂_i and the output accumulator live in
+// registers (the head dim rounded up to a compile-time 8/16/32/64/128); the
+// keys are normalized and staged with their values 128 at a time in shared
+// memory, each thread staging one key, and every thread then reads the same
+// key, a broadcast with no bank conflict and no reduction in the inner loop.
+// acosf and logf are CUDA's (≤ 2 ulp), where the TPU needed a polynomial
+// for acos.
+//
+// The poincaré forward (3p, flash_poincare_fwd_kernel), redesigned for the
+// H100. At Dh = 8 a pair's FMAs (the Gram and p·V, 16) are few beside its
+// epilogue, so the kernel is bound by issuing the epilogue's instructions:
+//   - the epilogue is poincare::fwd_weight: zc from poincare::pair in IEEE
+//     fp32 (its division and sqrtf: near the ball's edge 1 − zc magnifies
+//     zc's rounding, PERF.md §6), then the tail on the SFU — at c = 1
+//     one reciprocal and no log or exp, else rcp, lg2 and ex2 — with C1 a
+//     template parameter chosen at launch from the curvature's value; the
+//     row's lse = logf(l) stays IEEE, once a row (the dq and dk/dv sweeps
+//     replay from it);
+//   - latency is hidden by occupancy, not by rows a thread: a thread owns
+//     one query row, and at DH ≤ 8 the launch bounds hold it to 64
+//     registers, so that 8 blocks (32 warps) stay resident on an SM. Two
+//     rows a thread (the sweeps' flash_tile::sweep_rows, each staged key
+//     serving two pairs) took 102 registers, 4 blocks an SM, and measured
+//     1.27× slower at the recipe's shape; with the registers capped it was
+//     level (PERF.md §6);
+//   - the ball keys, values and validity are staged raw with cp.async,
+//     flash_tile::sweep_tile(DH) keys at a time, and the keys' squared
+//     norms y2 computed from shared memory once the tile has landed, so no
+//     thread stages a key through its registers (flash_tile.cuh, shared
+//     with the poincaré sweeps).
+// A head dim above 128 (JAX pads any Dh to a multiple of 128) would not fit
+// a thread's registers: both metrics run the key-streaming forward of
 // stream_fwd.cuh instead — a warp per query row, q and the accumulator in
 // shared memory, a lane per key of a 32-key tile — the same function with
-// the validity and the lse, for any Dh up to ~5,800. The Gram uses fp32 FMAs, no TF32 and no tensor cores: acos'
-// amplifies Gram error near ±1, the poincaré x2 − 2g + y2 cancels for close
-// points (the TPU kernel's compensated 3-pass bf16 Gram, kept at HIGHEST
-// for the poincaré scores, is an MXU device; the card's analogue, tf32x3
-// mma, is later work). acosf and logf are CUDA's (≤ 2 ulp), where the TPU
-// needed a polynomial for acos. The metric is a template parameter: the
-// oblique instantiation is the kernel of before.
+// the validity and the lse, for any Dh up to ~5,800. The Gram uses fp32
+// FMAs, no TF32 and no tensor cores: acos' amplifies Gram error near ±1,
+// the poincaré x2 − 2g + y2 cancels for close points (the TPU kernel's
+// compensated 3-pass bf16 Gram, kept at HIGHEST for the poincaré scores, is
+// an MXU device; the card's analogue, tf32x3 mma, is later work).
 //
 // The score orientation is scores[i,j] = score(q_i, k_j); the
 // reference-compat transposed square case (quirk Q3) is the caller swapping
@@ -53,21 +75,42 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_tile.cuh"
 #include "poincare.cuh"
 #include "smem_attr.cuh"
 #include "stream_fwd.cuh"
 
+// timing variants of the poincaré forward's design (see
+// scripts/torch_3p_c_bench.py): the IEEE epilogue (poincare::pair,
+// score and expf) in place of fwd_weight; R query rows a thread at every
+// head dim (the design: one); each key staged through a thread's
+// registers in place of cp.async; and the minimum of resident blocks per SM
+// in the kernel's launch bounds, which caps its registers (0: the design's,
+// fwd_min_blocks)
+#ifndef STTODE_FLASH_FWD_IEEE_EPILOGUE
+#define STTODE_FLASH_FWD_IEEE_EPILOGUE 0
+#endif
+#ifndef STTODE_FLASH_FWD_ROWS
+#define STTODE_FLASH_FWD_ROWS 1
+#endif
+#ifndef STTODE_FLASH_FWD_REG_STAGING
+#define STTODE_FLASH_FWD_REG_STAGING 0
+#endif
+#ifndef STTODE_FLASH_FWD_MIN_BLOCKS
+#define STTODE_FLASH_FWD_MIN_BLOCKS 0
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;          // query rows per block
-constexpr int kTile = kThreads;        // keys staged per step, one per thread
+constexpr int kThreads = flash_tile::kThreads;   // row slots per block
+constexpr int kTile = kThreads;        // F: keys staged per step, one a thread
 constexpr float kClip = 0.9999f;       // 1 - 1e-4
 constexpr float kNormFloor = 1e-12f;
 constexpr float kDenFloor = 1e-30f;
 
-// r = x[0..Dh) zero-padded to DH, scaled to unit norm (norm floored) for
-// oblique, kept raw for poincaré; returns the squared norm
-template <int DH, bool POINCARE>
+// r = x[0..Dh) zero-padded to DH, scaled to unit norm (norm floored), or
+// kept RAW (poincaré ball rows); returns the squared norm
+template <int DH, bool RAW>
 __device__ __forceinline__ float load_row(const float* __restrict__ x, int Dh,
                                           float (&r)[DH]) {
   float ss = 0.f;
@@ -76,7 +119,7 @@ __device__ __forceinline__ float load_row(const float* __restrict__ x, int Dh,
     r[d] = d < Dh ? x[d] : 0.f;
     ss = fmaf(r[d], r[d], ss);
   }
-  if (!POINCARE) {
+  if (!RAW) {
     const float f = fmaxf(sqrtf(ss), kNormFloor);
 #pragma unroll
     for (int d = 0; d < DH; ++d) r[d] = r[d] / f;
@@ -116,19 +159,20 @@ __device__ __forceinline__ void axpy_smem(float e, const float* __restrict__ b,
   }
 }
 
-template <int DH, bool POINCARE>
+// the oblique forward (F): a thread per query row, each thread staging one
+// unit key and its value through its registers
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_mhgsa_fwd_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ val, float* __restrict__ out,
                        float* __restrict__ lse, int L, int S, int Dh,
-                       int row_tiles, poincare::Curv curv) {
+                       int row_tiles) {
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // [kTile][DH] unit (ball) keys
+  float* ks = smem;                       // [kTile][DH] unit keys
   float* vs = ks + kTile * DH;            // [kTile][DH] values
   float* ok = vs + kTile * DH;            // [kTile] 1 = valid key
-  float* y2 = ok + kTile;                 // [kTile] poincaré: ‖k_j‖²
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / row_tiles;
@@ -139,9 +183,8 @@ flash_mhgsa_fwd_kernel(const float* __restrict__ q,
   const float* valb = val ? val + (size_t)b * S : nullptr;
 
   float qh[DH];
-  float x2 = 0.f;
   if (row) {
-    x2 = load_row<DH, POINCARE>(q + ((size_t)b * L + i) * Dh, Dh, qh);
+    load_row<DH, false>(q + ((size_t)b * L + i) * Dh, Dh, qh);
   } else {
 #pragma unroll
     for (int d = 0; d < DH; ++d) qh[d] = 0.f;
@@ -157,8 +200,7 @@ flash_mhgsa_fwd_kernel(const float* __restrict__ q,
     if (t < n) {
       const int j = j0 + t;
       float kr[DH];
-      const float ss = load_row<DH, POINCARE>(kb + (size_t)j * Dh, Dh, kr);
-      if (POINCARE) y2[t] = ss;
+      load_row<DH, false>(kb + (size_t)j * Dh, Dh, kr);
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
         ks[t * DH + d] = kr[d];
@@ -171,10 +213,7 @@ flash_mhgsa_fwd_kernel(const float* __restrict__ q,
       for (int jj = 0; jj < n; ++jj) {
         if (ok[jj] == 0.f) continue;      // the same key for every thread
         const float g = dot_smem(qh, ks + jj * DH);
-        const float e = expf(
-            POINCARE
-                ? poincare::score(poincare::pair(g, x2, y2[jj], curv), curv)
-                : -acosf(fminf(fmaxf(g, -kClip), kClip)));
+        const float e = expf(-acosf(fminf(fmaxf(g, -kClip), kClip)));
         l += e;
         axpy_smem(e, vs + jj * DH, acc);
       }
@@ -190,41 +229,199 @@ flash_mhgsa_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DH, bool POINCARE>
+// e = exp(s) of one poincaré pair: fwd_weight (zc in IEEE fp32, the tail on
+// the SFU; C1 the curvature c = 1), or the IEEE epilogue in its timing
+// variant
+template <bool C1>
+__device__ __forceinline__ float poincare_weight(float g, float x2, float y2,
+                                                 const poincare::Curv& c) {
+#if STTODE_FLASH_FWD_IEEE_EPILOGUE
+  return expf(poincare::score(poincare::pair(g, x2, y2, c), c));
+#else
+  return poincare::fwd_weight<C1>(g, x2, y2, c);
+#endif
+}
+
+// resident blocks per SM the poincaré forward's launch bounds ask for: 8 at
+// DH ≤ 8 (64 registers a thread, no spills: 32 warps an SM), else 1
+__host__ __device__ constexpr int fwd_min_blocks(int dh) {
+  return STTODE_FLASH_FWD_MIN_BLOCKS ? STTODE_FLASH_FWD_MIN_BLOCKS
+                                     : dh <= 8 ? 8 : 1;
+}
+
+// the poincaré forward (3p): R query rows a thread (rows i0 + r·kThreads),
+// the ball keys, values and validity staged raw with cp.async, T at a time
+template <int DH, int R, bool C1>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(DH))
+flash_poincare_fwd_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ val,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int L, int S, int Dh, int row_tiles,
+                          poincare::Curv curv) {
+  constexpr int T = flash_tile::sweep_tile(DH);
+  extern __shared__ __align__(16) float smem[];
+  float* y2 = smem;                       // [T] ‖k_j‖² of the tile
+  float* ok = y2 + T;                     // [T] 1 = valid key
+  float* ks = ok + T;                     // [T][DH] ball keys
+  float* vs = ks + T * DH;                // [T][DH] values
+  float* vt = vs + T * DH;                // [T] validity, as staged
+
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / row_tiles;
+  const int i0 = (blockIdx.x % row_tiles) * kThreads * R + t;
+  const float* kb = k + (size_t)b * S * Dh;
+  const float* vb = v + (size_t)b * S * Dh;
+  const float* valb = val ? val + (size_t)b * S : nullptr;
+  const bool vec = flash_tile::vec_rows(kb, vb, Dh);
+
+  // R rows: the ball row, its x2, the running Σ e·v and Σ e
+  float qb[R][DH], acc[R][DH], x2[R], l[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    if (i < L) {
+      x2[r] = load_row<DH, true>(q + ((size_t)b * L + i) * Dh, Dh, qb[r]);
+      any = true;
+    } else {
+      x2[r] = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) qb[r][d] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < DH; ++d) acc[r][d] = 0.f;
+    l[r] = 0.f;
+  }
+
+  for (int j0 = 0; j0 < S; j0 += T) {
+    const int n = min(T, S - j0);
+#if STTODE_FLASH_FWD_REG_STAGING
+    if (t < n) {                          // thread t stages key j0 + t
+      const int j = j0 + t;
+      float kr[DH];
+      y2[t] = load_row<DH, true>(kb + (size_t)j * Dh, Dh, kr);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        ks[t * DH + d] = kr[d];
+        vs[t * DH + d] = d < Dh ? vb[(size_t)j * Dh + d] : 0.f;
+      }
+      ok[t] = (valb == nullptr || valb[j] > 0.f) ? 1.f : 0.f;
+    }
+    __syncthreads();
+#else
+    flash_tile::stage_rows<DH>(ks, kb + (size_t)j0 * Dh, n, Dh, vec);
+    flash_tile::stage_rows<DH>(vs, vb + (size_t)j0 * Dh, n, Dh, vec);
+    if (valb != nullptr && t < n)
+      flash_tile::cp_async(vt + t, valb + j0 + t, true, 4);
+    flash_tile::cp_async_commit();
+    flash_tile::cp_async_wait<0>();
+    __syncthreads();                      // the tile has landed
+    if (t < n) {
+      y2[t] = flash_tile::sq_norm_smem<DH>(ks + t * DH);
+      ok[t] = (valb == nullptr || vt[t] > 0.f) ? 1.f : 0.f;
+    }
+    __syncthreads();
+#endif
+    if (any) {
+      for (int jj = 0; jj < n; ++jj) {
+        if (ok[jj] == 0.f) continue;      // the same key for every thread
+        const float* kr = ks + jj * DH;
+        const float* vr = vs + jj * DH;
+        const float yj = y2[jj];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float e = poincare_weight<C1>(dot_smem(qb[r], kr), x2[r], yj,
+                                              curv);
+          l[r] += e;
+          axpy_smem(e, vr, acc[r]);
+        }
+      }
+    }
+    __syncthreads();                      // the tile is consumed
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    if (i >= L) continue;
+    const float lf = fmaxf(l[r], kDenFloor);
+    float* o = out + ((size_t)b * L + i) * Dh;
+#pragma unroll
+    for (int d = 0; d < DH; ++d)
+      if (d < Dh) o[d] = acc[r][d] / lf;
+    lse[(size_t)b * L + i] = logf(lf);
+  }
+}
+
+template <int DH>
 int launch(const float* q, const float* k, const float* v, const float* val,
-           float* out, float* lse, int B, int L, int S, int Dh, float c,
+           float* out, float* lse, int B, int L, int S, int Dh,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * kTile * DH + (POINCARE ? 2 : 1) * kTile);
-  cudaError_t err =
-      smem_attr::allow(flash_mhgsa_fwd_kernel<DH, POINCARE>, smem);
+  const size_t smem = sizeof(float) * (2 * kTile * DH + kTile);
+  cudaError_t err = smem_attr::allow(flash_mhgsa_fwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const int row_tiles = (L + kThreads - 1) / kThreads;
   const long long blocks = (long long)B * row_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_fwd_kernel<DH, POINCARE>
+  flash_mhgsa_fwd_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, val, out, lse, L, S, Dh, row_tiles);
+  return cudaGetLastError();
+}
+
+template <int DH, bool C1>
+int launch_poincare(const float* q, const float* k, const float* v,
+                    const float* val, float* out, float* lse, int B, int L,
+                    int S, int Dh, float c, cudaStream_t stream) {
+  constexpr int R = STTODE_FLASH_FWD_ROWS;
+  constexpr size_t smem =
+      sizeof(float) * flash_tile::sweep_tile(DH) * (2 * DH + 3);
+  cudaError_t err =
+      smem_attr::allow(flash_poincare_fwd_kernel<DH, R, C1>, smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (L + kThreads * R - 1) / (kThreads * R);
+  const long long blocks = (long long)B * row_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_poincare_fwd_kernel<DH, R, C1>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(
           q, k, v, val, out, lse, L, S, Dh, row_tiles,
           poincare::make_curv(c));
   return cudaGetLastError();
 }
 
-template <bool POINCARE>
 int dispatch(const float* q, const float* k, const float* v, const float* val,
-             float* out, float* lse, int B, int L, int S, int Dh, float c,
+             float* out, float* lse, int B, int L, int S, int Dh,
              cudaStream_t st) {
+  if (Dh <= 8) return launch<8>(q, k, v, val, out, lse, B, L, S, Dh, st);
+  if (Dh <= 16) return launch<16>(q, k, v, val, out, lse, B, L, S, Dh, st);
+  if (Dh <= 32) return launch<32>(q, k, v, val, out, lse, B, L, S, Dh, st);
+  if (Dh <= 64) return launch<64>(q, k, v, val, out, lse, B, L, S, Dh, st);
+  if (Dh <= 128) return launch<128>(q, k, v, val, out, lse, B, L, S, Dh, st);
+  return stream_fwd::launch<false>(q, k, v, nullptr, val, out, lse, B, L, S,
+                                   Dh, 1.f, st);
+}
+
+// C1: the curvature is 1 (fwd_weight's c = 1 form)
+template <bool C1>
+int dispatch_poincare(const float* q, const float* k, const float* v,
+                      const float* val, float* out, float* lse, int B, int L,
+                      int S, int Dh, float c, cudaStream_t st) {
   if (Dh <= 8)
-    return launch<8, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+    return launch_poincare<8, C1>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
   if (Dh <= 16)
-    return launch<16, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+    return launch_poincare<16, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
+                                   st);
   if (Dh <= 32)
-    return launch<32, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+    return launch_poincare<32, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
+                                   st);
   if (Dh <= 64)
-    return launch<64, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+    return launch_poincare<64, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
+                                   st);
   if (Dh <= 128)
-    return launch<128, POINCARE>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
-  return stream_fwd::launch<POINCARE>(q, k, v, nullptr, val, out, lse, B, L,
-                                      S, Dh, c, st);
+    return launch_poincare<128, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
+                                    st);
+  return stream_fwd::launch<true>(q, k, v, nullptr, val, out, lse, B, L, S,
+                                  Dh, c, st);
 }
 
 }  // namespace
@@ -244,7 +441,9 @@ extern "C" int flash_mhgsa_fwd(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return metric == 1
-             ? dispatch<true>(q, k, v, val, out, lse, B, L, S, Dh, c, st)
-             : dispatch<false>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
+  if (metric == 0) return dispatch(q, k, v, val, out, lse, B, L, S, Dh, st);
+  return c == 1.f ? dispatch_poincare<true>(q, k, v, val, out, lse, B, L, S,
+                                            Dh, c, st)
+                  : dispatch_poincare<false>(q, k, v, val, out, lse, B, L, S,
+                                             Dh, c, st);
 }

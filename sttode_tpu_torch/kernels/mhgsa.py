@@ -8,7 +8,9 @@ replaces, what bounds it on the H100 and what its design does about it:
   and ``csrc/mhgsa_bwd.cu``: every key of a problem is staged at once
   (``whole_s_smem_bytes``); where shared memory is too small the forward
   streams the keys, values and mask in tiles (any head dim) and the backward
-  stages in a device workspace; additive masks.
+  stages in a device workspace; at small S the forward and the oblique
+  backward run small-S modes (``small_s_mode``, ``small_bwd_mode``);
+  additive masks.
 - ``flash_geodesic_attention``, the S-tiled kernels
   ``csrc/flash_mhgsa_fwd.cu`` (forward, with the per-row lse) and
   ``csrc/flash_mhgsa_bwd.cu`` (the dq and the dk/dv sweeps, which replay
@@ -122,6 +124,49 @@ def small_fwd_layout(L: int, S: int, Dh: int) -> dict:
                    rows * slices * (DH + 1) if slices > 1 else 0)
     return dict(rows=rows, slices=slices, tile=tile, DH=DH,
                 blocks_per_problem=-(-L // rows), smem_bytes=smem)
+
+
+def small_bwd_layout(L: int, S: int, Dh: int) -> dict:
+    """The block layout of the oblique backward's small-S mode
+    (``csrc/small_bwd.cuh``, ``layout`` and ``smem_bytes`` there): one
+    block per problem of ``threads`` threads; pass 1 takes ``rows1`` query
+    rows at a time (lane = row) with the keys split into ``slices1`` slices
+    (key j ≡ slice mod slices1), pass 2 ``keys2`` keys at a time with the
+    rows split into ``slices2`` slices, within 1024 threads at Dh ≤ 8, 512
+    at 16, 256 at 32, halved while the block's shared memory would pass
+    ``SMEM_OPTIN_BYTES``; the template head dim ``DH`` (0 beyond the mode's
+    32) and the block's shared-memory bytes. At 128² × 8: 128 rows × 8
+    slices, then 128 keys × 8 slices, 1024 threads."""
+    DH = next((d for d in (8, 16, 32) if Dh <= d), 0)
+    p2 = lambda x: 1 << (max(x, 1) - 1).bit_length()  # noqa: E731
+
+    def of(nt):
+        rows1, keys2 = min(p2(L), nt), min(p2(S), nt)
+        slices1 = min(p2(-(-S // 4)), nt // rows1)
+        slices2 = min(p2(-(-L // 4)), nt // keys2)
+        n = max(rows1 * slices1, keys2 * slices2)
+        smem = 4 * (2 * (L + S) * (DH | 1) + 3 * L + S + n * (2 * DH + 3))
+        return dict(rows1=rows1, slices1=slices1, keys2=keys2,
+                    slices2=slices2, threads=-(-n // 32) * 32, DH=DH,
+                    smem_bytes=smem)
+
+    nt = 1024 if DH <= 8 else 512 if DH <= 16 else 256
+    lay = of(nt)
+    while nt > 32 and lay["smem_bytes"] > SMEM_OPTIN_BYTES:
+        nt //= 2
+        lay = of(nt)
+    return lay
+
+
+def small_bwd_mode(L: int, S: int, Dh: int) -> bool:
+    """Whether the oblique whole-S backward runs a problem in its small-S
+    mode (``csrc/small_bwd.cuh::mode``): where its staging fits shared
+    memory, within the measured crossover: at Dh ≤ 8 every S, at Dh ≤ 16
+    from S = 16, at Dh ≤ 32 from S = 32."""
+    lay = small_bwd_layout(L, S, Dh)
+    if lay["DH"] == 0 or lay["smem_bytes"] > SMEM_OPTIN_BYTES:
+        return False
+    return Dh <= 8 or (Dh <= 16 and S >= 16) or S >= 32
 
 
 def _unit(x: torch.Tensor):

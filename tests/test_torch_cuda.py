@@ -134,7 +134,15 @@ def _grad_check(got, want):
     dict(B=88, L=128, S=128, Dh=8, mask="none"),      # the training shape
     dict(B=64, L=8, S=8, Dh=8, mask="finfo_min"),     # agent axis
     dict(B=3, L=5, S=9, Dh=8, mask="all_excluded"),
-    dict(B=2, L=6, S=6, Dh=8, mask="identical_qk")])
+    dict(B=2, L=6, S=6, Dh=8, mask="identical_qk"),
+    dict(B=512, L=8, S=8, Dh=8, mask="finfo_min"),    # 64·8 agent-axis problems
+    dict(B=88, L=128, S=128, Dh=8, mask="all_excluded"),
+    # the small-S mode's row rounds (L > the block's threads), its
+    # bounds (S = 16 at Dh = 16) and the kernel of before just beyond them
+    dict(B=4, L=700, S=40, Dh=16, mask="all_excluded"),
+    dict(B=4, L=33, S=512, Dh=16, mask="finfo_min"),
+    dict(B=5, L=16, S=16, Dh=16, mask="finite"),
+    dict(B=5, L=12, S=8, Dh=16, mask="all_excluded")])
 def test_attention_backward_kernel_matches_plain(cuda_device, case):
     rng = np.random.default_rng(case["B"] + case["L"])
     B, L, S, Dh = case["B"], case["L"], case["S"], case["Dh"]
@@ -149,6 +157,8 @@ def test_attention_backward_kernel_matches_plain(cuda_device, case):
     elif case["mask"] == "all_excluded":
         mask = 2.0 * arr(B, L, S)
         mask[:, 0] = torch.finfo(torch.float32).min
+    elif case["mask"] == "finite":
+        mask = 3.0 * arr(B, L, S)
     elif case["mask"] == "identical_qk":
         k = q.clone()
     m3 = None if mask is None else tmhgsa._canonicalize_mask(mask)
@@ -171,11 +181,18 @@ def test_attention_backward_kernel_matches_plain(cuda_device, case):
     lead=tuple(int(x) for x in r.integers(1, 5, size=int(r.integers(1, 3)))),
     L=int(r.integers(1, 70)), S=int(r.integers(1, 70)),
     Dh=int(r.choice([1, 3, 5, 8, 13, 32, 33, 64])),
-    mask=str(r.choice(["none", "finite", "finfo_min"])))))
+    mask=str(r.choice(["none", "finite", "finfo_min"])))) + _sweep(
+    # both sides of the small-S mode's bounds (kernels.mhgsa.small_bwd_mode:
+    # Dh ≤ 8, Dh ≤ 16 from S = 16, Dh ≤ 32 from S = 32, within shared memory)
+    12, 23, lambda r: dict(
+        lead=(int(r.integers(1, 4)),), L=int(r.integers(1, 700)),
+        S=int(r.integers(1, 700)), Dh=int(r.choice([5, 8, 9, 16, 17, 32])),
+        mask=str(r.choice(["none", "finite", "finfo_min"])))))
 def test_attention_backward_kernel_randomized_sweep(cuda_device, case):
-    """Random shapes (odd head dims, L ≠ S, one leading dim or two) and mask
-    kinds: gradients of q, k, v and a mask that requires grad, through the
-    autograd Function, against the plain backward on the CPU."""
+    """Random shapes (odd head dims, L ≠ S, one leading dim or two; on both
+    sides of the small-S mode's bounds) and mask kinds: gradients of q, k, v
+    and a mask that requires grad, through the autograd Function, against
+    the plain backward on the CPU."""
     rng = np.random.default_rng(case["L"] * 137 + case["S"])
     lead, L, S, Dh = case["lead"], case["L"], case["S"], case["Dh"]
     arr = lambda *s: torch.from_numpy(  # noqa: E731
@@ -952,7 +969,16 @@ _POINCARE_FLASH_CASES = [
     dict(lead=(3,), L=129, S=257 if valid == "edge" else 129, Dh=Dh, c=c,
          valid=valid)
     for valid in ("edge", "close") for Dh in (8, 16, 64)
-    for c in (1.0, 0.7, 0.05)]
+    for c in (1.0, 0.7, 0.05)] + [
+    # the forward's register kernel at head dim 128, odd L (a thread's
+    # second row without a partner at Dh ≤ 16) and ragged validity
+    dict(lead=(3,), L=L, S=S, Dh=Dh, c=c,
+         valid="random" if L == 255 else "none")
+    for L, S in ((1, 257), (255, 300), (129, 127)) for Dh in (8, 16, 128)
+    for c in (1.0, 0.7, 0.05) if Dh == 128 or L == 255] + [
+    dict(lead=(3,), L=129, S=257 if valid == "edge" else 129, Dh=128, c=c,
+         valid=valid)
+    for valid in ("edge", "close") for c in (1.0, 0.7)]
 
 
 @pytest.mark.cuda
@@ -1017,6 +1043,11 @@ def test_poincare_flash_kernels_match_plain(cuda_device, case):
     _grad_check(got[1:], want[1:])
     if case["valid"] == "all_invalid":
         assert all(bool(torch.all(t[0] == 0)) for t in got)
+        with torch.no_grad():
+            _, lse_k = tmhgsa._flash_forward(q3, k3, v3, val, "poincare", c)
+        assert float((lse_k[0] - np.log(1e-30)).abs().max()) <= 1e-5
+        np.testing.assert_allclose(lse_k.cpu().numpy(), lse.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
