@@ -35,9 +35,9 @@ paths, then drives both paths at the full width of the repo's model
   phase 9  packed attention forward and backward kernels against their
            plain versions: the NBA recipe's 11 × 8 × 32 × 8 (q/k swapped),
            a key validity with an all-invalid problem (exact zeros),
-           L = S = 1, a rectangular case and H·Dh = 128 (the forward's
-           host µs per call beside its wrapper ms), the forward's
-           launch-path floor (one 1 × 1 × 8 problem); then both kernels
+           L = S = 1, a rectangular case and H·Dh = 128 (each kernel's
+           host µs per call beside its wrapper ms), both kernels'
+           launch-path floors (one 1 × 1 × 8 problem); then both kernels
            against kernels A and C at the recipe's shape and at L = S = 1;
   phase 10 the NBA reference recipe through the port's CLIs on synthetic
            NBA files: ``cli.train`` for 2 epochs (a checkpoint each), a
@@ -70,7 +70,8 @@ paths, then drives both paths at the full width of the repo's model
            their plain versions, on ball points: the whole-S forward and
            backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
            88 × 128² × 8, the forward with the agent-axis server's key mask
-           (the forward's host µs per call; its launch-path floor);
+           (host µs per call of the forward and the backward; their
+           launch-path floors);
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
            swapped) and 8 × 4096² × 64; the forward and the sweeps'
            general form at c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows
@@ -1225,16 +1226,30 @@ def main() -> int:
                     q, k, v, kv, do))
             h_us = host_us(
                 lambda: kp.packed_geodesic_attention(q, k, v, kv_valid=kv))
+            hb_us = host_us(lambda: kp.packed_geodesic_attention_backward(
+                q, k, v, kv, do))
         packed_times[name] = (fwd, bwd)
         print(f"packed {name}: forward max_abs_err {err:.3e}, kernel "
               f"{fwd[0]:.4f} ms (host {h_us:.1f} µs/call), plain "
               f"{fwd[1]:.4f} ms; backward max_abs_err "
               + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
-              + f", kernel {bwd[0]:.4f} ms, plain {bwd[1]:.4f} ms  [{card}]")
+              + f", kernel {bwd[0]:.4f} ms (host {hb_us:.1f} µs/call), "
+              f"plain {bwd[1]:.4f} ms  [{card}]")
     launch_floor(kp.packed_geodesic_attention,
                  (randn(1, 1, 1, 8), randn(1, 1, 1, 8), randn(1, 1, 1, 8)),
                  packed_cases["nba_recipe_q11x8x32x8_swapped"][:3], card,
                  "packed forward (P)")
+    # Q's floor, on inputs of their own generator (the later phases' inputs
+    # stay those of the script's one stream)
+    rng_q = np.random.default_rng(90)
+
+    def randn_q(*shape):
+        return torch.from_numpy(rng_q.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    launch_floor(lambda q, k, v, do: kp.packed_geodesic_attention_backward(
+        q, k, v, None, do), tuple(randn_q(1, 1, 1, 8) for _ in range(4)),
+        (*packed_cases["nba_recipe_q11x8x32x8_swapped"][:3],
+         randn_q(11, 8, 32, 8)), card, "packed backward (Q)")
 
     def flat3(x):
         return x.reshape(-1, *x.shape[-2:])
@@ -1720,12 +1735,15 @@ def main() -> int:
                     *args, need_dmask=need, **P))]
             h_us = host_us(lambda: km.fused_geodesic_attention(
                 q, k, v, mask=mask, **P))
+            hb_us = host_us(lambda: km.fused_geodesic_attention_backward(
+                *args, need_dmask=need, **P))
         ptimes[name] = t
         print(f"poincare whole-S {name}: max_abs_err " + ", ".join(
             f"{k_} {v_:.3e}" for k_, v_ in errs.items())
             + f"; forward kernel {t[0][0]:.4f} ms (host {h_us:.1f} µs/call) "
             f"plain {t[0][1]:.4f} ms, "
-            f"backward kernel {t[1][0]:.4f} ms plain {t[1][1]:.4f} ms; "
+            f"backward kernel {t[1][0]:.4f} ms (host {hb_us:.1f} µs/call) "
+            f"plain {t[1][1]:.4f} ms; "
             + ("device time not measured (no device time in the trace)"
                if None in us else
                "device µs/launch forward {:.2f}, backward {:.2f}".format(*us))
@@ -1734,6 +1752,19 @@ def main() -> int:
     launch_floor(lambda q, k, v: km.fused_geodesic_attention(q, k, v, **P),
                  (ball(1, 1, 1, 8), ball(1, 1, 1, 8), randn(1, 1, 1, 8)),
                  pcases[p32][:3], card, "poincare whole-S forward (1p)")
+    # 2p's floor, on inputs of their own generator
+    rng_2p = np.random.default_rng(91)
+
+    def randn_2p(*shape):
+        return torch.from_numpy(rng_2p.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    one2p = (to_ball(0.3 * randn_2p(1, 1, 8), C),
+             to_ball(0.3 * randn_2p(1, 1, 8), C), randn_2p(1, 1, 8), None,
+             randn_2p(1, 1, 8))
+    launch_floor(lambda *a: km.fused_geodesic_attention_backward(*a, **P),
+                 one2p, bwd_case(*pcases[p32][:3], None,
+                                 randn_2p(11, 8, 32, 8), (11, 8), 32, 32),
+                 card, "poincare whole-S backward (2p)")
 
     qf, kf = ball(88, 2304, 8), ball(88, 2304, 8)
     pf2304 = "nba_b2304_q11x8x2304x8_swapped"

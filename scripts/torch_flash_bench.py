@@ -1,21 +1,23 @@
 """Time the flash attention's register backward sweeps on one NVIDIA GPU.
 
     python3 scripts/torch_flash_bench.py [--rounds 6] [--cycles] [--out FILE]
+    python3 scripts/torch_flash_bench.py --parent DIR [--variants all|A,B]
+        [--passes 2] [--rounds 6] [--out FILE]
 
 Times the dq and dk/dv sweeps of ``csrc/flash_mhgsa_bwd.cu`` through their
 wrappers (``sttode_tpu_torch.kernels.mhgsa._launch_flash_dq`` and
 ``_launch_flash_dkv``: CUDA events around back-to-back calls, the median of
 ``--rounds`` samples) at the shapes of the port's paths: both metrics at the
 NBA recipe's B = 2304 (88 problems of 2304 × 2304 × 8, as the Q3 swap hands
-them over; poincaré at c = 1, the CLI's default, and at c = 0.7) and the
-poincaré sweeps at the long-context 8 × 4096² × 64. For each: the wrapper
-ms, the device µs per launch (the profiler's kernel time), the bound from
+them over; poincaré at c = 1, the CLI's default, and at c = 0.7) and both
+metrics at the long-context 8 × 4096² × 64. For each: the wrapper ms, the
+device µs per launch (the profiler's kernel time), the bound from
 ``chip_smoke.py``'s ``flash_dq_work`` and ``flash_dkv_work`` (operations at
 the fp32 peak, or bytes at the memory rate), and the max abs error against
 the plain version on the card (held to 5e-5 × max(1, max |g|), the port's
 attention-gradient tolerance). Poincaré inputs are ball points of norm ~0.5
 (the attention layer's map), the other operands standard normal, from a
-numpy seed. One JSON line per sweep and shape.
+numpy seed of the shape's name. One JSON line per sweep and shape.
 
 ``--cycles`` also builds a copy of the package (in the git-ignored
 ``.flash_bench/``, removed after) whose four register sweep kernels record
@@ -25,8 +27,27 @@ SM-cycles per pair (each SM's busy span, summed over SMs, over the pairs).
 
 It uses whichever ``sttode_tpu_torch`` (and ``chip_smoke.py``) the working
 directory holds, so running it from an unpacked parent checkout and from
-the repo in one call compares two commits. Exits non-zero without a CUDA
-device.
+the repo in one call compares two commits.
+
+``--parent DIR`` (an unpacked ``git archive`` of the parent commit: the
+card's machine has no ``.git``) compares in one call, each in a child
+process of its own (several kernel libraries in one process crashed on the
+card's machine): the parent, this checkout (``change``) and, with
+``--variants``, the oblique sweeps' variants of
+``scripts/torch_flash_variants.py``'s ``OBLIQUE_VARIANTS`` (``all`` or a
+comma list), each a build of this checkout's ``csrc/flash_mhgsa_bwd.cu``
+with its defines (one nvcc each, all started together with the change's
+and the parent's builds, in the git-ignored ``.flash_bench_cmp/``). The
+children run in the order parent, change, the variants, then reversed,
+``--passes`` times; parent and change time every shape, the ``rows*``
+variants the oblique shape at Dh ≤ 16 (the only one they change), the
+others both oblique shapes. Each child prints the registers and spills of
+the register sweep kernels (``-Xptxas -v``) and dumps its oblique B = 2304
+outputs (parent and change also kernels A, C and P at the paths' small
+shapes), so that the comparison says which builds give bit-identical
+outputs. The last lines are a summary per build, shape and sweep: the
+median of all its samples and the mean of its device µs. Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +61,8 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
+import zlib
 
 import numpy as np
 import torch
@@ -49,11 +72,22 @@ SHAPES = {
     "nba_b2304_88x2304x8": (88, 2304, 8, "oblique", 1.0),
     "nba_b2304_88x2304x8_poincare_c1": (88, 2304, 8, "poincare", 1.0),
     "nba_b2304_88x2304x8_poincare_c0.7": (88, 2304, 8, "poincare", 0.7),
+    "long_context_8x4096x64": (8, 4096, 64, "oblique", 1.0),
     "long_context_8x4096x64_poincare_c1": (8, 4096, 64, "poincare", 1.0),
 }
+RECIPE = "nba_b2304_88x2304x8"
 KERNELS = ("flash_mhgsa_dq_kernel", "flash_mhgsa_dkv_kernel",
            "flash_poincare_dq_kernel", "flash_poincare_dkv_kernel")
 NB = 1 << 16    # blocks recorded by --cycles
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORK = os.path.join(ROOT, ".flash_bench_cmp")
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, rounds, calls=5):
@@ -88,14 +122,34 @@ def device_us(fn, calls=5):
     return us / calls if us > 0 else None
 
 
+def ptxas(log: str):
+    """(kernel<template arguments>, registers, spill line) of each register
+    sweep kernel in an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel)I"
+                          r"((?:L[ib]\d+E)+)E", line)
+            name = m and m.group(1) + "<" + ", ".join(
+                v for _, v in re.findall(r"L([ib])(\d+)E", m.group(2))) + ">"
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((name, regs, spill))
+            name = None
+    return out
+
+
 def instrument(src: str) -> str:
     """The sweep kernels of flash_mhgsa_bwd.cu with a (smid, start, end)
     record per block: clock64() at the body's start and end, thread 0."""
     head = ("__device__ long long g_cyc[%d * 3];\n\n" % NB)
     src = src.replace("namespace {\n", head + "namespace {\n", 1)
     found = 0
-    for m in list(re.finditer(r"__global__ void __launch_bounds__\(kThreads\)"
-                              r"\n(\w+)\(", src))[::-1]:
+    for m in list(re.finditer(r"__global__ void __launch_bounds__\(kThreads"
+                              r"(?:, MINB)?\)\n(\w+)\(", src))[::-1]:
         if m.group(1) not in KERNELS:
             continue
         open_ = src.index("{", m.end())
@@ -127,11 +181,14 @@ def instrument(src: str) -> str:
         '  return err ? err : cudaMemset(p, 0, sizeof(g_cyc));\n}\n')
 
 
-def inputs(B, L, Dh, metric, c, rng, dev):
-    """The sweeps' operands: q, k (ball points of norm ~0.5 for poincaré),
-    v, do, the forward's out and lse, δ, the metric and c."""
+def inputs(name, dev):
+    """The sweeps' operands at shape ``name``, from a numpy seed of the name:
+    q, k (ball points of norm ~0.5 for poincaré), v, do, the forward's out
+    and lse, δ, the metric and c."""
     from sttode_tpu_torch.kernels import mhgsa as km
     from sttode_tpu_torch.nn.attention import to_ball
+    B, L, Dh, metric, c = SHAPES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, L, Dh))
                                     .astype(np.float32)).to(dev)
                    for _ in range(4))
@@ -151,13 +208,12 @@ def cycles_child(work) -> int:
         raise RuntimeError(f"imported {_build.__file__}, not the copy")
     lib = _build.load()
     lib.flash_bench_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    rng = np.random.default_rng(0)
     out = {}
     for name, (B, L, Dh, metric, c) in SHAPES.items():
         if B != 88:
             continue
         with torch.inference_mode():
-            a = inputs(B, L, Dh, metric, c, rng, torch.device("cuda"))
+            a = inputs(name, torch.device("cuda"))
             for part, fn in (("dq", km._launch_flash_dq),
                              ("dkv", km._launch_flash_dkv)):
                 fn(*a)
@@ -210,33 +266,15 @@ def cycles(root):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--rounds", type=int, default=6)
-    ap.add_argument("--cycles", action="store_true")
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--cycles-of", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_flash_bench: no CUDA device", file=sys.stderr)
-        return 2
-    if args.cycles_of:
-        return cycles_child(args.cycles_of)
-    root = os.getcwd()
-    sys.path.insert(0, root)
-    import chip_smoke as cs
-    from sttode_tpu_torch.kernels import mhgsa as km
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+def measure(cs, km, names, rounds, emit, outputs=None):
+    """Check each sweep at each shape against its plain version and time
+    it; emit one line each. ``outputs`` collects the recipe's oblique
+    outputs."""
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    lines = []
-    for name, (B, L, Dh, metric, c) in SHAPES.items():
+    for name in names:
+        B, L, Dh, metric, c = SHAPES[name]
         with torch.inference_mode():
-            a = inputs(B, L, Dh, metric, c, rng, dev)
+            a = inputs(name, dev)
             for part, fn, plain, work in (
                     ("dq", lambda: km._launch_flash_dq(*a),
                      lambda: (km.flash_dq_reference(*a),),
@@ -256,24 +294,234 @@ def main() -> int:
                         raise AssertionError(f"{name} {part}: max abs err "
                                              f"{e} > {tol}")
                     err = max(err, e)
+                if outputs is not None and name == RECIPE:
+                    outputs[part] = [g.cpu() for g in got]
                 del got, want
-                ms, samples = time_ms(fn, args.rounds)
+                ms, samples = time_ms(fn, rounds)
                 bnd = cs.bound(*work(B, L, L, Dh, False, metric),
                                cs.FP32_FLOP_PER_S)
-                line = {"shape": name, "sweep": part, "ms": ms,
-                        "ms_samples": samples, "device_us": device_us(fn),
-                        "bound_ms": bnd[0], "bound_by": bnd[1],
-                        "max_abs_err": err, "card": card}
-                lines.append(line)
-                print(json.dumps(line), flush=True)
+                emit(shape=name, sweep=part, ms=ms, ms_samples=samples,
+                     device_us=device_us(fn), bound_ms=bnd[0],
+                     bound_by=bnd[1], max_abs_err=err)
         del a
         torch.cuda.empty_cache()
+
+
+def small_outputs():
+    """Kernels A, C and P on seeded inputs at the paths' small shapes: A at
+    the bench recipe's 88 × 128² × 8 and masked at the agent axis's
+    64 × 8² × 8, C at 88 × 128² × 8, P at the NBA recipe's 11 × 8 × 32² × 8
+    with a key validity."""
+    from sttode_tpu_torch.kernels import mhgsa as km
+    from sttode_tpu_torch.kernels import packed_mhgsa as kp
+    rng = np.random.default_rng(11)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).cuda()
+    q, k, v, do = (randn(88, 128, 8) for _ in range(4))
+    qm, km_, vm = (randn(64, 8, 8, 8) for _ in range(3))
+    mask = torch.where(torch.from_numpy(rng.random((64, 8, 8, 8)) < 0.3)
+                       .cuda(), torch.finfo(torch.float32).min, 0.0)
+    qp, kp_, vp = (randn(11, 8, 32, 8) for _ in range(3))
+    kv = torch.from_numpy(rng.random((11, 32)) < 0.8).cuda().float()
+    with torch.inference_mode():
+        out = {"A": km.fused_geodesic_attention(q, k, v),
+               "A_masked": km.fused_geodesic_attention(qm, km_, vm,
+                                                       mask=mask),
+               "C": km.fused_geodesic_attention_backward(q, k, v, None, do),
+               "P": kp.packed_geodesic_attention(qp, kp_, vp, kv_valid=kv)}
+        torch.cuda.synchronize()
+    return {n: [t.cpu() for t in (o if isinstance(o, tuple) else (o,))
+                if t is not None] for n, o in out.items()}
+
+
+def child(args) -> int:
+    """One build's turn: this process imports the working directory's
+    package (or, with ``--lib``, points its sweeps' C entries at a variant's
+    library), times ``--shapes`` and dumps its outputs to ``--dump``."""
+    root = os.getcwd()
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from sttode_tpu_torch.kernels import _build
+    from sttode_tpu_torch.kernels import mhgsa as km
+
+    def emit(**rec):
+        print(json.dumps({"build": args.child, **rec}), flush=True)
+
+    if args.lib:
+        lib = ctypes.CDLL(args.lib)
+        for entry, attr in (("flash_mhgsa_dq", "_FLASH_DQ"),
+                            ("flash_mhgsa_dkv", "_FLASH_DKV")):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            getattr(km, attr).fn = fn
+    else:
+        with open(str(_build.build()) + ".log") as f:
+            for kern, regs, spill in ptxas(f.read()):
+                emit(ptxas=kern, registers=regs, spill=spill)
+    outputs = {}
+    measure(cs, km, args.shapes.split(","), args.rounds, emit, outputs)
+    if args.small:
+        outputs.update(small_outputs())
+    torch.save(outputs, args.dump)
+    return 0
+
+
+def compare(args) -> int:
+    """Parent, change and variants, each in child processes, in turns."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_flash_variants as fv
+    import torch_small_attn_bench as sab
+    from sttode_tpu_torch.kernels import _build
+
+    card = card_name()
+    lines = []
+
+    def emit(**rec):
+        rec["card"] = card
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    parent = os.path.abspath(args.parent)
+    if not os.path.isdir(os.path.join(parent, "sttode_tpu_torch")):
+        raise SystemExit(f"--parent {parent}: no sttode_tpu_torch there "
+                         f"(export it with git archive first)")
+    names = [] if not args.variants else (
+        list(fv.OBLIQUE_VARIANTS) if args.variants == "all"
+        else args.variants.split(","))
+    t0 = time.perf_counter()
+    # the parent's library, this checkout's and the variants' at once
+    pbuild = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "from sttode_tpu_torch.kernels import _build; _build.build()"],
+        cwd=parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    variants = {n: ([f"-DSTTODE_FLASH_BWD_{k}={v}" for k, v in
+                     fv.OBLIQUE_VARIANTS[n].items()], ["flash_mhgsa_bwd.cu"])
+                for n in names}
+    sab.build_variants(_build, variants, WORK, load=False)
+    _build.build()
+    out, _ = pbuild.communicate()
+    if pbuild.returncode:
+        raise RuntimeError(f"the parent's build failed:\n{out[-4000:]}")
+    emit(build_s=time.perf_counter() - t0)
+    for n in names:
+        with open(os.path.join(WORK, "variants", n, "build.log")) as f:
+            for kern, regs, spill in ptxas(f.read()):
+                if kern.startswith("flash_mhgsa"):
+                    emit(build=n, ptxas=kern, registers=regs, spill=spill)
+
+    oblique = [n for n, s in SHAPES.items() if s[3] == "oblique"]
+    os.makedirs(WORK, exist_ok=True)
+
+    def run(name, p):
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", name,
+               "--rounds", str(args.rounds),
+               "--dump", os.path.join(WORK, f"{name}.{p}.pt")]
+        if name in ("parent", "change"):
+            cmd += ["--shapes", ",".join(SHAPES), "--small"]
+        else:
+            cmd += ["--lib", sab.variant_path(WORK, name), "--shapes",
+                    ",".join(s for s in oblique if not name.startswith("rows")
+                             or SHAPES[s][2] <= 16)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=parent if name == "parent" else ROOT)
+        if proc.returncode:
+            raise RuntimeError(f"child {name}:\n{proc.stdout}\n"
+                               f"{proc.stderr[-4000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                if "ptxas" in rec and p:
+                    continue
+                emit(**rec, **({} if "ptxas" in rec else {"pass": p}))
+
+    order = ["parent", "change", *names]
+    for p in range(args.passes):
+        for name in (order if p % 2 == 0 else order[::-1]):
+            run(name, p)
+
+    # which builds give bit-identical outputs (first pass)
+    dumps = {n: torch.load(os.path.join(WORK, f"{n}.0.pt")) for n in order}
+    for n in order[1:]:
+        for key in dumps[n]:
+            if key not in dumps["parent"]:
+                continue
+            diff = max(float((a - b).abs().max()) for a, b in
+                       zip(dumps[n][key], dumps["parent"][key]))
+            emit(identical_to_parent=n, output=key, max_abs_diff=diff,
+                 bitwise=all(torch.equal(a, b) for a, b in
+                             zip(dumps[n][key], dumps["parent"][key])))
+    for n in order[2:]:
+        for key in dumps[n]:
+            emit(identical_to_change=n, output=key, bitwise=all(
+                torch.equal(a, b) for a, b in
+                zip(dumps[n][key], dumps["change"][key])))
+
+    # the summary: every sample of a build, shape and sweep over the passes
+    runs = {}
+    for rec in lines:
+        if "ms_samples" in rec:
+            runs.setdefault((rec["build"], rec["shape"], rec["sweep"]),
+                            []).append(rec)
+    for (b, shape, part), recs in runs.items():
+        samples = [x for r in recs for x in r["ms_samples"]]
+        dev = [r["device_us"] for r in recs if r["device_us"] is not None]
+        emit(summary=b, shape=shape, sweep=part,
+             ms=statistics.median(samples),
+             device_us=sum(dev) / len(dev) if dev else None,
+             bound_ms=recs[0]["bound_ms"])
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(json.dumps(x) for x in lines) + "\n")
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--cycles", action="store_true")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--variants", default=None)
+    ap.add_argument("--passes", type=int, default=2)
+    ap.add_argument("--cycles-of", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lib", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--small", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--dump", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_flash_bench: no CUDA device", file=sys.stderr)
+        return 2
+    if args.cycles_of:
+        return cycles_child(args.cycles_of)
+    if args.child:
+        return child(args)
+    if args.parent:
+        return compare(args)
+    root = os.getcwd()
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from sttode_tpu_torch.kernels import mhgsa as km
+
+    card = card_name()
+    lines = []
+
+    def emit(**rec):
+        rec["card"] = card
+        lines.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    measure(cs, km, list(SHAPES), args.rounds, emit)
     if args.cycles:
-        cyc = cycles(root)
-        for key, rec in cyc.items():
-            line = {"cycles": key, **rec, "card": card}
-            lines.append(line)
-            print(json.dumps(line), flush=True)
+        for key, rec in cycles(root).items():
+            emit(cycles=key, **rec)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(json.dumps(x) for x in lines) + "\n")

@@ -1,12 +1,31 @@
-"""Write copies of the port that each take one part out of the poincaré
-flash backward sweeps' design, to time each part alone.
+"""Write copies of the port that each take one part out of the flash
+backward sweeps' design, to time each part alone.
 
     python3 scripts/torch_flash_variants.py DEST
 
 Each variant is a directory ``DEST/<name>`` holding ``chip_smoke.py`` and a
 copy of ``sttode_tpu_torch`` whose ``csrc/flash_mhgsa_bwd.cu``,
 ``csrc/flash_tile.cuh`` or ``csrc/poincare.cuh`` differs from the working
-tree's in one respect:
+tree's in one respect. The oblique register sweeps' variants
+(``OBLIQUE_VARIANTS``, named ``oblique_<name>`` here) set the compile-time
+defines of ``flash_mhgsa_bwd.cu``, off by default:
+
+- ``ieee_epilogue``: acosf, expf and rsqrtf, the sweeps' arithmetic of
+  before, in place of ``oblique::sweep_p``
+  (``STTODE_FLASH_BWD_IEEE_EPILOGUE``);
+- ``reg_staging``: each row of the other axis staged through a thread's
+  registers and normalized there, in place of cp.async
+  (``STTODE_FLASH_BWD_REG_STAGING``);
+- ``rows<R>_minb<M>``: at head dims up to 16, R rows (dq) or keys (dk/dv)
+  a thread and launch bounds asking for M resident blocks an SM, which
+  caps the registers at 65,536 / (128·M) (``STTODE_FLASH_BWD_ROWS``,
+  ``STTODE_FLASH_BWD_MIN_BLOCKS``; M = 1: no cap).
+
+``scripts/torch_flash_bench.py --variants`` builds these from the working
+tree's sources alone (one nvcc of ``flash_mhgsa_bwd.cu`` each) and times
+them in child processes; the copies here serve a run of the whole package.
+
+The poincaré sweeps' variants:
 
 - ``ring2``: a ring of two stages, so that the next tile's copies overlap
   this tile's pairs;
@@ -46,6 +65,22 @@ IEEE_GRAD = """  const Pair pp = pair(g, x2, y2, k);
 }
 """
 
+# the oblique register sweeps' variants: name → {define suffix: value}
+# (-DSTTODE_FLASH_BWD_<suffix>=<value>)
+OBLIQUE_VARIANTS = {
+    "ieee_epilogue": {"IEEE_EPILOGUE": 1},
+    "reg_staging": {"REG_STAGING": 1},
+    **{f"rows{r}_minb{m}": {"ROWS": r, "MIN_BLOCKS": m}
+       for r in (1, 2) for m in (1, 4, 6, 8)},
+}
+
+
+def oblique_patches(defines: dict) -> list:
+    """(file, text, replacement) patches that turn the defines' defaults."""
+    return [(BWD, f"#define STTODE_FLASH_BWD_{k} 0",
+             f"#define STTODE_FLASH_BWD_{k} {v}") for k, v in defines.items()]
+
+
 # name: [(file, text, replacement), ...]
 VARIANTS = {
     "ring2": [(BWD, "constexpr int kStages = 1;",
@@ -62,6 +97,8 @@ VARIANTS = {
                   "flash_poincare_dkv_kernel(",
                   "__global__ void __launch_bounds__(kThreads, DH <= 8 ? 4 : 1)"
                   "\nflash_poincare_dkv_kernel(")],
+    **{f"oblique_{name}": oblique_patches(defs)
+       for name, defs in OBLIQUE_VARIANTS.items()},
 }
 
 

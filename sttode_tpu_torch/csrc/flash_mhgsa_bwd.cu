@@ -34,27 +34,43 @@
 // poincaré epilogue and its VJP, their metric "poincare", add ~25 per pair
 // and sweep): bound by operations, ~0.9 ms at the fp32 peak; in practice
 // by issuing each pair's epilogue, whose instructions outnumber its FMAs
-// at Dh = 8. On the TPU each sweep is a grid whose innermost axis runs in
-// order and carries the sum in VMEM scratch; on Hopper blocks run in
-// parallel, so each sweep gives a thread its own output rows and loops over
-// the other axis inside the block, and nothing needs atomics or anything of
-// size L·S:
-//   dq sweep: a block per (problem, 128 query rows), a thread per query row
-//     i holding q̂_i, do_i and dq̂_i in registers; the keys are normalized
-//     and staged with their values and validity 128 at a time in shared
-//     memory and read as broadcasts; the q-side normalize VJP ends the row;
-//   dk/dv sweep: a block per (problem, 128 keys), a thread per key j holding
-//     k̂_j, v_j, dk̂_j and dv_j in registers; the unit query rows, do, lse
-//     and δ are staged 128 at a time; the k-side normalize VJP ends the key;
+// at Dh = 8 (24 in the dq sweep, 32 in the dk/dv sweep). On the TPU each
+// sweep is a grid whose innermost axis runs in order and carries the sum in
+// VMEM scratch; on Hopper blocks run in parallel, so each sweep gives a
+// thread its own output rows and loops over the other axis inside the
+// block, and nothing needs atomics or anything of size L·S:
+//   dq sweep: a block per (problem, 128·R query rows), a thread per R query
+//     rows i holding q̂_i, do_i and dq̂_i in registers; the keys, values and
+//     validity are staged a tile at a time in shared memory and read as
+//     broadcasts; the q-side normalize VJP ends each row;
+//   dk/dv sweep: a block per (problem, 128·R keys), a thread per R keys j
+//     holding k̂_j, v_j, dk̂_j and dv_j in registers; the query rows, do,
+//     lse and δ are staged a tile at a time; the k-side normalize VJP ends
+//     each key;
+// the oblique register sweeps (flash_mhgsa_dq_kernel, _dkv_kernel),
+// redesigned for the H100:
+//   - the epilogue is the TPU kernel's own, oblique.cuh's sweep_p: the
+//     A&S 4.4.46 acos with √(1 − |gc|) as x·rsqrt(x), p = exp(−acos − lse)
+//     as one ex2 with the row's lse·log2 e folded once a row, and the gate
+//     rsqrt(max(1 − gc², 1e-12)) of the unclipped g: three MUFU ops and
+//     seven polynomial FMAs a pair, where acosf and expf are long,
+//     branchy IEEE sequences;
+//   - the other axis is staged raw with cp.async (flash_tile.cuh) and each
+//     staged row's unit form computed from shared memory once the tile has
+//     landed, a thread a row, dividing by max(‖x‖, 1e-12) as to_unit does;
+//   - two rows (keys) a thread at DH ≤ 16, so that each staged row read
+//     from shared memory serves two pairs and the rows' independent
+//     epilogue chains hide the MUFU latency, with no register cap: the
+//     fastest measured (oblique_rows, oblique_min_blocks; PERF.md §6);
 //   poincaré (flash_poincare_dq_kernel, flash_poincare_dkv_kernel, below):
 //     the same with ball rows and their x2 / y2, the running dx2 / dy2, and
 //     the design the section before them describes (two rows per thread,
 //     cp.async staging, the SFU epilogue of poincare.cuh); the 2·dx2_i·q_i
 //     (2·dy2_j·k_j) term ends the row (key).
 // fp32 FMAs throughout, no TF32 (acos' amplifies Gram error near ±1; the
-// poincaré x2 − 2g + y2 cancels for close points). The oblique gate takes
-// rsqrtf(max(1 − gc², 1e-12)), so q = k rows (g ≈ 1) get an exactly zero,
-// finite gradient; poincaré q = k rows stay finite through n ≥ √1e-15; an
+// poincaré x2 − 2g + y2 cancels for close points). The oblique gate is 0
+// outside the clip, so q = k rows (g ≈ 1) get an exactly zero, finite
+// gradient; poincaré q = k rows stay finite through n ≥ √1e-15; an
 // invalid key has p ≡ 0 and zero dk and dv; a row with no valid key gets
 // dq = 0. These register kernels hold the head dim rounded up to
 // 8/16/32/64/128; a head dim above 128 (JAX pads any Dh to a multiple of
@@ -65,14 +81,33 @@
 #include <math.h>
 
 #include "flash_tile.cuh"
+#include "oblique.cuh"
 #include "poincare.cuh"
 #include "smem_attr.cuh"
 
+// timing variants of the oblique register sweeps' design (see
+// scripts/torch_flash_bench.py): the IEEE epilogue (acosf, expf, rsqrtf, the
+// kernels' arithmetic of before) in place of oblique.cuh's; the other axis
+// staged through the threads' registers, normalized there, in place of
+// cp.async; and at DH ≤ 16 the rows (dq) or keys (dk/dv) a thread owns and
+// the launch bounds' minimum of resident blocks an SM, which caps the
+// registers (0: the design's, oblique_rows and oblique_min_blocks)
+#ifndef STTODE_FLASH_BWD_IEEE_EPILOGUE
+#define STTODE_FLASH_BWD_IEEE_EPILOGUE 0
+#endif
+#ifndef STTODE_FLASH_BWD_REG_STAGING
+#define STTODE_FLASH_BWD_REG_STAGING 0
+#endif
+#ifndef STTODE_FLASH_BWD_ROWS
+#define STTODE_FLASH_BWD_ROWS 0
+#endif
+#ifndef STTODE_FLASH_BWD_MIN_BLOCKS
+#define STTODE_FLASH_BWD_MIN_BLOCKS 0
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;          // output rows per block
-constexpr int kTile = kThreads;        // rows of the other axis per step
-constexpr float kClip = 0.9999f;       // 1 - 1e-4
+constexpr int kThreads = flash_tile::kThreads;   // row slots per block
 constexpr float kNormFloor = 1e-12f;
 
 template <int DH>
@@ -133,10 +168,11 @@ __device__ __forceinline__ void axpy_smem(float e, const float* __restrict__ b,
   }
 }
 
-// (p, dg) of one pair from its Gram entry, the row's lse and δ and the pair's
-// do·v: the replayed probability and the score-Gram cotangent. Poincaré
-// also takes the pair's x2 and y2 and returns in (a, b) what the squared
-// norms' cotangents gather (poincare::grad).
+// (p, dg) of one pair of the wide sweeps from its Gram entry, the row's lse
+// and δ and the pair's do·v: the replayed probability and the score-Gram
+// cotangent, in IEEE fp32 (the oblique one oblique.cuh's IEEE form).
+// Poincaré also takes the pair's x2 and y2 and returns in (a, b) what the
+// squared norms' cotangents gather (poincare::grad).
 template <bool POINCARE>
 __device__ __forceinline__ void pair_grad(float g, float x2, float y2,
                                           float lse, float delta, float dp,
@@ -148,10 +184,8 @@ __device__ __forceinline__ void pair_grad(float g, float x2, float y2,
     *p = expf(poincare::score(pp, curv) - lse);
     *dg = poincare::grad(pp, *p * (dp - delta), curv, a, b);
   } else {
-    const float gc = fminf(fmaxf(g, -kClip), kClip);
-    *p = expf(-acosf(gc) - lse);
-    const float gate =
-        fabsf(g) < kClip ? rsqrtf(fmaxf(1.f - gc * gc, 1e-12f)) : 0.f;
+    float gate;
+    *p = oblique::sweep_p<true>(g, lse, &gate);
     *dg = *p * (dp - delta) * gate;
   }
 }
@@ -171,8 +205,59 @@ __device__ __forceinline__ void finish_row(const float (&dxh)[DH],
     if (d < Dh) out[d] = (dxh[d] - xh[d] * r) / f;
 }
 
+using flash_tile::cp_async;
+using flash_tile::cp_async_commit;
+using flash_tile::cp_async_wait;
+using flash_tile::sq_norm_smem;
+using flash_tile::stage_rows;
+using flash_tile::sweep_rows;
+using flash_tile::sweep_tile;
+using flash_tile::vec_rows;
+
+// rows (dq) or keys (dk/dv) an oblique sweep's thread owns, and the minimum
+// of resident blocks an SM its launch bounds ask for: the fastest measured
+// at the NBA recipe's 88 × 2304² × 8 (PERF.md §6): two rows a thread
+// at DH ≤ 16, flash_tile::sweep_rows as in the poincaré sweeps, and no
+// minimum (a cap of 4 to 8 blocks an SM, 128 to 64 registers, measured
+// level or slower: it trades the rows' independent chains for occupancy);
+// a timing variant's defines set them at DH ≤ 16
+constexpr int oblique_rows(int dh) {
+  return dh <= 16 && STTODE_FLASH_BWD_ROWS ? STTODE_FLASH_BWD_ROWS
+                                           : sweep_rows(dh);
+}
+
+constexpr int oblique_min_blocks(int dh) {
+  return dh <= 16 && STTODE_FLASH_BWD_MIN_BLOCKS ? STTODE_FLASH_BWD_MIN_BLOCKS
+                                                 : 1;
+}
+
+// floats of shared memory of an oblique sweep: a [T][DH] tile of rows of
+// the other axis, its second [T][DH] array (values, or do rows) and two [T]
+// arrays (validity as staged and as used, or lse and δ)
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t oblique_sweep_floats() {
+  return (size_t)sweep_tile(DH) * (2 * DH + 2);
+}
+
+// scale a 16-byte aligned row of shared memory to unit norm (floored), as
+// to_unit does in registers
+template <int DH>
+__device__ __forceinline__ void unit_smem(float* __restrict__ x) {
+  const float f = fmaxf(sqrtf(sq_norm_smem<DH>(x)), kNormFloor);
+  float4* x4 = reinterpret_cast<float4*>(x);
+#pragma unroll
+  for (int d = 0; d < DH / 4; ++d) {
+    float4 u = x4[d];
+    u.x = u.x / f;
+    u.y = u.y / f;
+    u.z = u.z / f;
+    u.w = u.w / f;
+    x4[d] = u;
+  }
+}
+
+template <int DH, int R, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ val,
@@ -180,69 +265,100 @@ flash_mhgsa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
                       int L, int S, int Dh, int row_tiles) {
+  constexpr bool IEEE = STTODE_FLASH_BWD_IEEE_EPILOGUE;
+  constexpr int T = sweep_tile(DH);
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // [kTile][DH] unit keys
-  float* vs = ks + kTile * DH;            // [kTile][DH] values
-  float* ok = vs + kTile * DH;            // [kTile] 1 = valid key
+  float* ks = smem;                       // [T][DH] unit keys
+  float* vs = ks + T * DH;                // [T][DH] values
+  float* vt = vs + T * DH;                // [T] validity, as staged
+  float* ok = vt + T;                     // [T] 1 = valid key
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / row_tiles;
-  const int i = (blockIdx.x % row_tiles) * kThreads + t;
-  const bool row = i < L;
-  const size_t ri = (size_t)b * L + i;
+  const int i0 = (blockIdx.x % row_tiles) * kThreads * R + t;
   const float* kb = k + (size_t)b * S * Dh;
   const float* vb = v + (size_t)b * S * Dh;
   const float* valb = val ? val + (size_t)b * S : nullptr;
+  const bool vec = vec_rows(kb, vb, Dh);
 
-  float qh[DH], dor[DH];
-  float li = 0.f, di = 0.f;
-  if (row) {
-    load_row(q + ri * Dh, Dh, qh);
-    load_row(dout + ri * Dh, Dh, dor);
-    li = lse[ri];
-    di = delta[ri];
-  } else {
+  // R rows i0 + r·kThreads: q̂_i, do_i, the row's lse·log2 e and δ, dq̂_i
+  float qh[R][DH], dor[R][DH], dqh[R][DH], qn[R], lr[R], di[R];
+  bool any = false;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qh[d] = dor[d] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    const size_t ri = (size_t)b * L + i;
+    lr[r] = di[r] = 0.f;
+    if (i < L) {
+      load_row(q + ri * Dh, Dh, qh[r]);
+      load_row(dout + ri * Dh, Dh, dor[r]);
+      lr[r] = oblique::sweep_row<IEEE>(lse[ri]);
+      di[r] = delta[ri];
+      any = true;
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; ++d) qh[r][d] = dor[r][d] = 0.f;
+    }
+    qn[r] = to_unit(qh[r]);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dqh[r][d] = 0.f;
   }
-  const float qn = to_unit(qh);
-  float dqh[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dqh[d] = 0.f;
 
-  for (int j0 = 0; j0 < S; j0 += kTile) {
-    const int n = min(kTile, S - j0);
-    __syncthreads();                      // the previous tile is consumed
-    if (t < n) {
+  for (int j0 = 0; j0 < S; j0 += T) {
+    const int n = min(T, S - j0);
+#if STTODE_FLASH_BWD_REG_STAGING
+    if (t < n) {                          // thread t stages key j0 + t
       const int j = j0 + t;
-      float r[DH];
-      load_row(kb + (size_t)j * Dh, Dh, r);
-      to_unit(r);
+      float x[DH];
+      load_row(kb + (size_t)j * Dh, Dh, x);
+      to_unit(x);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) ks[t * DH + d] = r[d];
-      load_row(vb + (size_t)j * Dh, Dh, r);
+      for (int d = 0; d < DH; ++d) ks[t * DH + d] = x[d];
+      load_row(vb + (size_t)j * Dh, Dh, x);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) vs[t * DH + d] = r[d];
+      for (int d = 0; d < DH; ++d) vs[t * DH + d] = x[d];
       ok[t] = (valb == nullptr || valb[j] > 0.f) ? 1.f : 0.f;
     }
+#else
+    stage_rows<DH>(ks, kb + (size_t)j0 * Dh, n, Dh, vec);
+    stage_rows<DH>(vs, vb + (size_t)j0 * Dh, n, Dh, vec);
+    if (valb != nullptr && t < n) cp_async(vt + t, valb + j0 + t, true, 4);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();                      // the tile has landed
+    if (t < n) {
+      unit_smem<DH>(ks + t * DH);
+      ok[t] = (valb == nullptr || vt[t] > 0.f) ? 1.f : 0.f;
+    }
+#endif
     __syncthreads();
-    if (row) {
+    if (any) {
       for (int jj = 0; jj < n; ++jj) {
         if (ok[jj] == 0.f) continue;      // the same key for every thread
         const float* kr = ks + jj * DH;
-        float p, dg, a = 0.f, bb = 0.f;
-        pair_grad<false>(dot_smem(qh, kr), 0.f, 0.f, li, di,
-                         dot_smem(dor, vs + jj * DH), poincare::Curv{}, &p,
-                         &dg, &a, &bb);
-        axpy_smem(dg, kr, dqh);
+        const float* vr = vs + jj * DH;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float gate;
+          const float p = oblique::sweep_p<IEEE>(dot_smem(qh[r], kr), lr[r],
+                                                 &gate);
+          const float dg = p * (dot_smem(dor[r], vr) - di[r]) * gate;
+          axpy_smem(dg, kr, dqh[r]);
+        }
       }
     }
+    __syncthreads();                      // the tile is consumed
   }
-  if (row) finish_row<DH>(dqh, qh, qn, Dh, dq + ri * Dh);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    if (i < L)
+      finish_row<DH>(dqh[r], qh[r], qn[r], Dh, dq + ((size_t)b * L + i) * Dh);
+  }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+template <int DH, int R, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
@@ -252,68 +368,109 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int L,
                        int S, int Dh, int col_tiles) {
+  constexpr bool IEEE = STTODE_FLASH_BWD_IEEE_EPILOGUE;
+  constexpr int T = sweep_tile(DH);
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [kTile][DH] unit query rows
-  float* ds = qs + kTile * DH;            // [kTile][DH] their do rows
-  float* ls = ds + kTile * DH;            // [kTile] lse
-  float* dl = ls + kTile;                 // [kTile] δ
+  float* qs = smem;                       // [T][DH] unit query rows
+  float* ds = qs + T * DH;                // [T][DH] their do rows
+  float* ls = ds + T * DH;                // [T] lse, then its lse·log2 e
+  float* dl = ls + T;                     // [T] δ
 
   const int t = threadIdx.x;
   const int b = blockIdx.x / col_tiles;
-  const int j = (blockIdx.x % col_tiles) * kThreads + t;
-  const bool col = j < S;
-  const size_t rj = (size_t)b * S + j;
-  const size_t qo = (size_t)b * L;
-  const bool live = col && (val == nullptr || val[rj] > 0.f);
+  const int j0 = (blockIdx.x % col_tiles) * kThreads * R + t;
+  const float* qb = q + (size_t)b * L * Dh;
+  const float* db = dout + (size_t)b * L * Dh;
+  const bool vec = vec_rows(qb, db, Dh);
 
-  float kh[DH], vr[DH];
-  if (col) {
-    load_row(k + rj * Dh, Dh, kh);
-    load_row(v + rj * Dh, Dh, vr);
-  } else {
+  // R keys j0 + r·kThreads: k̂_j, v_j and the running dk̂_j and dv_j
+  float kh[R][DH], vr[R][DH], dkh[R][DH], dva[R][DH], kn[R];
+  bool live[R], any = false;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) kh[d] = vr[d] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r * kThreads;
+    const size_t rj = (size_t)b * S + j;
+    live[r] = j < S && (val == nullptr || val[rj] > 0.f);
+    any |= live[r];
+    if (j < S) {
+      load_row(k + rj * Dh, Dh, kh[r]);
+      load_row(v + rj * Dh, Dh, vr[r]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; ++d) kh[r][d] = vr[r][d] = 0.f;
+    }
+    kn[r] = to_unit(kh[r]);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dkh[r][d] = dva[r][d] = 0.f;
   }
-  const float kn = to_unit(kh);
-  float dkh[DH], dvr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dkh[d] = dvr[d] = 0.f;
 
-  for (int i0 = 0; i0 < L; i0 += kTile) {
-    const int n = min(kTile, L - i0);
-    __syncthreads();                      // the previous tile is consumed
-    if (t < n) {
-      const size_t ri = qo + i0 + t;
-      float r[DH];
-      load_row(q + ri * Dh, Dh, r);
-      to_unit(r);
+  for (int i0 = 0; i0 < L; i0 += T) {
+    const int n = min(T, L - i0);
+#if STTODE_FLASH_BWD_REG_STAGING
+    if (t < n) {                          // thread t stages row i0 + t
+      const size_t ri = (size_t)b * L + i0 + t;
+      float x[DH];
+      load_row(q + ri * Dh, Dh, x);
+      to_unit(x);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) qs[t * DH + d] = r[d];
-      load_row(dout + ri * Dh, Dh, r);
+      for (int d = 0; d < DH; ++d) qs[t * DH + d] = x[d];
+      load_row(dout + ri * Dh, Dh, x);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) ds[t * DH + d] = r[d];
-      ls[t] = lse[ri];
+      for (int d = 0; d < DH; ++d) ds[t * DH + d] = x[d];
+      ls[t] = oblique::sweep_row<IEEE>(lse[ri]);
       dl[t] = delta[ri];
     }
+#else
+    stage_rows<DH>(qs, qb + (size_t)i0 * Dh, n, Dh, vec);
+    stage_rows<DH>(ds, db + (size_t)i0 * Dh, n, Dh, vec);
+    if (t < n) {
+      const size_t ri = (size_t)b * L + i0 + t;
+      cp_async(ls + t, lse + ri, true, 4);
+      cp_async(dl + t, delta + ri, true, 4);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();                      // the tile has landed
+    if (t < n) {
+      unit_smem<DH>(qs + t * DH);
+      ls[t] = oblique::sweep_row<IEEE>(ls[t]);
+    }
+#endif
     __syncthreads();
-    if (live) {
+    if (any) {
       for (int ii = 0; ii < n; ++ii) {
         const float* qr = qs + ii * DH;
         const float* dr = ds + ii * DH;
-        float p, dg, a = 0.f, bb = 0.f;
-        pair_grad<false>(dot_smem(kh, qr), 0.f, 0.f, ls[ii], dl[ii],
-                         dot_smem(vr, dr), poincare::Curv{}, &p, &dg, &a,
-                         &bb);
-        axpy_smem(p, dr, dvr);
-        axpy_smem(dg, qr, dkh);
+        const float li = ls[ii], di = dl[ii];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float gate;
+          const float p = oblique::sweep_p<IEEE>(dot_smem(kh[r], qr), li,
+                                                 &gate);
+          const float dg = p * (dot_smem(vr[r], dr) - di) * gate;
+          axpy_smem(p, dr, dva[r]);
+          axpy_smem(dg, qr, dkh[r]);
+        }
       }
     }
+    __syncthreads();                      // the tile is consumed
   }
-  if (col) {
-    finish_row<DH>(dkh, kh, kn, Dh, dk + rj * Dh);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r * kThreads;
+    if (j >= S) continue;
+    const size_t rj = (size_t)b * S + j;
+    // an invalid key has p ≡ 0: exact zeros
+    if (live[r]) {
+      finish_row<DH>(dkh[r], kh[r], kn[r], Dh, dk + rj * Dh);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; ++d)
+        if (d < Dh) dk[rj * Dh + d] = 0.f;
+    }
 #pragma unroll
     for (int d = 0; d < DH; ++d)
-      if (d < Dh) dv[rj * Dh + d] = dvr[d];
+      if (d < Dh) dv[rj * Dh + d] = live[r] ? dva[r][d] : 0.f;
   }
 }
 
@@ -341,15 +498,6 @@ flash_mhgsa_dkv_kernel(const float* __restrict__ q,
 // flash_tile.cuh's, which the poincaré forward shares.
 
 constexpr int kStages = 1;
-
-using flash_tile::cp_async;
-using flash_tile::cp_async_commit;
-using flash_tile::cp_async_wait;
-using flash_tile::sq_norm_smem;
-using flash_tile::stage_rows;
-using flash_tile::sweep_rows;
-using flash_tile::sweep_tile;
-using flash_tile::vec_rows;
 
 // floats of shared memory of a poincaré sweep: the ring's stages, each two
 // [T][DH] arrays and `scalars` [T] arrays staged raw, and two [T] arrays
@@ -917,23 +1065,22 @@ int launch_wide_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-constexpr size_t kSmem(int dh) {
-  return sizeof(float) * (2 * kTile * dh + 2 * kTile);
-}
-
 template <int DH>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* val, const float* dout, const float* lse,
               const float* delta, float* dq, int B, int L, int S, int Dh,
               cudaStream_t stream) {
-  constexpr size_t smem = kSmem(DH);
-  int err = smem_attr::allow(flash_mhgsa_dq_kernel<DH>, smem);
+  constexpr int R = oblique_rows(DH);
+  constexpr int MINB = oblique_min_blocks(DH);
+  constexpr size_t smem = sizeof(float) * oblique_sweep_floats<DH>();
+  int err = smem_attr::allow(flash_mhgsa_dq_kernel<DH, R, MINB>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (L + kThreads - 1) / kThreads;
+  const int tiles = (L + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dq_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, val, dout, lse, delta, dq, L, S, Dh, tiles);
+  flash_mhgsa_dq_kernel<DH, R, MINB>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          q, k, v, val, dout, lse, delta, dq, L, S, Dh, tiles);
   return cudaGetLastError();
 }
 
@@ -942,14 +1089,17 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* val, const float* dout, const float* lse,
                const float* delta, float* dk, float* dv, int B, int L, int S,
                int Dh, cudaStream_t stream) {
-  constexpr size_t smem = kSmem(DH);
-  int err = smem_attr::allow(flash_mhgsa_dkv_kernel<DH>, smem);
+  constexpr int R = oblique_rows(DH);
+  constexpr int MINB = oblique_min_blocks(DH);
+  constexpr size_t smem = sizeof(float) * oblique_sweep_floats<DH>();
+  int err = smem_attr::allow(flash_mhgsa_dkv_kernel<DH, R, MINB>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + kThreads - 1) / kThreads;
+  const int tiles = (S + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_dkv_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, val, dout, lse, delta, dk, dv, L, S, Dh, tiles);
+  flash_mhgsa_dkv_kernel<DH, R, MINB>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          q, k, v, val, dout, lse, delta, dk, dv, L, S, Dh, tiles);
   return cudaGetLastError();
 }
 

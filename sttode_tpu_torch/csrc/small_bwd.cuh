@@ -29,11 +29,11 @@
 //   rows padded to an odd stride; no lane idles on the head dim and no
 //   chain of S runs through shared memory;
 // - the epilogue is the TPU kernel's own (sttode_tpu/kernels/mhgsa.py:
-//   _acos, :121, the scores at :183, the gate at :360): acos from the
-//   Abramowitz & Stegun 4.4.46 polynomial with √(1 − |g|) as x·rsqrt(x),
-//   the exp (of the score plus the mask entry) as one ex2 on the SFU, and
-//   the clip gate rsqrt(max(1 − gc², 1e-12)) of the unclipped test
-//   |g| < 1 − 1e-4.
+//   _acos, :121, the scores at :183, the gate at :360), oblique.cuh's
+//   pair_terms: acos from the Abramowitz & Stegun 4.4.46 polynomial with
+//   √(1 − |g|) as x·rsqrt(x), the exp (of the score plus the mask entry) as
+//   one ex2 on the SFU, and the clip gate rsqrt(max(1 − gc², 1e-12)) of the
+//   unclipped test |g| < 1 − 1e-4.
 // The Gram stays fp32 FMAs (acos' amplifies Gram error near ±1). The
 // poincaré instantiation (2p) keeps mhgsa_bwd.cu's kernel.
 
@@ -42,7 +42,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "sfu.cuh"
+#include "oblique.cuh"
 #include "smem_attr.cuh"
 
 // timing variants of the design (see scripts/torch_3p_c_bench.py): the mode
@@ -67,11 +67,8 @@
 namespace {
 namespace small_bwd {
 
-constexpr float kClip = 0.9999f;        // 1 - 1e-4
 constexpr float kNormFloor = 1e-12f;
 constexpr float kDenFloor = 1e-30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kPi = 3.14159265358979f;
 constexpr int kKeysPerThread = 4;
 constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block
 
@@ -93,27 +90,7 @@ __host__ __device__ constexpr int part_stride(int dh) { return 2 * dh + 3; }
 // e = exp(−acos(gc) + m) and the clip-gated acos' factor, 0 outside the clip
 __device__ __forceinline__ void pair_terms(float g, float m, float* e,
                                            float* gate) {
-  const float gc = fminf(fmaxf(g, -kClip), kClip);
-#if STTODE_SMALL_BWD_IEEE_EPILOGUE
-  *e = expf(-acosf(gc) + m);
-  *gate = fabsf(g) < kClip ? rsqrtf(fmaxf(1.f - gc * gc, 1e-12f)) : 0.f;
-#else
-  // Abramowitz & Stegun 4.4.46: acos(a) = √(1 − a)·Σ a_i a^i on [0, 1]
-  const float a = fabsf(gc);
-  float p = fmaf(-0.0012624911f, a, 0.0066700901f);
-  p = fmaf(p, a, -0.0170881256f);
-  p = fmaf(p, a, 0.0308918810f);
-  p = fmaf(p, a, -0.0501743046f);
-  p = fmaf(p, a, 0.0889789874f);
-  p = fmaf(p, a, -0.2145988016f);
-  p = fmaf(p, a, 1.5707963050f);
-  const float x = 1.f - a;               // ≥ 1e-4 after the clip
-  const float r = x * sfu::rsqrt_approx(x) * p;   // acos(|gc|)
-  const float s = gc >= 0.f ? -r : r - kPi;       // −acos(gc)
-  *e = sfu::ex2_approx((s + m) * kLog2e);
-  *gate = fabsf(g) < kClip
-              ? sfu::rsqrt_approx(fmaxf(1.f - gc * gc, 1e-12f)) : 0.f;
-#endif
+  oblique::pair_terms<STTODE_SMALL_BWD_IEEE_EPILOGUE>(g, m, e, gate);
 }
 
 __host__ __device__ __forceinline__ int pow2_ceil(int x) {

@@ -34,8 +34,9 @@
 //   tile_keys<DH>() keys at a time, rows padded to an odd stride so that the
 //   slices of one warp hit distinct banks (one warp reads one key as a
 //   broadcast when rows = 32);
-// - the epilogue is the TPU kernel's own: acos from the Abramowitz & Stegun
-//   4.4.46 polynomial (sttode_tpu/kernels/mhgsa.py::_acos, |error| ≤ 2e-8),
+// - the epilogue is the TPU kernel's own (oblique.cuh's weight): acos from
+//   the Abramowitz & Stegun 4.4.46 polynomial
+//   (sttode_tpu/kernels/mhgsa.py::_acos, |error| ≤ 2e-8),
 //   √(1 − |g|) as x·rsqrt(x) and the exp as one ex2 on the SFU (a negative
 //   Gram takes e^(−π)·2^(r·log2 e)); poincaré as poincare::fwd_weight (zc
 //   in IEEE fp32, then rcp, and lg2/ex2 only at c ≠ 1); a masked entry
@@ -48,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "oblique.cuh"
 #include "poincare.cuh"
 #include "sfu.cuh"
 #include "smem_attr.cuh"
@@ -66,11 +68,9 @@
 namespace {
 namespace small_fwd {
 
-constexpr float kClip = 0.9999f;        // 1 - 1e-4
 constexpr float kNormFloor = 1e-12f;
 constexpr float kDenFloor = 1e-30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kExpNegPi = 0.04321391826377226f;   // e^(−π)
 constexpr int kKeysPerThread = 4;
 
 // threads of a block: 256 up to Dh = 32, 128 above (q̂ and the accumulator
@@ -88,32 +88,10 @@ __host__ __device__ constexpr int tile_keys() {
 
 __host__ __device__ constexpr int ld(int dh) { return dh | 1; }
 
-// exp(−acos(clip(g))): the TPU kernel's polynomial on the SFU
-__device__ __forceinline__ float oblique_weight(float g) {
-  const float gc = fminf(fmaxf(g, -kClip), kClip);
-#if STTODE_SMALL_IEEE_EPILOGUE
-  return expf(-acosf(gc));
-#else
-  // Abramowitz & Stegun 4.4.46: acos(a) = √(1 − a)·Σ a_i a^i on [0, 1]
-  const float a = fabsf(gc);
-  float p = fmaf(-0.0012624911f, a, 0.0066700901f);
-  p = fmaf(p, a, -0.0170881256f);
-  p = fmaf(p, a, 0.0308918810f);
-  p = fmaf(p, a, -0.0501743046f);
-  p = fmaf(p, a, 0.0889789874f);
-  p = fmaf(p, a, -0.2145988016f);
-  p = fmaf(p, a, 1.5707963050f);
-  const float x = 1.f - a;               // ≥ 1e-4 after the clip
-  const float r = x * sfu::rsqrt_approx(x) * p;   // acos(|gc|)
-  const float e = sfu::ex2_approx((gc >= 0.f ? -r : r) * kLog2e);
-  return gc >= 0.f ? e : kExpNegPi * e;
-#endif
-}
-
 template <bool POINCARE, bool C1>
 __device__ __forceinline__ float weight(float g, float x2, float y2,
                                         const poincare::Curv& k) {
-  if (!POINCARE) return oblique_weight(g);
+  if (!POINCARE) return oblique::weight<STTODE_SMALL_IEEE_EPILOGUE>(g);
 #if STTODE_SMALL_IEEE_EPILOGUE
   return expf(poincare::score(poincare::pair(g, x2, y2, k), k));
 #else

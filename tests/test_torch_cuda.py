@@ -375,6 +375,9 @@ def _flash_inputs(rng, lead, L, S, Dh, valid):
     elif valid == "all_invalid":
         kv = torch.ones(*lead, S)
         kv.view(-1, S)[0] = 0.0
+    elif valid == "zero_rows":
+        q[..., 0, :] = 0.0                # the norm floor: q̂ = 0, ‖q‖ < 1e-12
+        k[..., 3, :] = 0.0
     return q, k, v, do, kv
 
 
@@ -415,13 +418,24 @@ def _flash_launches():
     dict(lead=(1,), L=300, S=1100, Dh=5, valid="none"),       # ragged
     dict(lead=(4, 2), L=90, S=700, Dh=8, valid="all_invalid"),
     dict(lead=(11, 8), L=1152, S=1152, Dh=8, valid="random"),  # B = 1152
-    dict(lead=(2,), L=12, S=12, Dh=8, valid="identical_qk")])
+    dict(lead=(2,), L=12, S=12, Dh=8, valid="identical_qk"),
+    # rows (keys) a thread owns without a partner, tiles of the other axis
+    # cut short, the norm floor, head dims 8 to 128
+    dict(lead=(3,), L=1, S=333, Dh=8, valid="none"),
+    dict(lead=(2,), L=255, S=131, Dh=8, valid="random"),
+    dict(lead=(2,), L=257, S=385, Dh=16, valid="zero_rows"),
+    dict(lead=(2,), L=131, S=200, Dh=64, valid="zero_rows"),
+    dict(lead=(1,), L=77, S=515, Dh=128, valid="random")])
 def test_flash_kernels_match_plain(cuda_device, case):
     """Forward, dq and dk/dv kernels against the plain versions on the same
     device: at the NBA recipe's B = 2304 (88 problems of 2304² × 8, as the
     Q3 swap hands them over), the long-context 8 × 4096² × 64, a ragged
     shape, a validity with an all-invalid problem (exact zeros), the
-    B = 1152 of the whole-S kernels' fault, and q = k."""
+    B = 1152 of the whole-S kernels' fault, q = k, L = 1 and odd L and S
+    (a thread's row or key without a partner when it owns two), S not a
+    multiple of the staged tile, and zero rows of q and k. A zero row's
+    gradient is its dx̂ over the norm floor 1e-12, so those rows are held
+    on their own scale, apart from the rest."""
     rng = np.random.default_rng(case["L"] + case["S"])
     q, k, v, do, kv = _flash_inputs(
         rng, *(case[x] for x in ("lead", "L", "S", "Dh")),
@@ -436,7 +450,17 @@ def test_flash_kernels_match_plain(cuda_device, case):
         want = _flash_plain_on(cuda_device, q, k, v, do, kv)
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
-    _grad_check([g.cpu() for g in got[1:]], [w.cpu() for w in want[1:]])
+    got, want = [g.cpu() for g in got], [w.cpu() for w in want]
+    if case["valid"] == "zero_rows":
+        rows = [torch.arange(t.shape[-2]) for t in got[1:3]]
+        zero = [rows[0] == 0, rows[1] == 3]
+        _grad_check([t[..., z, :] for t, z in zip(got[1:3], zero)],
+                    [t[..., z, :] for t, z in zip(want[1:3], zero)])
+        _grad_check([t[..., ~z, :] for t, z in zip(got[1:3], zero)]
+                    + got[3:], [t[..., ~z, :] for t, z in zip(want[1:3], zero)]
+                    + want[3:])
+    else:
+        _grad_check(got[1:], want[1:])
     if case["valid"] == "all_invalid":
         first = [t.reshape(-1, *t.shape[-2:])[0] for t in got]
         assert all(bool(torch.all(t == 0)) for t in first)
@@ -447,11 +471,18 @@ def test_flash_kernels_match_plain(cuda_device, case):
     B=int(r.integers(1, 6)), L=int(r.integers(1, 400)),
     S=int(r.integers(1, 700)),
     Dh=int(r.choice([1, 3, 5, 8, 13, 16, 32, 33, 64, 100, 128])),
-    valid=str(r.choice(["none", "random"])))))
+    valid=str(r.choice(["none", "random"])))) + _sweep(8, 18, lambda r: dict(
+        B=int(r.integers(1, 4)),
+        L=int(r.choice([1, 2 * int(r.integers(0, 200)) + 1])),
+        S=int(r.choice([1, 2 * int(r.integers(0, 350)) + 1])),
+        Dh=int(r.choice([8, 16, 64, 128])),
+        valid=str(r.choice(["none", "random"])))))
 def test_flash_kernels_randomized_sweep(cuda_device, case):
-    """Random problem counts, L, S (not multiples of the 128-row tiles) and
-    head dims up to 128, with and without a random key validity: forward
-    and q, k, v gradients against the plain versions on the CPU."""
+    """Random problem counts, L, S (not multiples of the staged tiles; the
+    last eight cases odd L and S, 1 among them, so that a thread's second
+    row or key has no partner) and head dims up to 128, with and without a
+    random key validity: forward and q, k, v gradients against the plain
+    versions on the CPU."""
     rng = np.random.default_rng(case["L"] * 131 + case["S"] * 7 + case["Dh"])
     ins = _flash_inputs(rng, (case["B"],),
                         *(case[x] for x in ("L", "S", "Dh", "valid")))

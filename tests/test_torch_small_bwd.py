@@ -175,7 +175,11 @@ def test_small_bwd_mode(L, S, Dh, taken):
 # the epilogue in float64                                                     #
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("m", [0.0, -3.7, -30.0, km.NEG_INF])
+# m = −lse of a flash sweep's row (oblique.cuh's sweep_p shares this
+# epilogue): a row of 2304 keys at g = 1 (lse = log 2304) and a row whose
+# one key sits at g = −1 (lse = −π)
+@pytest.mark.parametrize("m", [0.0, -3.7, -30.0, km.NEG_INF,
+                               -math.log(2304.0), math.pi])
 @pytest.mark.parametrize("perturb", [False, True])
 def test_epilogue_is_exp_neg_acos_and_gate(m, perturb):
     g = torch.linspace(-1.2, 1.2, 40001, dtype=torch.float64)
