@@ -120,6 +120,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ATTN_TOL = 1e-5
+LSE_REL_TOL = 1e-6        # the flash forward's lse, × max(1, |lse|) a row
 ATTN_GRAD_TOL = 5e-5      # × max(1, max |gradient|): acos' amplifies the Gram
 SELECT_TOL = 1e-4
 SELECT_BF16_TOL = 1e-3    # × the distance scale: bf16 rounding boundaries
@@ -265,28 +266,35 @@ def kernel_b_name(mangled: str) -> str:
 
 
 # the templated attention kernels whose registers the build report prints:
-# the flash backward sweeps, the poincaré flash forward (3p) and the oblique
-# backward's small-S mode (C)
-ATTN_KERNELS = (r"flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel|"
-                r"flash_poincare_fwd_kernel|mhgsa_small_bwd_kernel")
+# the flash backward sweeps, the flash forward of both metrics (F and 3p:
+# one kernel, a metric policy), the oblique backward's small-S mode (C) and
+# the packed backward (Q: the small body, and the warp kernel beyond it)
+ATTN_KERNELS = (r"flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel|flash_fwd_kernel|"
+                r"mhgsa_small_bwd_kernel|packed_(?:small|warp)_bwd_kernel")
 
 
-def sweep_name(mangled: str) -> str:
-    """kernel<template arguments> of an ``ATTN_KERNELS`` kernel from a
-    mangled name."""
+def sweep_name(mangled: str, kernels: str = ATTN_KERNELS) -> str:
+    """kernel<template arguments> of a ``kernels`` kernel (a regex) from a
+    mangled name: its integer and bool arguments, then the forward's metric
+    policy (``ObliqueFwd`` or ``PoincareFwd<C1>``)."""
     import re
-    m = re.search(rf"({ATTN_KERNELS})I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(rf"({kernels})I((?:L[ib]\d+E)+)", mangled)
     if m is None:
         return mangled[:60]
-    args = re.findall(r"L([ib])(\d+)E", m.group(2))
-    return (f"{m.group(1)}<" + ", ".join(
-        v if t == "i" else ("true" if v == "1" else "false")
-        for t, v in args) + ">")
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    pol = re.match(r"NS_\d+(ObliqueFwd|PoincareFwd)(?:ILb([01])E)?",
+                   mangled[m.end():])
+    if pol:
+        args.append(pol.group(1) + ("" if pol.group(2) is None else
+                                    "<true>" if pol.group(2) == "1"
+                                    else "<false>"))
+    return f"{m.group(1)}<" + ", ".join(args) + ">"
 
 
 def build_report(lib) -> None:
-    """Print the registers and spills of kernel B, the flash backward
-    sweeps' register kernels, 3p and C's small-S mode from the build log
+    """Print the registers and spills of kernel B, the flash register
+    kernels (F, 3p and the sweeps), C's small-S mode and Q from the build log
     (``-Xptxas -v``) and the tensor-core MMA instructions (HMMA) in kernel
     B's SASS, from ``cuobjdump`` where the toolkit has it."""
     log = lib.with_name(lib.name + ".log").read_text().splitlines()
@@ -1228,13 +1236,22 @@ def main() -> int:
                 lambda: kp.packed_geodesic_attention(q, k, v, kv_valid=kv))
             hb_us = host_us(lambda: kp.packed_geodesic_attention_backward(
                 q, k, v, kv, do))
+            d_us = [device_us(fn) for fn in (
+                lambda: kp.packed_geodesic_attention(q, k, v, kv_valid=kv),
+                lambda: kp.packed_geodesic_attention_backward(q, k, v, kv,
+                                                              do))]
         packed_times[name] = (fwd, bwd)
+        body = ("small_bwd.cuh's body" if kp.packed_bwd_small(
+            q.shape[-2], k.shape[-2], q.shape[-1]) else "the warp kernel")
         print(f"packed {name}: forward max_abs_err {err:.3e}, kernel "
-              f"{fwd[0]:.4f} ms (host {h_us:.1f} µs/call), plain "
-              f"{fwd[1]:.4f} ms; backward max_abs_err "
+              f"{fwd[0]:.4f} ms (host {h_us:.1f} µs/call, device "
+              + ("not measured" if d_us[0] is None else f"{d_us[0]:.2f} µs")
+              + f"), plain {fwd[1]:.4f} ms; backward ({body}) max_abs_err "
               + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
-              + f", kernel {bwd[0]:.4f} ms (host {hb_us:.1f} µs/call), "
-              f"plain {bwd[1]:.4f} ms  [{card}]")
+              + f", kernel {bwd[0]:.4f} ms (host {hb_us:.1f} µs/call, "
+              "device " + ("not measured" if d_us[1] is None else
+                           f"{d_us[1]:.2f} µs")
+              + f"), plain {bwd[1]:.4f} ms  [{card}]")
     launch_floor(kp.packed_geodesic_attention,
                  (randn(1, 1, 1, 8), randn(1, 1, 1, 8), randn(1, 1, 1, 8)),
                  packed_cases["nba_recipe_q11x8x32x8_swapped"][:3], card,
@@ -1420,6 +1437,12 @@ def main() -> int:
             want_b = (km.flash_dq_reference(*args),
                       *km.flash_dkv_reference(*args))
             torch.cuda.synchronize()
+        # the lse within 1e-6 × max(1, |lse|), row by row: the sweeps
+        # replay every pair from it
+        lse_rel = float(((lse - want[1]).abs()
+                         / want[1].abs().clamp(min=1.0)).max())
+        require(lse_rel <= LSE_REL_TOL, f"{name} lse: max relative err "
+                f"{lse_rel} > {LSE_REL_TOL}")
         errs = {}
         for g_name, g, w, tol in (
                 ("out", out, want[0], ATTN_TOL), ("lse", lse, want[1],
@@ -1456,7 +1479,9 @@ def main() -> int:
                 flash_dev[name] = [device_us(fn, calls=5) for fn in (
                     lambda: km._flash_forward(q, k, v, val),
                     lambda: km._launch_flash_dq(*args),
-                    lambda: km._launch_flash_dkv(*args))]
+                    lambda: km._launch_flash_dkv(*args))] + [
+                    host_us(lambda: km._flash_forward(q, k, v, val),
+                            calls=5)]
         if name == long11:
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
 
@@ -1483,6 +1508,8 @@ def main() -> int:
                         "trace)" if None in flash_dev[name] else
                         "; device µs/launch fwd {:.1f}, dq {:.1f}, dkv "
                         "{:.1f}".format(*flash_dev[name]))
+            dev_txt += "; fwd host {:.1f} µs/call".format(flash_dev[name][-1])
+        dev_txt += f"; lse max rel err {lse_rel:.3e}"
         print(f"flash {name}: max_abs_err " + ", ".join(
             f"{k_} {v_:.3e}" for k_, v_ in errs.items()) + "; " + ", ".join(
             f"{k_} kernel {v_[0]:.4f} ms plain {v_[1]:.4f} ms"

@@ -126,17 +126,21 @@ def grad_err(got, want):
 
 
 def ptxas(log_path: str):
-    """(kernel<template arguments>, registers, spill line) of the 3p and
-    small-S C kernels in an nvcc -Xptxas -v log."""
+    """(kernel<template arguments>, registers, spill line) of the flash
+    forward (3p: ``flash_fwd_kernel`` with the poincaré policy; the parent's
+    ``flash_poincare_fwd_kernel``) and the small-S C kernels in an nvcc
+    -Xptxas -v log."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    kernels = ("flash_poincare_fwd_kernel|flash_fwd_kernel|"
+               "mhgsa_small_bwd_kernel")
     out, name, spill = [], None, ""
     with open(log_path) as f:
         for line in f:
             if "Compiling entry function" in line:
-                m = re.search(r"(flash_poincare_fwd_kernel|mhgsa_small_bwd_"
-                              r"kernel)I((?:L[ib]\d+E)+)E", line)
-                name = m and m.group(1) + "<" + ", ".join(
-                    v for _, v in re.findall(r"L([ib])(\d+)E",
-                                             m.group(2))) + ">"
+                mangled = line.split("'")[1]
+                name = (cs.sweep_name(mangled, kernels)
+                        if re.search(kernels, mangled) else None)
                 spill = ""
             elif name and "spill" in line:
                 spill = line.split(":", 1)[-1].strip()
@@ -258,7 +262,7 @@ def main() -> int:
         log = (str(lib) + ".log" if name == "change" else
                os.path.join(WORK, "variants", name, "build.log"))
         for kern, regs, spill in ptxas(log):
-            if name == "change" or "poincare" in kern:
+            if name == "change" or "poincare" in kern.lower():
                 emit(ptxas=name, kernel=kern, registers=regs, spill=spill)
     for L, S, Dh in ((128, 128, 8), (8, 8, 8), (32, 32, 8), (1, 1, 8),
                      (256, 256, 16), (512, 512, 8)):

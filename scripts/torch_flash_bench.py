@@ -48,12 +48,32 @@ shapes), so that the comparison says which builds give bit-identical
 outputs. The last lines are a summary per build, shape and sweep: the
 median of all its samples and the mean of its device µs. Exits non-zero
 without a CUDA device.
+
+``--kernel fwd`` does the same for the flash forward (F, the oblique
+``flash_fwd_kernel`` of ``csrc/flash_mhgsa_fwd.cu``) in place of the
+sweeps: ``_launch_flash`` at the recipe's 88 × 2304² × 8 and at
+8 × 4096² × 64, out and lse held to their plain versions within 1e-5 (the
+lse's error over max(1, |lse|), each row on its own, is reported); with ``--parent`` parent and
+change also time 3p at the recipe (c = 1), whose outputs must stay
+bit-identical, and the variants are ``FWD_VARIANTS``, each a build of this
+checkout's ``csrc/flash_mhgsa_fwd.cu`` with its ``STTODE_FLASH_FWD_*``
+defines: ``ieee_epilogue`` (acosf and expf in place of oblique.cuh's
+weight: with it F must give the parent's out and lse bit for bit),
+``reg_staging`` (each key staged through a thread's registers and
+normalized there) and ``rows<R>_minb<M>``
+(R query rows a thread and launch bounds asking for M blocks an SM; the
+recipe's shape only). The registers and spills of every build's flash
+kernels come from its ``-Xptxas -v`` log. E.g.:
+
+    python3 scripts/torch_flash_bench.py --kernel fwd --parent DIR \
+        --variants all --out f.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import json
 import os
 import re
@@ -122,16 +142,31 @@ def device_us(fn, calls=5):
     return us / calls if us > 0 else None
 
 
+# the flash forward's variants: name → {define suffix: value}
+# (-DSTTODE_FLASH_FWD_<suffix>=<value>)
+FWD_VARIANTS = {
+    "ieee_epilogue": {"IEEE_EPILOGUE": 1},
+    "reg_staging": {"REG_STAGING": 1},
+    **{f"rows{r}_minb{m}": {"ROWS": r, "MIN_BLOCKS": m}
+       for r in (1, 2) for m in (1, 4, 6, 8)},
+}
+# the register kernels whose registers a comparison prints: this
+# checkout's (chip_smoke.ATTN_KERNELS) and the parent's forward kernels
+BENCH_KERNELS = ("flash_mhgsa_fwd_kernel|flash_poincare_fwd_kernel|"
+                 "flash_fwd_kernel|flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel")
+
+
 def ptxas(log: str):
-    """(kernel<template arguments>, registers, spill line) of each register
-    sweep kernel in an ``nvcc -Xptxas -v`` log."""
+    """(kernel<template arguments>, registers, spill line) of each flash
+    register kernel in an ``nvcc -Xptxas -v`` log."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel)I"
-                          r"((?:L[ib]\d+E)+)E", line)
-            name = m and m.group(1) + "<" + ", ".join(
-                v for _, v in re.findall(r"L([ib])(\d+)E", m.group(2))) + ">"
+            mangled = line.split("'")[1]
+            name = (cs.sweep_name(mangled, BENCH_KERNELS)
+                    if re.search(BENCH_KERNELS, mangled) else None)
             spill = ""
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
@@ -307,6 +342,57 @@ def measure(cs, km, names, rounds, emit, outputs=None):
         torch.cuda.empty_cache()
 
 
+def fwd_inputs(name, dev):
+    """The forward's q, k, v at shape ``name`` (the sweeps' operands from
+    the same seed: ``inputs``' q, k, v), the metric and c."""
+    from sttode_tpu_torch.nn.attention import to_ball
+    B, L, Dh, metric, c = SHAPES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, Dh))
+                                .astype(np.float32)).to(dev)
+               for _ in range(3))
+    if metric == "poincare":
+        q, k = (to_ball(x * (0.5 / Dh ** 0.5), c) for x in (q, k))
+    return q, k, v, metric, c
+
+
+def measure_fwd(cs, km, names, rounds, emit, outputs=None):
+    """Check the forward at each shape against its plain version (out and
+    lse within 1e-5; the lse's largest error over max(1, |lse|), row by row,
+    is reported, the card tests hold it to 1e-6) and time it; emit one line
+    each. ``outputs`` collects (out, lse) of every shape."""
+    dev = torch.device("cuda")
+    for name in names:
+        B, L, Dh, metric, c = SHAPES[name]
+        with torch.inference_mode():
+            q, k, v, metric, c = fwd_inputs(name, dev)
+
+            def fn():
+                return km._launch_flash(q, k, v, None, metric, c)
+            out, lse = fn()
+            want = km.flash_geodesic_attention_reference(q, k, v, None,
+                                                         metric, c)
+            torch.cuda.synchronize()
+            err = float((out - want[0]).abs().max())
+            lse_err = float((lse - want[1]).abs().max())
+            lse_rel = float(((lse - want[1]).abs()
+                             / want[1].abs().clamp(min=1.0)).max())
+            if not (err <= 1e-5 and lse_err <= 1e-5):
+                raise AssertionError(f"{name} fwd: out max abs err {err}, "
+                                     f"lse {lse_err}")
+            if outputs is not None:
+                outputs[name] = [out.cpu(), lse.cpu()]
+            del out, lse, want
+            ms, samples = time_ms(fn, rounds)
+            bnd = cs.bound(*cs.flash_fwd_work(B, L, L, Dh, False, metric),
+                           cs.FP32_FLOP_PER_S)
+            emit(shape=name, sweep="fwd", ms=ms, ms_samples=samples,
+                 device_us=device_us(fn), bound_ms=bnd[0], bound_by=bnd[1],
+                 max_abs_err=err, lse_max_rel_err=lse_rel)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def small_outputs():
     """Kernels A, C and P on seeded inputs at the paths' small shapes: A at
     the bench recipe's 88 × 128² × 8 and masked at the agent axis's
@@ -349,20 +435,21 @@ def child(args) -> int:
     def emit(**rec):
         print(json.dumps({"build": args.child, **rec}), flush=True)
 
+    fwd = args.kernel == "fwd"
     if args.lib:
         lib = ctypes.CDLL(args.lib)
-        for entry, attr in (("flash_mhgsa_dq", "_FLASH_DQ"),
-                            ("flash_mhgsa_dkv", "_FLASH_DKV")):
+        for entry, attr in ((("flash_mhgsa_fwd", "_FLASH_FWD"),) if fwd else
+                            (("flash_mhgsa_dq", "_FLASH_DQ"),
+                             ("flash_mhgsa_dkv", "_FLASH_DKV"))):
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
             getattr(km, attr).fn = fn
     else:
-        with open(str(_build.build()) + ".log") as f:
-            for kern, regs, spill in ptxas(f.read()):
-                emit(ptxas=kern, registers=regs, spill=spill)
+        _build.build()
     outputs = {}
-    measure(cs, km, args.shapes.split(","), args.rounds, emit, outputs)
+    (measure_fwd if fwd else measure)(cs, km, args.shapes.split(","),
+                                      args.rounds, emit, outputs)
     if args.small:
         outputs.update(small_outputs())
     torch.save(outputs, args.dump)
@@ -389,9 +476,10 @@ def compare(args) -> int:
     if not os.path.isdir(os.path.join(parent, "sttode_tpu_torch")):
         raise SystemExit(f"--parent {parent}: no sttode_tpu_torch there "
                          f"(export it with git archive first)")
+    fwd = args.kernel == "fwd"
+    table = FWD_VARIANTS if fwd else fv.OBLIQUE_VARIANTS
     names = [] if not args.variants else (
-        list(fv.OBLIQUE_VARIANTS) if args.variants == "all"
-        else args.variants.split(","))
+        list(table) if args.variants == "all" else args.variants.split(","))
     t0 = time.perf_counter()
     # the parent's library, this checkout's and the variants' at once
     pbuild = subprocess.Popen(
@@ -399,19 +487,26 @@ def compare(args) -> int:
          "from sttode_tpu_torch.kernels import _build; _build.build()"],
         cwd=parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
-    variants = {n: ([f"-DSTTODE_FLASH_BWD_{k}={v}" for k, v in
-                     fv.OBLIQUE_VARIANTS[n].items()], ["flash_mhgsa_bwd.cu"])
-                for n in names}
+    prefix, source = (("STTODE_FLASH_FWD", "flash_mhgsa_fwd.cu") if fwd else
+                      ("STTODE_FLASH_BWD", "flash_mhgsa_bwd.cu"))
+    variants = {n: ([f"-D{prefix}_{k}={v}" for k, v in table[n].items()],
+                    [source]) for n in names}
     sab.build_variants(_build, variants, WORK, load=False)
-    _build.build()
+    lib = _build.build()
     out, _ = pbuild.communicate()
     if pbuild.returncode:
         raise RuntimeError(f"the parent's build failed:\n{out[-4000:]}")
     emit(build_s=time.perf_counter() - t0)
-    for n in names:
-        with open(os.path.join(WORK, "variants", n, "build.log")) as f:
+    # registers and spills of each build's flash register kernels
+    logs = {"parent": max(glob.glob(os.path.join(
+        parent, "sttode_tpu_torch", "_build", "*.so.log")),
+        key=os.path.getmtime), "change": str(lib) + ".log"}
+    logs.update({n: os.path.join(WORK, "variants", n, "build.log")
+                 for n in names})
+    for n, log in logs.items():
+        with open(log) as f:
             for kern, regs, spill in ptxas(f.read()):
-                if kern.startswith("flash_mhgsa"):
+                if ("fwd" in kern) == fwd:
                     emit(build=n, ptxas=kern, registers=regs, spill=spill)
 
     oblique = [n for n, s in SHAPES.items() if s[3] == "oblique"]
@@ -419,10 +514,13 @@ def compare(args) -> int:
 
     def run(name, p):
         cmd = [sys.executable, os.path.abspath(__file__), "--child", name,
-               "--rounds", str(args.rounds),
+               "--kernel", args.kernel, "--rounds", str(args.rounds),
                "--dump", os.path.join(WORK, f"{name}.{p}.pt")]
         if name in ("parent", "change"):
-            cmd += ["--shapes", ",".join(SHAPES), "--small"]
+            cmd += ["--shapes", ",".join(
+                oblique + ["nba_b2304_88x2304x8_poincare_c1"] if fwd
+                else SHAPES)]
+            cmd += [] if fwd else ["--small"]
         else:
             cmd += ["--lib", sab.variant_path(WORK, name), "--shapes",
                     ",".join(s for s in oblique if not name.startswith("rows")
@@ -434,10 +532,7 @@ def compare(args) -> int:
                                f"{proc.stderr[-4000:]}")
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
-                rec = json.loads(line)
-                if "ptxas" in rec and p:
-                    continue
-                emit(**rec, **({} if "ptxas" in rec else {"pass": p}))
+                emit(**json.loads(line), **{"pass": p})
 
     order = ["parent", "change", *names]
     for p in range(args.passes):
@@ -487,6 +582,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--parent", default=None)
     ap.add_argument("--variants", default=None)
+    ap.add_argument("--kernel", choices=("sweeps", "fwd"), default="sweeps")
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--cycles-of", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
@@ -518,7 +614,11 @@ def main() -> int:
         lines.append(rec)
         print(json.dumps(rec), flush=True)
 
-    measure(cs, km, list(SHAPES), args.rounds, emit)
+    if args.kernel == "fwd":
+        measure_fwd(cs, km, [n for n, s in SHAPES.items()
+                             if s[3] == "oblique"], args.rounds, emit)
+    else:
+        measure(cs, km, list(SHAPES), args.rounds, emit)
     if args.cycles:
         for key, rec in cycles(root).items():
             emit(cycles=key, **rec)

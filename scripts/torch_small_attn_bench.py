@@ -47,10 +47,35 @@ magnitude and how many of its rows differ by more than 1e-4 of it. A
 difference confined to some rows of one leaf is a decoder ReLU whose input
 lies within rounding of 0 switching between the routes.
 
+``--only Q`` (the default ``--only P1p,Q`` runs both) times Q, the packed
+backward (``packed_geodesic_attention_backward``), parent against change,
+each build in a child process of its own, in the order parent, change,
+the variants, then reversed, ``--passes`` times: at the NBA recipe's
+11 × 8 × 32² × 8, at 64 × 8 × 8² × 8 with a random key validity and one
+all-invalid problem, and on one 1 × 1 × 8 problem (the launch floor); the
+wrapper ms, the host µs and the device µs of each, gradients held to the
+plain backward within 5e-5 × max(1, max |g|) and the all-invalid
+problem's to exactly 0. The variants are builds of this checkout's
+``csrc/packed_mhgsa_bwd.cu``: ``q_ieee_epilogue`` (acosf, expf and rsqrtf
+in the small body, ``-DSTTODE_SMALL_BWD_IEEE_EPILOGUE=1``) and
+``q_one_slice``
+(each thread all the keys of its row, then all the rows of its key,
+``-DSTTODE_SMALL_BWD_ONE_SLICE=1``). The change's child also times the
+wrapper's host-side trimmings each alone, against the wrapper as it is:
+``stats_alloc`` (one allocation more, the parent's den/δ scratch),
+``one_alloc`` (dq, dk and dv cut from one allocation) and
+``always_convert`` (``do.to(float32).contiguous()`` even when do is
+already fp32 and contiguous). It prints each build's registers and
+spills, and which builds give the parent's dq, dk, dv bit for bit. E.g.:
+
+    python3 scripts/torch_small_attn_bench.py --only Q --parent DIR \
+        --out q.jsonl
+
 The parent is a checkout of the commit before (``--parent``; when the
 directory does not exist it is exported with ``git archive --parent-rev``,
 default HEAD~1, which needs the repository's ``.git``: on a machine
-without it, export it first). Its package is copied under another name,
+without it, export it first). For P and 1p its package is copied under
+another name,
 ``sttode_tpu_torch_parent``, into the git-ignored ``.small_attn_bench/``
 and builds its own library there, so both import in one process; the
 variants are built there too, one nvcc per source, all started together.
@@ -61,9 +86,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -241,17 +268,229 @@ class Swap:
         self.entry.fn = self.saved
 
 
+# Q's variants: extra nvcc flags, sources (csrc/)
+Q_VARIANTS = {
+    "q_ieee_epilogue": (["-DSTTODE_SMALL_BWD_IEEE_EPILOGUE=1"],
+                        ["packed_mhgsa_bwd.cu"]),
+    "q_one_slice": (["-DSTTODE_SMALL_BWD_ONE_SLICE=1"],
+                    ["packed_mhgsa_bwd.cu"]),
+}
+# Q's shapes: name → (B, H, L, S, Dh, validity)
+Q_CASES = {
+    "nba_recipe_11x8x32x32x8": (11, 8, 32, 32, 8, None),
+    "kv_valid_64x8x8x8x8_one_all_invalid": (64, 8, 8, 8, 8, "one_dead"),
+    "floor_1x1x1x1x8": (1, 1, 1, 1, 8, None),
+}
+Q_KERNELS = "packed_(?:small_|warp_)?bwd_kernel"
+
+
+def q_inputs(dev, B, H, L, S, Dh, validity, seed):
+    """q, k, v, the validity and do of a Q case, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+    q, k, v, do = (randn(B, H, n, Dh) for n in (L, S, S, L))
+    val = None
+    if validity:
+        val = torch.from_numpy(rng.random((B, S)) < 0.7).to(dev).float()
+        val[0] = 0.0                      # a problem with no valid key
+    return q, k, v, val, do
+
+
+def q_host_variants(kp):
+    """The wrapper's host-side trimmings, each alone: Q's wrapper as it is
+    with one change undone or made."""
+    def stats_alloc(q, k, v, val, do):
+        B, H, L, _ = q.shape
+        torch.empty((B, H, L, 2), device=q.device, dtype=torch.float32)
+        return kp.packed_geodesic_attention_backward(q, k, v, val, do)
+
+    def always_convert(q, k, v, val, do):
+        return kp._launch_bwd(q, k, v, val,
+                              do.to(torch.float32).contiguous())
+
+    def one_alloc(q, k, v, val, do):
+        from sttode_tpu_torch.kernels import _build
+        if do.dtype != torch.float32 or not do.is_contiguous():
+            do = do.to(torch.float32).contiguous()
+        kp._check_devices(q, k, v, val, do)
+        B, H, L, Dh = q.shape
+        S = k.shape[2]
+        buf = torch.empty(q.numel() + 2 * k.numel(), device=q.device)
+        dq, dk, dv = buf.split([q.numel(), k.numel(), k.numel()])
+        dq, dk, dv = dq.view(q.shape), dk.view(k.shape), dv.view(k.shape)
+        err = _build.launch(kp._BWD, q.device, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(),
+                            None if val is None else val.data_ptr(),
+                            do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), B, H, L, S, Dh)
+        if err:
+            _build.check(err, "packed_mhgsa_bwd")
+        kp.packed_geodesic_attention_backward.launches += 1
+        return dq, dk, dv
+    return {"stats_alloc": stats_alloc, "one_alloc": one_alloc,
+            "always_convert": always_convert}
+
+
+def q_child(args) -> int:
+    """One build's turn at Q: this process imports the working directory's
+    package (with ``--lib``, Q's C entry from a variant's library), checks
+    and times each case, prints one JSON line each and dumps the
+    gradients to ``--dump``."""
+    sys.path.insert(0, os.getcwd())
+    from sttode_tpu_torch.kernels import _build
+    from sttode_tpu_torch.kernels import packed_mhgsa as kp
+    if args.lib:
+        kp._BWD.fn = load_variant(_build, WORK, args.q_child,
+                                  ("packed_mhgsa_bwd",))["packed_mhgsa_bwd"]
+    dev = torch.device("cuda")
+    extra = q_host_variants(kp) if args.q_child == "change" else {}
+    dumps = {}
+    with torch.inference_mode():
+        for i, (name, case) in enumerate(Q_CASES.items()):
+            a = q_inputs(dev, *case, seed=40 + i)
+            fns = {args.q_child: lambda a=a:
+                   kp.packed_geodesic_attention_backward(*a)}
+            fns.update({n: (lambda f=f, a=a: f(*a)) for n, f in extra.items()})
+            want = kp.packed_geodesic_attention_backward_reference(*a)
+            errs = {}
+            for n, fn in fns.items():
+                got = fn()
+                torch.cuda.synchronize()
+                errs[n] = 0.0
+                for g, w in zip(got, want):
+                    e = float((g - w).abs().max())
+                    tol = 5e-5 * max(1.0, float(w.abs().max()))
+                    if not e <= tol:
+                        raise AssertionError(f"Q {name} {n}: max abs err {e} "
+                                             f"> {tol}")
+                    errs[n] = max(errs[n], e)
+                if a[3] is not None:
+                    dead = ~(a[3] > 0).any(dim=-1)
+                    if not all(bool((g[dead] == 0).all()) for g in got):
+                        raise AssertionError(f"Q {name} {n}: an all-invalid "
+                                             f"problem's gradients not 0")
+                if n == args.q_child:
+                    dumps[name] = [g.cpu() for g in got]
+            res = interleaved(fns, list(fns), args.rounds)
+            for n in fns:
+                print(json.dumps(dict(
+                    kernel="Q", build=args.q_child, variant=n, shape=name,
+                    wrapper_ms=res[n][0], host_us=res[n][1],
+                    ms_samples=res[n][2], device_us=device_us(fns[n]),
+                    max_abs_err=errs[n])), flush=True)
+    torch.save(dumps, args.dump)
+    return 0
+
+
+def q_compare(args, emit) -> None:
+    """Q's parent, change and variants, each in child processes, in
+    turns; then the registers, the bitwise identity with the parent and a
+    summary per build, variant and shape."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from sttode_tpu_torch.kernels import _build
+    from sttode_tpu_torch.kernels import mhgsa as km
+    from sttode_tpu_torch.kernels import packed_mhgsa as kp
+    parent = os.path.abspath(args.parent)
+    if not os.path.isdir(os.path.join(parent, "sttode_tpu_torch")):
+        raise SystemExit(f"--parent {parent}: no sttode_tpu_torch there "
+                         f"(export it with git archive first)")
+    t0 = time.perf_counter()
+    pbuild = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "from sttode_tpu_torch.kernels import _build; _build.build()"],
+        cwd=parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    build_variants(_build, Q_VARIANTS, WORK, load=False)
+    lib = _build.build()
+    out, _ = pbuild.communicate()
+    if pbuild.returncode:
+        raise RuntimeError(f"the parent's build failed:\n{out[-4000:]}")
+    emit(build_s=time.perf_counter() - t0)
+    logs = {"parent": max(glob.glob(os.path.join(
+        parent, "sttode_tpu_torch", "_build", "*.so.log")),
+        key=os.path.getmtime), "change": str(lib) + ".log"}
+    logs.update({n: os.path.join(WORK, "variants", n, "build.log")
+                 for n in Q_VARIANTS})
+    for n, log in logs.items():
+        name = None
+        with open(log) as f:
+            for line in f:
+                if "Compiling entry function" in line:
+                    mangled = line.split("'")[1]
+                    name = (cs.sweep_name(mangled, Q_KERNELS)
+                            if re.search(Q_KERNELS, mangled) else None)
+                elif name and "Used" in line:
+                    emit(build=n, ptxas=name, registers=int(re.search(
+                        r"Used (\d+) registers", line).group(1)))
+                    name = None
+    for L, S, Dh in ((32, 32, 8), (8, 8, 8), (1, 1, 8), (16, 64, 8),
+                     (8, 8, 16), (32, 32, 32), (1, 1024, 8), (1024, 1, 32)):
+        emit(q_layout=f"{L}x{S}x{Dh}",
+             small_body=kp.packed_bwd_small(L, S, Dh),
+             **km.small_bwd_layout(L, S, Dh, val=True))
+    os.makedirs(WORK, exist_ok=True)
+    order = ["parent", "change", *Q_VARIANTS]
+    lines = []
+    for p in range(args.passes):
+        for name in (order if p % 2 == 0 else order[::-1]):
+            cmd = [sys.executable, os.path.abspath(__file__), "--q-child",
+                   name, "--rounds", str(args.rounds),
+                   "--dump", os.path.join(WORK, f"q_{name}.{p}.pt")]
+            if name in Q_VARIANTS:
+                cmd += ["--lib", variant_path(WORK, name)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  cwd=parent if name == "parent" else ROOT)
+            if proc.returncode:
+                raise RuntimeError(f"Q child {name}:\n{proc.stdout}\n"
+                                   f"{proc.stderr[-4000:]}")
+            for line in proc.stdout.splitlines():
+                if line.startswith("{"):
+                    rec = dict(json.loads(line), **{"pass": p})
+                    lines.append(rec)
+                    emit(**rec)
+    dumps = {n: torch.load(os.path.join(WORK, f"q_{n}.0.pt")) for n in order}
+    for n in order[1:]:
+        for key in dumps[n]:
+            emit(q_identical_to_parent=n, shape=key, max_abs_diff=max(
+                float((a - b).abs().max()) for a, b in
+                zip(dumps[n][key], dumps["parent"][key])),
+                 bitwise=all(torch.equal(a, b) for a, b in
+                             zip(dumps[n][key], dumps["parent"][key])))
+    runs = {}
+    for rec in lines:
+        runs.setdefault((rec["build"], rec["variant"], rec["shape"]),
+                        []).append(rec)
+    for (b, var, shape), recs in runs.items():
+        dev = [r["device_us"] for r in recs if r["device_us"] is not None]
+        emit(q_summary=b, variant=var, shape=shape,
+             wrapper_ms=statistics.median(
+                 [x for r in recs for x in r["ms_samples"]]),
+             host_us=statistics.median([r["host_us"] for r in recs]),
+             device_us=sum(dev) / len(dev) if dev else None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=os.path.join(WORK, "parent"))
     ap.add_argument("--parent-rev", default="HEAD~1")
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--passes", type=int, default=2)
+    ap.add_argument("--only", default="P1p,Q")
     ap.add_argument("--kinks", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--q-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lib", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dump", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_small_attn_bench: no CUDA device", file=sys.stderr)
         return 2
+    if args.q_child:
+        return q_child(args)
     sys.path.insert(0, ROOT)
     from sttode_tpu_torch.kernels import _build
     from sttode_tpu_torch.kernels import mhgsa as km
@@ -268,6 +507,17 @@ def main() -> int:
         rec["card"] = card
         lines.append(rec)
         print(json.dumps(rec), flush=True)
+
+    parts = set(args.only.split(","))
+    if "Q" in parts:
+        if not os.path.isdir(args.parent):
+            parent_package(args.parent, args.parent_rev)
+        q_compare(args, emit)
+    if "P1p" not in parts:
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write("\n".join(json.dumps(x) for x in lines) + "\n")
+        return 0
 
     for L, S, Dh in ROUTE_SHAPES:
         emit(layout=f"{L}x{S}x{Dh}", **km.small_fwd_layout(L, S, Dh))

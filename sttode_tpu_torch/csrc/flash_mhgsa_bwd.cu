@@ -212,6 +212,7 @@ using flash_tile::sq_norm_smem;
 using flash_tile::stage_rows;
 using flash_tile::sweep_rows;
 using flash_tile::sweep_tile;
+using flash_tile::unit_smem;
 using flash_tile::vec_rows;
 
 // rows (dq) or keys (dk/dv) an oblique sweep's thread owns, and the minimum
@@ -237,23 +238,6 @@ constexpr int oblique_min_blocks(int dh) {
 template <int DH>
 constexpr size_t oblique_sweep_floats() {
   return (size_t)sweep_tile(DH) * (2 * DH + 2);
-}
-
-// scale a 16-byte aligned row of shared memory to unit norm (floored), as
-// to_unit does in registers
-template <int DH>
-__device__ __forceinline__ void unit_smem(float* __restrict__ x) {
-  const float f = fmaxf(sqrtf(sq_norm_smem<DH>(x)), kNormFloor);
-  float4* x4 = reinterpret_cast<float4*>(x);
-#pragma unroll
-  for (int d = 0; d < DH / 4; ++d) {
-    float4 u = x4[d];
-    u.x = u.x / f;
-    u.y = u.y / f;
-    u.z = u.z / f;
-    u.w = u.w / f;
-    x4[d] = u;
-  }
 }
 
 template <int DH, int R, int MINB>

@@ -22,49 +22,51 @@
 // What bounds it on the H100: at the NBA recipe at B = 2304 a call is 88
 // problems of 2304 × 2304 × 8 — 1.4 MB in and out but 1.8e10 operations
 // (chip_smoke.py, flash_fwd_work; the poincaré epilogue, its metric
-// "poincare", adds ~16 per pair), so it is bound by operations: 0.26 ms at the
-// fp32 peak, and acosf alone — or the poincaré epilogue's sqrtf, logf and
-// two divisions — costs tens of instructions per pair. Unlike the whole-S
-// kernel (mhgsa_fwd.cu), which stages every key of a problem in shared
-// memory and refuses S > 2765 at Dh = 8, this one streams them, so any L
-// and S run. Design (the oblique F): a block per (problem, tile of 128
-// query rows), one thread per row; q̂_i and the output accumulator live in
-// registers (the head dim rounded up to a compile-time 8/16/32/64/128); the
-// keys are normalized and staged with their values 128 at a time in shared
-// memory, each thread staging one key, and every thread then reads the same
-// key, a broadcast with no bank conflict and no reduction in the inner loop.
-// acosf and logf are CUDA's (≤ 2 ulp), where the TPU needed a polynomial
-// for acos.
+// "poincare", adds ~16 per pair), so it is bound by operations: 0.26 ms at
+// the fp32 peak; in practice by issuing each pair's epilogue, whose
+// instructions outnumber its 16 FMAs (the Gram and p·V) at Dh = 8. Unlike
+// the whole-S kernel (mhgsa_fwd.cu), which stages every key of a problem in
+// shared memory and refuses S > 2765 at Dh = 8, this one streams them, so
+// any L and S run.
 //
-// The poincaré forward (3p, flash_poincare_fwd_kernel), redesigned for the
-// H100. At Dh = 8 a pair's FMAs (the Gram and p·V, 16) are few beside its
-// epilogue, so the kernel is bound by issuing the epilogue's instructions:
-//   - the epilogue is poincare::fwd_weight: zc from poincare::pair in IEEE
-//     fp32 (its division and sqrtf: near the ball's edge 1 − zc magnifies
-//     zc's rounding, PERF.md §6), then the tail on the SFU — at c = 1
-//     one reciprocal and no log or exp, else rcp, lg2 and ex2 — with C1 a
+// One register kernel serves both metrics (flash_fwd_kernel), designed for
+// the H100; a metric is a policy (ObliqueFwd, PoincareFwd) that says how a
+// query row is held, what is derived from a staged key and the pair weight:
+//   - a block per (problem, 128·R query rows), a thread per R query rows i
+//     holding the row (q̂_i, or the ball row and its x2) and the running
+//     Σ e·v and Σ e in registers (the head dim rounded up to a compile-time
+//     8/16/32/64/128);
+//   - the keys, values and validity are staged raw with cp.async,
+//     flash_tile::sweep_tile(DH) keys at a time, and what a pair needs of a
+//     key computed from shared memory once the tile has landed, a thread a
+//     key: its unit form k̂_j (flash_tile::unit_smem, dividing by
+//     max(‖k‖, 1e-12) as the rows do) or its squared norm y2; every thread
+//     then reads the same key, a broadcast with no bank conflict;
+//   - the epilogue runs on the SFU: oblique, oblique.cuh's weight, the TPU
+//     kernel's own (the A&S 4.4.46 acos with √x as x·rsqrt(x), one ex2; a
+//     negative Gram takes e^(−π)·2^(acos|gc|·log2 e)), so that the forward
+//     and the sweeps that replay its lse share one acos, as on the TPU;
+//     poincaré, poincare::fwd_weight: zc from poincare::pair in IEEE fp32
+//     (its division and sqrtf: near the ball's edge 1 − zc magnifies zc's
+//     rounding, PERF.md §6), then the tail on the SFU — at c = 1 one
+//     reciprocal and no log or exp, else rcp, lg2 and ex2 — with C1 a
 //     template parameter chosen at launch from the curvature's value; the
-//     row's lse = logf(l) stays IEEE, once a row (the dq and dk/dv sweeps
-//     replay from it);
-//   - latency is hidden by occupancy, not by rows a thread: a thread owns
-//     one query row, and at DH ≤ 8 the launch bounds hold it to 64
-//     registers, so that 8 blocks (32 warps) stay resident on an SM. Two
-//     rows a thread (the sweeps' flash_tile::sweep_rows, each staged key
-//     serving two pairs) took 102 registers, 4 blocks an SM, and measured
-//     1.27× slower at the recipe's shape; with the registers capped it was
-//     level (PERF.md §6);
-//   - the ball keys, values and validity are staged raw with cp.async,
-//     flash_tile::sweep_tile(DH) keys at a time, and the keys' squared
-//     norms y2 computed from shared memory once the tile has landed, so no
-//     thread stages a key through its registers (flash_tile.cuh, shared
-//     with the poincaré sweeps).
+//     row's lse = logf(l) stays IEEE, once a row;
+//   - rows a thread and the launch bounds' minimum of resident blocks an SM
+//     (which caps the registers) are each metric's fastest measured at the
+//     recipe's shape (fwd_rows, fwd_min_blocks; PERF.md §6): poincaré one
+//     row a thread held to 64 registers at DH ≤ 8, so that 8 blocks stay
+//     resident (two rows took 102 registers and measured 1.27× slower);
+//     oblique two rows a thread held to 80 registers, 6 blocks an SM.
+// F as a kernel of its own measured level with its instantiation here
+// (0.8 % apart, PERF.md §6), so the two metrics share this one kernel.
 // A head dim above 128 (JAX pads any Dh to a multiple of 128) would not fit
 // a thread's registers: both metrics run the key-streaming forward of
 // stream_fwd.cuh instead — a warp per query row, q and the accumulator in
 // shared memory, a lane per key of a 32-key tile — the same function with
 // the validity and the lse, for any Dh up to ~5,800. The Gram uses fp32
-// FMAs, no TF32 and no tensor cores: acos' amplifies Gram error near ±1,
-// the poincaré x2 − 2g + y2 cancels for close points (the TPU kernel's
+// FMAs, no TF32 and no tensor cores: acos' amplifies Gram error near ±1, the
+// poincaré x2 − 2g + y2 cancels for close points (the TPU kernel's
 // compensated 3-pass bf16 Gram, kept at HIGHEST for the poincaré scores, is
 // an MXU device; the card's analogue, tf32x3 mma, is later work).
 //
@@ -76,22 +78,24 @@
 #include <math.h>
 
 #include "flash_tile.cuh"
+#include "oblique.cuh"
 #include "poincare.cuh"
 #include "smem_attr.cuh"
 #include "stream_fwd.cuh"
 
-// timing variants of the poincaré forward's design (see
-// scripts/torch_3p_c_bench.py): the IEEE epilogue (poincare::pair,
-// score and expf) in place of fwd_weight; R query rows a thread at every
-// head dim (the design: one); each key staged through a thread's
-// registers in place of cp.async; and the minimum of resident blocks per SM
-// in the kernel's launch bounds, which caps its registers (0: the design's,
-// fwd_min_blocks)
+// timing variants of the register forward's design, both metrics (see
+// scripts/torch_flash_bench.py for F, scripts/torch_3p_c_bench.py for 3p):
+// the IEEE epilogue (oblique acosf and expf, the kernel's arithmetic of
+// before; poincaré poincare::pair, score and expf) in place of the SFU
+// one; each key staged through a thread's registers, normalized there, in
+// place of cp.async; and at DH ≤ 16 the query rows a thread owns and the
+// minimum of resident blocks per SM in the launch bounds, which caps the
+// registers (0: the design's, fwd_rows and fwd_min_blocks)
 #ifndef STTODE_FLASH_FWD_IEEE_EPILOGUE
 #define STTODE_FLASH_FWD_IEEE_EPILOGUE 0
 #endif
 #ifndef STTODE_FLASH_FWD_ROWS
-#define STTODE_FLASH_FWD_ROWS 1
+#define STTODE_FLASH_FWD_ROWS 0
 #endif
 #ifndef STTODE_FLASH_FWD_REG_STAGING
 #define STTODE_FLASH_FWD_REG_STAGING 0
@@ -103,10 +107,8 @@
 namespace {
 
 constexpr int kThreads = flash_tile::kThreads;   // row slots per block
-constexpr int kTile = kThreads;        // F: keys staged per step, one a thread
-constexpr float kClip = 0.9999f;       // 1 - 1e-4
-constexpr float kNormFloor = 1e-12f;
 constexpr float kDenFloor = 1e-30f;
+constexpr bool kIEEE = STTODE_FLASH_FWD_IEEE_EPILOGUE;
 
 // r = x[0..Dh) zero-padded to DH, scaled to unit norm (norm floored), or
 // kept RAW (poincaré ball rows); returns the squared norm
@@ -120,7 +122,7 @@ __device__ __forceinline__ float load_row(const float* __restrict__ x, int Dh,
     ss = fmaf(r[d], r[d], ss);
   }
   if (!RAW) {
-    const float f = fmaxf(sqrtf(ss), kNormFloor);
+    const float f = fmaxf(sqrtf(ss), flash_tile::kNormFloor);
 #pragma unroll
     for (int d = 0; d < DH; ++d) r[d] = r[d] / f;
   }
@@ -159,112 +161,67 @@ __device__ __forceinline__ void axpy_smem(float e, const float* __restrict__ b,
   }
 }
 
-// the oblique forward (F): a thread per query row, each thread staging one
-// unit key and its value through its registers
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_mhgsa_fwd_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ val, float* __restrict__ out,
-                       float* __restrict__ lse, int L, int S, int Dh,
-                       int row_tiles) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                       // [kTile][DH] unit keys
-  float* vs = ks + kTile * DH;            // [kTile][DH] values
-  float* ok = vs + kTile * DH;            // [kTile] 1 = valid key
-
-  const int t = threadIdx.x;
-  const int b = blockIdx.x / row_tiles;
-  const int i = (blockIdx.x % row_tiles) * kThreads + t;
-  const bool row = i < L;
-  const float* kb = k + (size_t)b * S * Dh;
-  const float* vb = v + (size_t)b * S * Dh;
-  const float* valb = val ? val + (size_t)b * S : nullptr;
-
-  float qh[DH];
-  if (row) {
-    load_row<DH, false>(q + ((size_t)b * L + i) * Dh, Dh, qh);
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qh[d] = 0.f;
+// The metric policies of flash_fwd_kernel. kRaw: rows and keys stay raw
+// ball points and a pair takes the rows' squared norms x2, y2 (poincaré);
+// else both are scaled to unit norm and the squared norms go unused
+// (oblique). weight(g, x2, y2) is the pair's e = exp(s).
+struct ObliqueFwd {
+  static constexpr bool kRaw = false;
+  __device__ __forceinline__ float weight(float g, float, float) const {
+    return oblique::weight<kIEEE>(g);
   }
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float l = 0.f;
+};
 
-  for (int j0 = 0; j0 < S; j0 += kTile) {
-    const int n = min(kTile, S - j0);
-    __syncthreads();                      // the previous tile is consumed
-    if (t < n) {
-      const int j = j0 + t;
-      float kr[DH];
-      load_row<DH, false>(kb + (size_t)j * Dh, Dh, kr);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        ks[t * DH + d] = kr[d];
-        vs[t * DH + d] = d < Dh ? vb[(size_t)j * Dh + d] : 0.f;
-      }
-      ok[t] = (valb == nullptr || valb[j] > 0.f) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    if (row) {
-      for (int jj = 0; jj < n; ++jj) {
-        if (ok[jj] == 0.f) continue;      // the same key for every thread
-        const float g = dot_smem(qh, ks + jj * DH);
-        const float e = expf(-acosf(fminf(fmaxf(g, -kClip), kClip)));
-        l += e;
-        axpy_smem(e, vs + jj * DH, acc);
-      }
-    }
-  }
-  if (row) {
-    const float lf = fmaxf(l, kDenFloor);
-    float* o = out + ((size_t)b * L + i) * Dh;
-#pragma unroll
-    for (int d = 0; d < DH; ++d)
-      if (d < Dh) o[d] = acc[d] / lf;
-    lse[(size_t)b * L + i] = logf(lf);
-  }
-}
-
-// e = exp(s) of one poincaré pair: fwd_weight (zc in IEEE fp32, the tail on
-// the SFU; C1 the curvature c = 1), or the IEEE epilogue in its timing
-// variant
 template <bool C1>
-__device__ __forceinline__ float poincare_weight(float g, float x2, float y2,
-                                                 const poincare::Curv& c) {
-#if STTODE_FLASH_FWD_IEEE_EPILOGUE
-  return expf(poincare::score(poincare::pair(g, x2, y2, c), c));
-#else
-  return poincare::fwd_weight<C1>(g, x2, y2, c);
-#endif
+struct PoincareFwd {
+  static constexpr bool kRaw = true;
+  poincare::Curv c;
+  __device__ __forceinline__ float weight(float g, float x2, float y2) const {
+    if (kIEEE) return expf(poincare::score(poincare::pair(g, x2, y2, c), c));
+    return poincare::fwd_weight<C1>(g, x2, y2, c);
+  }
+};
+
+// query rows a thread and the minimum of resident blocks an SM its launch
+// bounds ask for, each metric's fastest measured at the NBA recipe's
+// 88 × 2304² × 8 (PERF.md §6); a timing variant's defines set them at
+// DH ≤ 16.
+// - Poincaré (3p): one row, 8 blocks at DH ≤ 8 (64 registers a thread, no
+//   spills: 32 warps an SM); two rows took 102 registers and lost 27 %.
+// - Oblique (F): two rows at DH ≤ 16, each staged key serving two pairs,
+//   and 6 blocks at DH ≤ 8 (80 registers): the recipe's 792 blocks then
+//   run in one wave of 6 an SM, where uncapped (92 registers, 5 an SM) a
+//   second wave of 132 blocks trails, 5 % slower; one row a thread was
+//   5–16 % slower at every cap.
+template <class M>
+__host__ __device__ constexpr int fwd_rows(int dh) {
+  return dh <= 16 && STTODE_FLASH_FWD_ROWS ? STTODE_FLASH_FWD_ROWS
+         : M::kRaw                         ? 1
+         : dh <= 16                        ? 2
+                                           : 1;
 }
 
-// resident blocks per SM the poincaré forward's launch bounds ask for: 8 at
-// DH ≤ 8 (64 registers a thread, no spills: 32 warps an SM), else 1
+template <class M>
 __host__ __device__ constexpr int fwd_min_blocks(int dh) {
-  return STTODE_FLASH_FWD_MIN_BLOCKS ? STTODE_FLASH_FWD_MIN_BLOCKS
-                                     : dh <= 8 ? 8 : 1;
+  return dh <= 16 && STTODE_FLASH_FWD_MIN_BLOCKS ? STTODE_FLASH_FWD_MIN_BLOCKS
+         : dh > 8                                ? 1
+         : M::kRaw                               ? 8
+                                                 : 6;
 }
 
-// the poincaré forward (3p): R query rows a thread (rows i0 + r·kThreads),
-// the ball keys, values and validity staged raw with cp.async, T at a time
-template <int DH, int R, bool C1>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks(DH))
-flash_poincare_fwd_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ val,
-                          float* __restrict__ out, float* __restrict__ lse,
-                          int L, int S, int Dh, int row_tiles,
-                          poincare::Curv curv) {
+// the register forward: R query rows a thread (rows i0 + r·kThreads), the
+// keys, values and validity staged raw with cp.async, T at a time
+template <int DH, int R, int MINB, class M>
+__global__ void __launch_bounds__(kThreads, MINB)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ val,
+                 float* __restrict__ out, float* __restrict__ lse, int L,
+                 int S, int Dh, int row_tiles, M m) {
   constexpr int T = flash_tile::sweep_tile(DH);
   extern __shared__ __align__(16) float smem[];
-  float* y2 = smem;                       // [T] ‖k_j‖² of the tile
+  float* y2 = smem;                       // [T] ‖k_j‖² of the tile (kRaw)
   float* ok = y2 + T;                     // [T] 1 = valid key
-  float* ks = ok + T;                     // [T][DH] ball keys
+  float* ks = ok + T;                     // [T][DH] keys (unit or ball)
   float* vs = ks + T * DH;                // [T][DH] values
   float* vt = vs + T * DH;                // [T] validity, as staged
 
@@ -276,19 +233,20 @@ flash_poincare_fwd_kernel(const float* __restrict__ q,
   const float* valb = val ? val + (size_t)b * S : nullptr;
   const bool vec = flash_tile::vec_rows(kb, vb, Dh);
 
-  // R rows: the ball row, its x2, the running Σ e·v and Σ e
-  float qb[R][DH], acc[R][DH], x2[R], l[R];
+  // R rows: the row (q̂ or the ball row), its x2, the running Σ e·v and Σ e
+  float qr[R][DH], acc[R][DH], x2[R], l[R];
   bool any = false;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r * kThreads;
     if (i < L) {
-      x2[r] = load_row<DH, true>(q + ((size_t)b * L + i) * Dh, Dh, qb[r]);
+      x2[r] = load_row<DH, M::kRaw>(q + ((size_t)b * L + i) * Dh, Dh,
+                                    qr[r]);
       any = true;
     } else {
       x2[r] = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) qb[r][d] = 0.f;
+      for (int d = 0; d < DH; ++d) qr[r][d] = 0.f;
     }
 #pragma unroll
     for (int d = 0; d < DH; ++d) acc[r][d] = 0.f;
@@ -301,7 +259,8 @@ flash_poincare_fwd_kernel(const float* __restrict__ q,
     if (t < n) {                          // thread t stages key j0 + t
       const int j = j0 + t;
       float kr[DH];
-      y2[t] = load_row<DH, true>(kb + (size_t)j * Dh, Dh, kr);
+      const float ss = load_row<DH, M::kRaw>(kb + (size_t)j * Dh, Dh, kr);
+      if (M::kRaw) y2[t] = ss;
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
         ks[t * DH + d] = kr[d];
@@ -319,7 +278,10 @@ flash_poincare_fwd_kernel(const float* __restrict__ q,
     flash_tile::cp_async_wait<0>();
     __syncthreads();                      // the tile has landed
     if (t < n) {
-      y2[t] = flash_tile::sq_norm_smem<DH>(ks + t * DH);
+      if (M::kRaw)
+        y2[t] = flash_tile::sq_norm_smem<DH>(ks + t * DH);
+      else
+        flash_tile::unit_smem<DH>(ks + t * DH);
       ok[t] = (valb == nullptr || vt[t] > 0.f) ? 1.f : 0.f;
     }
     __syncthreads();
@@ -329,11 +291,10 @@ flash_poincare_fwd_kernel(const float* __restrict__ q,
         if (ok[jj] == 0.f) continue;      // the same key for every thread
         const float* kr = ks + jj * DH;
         const float* vr = vs + jj * DH;
-        const float yj = y2[jj];
+        const float yj = M::kRaw ? y2[jj] : 0.f;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float e = poincare_weight<C1>(dot_smem(qb[r], kr), x2[r], yj,
-                                              curv);
+          const float e = m.weight(dot_smem(qr[r], kr), x2[r], yj);
           l[r] += e;
           axpy_smem(e, vr, acc[r]);
         }
@@ -354,74 +315,39 @@ flash_poincare_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, class M>
 int launch(const float* q, const float* k, const float* v, const float* val,
-           float* out, float* lse, int B, int L, int S, int Dh,
+           float* out, float* lse, int B, int L, int S, int Dh, M m,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kTile * DH + kTile);
-  cudaError_t err = smem_attr::allow(flash_mhgsa_fwd_kernel<DH>, smem);
-  if (err != cudaSuccess) return err;
-  const int row_tiles = (L + kThreads - 1) / kThreads;
-  const long long blocks = (long long)B * row_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mhgsa_fwd_kernel<DH><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, val, out, lse, L, S, Dh, row_tiles);
-  return cudaGetLastError();
-}
-
-template <int DH, bool C1>
-int launch_poincare(const float* q, const float* k, const float* v,
-                    const float* val, float* out, float* lse, int B, int L,
-                    int S, int Dh, float c, cudaStream_t stream) {
-  constexpr int R = STTODE_FLASH_FWD_ROWS;
+  constexpr int R = fwd_rows<M>(DH);
+  constexpr int MINB = fwd_min_blocks<M>(DH);
   constexpr size_t smem =
       sizeof(float) * flash_tile::sweep_tile(DH) * (2 * DH + 3);
-  cudaError_t err =
-      smem_attr::allow(flash_poincare_fwd_kernel<DH, R, C1>, smem);
-  if (err != cudaSuccess) return err;
   const int row_tiles = (L + kThreads * R - 1) / (kThreads * R);
   const long long blocks = (long long)B * row_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_poincare_fwd_kernel<DH, R, C1>
+  cudaError_t err = smem_attr::allow(flash_fwd_kernel<DH, R, MINB, M>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<DH, R, MINB, M>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(
-          q, k, v, val, out, lse, L, S, Dh, row_tiles,
-          poincare::make_curv(c));
+          q, k, v, val, out, lse, L, S, Dh, row_tiles, m);
   return cudaGetLastError();
 }
 
+// the register forward at the head dim rounded up to 8/16/32/64/128, or the
+// key-streaming one above 128
+template <class M>
 int dispatch(const float* q, const float* k, const float* v, const float* val,
-             float* out, float* lse, int B, int L, int S, int Dh,
-             cudaStream_t st) {
-  if (Dh <= 8) return launch<8>(q, k, v, val, out, lse, B, L, S, Dh, st);
-  if (Dh <= 16) return launch<16>(q, k, v, val, out, lse, B, L, S, Dh, st);
-  if (Dh <= 32) return launch<32>(q, k, v, val, out, lse, B, L, S, Dh, st);
-  if (Dh <= 64) return launch<64>(q, k, v, val, out, lse, B, L, S, Dh, st);
-  if (Dh <= 128) return launch<128>(q, k, v, val, out, lse, B, L, S, Dh, st);
-  return stream_fwd::launch<false>(q, k, v, nullptr, val, out, lse, B, L, S,
-                                   Dh, 1.f, st);
-}
-
-// C1: the curvature is 1 (fwd_weight's c = 1 form)
-template <bool C1>
-int dispatch_poincare(const float* q, const float* k, const float* v,
-                      const float* val, float* out, float* lse, int B, int L,
-                      int S, int Dh, float c, cudaStream_t st) {
-  if (Dh <= 8)
-    return launch_poincare<8, C1>(q, k, v, val, out, lse, B, L, S, Dh, c, st);
-  if (Dh <= 16)
-    return launch_poincare<16, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
-                                   st);
-  if (Dh <= 32)
-    return launch_poincare<32, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
-                                   st);
-  if (Dh <= 64)
-    return launch_poincare<64, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
-                                   st);
+             float* out, float* lse, int B, int L, int S, int Dh, M m,
+             float c, cudaStream_t st) {
+  if (Dh <= 8) return launch<8>(q, k, v, val, out, lse, B, L, S, Dh, m, st);
+  if (Dh <= 16) return launch<16>(q, k, v, val, out, lse, B, L, S, Dh, m, st);
+  if (Dh <= 32) return launch<32>(q, k, v, val, out, lse, B, L, S, Dh, m, st);
+  if (Dh <= 64) return launch<64>(q, k, v, val, out, lse, B, L, S, Dh, m, st);
   if (Dh <= 128)
-    return launch_poincare<128, C1>(q, k, v, val, out, lse, B, L, S, Dh, c,
-                                    st);
-  return stream_fwd::launch<true>(q, k, v, nullptr, val, out, lse, B, L, S,
-                                  Dh, c, st);
+    return launch<128>(q, k, v, val, out, lse, B, L, S, Dh, m, st);
+  return stream_fwd::launch<M::kRaw>(q, k, v, nullptr, val, out, lse, B, L,
+                                     S, Dh, c, st);
 }
 
 }  // namespace
@@ -441,9 +367,12 @@ extern "C" int flash_mhgsa_fwd(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   if (B == 0 || L == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (metric == 0) return dispatch(q, k, v, val, out, lse, B, L, S, Dh, st);
-  return c == 1.f ? dispatch_poincare<true>(q, k, v, val, out, lse, B, L, S,
-                                            Dh, c, st)
-                  : dispatch_poincare<false>(q, k, v, val, out, lse, B, L, S,
-                                             Dh, c, st);
+  if (metric == 0)
+    return dispatch(q, k, v, val, out, lse, B, L, S, Dh, ObliqueFwd{}, 1.f,
+                    st);
+  const poincare::Curv curv = poincare::make_curv(c);
+  return c == 1.f ? dispatch(q, k, v, val, out, lse, B, L, S, Dh,
+                             PoincareFwd<true>{curv}, c, st)
+                  : dispatch(q, k, v, val, out, lse, B, L, S, Dh,
+                             PoincareFwd<false>{curv}, c, st);
 }

@@ -1,15 +1,17 @@
-// What the poincaré flash register kernels share: the poincaré forward
-// (flash_mhgsa_fwd.cu, 3p) and the dq and dk/dv sweeps (flash_mhgsa_bwd.cu,
-// 4p). A block has kThreads threads, each owning output rows (the sweeps
-// sweep_rows(DH): two at DH ≤ 16, where registers allow; the forward one);
-// the other axis is staged raw, sweep_tile(DH) rows at a time, with
-// cp.async into shared memory, with no registers or instructions of the
-// threads; what is derived from a staged row (its squared norm) is computed
-// from shared memory once the tile has landed.
+// What the flash register kernels share: the forward of both metrics
+// (flash_mhgsa_fwd.cu, F and 3p) and the dq and dk/dv sweeps
+// (flash_mhgsa_bwd.cu, Fdq, Fdkv and 4p). A block has kThreads threads,
+// each owning output rows (the sweeps sweep_rows(DH): two at DH ≤ 16, where
+// registers allow; the forward its own choice); the other axis is staged
+// raw, sweep_tile(DH) rows at a time, with cp.async into shared memory,
+// with no registers or instructions of the threads; what is derived from a
+// staged row (its squared norm, or its unit form) is computed from shared
+// memory once the tile has landed.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // internal linkage: each including source keeps its own copy
@@ -17,6 +19,7 @@ namespace {
 namespace flash_tile {
 
 constexpr int kThreads = 128;          // threads (and row slots) per block
+constexpr float kNormFloor = 1e-12f;   // x̂ = x / max(‖x‖, kNormFloor)
 
 // output rows per thread: two where registers allow (no spills at DH ≤ 16)
 constexpr int sweep_rows(int dh) { return dh <= 16 ? 2 : 1; }
@@ -91,6 +94,23 @@ __device__ __forceinline__ float sq_norm_smem(const float* __restrict__ x) {
     ss = fmaf(u.w, u.w, ss);
   }
   return ss;
+}
+
+// scale a 16-byte aligned row of shared memory to unit norm (floored),
+// dividing by max(‖x‖, 1e-12) as the kernels' register rows do
+template <int DH>
+__device__ __forceinline__ void unit_smem(float* __restrict__ x) {
+  const float f = fmaxf(sqrtf(sq_norm_smem<DH>(x)), kNormFloor);
+  float4* x4 = reinterpret_cast<float4*>(x);
+#pragma unroll
+  for (int d = 0; d < DH / 4; ++d) {
+    float4 u = x4[d];
+    u.x = u.x / f;
+    u.y = u.y / f;
+    u.z = u.z / f;
+    u.w = u.w / f;
+    x4[d] = u;
+  }
 }
 
 }  // namespace flash_tile

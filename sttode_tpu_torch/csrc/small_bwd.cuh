@@ -1,7 +1,11 @@
 // Small-S mode of the oblique whole-S attention backward (mhgsa_bwd.cu,
 // kernel C at the shapes small_bwd::mode takes): the function of
 // mhgsa_bwd.cu's header, for the oblique metric, with the same contract
-// (masks, dmask, an all-excluded row's exactly zero gradient).
+// (masks, dmask, an all-excluded row's exactly zero gradient). The packed
+// backward (packed_mhgsa_bwd.cu, kernel Q) runs the same body with a key
+// validity in place of the mask: e_ij = exp(−acos(gc_ij))·val[b, j], the
+// row val[p / H] of a problem's batch row staged once into shared memory,
+// no mask and no dmask; an all-invalid problem gets exactly zero gradients.
 //
 // What bounds it on the H100: at the bench recipe a call is 88 problems of
 // 128 × 128 × 8, ~130 M operations on 2.5 MB, about two microseconds of the
@@ -126,20 +130,20 @@ __host__ __device__ Layout layout_of(int L, int S, int nt) {
 }
 
 // shared memory of a block: q̂, do [L][ld], k̂, v [S][ld], ‖q‖, 1/den, δ [L],
-// ‖k‖ [S] and the slices' partial sums
-template <int DH>
+// ‖k‖ [S], with VAL the key validity [S], and the slices' partial sums
+template <int DH, bool VAL>
 __host__ __device__ size_t smem_bytes(int L, int S, const Layout& y) {
   const int n1 = y.rows1 * y.slices1, n2 = y.keys2 * y.slices2;
   return sizeof(float) *
-         (2 * ((size_t)L + S) * ld(DH) + 3 * (size_t)L + S +
-          (size_t)(n1 > n2 ? n1 : n2) * part_stride(DH));
+         (2 * ((size_t)L + S) * ld(DH) + 3 * (size_t)L + (VAL ? 2 : 1) *
+          (size_t)S + (size_t)(n1 > n2 ? n1 : n2) * part_stride(DH));
 }
 
-template <int DH>
+template <int DH, bool VAL>
 __host__ __device__ Layout layout(int L, int S) {
   int nt = max_threads<DH>();
   Layout y = layout_of<DH>(L, S, nt);
-  while (nt > 32 && smem_bytes<DH>(L, S, y) > kSmemOptin)
+  while (nt > 32 && smem_bytes<DH, VAL>(L, S, y) > kSmemOptin)
     y = layout_of<DH>(L, S, nt /= 2);
   return y;
 }
@@ -194,16 +198,18 @@ __device__ __forceinline__ void normalize_vjp(const float (&dxh)[DH],
     if (d < Dh) out[d] = (dxh[d] - xh[d] * r) / f;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(max_threads<DH>())
-mhgsa_small_bwd_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ mask,
-                       const float* __restrict__ dout, float* __restrict__ dq,
-                       float* __restrict__ dk, float* __restrict__ dv,
-                       float* __restrict__ dmask, int L, int S, int Dh,
-                       Layout y) {
+// The block's work on problem blockIdx.x: q [·,L,Dh], k/v [·,S,Dh], dout
+// [·,L,Dh], the additive mask [·,L,S] (canonicalized) or null, and with VAL
+// the key validity val [·/H, S] (a problem's batch row p / H; null: every
+// key valid) multiplying each pair's e; dq, dk, dv and, where dmask is not
+// null, dmask [·,L,S].
+template <int DH, bool VAL>
+__device__ __forceinline__ void body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ mask,
+    const float* __restrict__ val, const float* __restrict__ dout,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dmask, int H, int L, int S, int Dh, Layout y) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = ld(DH);
   constexpr int PS = part_stride(DH);
@@ -215,15 +221,17 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
   float* rden = qnorm + L;                // [L] 1 / den_i
   float* delta = rden + L;                // [L] δ_i
   float* knorm = delta + L;               // [S] ‖k_j‖
-  float* part = knorm + S;                // [slices][rows][PS] partial sums
+  float* kval = knorm + S;                // [S] validity (VAL)
+  float* part = kval + (VAL ? S : 0);     // [slices][rows][PS] partial sums
 
   const int b = blockIdx.x;
   const int t = threadIdx.x, nt = blockDim.x;
   const size_t qo = (size_t)b * L * Dh, ko = (size_t)b * S * Dh;
   const float* mp = mask ? mask + (size_t)b * L * S : nullptr;
   float* dmp = dmask ? dmask + (size_t)b * L * S : nullptr;
+  const float* valp = VAL && val ? val + (size_t)(b / H) * S : nullptr;
 
-  // stage: a thread per row of q and do, then of k and v
+  // stage: a thread per row of q and do, then of k and v (and validity)
   for (int r = t; r < L + S; r += nt) {
     if (r < L) {
       qnorm[r] = stage_row<DH, true>(q + qo + (size_t)r * Dh, Dh,
@@ -234,6 +242,7 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
       knorm[j] = stage_row<DH, true>(k + ko + (size_t)j * Dh, Dh,
                                      kn + j * LD);
       stage_row<DH, false>(v + ko + (size_t)j * Dh, Dh, vs + j * LD);
+      if (VAL) kval[j] = valp ? valp[j] : 1.f;
     }
   }
   __syncthreads();
@@ -258,6 +267,7 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
           const float dp = dot(dr, vs + j * LD);
           float e, gate;
           pair_terms(g, mrow ? __ldg(mrow + j) : 0.f, &e, &gate);
+          if (VAL) e *= kval[j];
           den += e;
           edp = fmaf(e, dp, edp);
           const float w = gate * e, wd = w * dp;
@@ -315,6 +325,7 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
       if (mine && j < S) {
         load(kn + j * LD, kh);
         load(vs + j * LD, vr);
+        const float vj = VAL ? kval[j] : 1.f;
         for (int i = s; i < L; i += y.slices2) {
           const float* qr = qn + i * LD;
           const float* dr = dos + i * LD;
@@ -326,6 +337,7 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
           }
           float e, gate;
           pair_terms(g, mp ? __ldg(mp + (size_t)i * S + j) : 0.f, &e, &gate);
+          if (VAL) e *= vj;
           const float p = e * rden[i];
           const float ds = p * (dp - delta[i]);
           if (dmp) dmp[(size_t)i * S + j] = ds;
@@ -366,13 +378,28 @@ mhgsa_small_bwd_kernel(const float* __restrict__ q,
   }
 }
 
+// kernel C's small-S mode: the body with the mask and no validity
+template <int DH>
+__global__ void __launch_bounds__(max_threads<DH>())
+mhgsa_small_bwd_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ dout, float* __restrict__ dq,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       float* __restrict__ dmask, int L, int S, int Dh,
+                       Layout y) {
+  body<DH, false>(q, k, v, mask, nullptr, dout, dq, dk, dv, dmask, 1, L, S,
+                  Dh, y);
+}
+
 template <int DH>
 int launch_dh(const float* q, const float* k, const float* v,
               const float* mask, const float* dout, float* dq, float* dk,
               float* dv, float* dmask, int B, int L, int S, int Dh,
               cudaStream_t stream) {
-  const Layout y = layout<DH>(L, S);
-  const size_t smem = smem_bytes<DH>(L, S, y);
+  const Layout y = layout<DH, false>(L, S);
+  const size_t smem = smem_bytes<DH, false>(L, S, y);
   cudaError_t err = smem_attr::allow(mhgsa_small_bwd_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   mhgsa_small_bwd_kernel<DH><<<B, y.threads, smem, stream>>>(
@@ -385,9 +412,9 @@ __host__ __forceinline__ int head_dim(int Dh) {
   return Dh <= 8 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 0;
 }
 
-template <int DH>
+template <int DH, bool VAL>
 __host__ inline bool fits(int L, int S) {
-  return smem_bytes<DH>(L, S, layout<DH>(L, S)) <= kSmemOptin;
+  return smem_bytes<DH, VAL>(L, S, layout<DH, VAL>(L, S)) <= kSmemOptin;
 }
 
 // whether the small-S mode takes an oblique problem of L rows, S keys at
@@ -398,8 +425,8 @@ __host__ inline bool fits(int L, int S) {
 __host__ inline bool mode(int L, int S, int Dh) {
   const int DH = head_dim(Dh);
   if (DH == 0) return false;
-  if (!(DH == 8 ? fits<8>(L, S) : DH == 16 ? fits<16>(L, S)
-                                           : fits<32>(L, S)))
+  if (!(DH == 8 ? fits<8, false>(L, S) : DH == 16 ? fits<16, false>(L, S)
+                                                  : fits<32, false>(L, S)))
     return false;
   if (STTODE_SMALL_BWD_MODE >= 0) return STTODE_SMALL_BWD_MODE == 1;
   return Dh <= 8 || (Dh <= 16 && S >= 16) || S >= 32;

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "select_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "packed_mhgsa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "packed_mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "packed_mhgsa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
     "flash_mhgsa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flash_mhgsa_dq": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -126,7 +126,7 @@ def small_fwd_layout(L: int, S: int, Dh: int) -> dict:
                 blocks_per_problem=-(-L // rows), smem_bytes=smem)
 
 
-def small_bwd_layout(L: int, S: int, Dh: int) -> dict:
+def small_bwd_layout(L: int, S: int, Dh: int, val: bool = False) -> dict:
     """The block layout of the oblique backward's small-S mode
     (``csrc/small_bwd.cuh``, ``layout`` and ``smem_bytes`` there): one
     block per problem of ``threads`` threads; pass 1 takes ``rows1`` query
@@ -135,8 +135,10 @@ def small_bwd_layout(L: int, S: int, Dh: int) -> dict:
     rows split into ``slices2`` slices, within 1024 threads at Dh ≤ 8, 512
     at 16, 256 at 32, halved while the block's shared memory would pass
     ``SMEM_OPTIN_BYTES``; the template head dim ``DH`` (0 beyond the mode's
-    32) and the block's shared-memory bytes. At 128² × 8: 128 rows × 8
-    slices, then 128 keys × 8 slices, 1024 threads."""
+    32) and the block's shared-memory bytes. ``val``: the packed backward's
+    form, which stages the key validity too (S more floats). At 128² × 8:
+    128 rows × 8 slices, then 128 keys × 8 slices, 1024 threads; at the NBA
+    recipe's packed 32² × 8: 32 × 8 and 32 × 8, 256 threads."""
     DH = next((d for d in (8, 16, 32) if Dh <= d), 0)
     p2 = lambda x: 1 << (max(x, 1) - 1).bit_length()  # noqa: E731
 
@@ -145,7 +147,8 @@ def small_bwd_layout(L: int, S: int, Dh: int) -> dict:
         slices1 = min(p2(-(-S // 4)), nt // rows1)
         slices2 = min(p2(-(-L // 4)), nt // keys2)
         n = max(rows1 * slices1, keys2 * slices2)
-        smem = 4 * (2 * (L + S) * (DH | 1) + 3 * L + S + n * (2 * DH + 3))
+        smem = 4 * (2 * (L + S) * (DH | 1) + 3 * L + (2 if val else 1) * S
+                    + n * (2 * DH + 3))
         return dict(rows1=rows1, slices1=slices1, keys2=keys2,
                     slices2=slices2, threads=-(-n // 32) * 32, DH=DH,
                     smem_bytes=smem)

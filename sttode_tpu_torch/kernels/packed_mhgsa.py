@@ -31,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from sttode_tpu_torch.kernels import _build
-from sttode_tpu_torch.kernels.mhgsa import (EPS, _check_devices,
-                                            _normalize_vjp, _score_grad,
-                                            _unit)
+from sttode_tpu_torch.kernels.mhgsa import (EPS, SMEM_OPTIN_BYTES,
+                                            _check_devices, _normalize_vjp,
+                                            _score_grad, _unit,
+                                            small_bwd_layout)
 
 
 def _probs(qn, kn, val):
@@ -76,6 +77,16 @@ def packed_geodesic_attention_backward_reference(q, k, v, val, do):
             p.transpose(-1, -2) @ do)
 
 
+def packed_bwd_small(L: int, S: int, Dh: int) -> bool:
+    """Whether the backward kernel runs a problem of L rows, S keys at head
+    dim Dh on ``csrc/small_bwd.cuh``'s block-per-problem body (with the key
+    validity): head dims up to 32 whose staging fits shared memory
+    (``small_bwd_layout(..., val=True)``); else the warp kernel of
+    ``csrc/packed_mhgsa_bwd.cu``."""
+    lay = small_bwd_layout(L, S, Dh, val=True)
+    return lay["DH"] > 0 and lay["smem_bytes"] <= SMEM_OPTIN_BYTES
+
+
 _FWD = _build.Entry("packed_mhgsa_fwd")
 _BWD = _build.Entry("packed_mhgsa_bwd")
 
@@ -100,11 +111,10 @@ def _launch_bwd(q, k, v, val, do):
     B, H, L, Dh = q.shape
     S = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((B, H, L, 2), device=q.device, dtype=torch.float32)
     err = _build.launch(_BWD, q.device, q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), None if val is None else val.data_ptr(),
                         do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), stats.data_ptr(), B, H, L, S, Dh)
+                        dv.data_ptr(), B, H, L, S, Dh)
     if err:
         _build.check(err, f"packed_mhgsa_bwd(B={B}, H={H}, L={L}, S={S}, "
                           f"Dh={Dh})")
@@ -128,7 +138,8 @@ def packed_geodesic_attention_backward(q: torch.Tensor, k: torch.Tensor,
     validity [B,S] or None, the output cotangent do [B,H,L,Dh]. Returns
     (dq, dk, dv). CPU tensors run the plain version; CUDA tensors launch
     ``csrc/packed_mhgsa_bwd.cu`` or raise."""
-    do = do.to(torch.float32).contiguous()
+    if do.dtype != torch.float32 or not do.is_contiguous():
+        do = do.to(torch.float32).contiguous()
     if q.device.type == "cpu":
         return packed_geodesic_attention_backward_reference(q, k, v, val, do)
     if q.device.type == "cuda":

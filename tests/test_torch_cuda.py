@@ -495,6 +495,88 @@ def test_flash_kernels_randomized_sweep(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=3, L=301, S=517, Dh=8),       # L, S not multiples of the tiles
+    dict(B=2, L=1, S=129, Dh=5),
+    dict(B=2, L=257, S=131, Dh=16),
+    dict(B=2, L=129, S=255, Dh=13),
+    dict(B=2, L=131, S=97, Dh=32),
+    dict(B=2, L=77, S=203, Dh=64),
+    dict(B=1, L=63, S=129, Dh=100),
+    dict(B=2, L=65, S=99, Dh=128)])
+def test_flash_forward_lse_and_sweeps_from_it(cuda_device, case):
+    """The flash forward (F) at odd L and S and head dims 5 to 128, with a
+    key validity whose first problem has no valid key: out within 1e-5 of
+    the plain forward and lse within 1e-6 × max(1, |lse|), row by row (the
+    problem with no key: out exactly 0, lse = log(1e-30)); then the dq and
+    dk/dv sweeps replayed from the kernel's lse against the plain sweeps
+    from the plain lse, within 5e-5 × max(1, max |g|)."""
+    B, L, S, Dh = (case[x] for x in ("B", "L", "S", "Dh"))
+    rng = np.random.default_rng(L * 3 + S + Dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, n, Dh)).astype(
+        np.float32)).to(cuda_device) for n in (L, S, S, L))
+    val = torch.from_numpy((rng.random((B, S)) < 0.7).astype(np.float32)
+                           ).to(cuda_device)
+    val[0] = 0.0
+    before = tmhgsa.flash_geodesic_attention.launches
+    with torch.no_grad():
+        out, lse = tmhgsa._launch_flash(q, k, v, val)
+        want, wlse = tmhgsa.flash_geodesic_attention_reference(q, k, v, val)
+        torch.cuda.synchronize()
+    assert tmhgsa.flash_geodesic_attention.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-5)
+    rel = (lse - wlse).abs() / wlse.abs().clamp(min=1.0)
+    assert float(rel.max()) <= 1e-6
+    assert bool(torch.all(out[0] == 0))
+    np.testing.assert_allclose(lse[0].cpu().numpy(), np.log(1e-30), rtol=0,
+                               atol=1e-5)
+    with torch.no_grad():
+        got = (tmhgsa._launch_flash_dq(q, k, v, val, do, lse,
+                                       (do * out).sum(-1)),
+               *tmhgsa._launch_flash_dkv(q, k, v, val, do, lse,
+                                         (do * out).sum(-1)))
+        plain = (wlse, (do * want).sum(-1))
+        ref = (tmhgsa.flash_dq_reference(q, k, v, val, do, *plain),
+               *tmhgsa.flash_dkv_reference(q, k, v, val, do, *plain))
+        torch.cuda.synchronize()
+    _grad_check([g.cpu() for g in got], [w.cpu() for w in ref])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=3, H=8, L=13, S=29, Dh=8, small=True),
+    dict(B=3, H=8, L=32, S=32, Dh=16, small=True),
+    dict(B=2, H=4, L=21, S=11, Dh=32, small=True),
+    dict(B=2, H=1, L=1, S=1024, Dh=8, small=True),
+    dict(B=2, H=2, L=9, S=31, Dh=64, small=False),    # the warp kernel
+    dict(B=2, H=1, L=17, S=5, Dh=128, small=False),
+    dict(B=2, H=4, L=1024, S=1, Dh=32, small=False)])  # beyond shared memory
+def test_packed_backward_head_dim_branches(cuda_device, case):
+    """Q at each head-dim branch (the small body at 8, 16, 32; the warp
+    kernel above 32 and where the small body's staging passes shared
+    memory), with a key validity whose first batch row has no valid key:
+    dq, dk, dv against the plain backward within 5e-5 × max(1, max |g|),
+    that batch row's gradients exactly 0."""
+    B, H, L, S, Dh = (case[x] for x in ("B", "H", "L", "S", "Dh"))
+    rng = np.random.default_rng(L * 5 + S + Dh)
+    q, k, v, do, kv = _packed_inputs(rng, B, H, L, S, Dh, "random")
+    kv[0] = 0.0
+    assert tpacked.packed_bwd_small(L, S, Dh) is case["small"]
+    args = [t.to(cuda_device) for t in (q, k, v, kv, do)]
+    before = tpacked.packed_geodesic_attention_backward.launches
+    with torch.no_grad():
+        got = tpacked.packed_geodesic_attention_backward(*args)
+        torch.cuda.synchronize()
+    assert tpacked.packed_geodesic_attention_backward.launches == before + 1
+    want = tpacked.packed_geodesic_attention_backward_reference(
+        q, k, v, kv, do)
+    got = [g.cpu() for g in got]
+    _grad_check(got, want)
+    assert all(bool(torch.all(g[0] == 0)) for g in got)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_wide_heads(cuda_device):
     """A head dim of 130, which the flash forward refused before its wide
     mode, now runs and equals the plain forward (out and lse)."""

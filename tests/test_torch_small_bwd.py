@@ -25,7 +25,17 @@ unclipped |g| < 1 − 1e-4.
   ``jax.grad`` of the JAX package's fused kernel in interpret mode (dq, dk,
   dv) and the port's plain backward (dq, dk, dv, dmask) within the card's
   tolerance 5e-5 × max(1, max |g|); an all-excluded row's gradients exactly
-  0.
+  0;
+- the packed backward (kernel Q, ``csrc/packed_mhgsa_bwd.cu``), which runs
+  the same body with a key validity in place of the mask (each pair's e
+  multiplied by val[b, j]): ``small_bwd_layout(..., val=True)`` and
+  ``packed_bwd_small`` at Q's shapes, and the model with the validity
+  against ``jax.grad`` of the JAX package's ``packed_geodesic_attention``
+  in interpret mode and the port's plain packed backward, within 5e-5 ×
+  max(1, max |g|), at the NBA recipe's 11 × 8 × 32² × 8, 64 × 8 × 8² × 8
+  with a validity and an all-invalid problem, a rectangular 4 × 8 × 16 × 8
+  with S = 64 and 2 × 16 × 8² × 8 (H·Dh = 128); an all-invalid problem's
+  gradients exactly 0, and q = k rows an exactly zero, finite gradient.
 
 Inputs from numpy seeds.
 """
@@ -39,7 +49,9 @@ import pytest
 import torch
 
 from sttode_tpu.kernels import mhgsa as jm
+from sttode_tpu.kernels import packed_mhgsa as jpacked
 from sttode_tpu_torch.kernels import mhgsa as km
+from sttode_tpu_torch.kernels import packed_mhgsa as kp
 
 LOG2E = 1.4426950408889634
 SFU_REL = 2.0 ** -21      # rsqrt, ex2: PTX bounds of 1–2 ulp
@@ -91,17 +103,21 @@ def _slice_sum(x, slices, dim):
     return out
 
 
-def small_bwd_model(q, k, v, mask, do, sfu):
+def small_bwd_model(q, k, v, mask, do, sfu, val=None):
     """Model of the small-S mode on q [B,L,Dh], k/v [B,S,Dh], a
     canonicalized mask [B,L,S] or None and do [B,L,Dh]: (dq, dk, dv,
-    dmask)."""
+    dmask). ``val`` [B,S] (the packed backward's key validity, one row a
+    problem) multiplies each pair's e, and the layout is then the packed
+    one."""
     L, S, Dh = q.shape[1], k.shape[1], q.shape[2]
-    lay = km.small_bwd_layout(L, S, Dh)
+    lay = km.small_bwd_layout(L, S, Dh, val=val is not None)
     qn, q_norm = km._unit(q)
     kn, k_norm = km._unit(k)
     g = qn @ kn.transpose(-1, -2)
     dp = do @ v.transpose(-1, -2)
     e, gate = pair_terms(g, 0.0 if mask is None else mask, sfu)
+    if val is not None:
+        e = e * val[:, None, :]
     # pass 1: a row's sums over its keys, in one pass
     w = gate * e
     s1 = lay["slices1"]
@@ -244,3 +260,113 @@ def test_small_bwd_model_matches_jax(B, L, S, Dh, masked):
     if masked:
         assert bool(torch.all(got[0][:, 3] == 0))
         assert bool(torch.all(got[3][:, 3] == 0))
+
+
+# --------------------------------------------------------------------------- #
+# the packed backward (kernel Q) on the same body, with the key validity      #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("L,S,Dh,rows1,slices1,keys2,slices2,threads,small", [
+    (32, 32, 8, 32, 8, 32, 8, 256, True),     # the NBA recipe
+    (8, 8, 8, 8, 2, 8, 2, 32, True),          # 64 × 8 agent problems
+    (16, 64, 8, 16, 16, 64, 4, 256, True),    # rectangular
+    (1, 1, 8, 1, 1, 1, 1, 32, True),          # the launch floor
+    (1, 1024, 8, 1, 256, 1024, 1, 1024, True),  # L·S = 32², S > 32
+    (32, 32, 32, 32, 8, 32, 8, 256, True),    # H = 4, Dh = 32
+    (1024, 1, 32, 32, 1, 1, 32, 32, False)])   # beyond shared memory
+def test_packed_small_bwd_layout(L, S, Dh, rows1, slices1, keys2, slices2,
+                                 threads, small):
+    """``small_bwd_layout(..., val=True)`` at Q's shapes: the layout of the
+    mask-free body, S floats more shared memory for the validity, and
+    ``packed_bwd_small`` whether the body takes the problem."""
+    lay = km.small_bwd_layout(L, S, Dh, val=True)
+    plain = km.small_bwd_layout(L, S, Dh)
+    assert (lay["rows1"], lay["slices1"], lay["keys2"], lay["slices2"],
+            lay["threads"]) == (rows1, slices1, keys2, slices2, threads)
+    assert lay["smem_bytes"] == plain["smem_bytes"] + 4 * S
+    assert kp.packed_bwd_small(L, S, Dh) is small
+    assert (lay["smem_bytes"] <= km.SMEM_OPTIN_BYTES) is small
+    assert not kp.packed_bwd_small(8, 8, 64)      # Dh > 32: the warp kernel
+
+
+def _packed_case(rng, B, H, L, S, Dh, validity):
+    """q, k, v, do [B,H,·,Dh] and the validity [B,S] (or None): random,
+    and with ``one_dead`` the first batch row without a valid key."""
+    q, k, v = (_arr(rng, B, H, n, Dh) for n in (L, S, S))
+    do = _arr(rng, B, H, L, Dh)
+    val = None
+    if validity is not None:
+        val = (rng.random((B, S)) < 0.7).astype(np.float32)
+        if validity == "one_dead":
+            val[0] = 0.0
+    return q, k, v, do, val
+
+
+def _packed_model(q, k, v, do, val, sfu):
+    """The model on the [B·H] problems of a packed call, each taking its
+    batch row's validity: (dq, dk, dv) [B,H,·,Dh]."""
+    B, H, L, Dh = q.shape
+    S = k.shape[2]
+    flat = [_t(x).reshape(B * H, -1, Dh) for x in (q, k, v, do)]
+    vf = None if val is None else _t(val).repeat_interleave(H, dim=0)
+    dq, dk, dv, _ = small_bwd_model(*flat[:3], None, flat[3], sfu, val=vf)
+    return (dq.reshape(B, H, L, Dh), dk.reshape(B, H, S, Dh),
+            dv.reshape(B, H, S, Dh))
+
+
+@pytest.mark.parametrize("B,H,L,S,Dh,validity", [
+    (11, 8, 32, 32, 8, None),                 # the NBA recipe
+    (64, 8, 8, 8, 8, "one_dead"),             # validity, a dead problem
+    (4, 8, 16, 64, 8, "random"),              # rectangular
+    (2, 16, 8, 8, 8, "random")])              # H·Dh = 128
+def test_packed_model_matches_jax(B, H, L, S, Dh, validity):
+    """The model with the validity (float32, SFU ops at their bounds)
+    against ``jax.grad`` of the JAX package's packed kernel in interpret
+    mode and the port's plain packed backward, within 5e-5 × max(1, max
+    |g|); a problem with no valid key gets exactly zero gradients."""
+    rng = np.random.default_rng(B * 7 + L + S)
+    q, k, v, do, val = _packed_case(rng, B, H, L, S, Dh, validity)
+    assert kp.packed_bwd_small(L, S, Dh)
+    kv = None if val is None else jnp.asarray(val)
+
+    def loss(q_, k_, v_):
+        o = jpacked.packed_geodesic_attention(q_, k_, v_, kv_valid=kv,
+                                              interpret=True)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = _packed_model(q, k, v, do, val, _sfu(True, seed=B + H))
+    plain = kp.packed_geodesic_attention_backward_reference(
+        _t(q), _t(k), _t(v), None if val is None else _t(val), _t(do))
+    for name, g_, jw, pw in zip(("dq", "dk", "dv"), got, want, plain):
+        assert bool(torch.isfinite(g_).all()), name
+        for r in (np.asarray(jw), pw.numpy()):
+            tol = GRAD_TOL * max(1.0, float(np.abs(r).max()))
+            assert _max_err(g_.numpy(), r) <= tol, name
+    if validity == "one_dead":
+        assert all(bool(torch.all(g_[0] == 0)) for g_ in got)
+
+
+def test_packed_model_q_equals_k_rows():
+    """q = k: every diagonal pair has g ≥ 1 − 1e-4 in float32, so its gate
+    is exactly 0 and adds exactly nothing to dq and dk; the gradients stay
+    finite and equal the plain backward's. A problem of one row whose one
+    key is its query gets dq = dk = 0 exactly."""
+    rng = np.random.default_rng(3)
+    q, _, v, do, val = _packed_case(rng, 2, 2, 6, 6, 8, "random")
+    k = q.copy()
+    qn = km._unit(_t(q).reshape(4, 6, 8))[0]
+    _, gate = pair_terms(qn @ qn.transpose(-1, -2), 0.0, _sfu(False))
+    assert bool(torch.all(torch.diagonal(gate, dim1=-2, dim2=-1) == 0))
+    got = _packed_model(q, k, v, do, val, _sfu(True, seed=4))
+    plain = kp.packed_geodesic_attention_backward_reference(
+        _t(q), _t(k), _t(v), _t(val), _t(do))
+    for g_, w in zip(got, plain):
+        assert bool(torch.isfinite(g_).all())
+        assert _max_err(g_.numpy(), w.numpy()) <= \
+            GRAD_TOL * max(1.0, float(w.abs().max()))
+    one = _arr(rng, 1, 1, 1, 8)
+    dq, dk, _ = _packed_model(one, one.copy(), _arr(rng, 1, 1, 1, 8),
+                              _arr(rng, 1, 1, 1, 8), None, _sfu(True))
+    assert bool(torch.all(dq == 0)) and bool(torch.all(dk == 0))
