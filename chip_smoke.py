@@ -68,10 +68,12 @@ paths, then drives both paths at the full width of the repo's model
            under select_impl "xla", "auto" fp32 and "auto" bf16;
   phase 13 the poincaré branches of the geodesic-attention kernels against
            their plain versions, on ball points: the whole-S forward and
-           backward at the NBA recipe's 88 × 32² × 8 (q/k swapped) and
-           88 × 128² × 8, the forward with the agent-axis server's key mask
-           (host µs per call of the forward and the backward; their
-           launch-path floors);
+           backward at the NBA recipe's 88 × 32² × 8 (q/k swapped; c = 1
+           and 0.7) and 88 × 128² × 8, both with the agent-axis server's
+           key mask (host µs per call of the forward and the backward,
+           which body the backward, 2p, runs and its registers, the
+           kernel the trace names at 88 × 32² × 8; their launch-path
+           floors);
            the flash forward, dq and dk/dv sweeps at 88 × 2304² × 8 (q/k
            swapped) and 8 × 4096² × 64; the forward and the sweeps'
            general form at c = 0.7 and 0.05 (88 × 2304² × 8, timed), rows
@@ -267,10 +269,12 @@ def kernel_b_name(mangled: str) -> str:
 
 # the templated attention kernels whose registers the build report prints:
 # the flash backward sweeps, the flash forward of both metrics (F and 3p:
-# one kernel, a metric policy), the oblique backward's small-S mode (C) and
-# the packed backward (Q: the small body, and the warp kernel beyond it)
+# one kernel, a metric policy), the whole-S backward's small-S mode (C and
+# 2p: <DH, poincaré, c = 1>) and its kernel of before, and the packed
+# backward (Q: the small body, and the warp kernel beyond it)
 ATTN_KERNELS = (r"flash_(?:mhgsa|poincare)_d(?:q|kv)_kernel|flash_fwd_kernel|"
-                r"mhgsa_small_bwd_kernel|packed_(?:small|warp)_bwd_kernel")
+                r"mhgsa_(?:small_)?bwd_kernel|"
+                r"packed_(?:small|warp)_bwd_kernel")
 
 
 def sweep_name(mangled: str, kernels: str = ATTN_KERNELS) -> str:
@@ -292,13 +296,15 @@ def sweep_name(mangled: str, kernels: str = ATTN_KERNELS) -> str:
     return f"{m.group(1)}<" + ", ".join(args) + ">"
 
 
-def build_report(lib) -> None:
+def build_report(lib) -> dict:
     """Print the registers and spills of kernel B, the flash register
-    kernels (F, 3p and the sweeps), C's small-S mode and Q from the build log
-    (``-Xptxas -v``) and the tensor-core MMA instructions (HMMA) in kernel
-    B's SASS, from ``cuobjdump`` where the toolkit has it."""
+    kernels (F, 3p and the sweeps), the whole-S backward (C, 2p) and Q from
+    the build log (``-Xptxas -v``) and the tensor-core MMA instructions
+    (HMMA) in kernel B's SASS, from ``cuobjdump`` where the toolkit has it;
+    return each attention kernel's "Used ..." line by kernel<template
+    arguments>."""
     log = lib.with_name(lib.name + ".log").read_text().splitlines()
-    entry = None
+    entry, used = None, {}
     for line in log:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
@@ -307,11 +313,13 @@ def build_report(lib) -> None:
                      else None)
         elif entry and ("spill" in line or "Used" in line):
             print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+            if "Used" in line:
+                used[entry] = line.split(":", 1)[-1].strip()
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("cuobjdump: not in the toolkit; SASS not shown")
-        return
+        return used
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
@@ -325,6 +333,7 @@ def build_report(lib) -> None:
     for fn, ops in sorted(counts.items()):
         print(f"sass {kernel_b_name(fn)}: {ops}")
     require(counts, "kernel B's SASS holds no HMMA instruction")
+    return used
 
 
 def require(cond: bool, what: str) -> None:
@@ -374,6 +383,23 @@ def device_us(fn, calls: int = 20):
              and "_kernel" in e.key
              and any(n in e.key for n in ("packed_", "mhgsa_", "poincare_")))
     return us / calls if us > 0 else None
+
+
+def kernel_names(fn, pattern: str = r"(mhgsa_\w*bwd_kernel)") -> set:
+    """The names (``pattern``'s group) of the kernels one call of ``fn``
+    launches, from the profiler's trace, taken up to three times while a
+    trace holds none; empty where none does."""
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {m.group(1) for m in (re.search(pattern, e.key)
+                                      for e in prof.key_averages()) if m}
+        if names:
+            return names
+    return set()
 
 
 def host_us(fn, calls: int = 20) -> float:
@@ -557,7 +583,7 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name}, one nvcc per source)")
-    build_report(_build.library_path())
+    ptxas = build_report(_build.library_path())
 
     def counts():
         return {"attn": km.fused_geodesic_attention.launches,
@@ -1717,12 +1743,35 @@ def main() -> int:
         "agent_axis_q64x8x8x8_masked": (ball(64, 8, 8, 8), ball(64, 8, 8, 8),
                                         vb, mask_b),
     }
+    # and the general form of the epilogue (c = 0.7) at the recipe's shape,
+    # on inputs of their own generator
+    rng_c07 = np.random.default_rng(92)
+
+    def ball_c07(*shape):
+        return to_ball(torch.from_numpy(rng_c07.standard_normal(shape).astype(
+            np.float32)).to(dev) * (0.5 / (0.7 * shape[-1]) ** 0.5), 0.7)
+    p32c07 = "nba_b32_q11x8x32x8_swapped_c0.7"
+    pcases[p32c07] = (ball_c07(11, 8, 32, 8), ball_c07(11, 8, 32, 8), v32,
+                      None)
+    do_c07 = torch.from_numpy(rng_c07.standard_normal((11, 8, 32, 8)).astype(
+        np.float32)).to(dev)
+    pcurv = {name: 0.7 if name == p32c07 else C for name in pcases}
     perr = {"fwd": 0.0, "bwd": 0.0}
-    ptimes = {}
+    ptimes, pargs = {}, {}
     for name, (q, k, v, mask) in pcases.items():
-        *lead, L, _ = q.shape
+        *lead, L, Dh = q.shape
         S = k.shape[-2]
-        args = bwd_case(q, k, v, mask, randn(*q.shape), lead, L, S)
+        P = dict(metric="poincare", curvature=pcurv[name])
+        small = km.small_bwd_mode(L, S, Dh, metric="poincare")
+        body2p = ("the small-S mode, " + ptxas.get(
+            f"mhgsa_small_bwd_kernel<{max(8, 1 << (Dh - 1).bit_length())}, "
+            f"true, {'true' if pcurv[name] == 1.0 else 'false'}>",
+            "registers not in the build log") if small else
+            "the kernel of before, " + ptxas.get(
+                "mhgsa_bwd_kernel<true>", "registers not in the build log"))
+        args = bwd_case(q, k, v, mask, do_c07 if name == p32c07
+                        else randn(*q.shape), lead, L, S)
+        pargs[name] = args
         need = mask is not None
         with torch.inference_mode():
             got = km.fused_geodesic_attention(q, k, v, mask=mask, **P)
@@ -1730,7 +1779,7 @@ def main() -> int:
             got_b = km.fused_geodesic_attention_backward(
                 *args, need_dmask=need, **P)
             want_b = km.fused_geodesic_attention_backward_reference(
-                *args, need, "poincare", C)
+                *args, need, "poincare", pcurv[name])
             torch.cuda.synchronize()
         errs = {"out": max_err(got, want)}
         require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
@@ -1755,7 +1804,7 @@ def main() -> int:
                 lambda: km.fused_geodesic_attention_backward(
                     *args, need_dmask=need, **P),
                 lambda: km.fused_geodesic_attention_backward_reference(
-                    *args, need, "poincare", C)))
+                    *args, need, "poincare", pcurv[name])))
             us = [device_us(fn) for fn in (
                 lambda: km.fused_geodesic_attention(q, k, v, mask=mask, **P),
                 lambda: km.fused_geodesic_attention_backward(
@@ -1774,7 +1823,24 @@ def main() -> int:
             + ("device time not measured (no device time in the trace)"
                if None in us else
                "device µs/launch forward {:.2f}, backward {:.2f}".format(*us))
-            + f"  [{card}]")
+            + f"; c = {pcurv[name]}, backward (2p) on {body2p}  [{card}]")
+
+    P = dict(metric="poincare", curvature=C)
+    # 2p at the recipe's shape runs on small_bwd.cuh's body: its mode takes
+    # the problem, and the profiler's trace names the kernel
+    require(km.small_bwd_mode(32, 32, 8, metric="poincare"),
+            "phase 13: the small-S mode does not take 88 x 32² x 8 (2p)")
+    with torch.inference_mode():
+        names2p = kernel_names(lambda: km.fused_geodesic_attention_backward(
+            *pargs[p32], **P))
+    require(names2p in ({"mhgsa_small_bwd_kernel"}, set()),
+            f"phase 13: 2p at 88 x 32² x 8 launched {names2p}")
+    print("poincare whole-S backward (2p) at 88 x 32 x 32 x 8: small-S mode ("
+          + ", ".join(f"{k_} {v_}" for k_, v_ in km.small_bwd_layout(
+              32, 32, 8, metric="poincare").items())
+          + "), the trace's kernel "
+          + (", ".join(sorted(names2p)) if names2p else "not measured (no "
+             "kernel in the trace)") + f"  [{card}]")
 
     launch_floor(lambda q, k, v: km.fused_geodesic_attention(q, k, v, **P),
                  (ball(1, 1, 1, 8), ball(1, 1, 1, 8), randn(1, 1, 1, 8)),

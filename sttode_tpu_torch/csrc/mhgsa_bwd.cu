@@ -53,11 +53,15 @@
 // fused kernel) the same kernel stages each problem in a device workspace
 // the wrapper allocates (~0.46 MB a problem at S = 2048, read back from L2)
 // instead: flash, the maskless alternative, would read an additive mask
-// with a stride of S per thread. At small shapes an oblique problem runs
-// the small-S mode of small_bwd.cuh instead (small_bwd::mode, the measured
-// crossover; the bench recipe's 88 × 128² × 8 and the agent-axis server's
-// masked 512 × 8² × 8): threads own rows, then keys, the other axis split
-// across warps, and the TPU kernel's own epilogue on the SFU.
+// with a stride of S per thread. At small shapes a problem of either metric
+// runs the small-S mode of small_bwd.cuh instead (small_bwd::mode, the
+// crossover measured for both metrics; the bench recipe's 88 × 128² × 8, the
+// poincaré NBA recipe's 88 × 32² × 8 and the agent-axis server's masked
+// 512 × 8² × 8): threads own rows, then keys, the other axis split across
+// warps, one pass over a row's keys, and the epilogue on the SFU (oblique:
+// the TPU kernel's own; poincaré: zc in IEEE, the tail on the SFU). This
+// kernel keeps what the mode does not take: head dims above 32, and
+// staging beyond shared memory (the workspace mode).
 // The Gram uses fp32 FMAs, no TF32: acos'
 // amplifies Gram error near ±1, and the poincaré x2 − 2g + y2 cancels for
 // close points. The oblique gate tests the unclipped g and takes
@@ -320,9 +324,9 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
 // workspace null each problem is staged in shared memory, and an L or S
 // whose rows do not fit is refused with cudaErrorInvalidValue; otherwise
 // workspace holds B × staged_floats(L, S, Dh) floats (the wrapper's
-// whole_s_smem_bytes) and each problem is staged there; an oblique problem
-// that small_bwd::mode takes runs the small-S mode (small_bwd.cuh), which
-// leaves the workspace unused. Launches on
+// whole_s_smem_bytes) and each problem is staged there; a problem that
+// small_bwd::mode takes runs the small-S mode (small_bwd.cuh), which leaves
+// the workspace unused (the wrapper allocates none for it). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int mhgsa_bwd(const float* q, const float* k, const float* v,
                          const float* mask, const float* dout, float* dq,
@@ -332,9 +336,9 @@ extern "C" int mhgsa_bwd(const float* q, const float* k, const float* v,
   if (metric != 0 && metric != 1) return cudaErrorInvalidValue;
   if (B <= 0 || L <= 0 || S <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (metric == 0 && small_bwd::mode(L, S, Dh))
+  if (small_bwd::mode(L, S, Dh, metric))
     return small_bwd::launch(q, k, v, mask, dout, dq, dk, dv, dmask, B, L, S,
-                             Dh, st);
+                             Dh, metric, c, st);
   return metric == 1
              ? launch<true>(q, k, v, mask, dout, dq, dk, dv, dmask, workspace,
                             B, L, S, Dh, c, st)

@@ -1,7 +1,8 @@
 // The poincaré score epilogue of the geodesic-attention kernels, shared by
 // mhgsa_fwd.cu, mhgsa_bwd.cu, flash_mhgsa_fwd.cu and flash_mhgsa_bwd.cu
-// (whose register sweeps take sweep_grad, at the end of this file) and by
-// the small-shape forward (small_fwd.cuh, fwd_weight).
+// (whose register sweeps take sweep_grad), by the small-shape forward
+// (small_fwd.cuh, fwd_weight) and by the small-S backward (small_bwd.cuh,
+// bwd_terms, at the end of this file).
 //
 // Device form of sttode_tpu/kernels/mhgsa.py::_poincare_pieces (:211),
 // _poincare_score_from_pieces (:228) and _poincare_grad_pieces (:241),
@@ -49,9 +50,9 @@ inline Curv make_curv(float c) {
   return Curv{c, c * c, s, 1.f / s};
 }
 
-// the recompute of one pair, kept for its gradient
+// the recompute of one pair, kept for its gradient (t = n²)
 struct Pair {
-  float raw, m, den, n, zc;
+  float raw, m, den, t, n, zc;
 };
 
 __device__ __forceinline__ Pair pair(float g, float x2, float y2,
@@ -61,7 +62,8 @@ __device__ __forceinline__ Pair pair(float g, float x2, float y2,
   p.m = fmaxf(p.raw, 0.f);
   p.den = 1.f - 2.f * k.c * g + k.c2 * x2 * y2;
   const float de = p.den + kDenomEps;
-  p.n = sqrtf(p.m * p.den / (de * de) + 1e-15f);
+  p.t = p.m * p.den / (de * de) + 1e-15f;
+  p.n = sqrtf(p.t);
   p.zc = fminf(k.sqrt_c * p.n, 1.f - kArtanhEps);
   return p;
 }
@@ -153,14 +155,74 @@ __device__ __forceinline__ float sweep_grad(float g, float x2, float y2,
 // 1 − zc magnifies zc's rounding by zc/(1 − zc), and zc from sweep_grad's
 // rcp and rsqrt (about twice pair()'s rounding) moved the NBA recipe's
 // B = 32 poincaré step across a decoder ReLU at rounding against the dense
-// route where the IEEE zc does not (PERF.md §6).
+// route where the IEEE zc does not (PERF.md §6). weight_of is the tail
+// alone, of a zc the caller keeps.
 template <bool C1>
-__device__ __forceinline__ float fwd_weight(float g, float x2, float y2,
-                                            const Curv& k) {
-  const float zc = pair(g, x2, y2, k).zc;
+__device__ __forceinline__ float weight_of(float zc, const Curv& k) {
   if (C1) return (1.f - zc) * rcp_approx(1.f + zc);
   return ex2_approx(-k.inv_sqrt_c * lg2_approx((1.f + zc) *
                                                rcp_approx(1.f - zc)));
+}
+
+template <bool C1>
+__device__ __forceinline__ float fwd_weight(float g, float x2, float y2,
+                                            const Curv& k) {
+  return weight_of<C1>(pair(g, x2, y2, k).zc, k);
+}
+
+// ---------------------------------------------------------------------------
+// The small-S backward's form (small_bwd.cuh, kernel 2p). grad() is linear
+// in ds, so a pair gives its weight e = exp(s + mask) and its gradient
+// factors per unit of ds once, and the body sums them over a row before δ
+// is known:
+//
+//   dg = ds·f,   dx2_i += ds·(a + b·y2_j),   dy2_j += ds·(a + b·x2_i)
+//
+// with F = −2·w·½/n, w = 1/max(1 − zc², 1e-12), a = F·A·gate,
+// b = F·c²·Bd and f = −2a − 2c·F·Bd (A, Bd and the gate as in grad()). zc
+// is pair()'s, in IEEE fp32 (fwd_weight says why); the tail takes the SFU:
+// e as weight_of (an additive mask entry m as one more ex2), w as
+// rcp((1 − zc)(1 + zc)) (sweep_grad's), ½/n as ½·rsqrt(n²) and
+// r = rcp(den + ε) for A = den·r², Bd = m·(ε − den)·r³. Every argument is
+// a normal number (den + ε ≥ 1e-5, n² ≥ 1e-15, (1 − zc)(1 + zc) ≥ 2e-5),
+// and an excluded entry's ex2(−1e30·log2 e) gives e = +0. Each bit of IEEE
+// takes one piece as score(), expf and grad() compute it: 1 the weight
+// (expf(score + m)), 2 w, 4 ½/n, 8 r.
+struct BwdTerms {
+  float e, f, a, b;
+};
+
+template <bool C1, int IEEE>
+__device__ __forceinline__ BwdTerms bwd_terms(float g, float x2, float y2,
+                                              float mask, bool masked,
+                                              const Curv& k) {
+  const Pair p = pair(g, x2, y2, k);
+  BwdTerms t;
+  if (IEEE & 1) {
+    t.e = expf(score(p, k) + mask);
+  } else {
+    t.e = weight_of<C1>(p.zc, k);
+    if (masked) t.e *= ex2_approx(mask * 1.4426950408889634f);
+  }
+  const float de = p.den + kDenomEps;
+  float A, Bd;
+  if (IEEE & 8) {
+    A = p.den / (de * de);
+    Bd = p.m * (kDenomEps - p.den) / (de * de * de);
+  } else {
+    const float r = rcp_approx(de), r2 = r * r;
+    A = p.den * r2;
+    Bd = p.m * (kDenomEps - p.den) * (r2 * r);
+  }
+  const float w2 = (IEEE & 2)
+      ? -2.f / fmaxf(1.f - p.zc * p.zc, 1e-12f)
+      : -2.f * rcp_approx(fmaxf((1.f - p.zc) * (1.f + p.zc), 1e-12f));
+  const float hn = (IEEE & 4) ? 0.5f / p.n : 0.5f * rsqrt_approx(p.t);
+  const float F = w2 * hn;
+  t.a = p.raw > 0.f ? F * A : 0.f;
+  t.b = F * k.c2 * Bd;
+  t.f = -2.f * t.a - 2.f * k.c * F * Bd;
+  return t;
 }
 
 }  // namespace poincare

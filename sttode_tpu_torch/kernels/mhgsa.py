@@ -8,9 +8,9 @@ replaces, what bounds it on the H100 and what its design does about it:
   and ``csrc/mhgsa_bwd.cu``: every key of a problem is staged at once
   (``whole_s_smem_bytes``); where shared memory is too small the forward
   streams the keys, values and mask in tiles (any head dim) and the backward
-  stages in a device workspace; at small S the forward and the oblique
-  backward run small-S modes (``small_s_mode``, ``small_bwd_mode``);
-  additive masks.
+  stages in a device workspace; at small S the forward and the backward
+  run small-S modes (``small_s_mode``, ``small_bwd_mode``); additive
+  masks.
 - ``flash_geodesic_attention``, the S-tiled kernels
   ``csrc/flash_mhgsa_fwd.cu`` (forward, with the per-row lse) and
   ``csrc/flash_mhgsa_bwd.cu`` (the dq and the dk/dv sweeps, which replay
@@ -126,19 +126,25 @@ def small_fwd_layout(L: int, S: int, Dh: int) -> dict:
                 blocks_per_problem=-(-L // rows), smem_bytes=smem)
 
 
-def small_bwd_layout(L: int, S: int, Dh: int, val: bool = False) -> dict:
-    """The block layout of the oblique backward's small-S mode
+def small_bwd_layout(L: int, S: int, Dh: int, val: bool = False,
+                     metric: str = "oblique") -> dict:
+    """The block layout of the whole-S backward's small-S mode
     (``csrc/small_bwd.cuh``, ``layout`` and ``smem_bytes`` there): one
     block per problem of ``threads`` threads; pass 1 takes ``rows1`` query
     rows at a time (lane = row) with the keys split into ``slices1`` slices
     (key j ≡ slice mod slices1), pass 2 ``keys2`` keys at a time with the
-    rows split into ``slices2`` slices, within 1024 threads at Dh ≤ 8, 512
-    at 16, 256 at 32, halved while the block's shared memory would pass
-    ``SMEM_OPTIN_BYTES``; the template head dim ``DH`` (0 beyond the mode's
-    32) and the block's shared-memory bytes. ``val``: the packed backward's
-    form, which stages the key validity too (S more floats). At 128² × 8:
-    128 rows × 8 slices, then 128 keys × 8 slices, 1024 threads; at the NBA
-    recipe's packed 32² × 8: 32 × 8 and 32 × 8, 256 threads."""
+    rows split into ``slices2`` slices, within 1024 threads at Dh ≤ 8 (512
+    for ``metric="poincare"``), 512 at 16, 256 at 32, halved while the
+    block's shared memory would pass ``SMEM_OPTIN_BYTES``; the template head
+    dim ``DH`` (0 beyond the mode's 32) and the block's shared-memory bytes.
+    ``val``: the packed backward's form, which stages the key validity too
+    (S more floats). The poincaré form leaves two floats more a thread for
+    the slices' combine (the squared norms' sums). At 128² × 8: 128 rows ×
+    8 slices, then 128 keys × 8 slices, 1024 threads (poincaré 4 slices,
+    512); at the NBA recipe's 32² × 8: 32 × 8 and 32 × 8, 256 threads."""
+    if metric not in METRICS:
+        raise ValueError(f"metric {metric!r} (oblique/poincare)")
+    ball = metric == "poincare"
     DH = next((d for d in (8, 16, 32) if Dh <= d), 0)
     p2 = lambda x: 1 << (max(x, 1) - 1).bit_length()  # noqa: E731
 
@@ -148,12 +154,12 @@ def small_bwd_layout(L: int, S: int, Dh: int, val: bool = False) -> dict:
         slices2 = min(p2(-(-L // 4)), nt // keys2)
         n = max(rows1 * slices1, keys2 * slices2)
         smem = 4 * (2 * (L + S) * (DH | 1) + 3 * L + (2 if val else 1) * S
-                    + n * (2 * DH + 3))
+                    + n * (2 * DH + (5 if ball else 3)))
         return dict(rows1=rows1, slices1=slices1, keys2=keys2,
                     slices2=slices2, threads=-(-n // 32) * 32, DH=DH,
                     smem_bytes=smem)
 
-    nt = 1024 if DH <= 8 else 512 if DH <= 16 else 256
+    nt = (512 if ball else 1024) if DH <= 8 else 512 if DH <= 16 else 256
     lay = of(nt)
     while nt > 32 and lay["smem_bytes"] > SMEM_OPTIN_BYTES:
         nt //= 2
@@ -161,12 +167,13 @@ def small_bwd_layout(L: int, S: int, Dh: int, val: bool = False) -> dict:
     return lay
 
 
-def small_bwd_mode(L: int, S: int, Dh: int) -> bool:
-    """Whether the oblique whole-S backward runs a problem in its small-S
-    mode (``csrc/small_bwd.cuh::mode``): where its staging fits shared
-    memory, within the measured crossover: at Dh ≤ 8 every S, at Dh ≤ 16
-    from S = 16, at Dh ≤ 32 from S = 32."""
-    lay = small_bwd_layout(L, S, Dh)
+def small_bwd_mode(L: int, S: int, Dh: int, metric: str = "oblique") -> bool:
+    """Whether the whole-S backward runs a problem in its small-S mode
+    (``csrc/small_bwd.cuh::mode``): where its staging fits shared memory
+    (the poincaré layout's, for that metric), within the crossover measured
+    for both metrics (PERF.md §6): at Dh ≤ 8 every S, at Dh ≤ 16 from
+    S = 16, at Dh ≤ 32 from S = 32."""
+    lay = small_bwd_layout(L, S, Dh, metric=metric)
     if lay["DH"] == 0 or lay["smem_bytes"] > SMEM_OPTIN_BYTES:
         return False
     return Dh <= 8 or (Dh <= 16 and S >= 16) or S >= 32
@@ -366,10 +373,12 @@ def _launch_bwd(q, k, v, mask, do, need_dmask, metric="oblique",
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dmask = torch.empty((B, L, S), device=q.device, dtype=torch.float32) \
         if need_dmask and mask is not None else None
-    # beyond shared memory the kernel stages each problem in this workspace
+    # beyond shared memory the kernel of before stages each problem in this
+    # workspace; the small-S mode needs none
     _, staged = whole_s_smem_bytes(L, S, Dh, metric)
     ws = torch.empty(B * staged // 4, device=q.device, dtype=torch.float32) \
-        if staged > SMEM_OPTIN_BYTES else None
+        if staged > SMEM_OPTIN_BYTES and not small_bwd_mode(
+            L, S, Dh, metric) else None
     err = _build.launch(
         _BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(mask), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -15,6 +15,8 @@ at near-ties (both sides round to bf16 at the same points; a different fp32
 summation order can move a value across a bf16 rounding boundary).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1491,3 +1493,105 @@ def test_fused_forward_small_shapes(cuda_device, case):
                                atol=1e-5)
     if case["mask"] == "finfo_min":
         assert bool(torch.all(got[:, 0] == 0))
+
+
+# the poincaré whole-S backward's small-S mode (2p on csrc/small_bwd.cuh):
+# odd L and S, head dims 1–32, the c = 1 form and the general one down to
+# near the maxless bound, additive masks with dmask and an all-excluded row,
+# rows at the ball's edge (finite only); Dh = 64, and Dh 9–32 below the
+# crossover's S (9 keys at Dh = 16), stay on the kernel of before
+_POINCARE_SMALL_BWD_CASES = [
+    dict(B=88, L=32, S=32, Dh=8, c=1.0, mask="none"),      # NBA, B = 32
+    dict(B=88, L=32, S=32, Dh=8, c=0.7, mask="none"),
+    dict(B=88, L=128, S=128, Dh=8, c=1.0, mask="none"),    # NBA evaluation
+    dict(B=512, L=8, S=8, Dh=8, c=1.0, mask="finfo_min"),  # agent axis
+    dict(B=1, L=1, S=1, Dh=8, c=1.0, mask="none"),
+    dict(B=3, L=17, S=33, Dh=1, c=0.7, mask="finite"),
+    dict(B=2, L=31, S=29, Dh=5, c=0.05, mask="all_excluded"),
+    dict(B=2, L=45, S=77, Dh=13, c=1.0, mask="finfo_min"),
+    dict(B=2, L=63, S=9, Dh=16, c=0.7, mask="all_excluded"),
+    dict(B=2, L=33, S=65, Dh=32, c=0.05, mask="finite"),
+    dict(B=2, L=21, S=19, Dh=27, c=1.0, mask="all_excluded"),
+    dict(B=3, L=700, S=40, Dh=16, c=1.0, mask="none"),     # row rounds
+    dict(B=2, L=129, S=127, Dh=8, c=0.7, mask="all_excluded"),
+    dict(B=2, L=1100, S=1100, Dh=8, c=1.0, mask="finfo_min"),
+    dict(B=2, L=33, S=47, Dh=8, c=1.0, mask="edge"),
+    dict(B=2, L=33, S=47, Dh=32, c=0.7, mask="edge"),
+    dict(B=2, L=40, S=40, Dh=64, c=1.0, mask="finite"),    # kernel of before
+    dict(B=2, L=40, S=40, Dh=64, c=0.7, mask="all_excluded")]
+
+
+def _bwd_kernels(fn):
+    """``fn()``, the names of the whole-S backward kernels it launches, from
+    the profiler's trace (taken again, up to twice, where a trace holds no
+    kernel), and the number of calls made."""
+    for calls in range(1, 4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = {m.group(1) for m in (
+            re.search(r"(mhgsa_\w*bwd_kernel)", e.key)
+            for e in prof.key_averages()) if m}
+        if names:
+            break
+    return out, names, calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _POINCARE_SMALL_BWD_CASES + _sweep(
+    12, 29, lambda r: dict(
+        B=int(r.integers(1, 5)), L=int(r.integers(1, 200)),
+        S=int(r.integers(1, 200)), Dh=int(r.integers(1, 33)),
+        c=float(r.choice([0.05, 0.7, 1.0])),
+        mask=str(r.choice(["none", "finite", "finfo_min",
+                           "all_excluded"])))))
+def test_poincare_small_bwd_matches_plain(cuda_device, case):
+    """2p's small-S mode (and, where small_bwd_mode does not take the
+    problem, the kernel of before) against the plain backward on the CPU:
+    dq, dk, dv and dmask within 5e-5 × max(1, max |g|); an all-excluded
+    row's gradients and dmask exactly 0;
+    rows at the ball's edge finite (dq and dk are ill-conditioned there in
+    fp32, tests/test_torch_poincare_sweep.py). The profiler shows which
+    kernel ran: the small body wherever small_bwd_mode takes the problem."""
+    B, L, S, Dh, c = (case[x] for x in ("B", "L", "S", "Dh", "c"))
+    rng = np.random.default_rng(L * 131 + S * 7 + Dh + int(c * 100))
+    if case["mask"] == "edge":
+        q, k, v, do = _edge_inputs(rng, (B,), L, S, Dh, c)
+    else:
+        q, k, v, do = _ball_inputs(rng, (B,), L, S, Dh, c)
+    mask = None
+    if case["mask"] in ("finite", "all_excluded"):
+        mask = torch.from_numpy(
+            3.0 * rng.standard_normal((B, L, S)).astype(np.float32))
+        if case["mask"] == "all_excluded":
+            mask[:, 0] = torch.finfo(torch.float32).min
+    elif case["mask"] == "finfo_min":
+        mask = torch.where(torch.from_numpy(rng.random((B, 1, S))) < 0.3,
+                           torch.finfo(torch.float32).min, 0.0) \
+            .expand(B, L, S)
+    m3 = None if mask is None else tmhgsa._canonicalize_mask(mask)
+    kw = dict(metric="poincare", curvature=c)
+    want = tmhgsa.fused_geodesic_attention_backward(q, k, v, m3, do,
+                                                    need_dmask=True, **kw)
+    dev = [t.to(cuda_device) for t in (q, k, v, do)]
+    md = None if m3 is None else m3.to(cuda_device)
+    before = tmhgsa.fused_geodesic_attention_backward.launches_by_metric[
+        "poincare"]
+    got, names, calls = _bwd_kernels(
+        lambda: tmhgsa.fused_geodesic_attention_backward(
+            *dev[:3], md, dev[3], need_dmask=True, **kw))
+    assert tmhgsa.fused_geodesic_attention_backward.launches_by_metric[
+        "poincare"] == before + calls
+    small = tmhgsa.small_bwd_mode(L, S, Dh, metric="poincare")
+    assert small or Dh > 8
+    assert names == {"mhgsa_small_bwd_kernel" if small
+                     else "mhgsa_bwd_kernel"}, names
+    got = [None if g is None else g.cpu() for g in got]
+    assert all(bool(torch.isfinite(g).all()) for g in got if g is not None)
+    if case["mask"] == "edge":
+        return      # ill-conditioned in fp32: finite only
+    _grad_check(got, want)
+    if case["mask"] == "all_excluded":
+        assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
