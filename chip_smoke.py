@@ -93,6 +93,22 @@ paths, then drives both paths at the full width of the repo's model
            scenes/s and idle share of both routes at B = 32 (the step
            beside the one at commit 8079157) and B = 2304,
            and of the oblique flash route beside them at B = 2304.
+  phase 15 the ETH-UCY and SDD path: synthetic ETH-style CSVs (2 files x
+           200 frames x 12 agents a split, in a git-ignored ``.smoke_eth_*``
+           directory of the checkout, removed after) windowed by the native
+           engine (equal to the numpy loop); the reference recipe
+           ``cli.train --dataset eth --select_impl auto`` for 1 epoch (one
+           scene a step, bucket 16: P, Q and kernel B fp32 "dist", seen by
+           the profiler over 3 of the CLI's steps) and 1 resumed epoch, then
+           ``cli.test`` (P, kernel B "traj"; ADE/FDE); the agent-axis recipe
+           (``--compat tpu --attn_axis agent --scenes_per_batch 32``: A and C
+           with key masks); ``cli.test --dataset sdd`` on a pixel pickle in
+           the reference's [N, 2, T] layout; both recipes' padded batches on
+           the kernel route against the plain route; kernel B at M = 16 and
+           512 (8 / 12 steps, "dist", winner check; "traj" at 16); both
+           recipes' step time, train scenes/s, kernels a step and idle
+           share; one epoch with the prefetch thread (depth 2) and one
+           without (0) from the same seeds, with equal mean losses.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -110,7 +126,9 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -551,6 +569,304 @@ def step_times(routes, batch, gen, B, label, card, rounds=6,
     return medians
 
 
+def eth_phase(dev, card, counts, reset) -> dict:
+    """Phase 15: the ETH-UCY and SDD path. Returns the launches of its main
+    paths (the reference recipe's CLIs, the agent-axis CLI) and kernel B's
+    times at the ETH shapes."""
+    from sttode_tpu_torch.cli import test as cli_test
+    from sttode_tpu_torch.cli import train as cli_train
+    from sttode_tpu_torch.data import load_eth_ucy, scene_batches
+    from sttode_tpu_torch.data.synthetic import (make_social_scenes,
+                                                 write_eth_style_csvs)
+    from sttode_tpu_torch.kernels import select_decode as ks
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.native import binding
+    from sttode_tpu_torch.train import make_train_step, train_epoch
+
+    t_phase = time.perf_counter()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    cpu = torch.profiler.ProfilerActivity.CPU
+
+    def trace_names(events) -> dict:
+        """Launches by kernel of this repo's kernels in a trace: P, Q, A, C
+        and kernel B fp32."""
+        found: dict = {}
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for label, pattern in (
+                    ("P", r"packed_fwd_kernel"),
+                    ("Q", r"packed_(?:small|warp)_bwd_kernel"),
+                    ("A", r"mhgsa_(?:small_)?fwd_kernel"),
+                    ("C", r"mhgsa_(?:small_)?bwd_kernel"),
+                    ("B_fp32", r"select_main_kernel(?:<float|If)")):
+                if re.search(pattern, e.key):
+                    found[label] = found.get(label, 0) + e.count
+        return found
+
+    def step_clock(hook_fn=None):
+        """Host clock at every optimizer step (a global post-step hook),
+        calling ``hook_fn`` after each."""
+        stamps: list = []
+
+        def hook(opt, args, kwargs):
+            stamps.append(time.perf_counter())
+            if hook_fn is not None:
+                hook_fn()
+
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+        handle = register_optimizer_step_post_hook(hook)
+        return stamps, handle
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_eth_") as tmp:
+        root = os.path.join(tmp, "data")
+        for split, seed in (("train", 15), ("test", 16)):
+            write_eth_style_csvs(os.path.join(root, "eth", split), n_files=2,
+                                 frames_per_file=200, agents=12, seed=seed)
+        flags = ["--dataset", "eth", "--data_root", root, "--ckpt_dir",
+                 os.path.join(tmp, "ck"), "--log_every", "0",
+                 "--model_save_epoch", "1", "--select_impl", "auto"]
+
+        # the reference recipe (the JAX CLI's default run): one epoch, the
+        # profiler over 3 of its steps; a resumed epoch; cli.test
+        traces: list = []
+        prof = torch.profiler.profile(
+            activities=[cpu, cuda],
+            schedule=torch.profiler.schedule(wait=60, warmup=2, active=3,
+                                             repeat=1),
+            on_trace_ready=lambda p: traces.append(p.key_averages()))
+        binding.window_file.calls = 0
+        ks.select_decode.launches_by_mode.update(dist=0, traj=0)
+        reset()   # the main path: train, resume, evaluate
+        _, handle = step_clock(prof.step)
+        with prof:
+            run = cli_train.main(flags + ["--num_epochs", "1"])
+            torch.cuda.synchronize()
+        handle.remove()
+        stamps, handle = step_clock()
+        t = time.perf_counter()
+        resumed = cli_train.main(flags + ["--num_epochs", "2",
+                                          "--epoch_continue", "1"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        handle.remove()
+        launches_train = counts()
+        modes_train = dict(ks.select_decode.launches_by_mode)
+        native_files = binding.window_file.calls
+        with open("/proc/self/maps") as f:
+            native_mapped = str(binding.library_path()) in f.read()
+        t = time.perf_counter()
+        with torch.profiler.profile(activities=[cuda]) as prof_e:
+            best = cli_test.main(flags + ["--sweep", "1"])
+            torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        launches_ref = counts()
+        modes_ref = dict(ks.select_decode.launches_by_mode)
+        eval_names = trace_names(prof_e.key_averages())
+        train_names = trace_names(traces[0]) if traces else {}
+        n_train = len(stamps)
+        scenes = load_eth_ucy(os.path.join(root, "eth", "train"))
+        numpy_scenes = load_eth_ucy(os.path.join(root, "eth", "train"),
+                                    backend="python")
+
+        # the agent-axis recipe on the same files
+        reset()   # the main path: train
+        run_a = cli_train.main(flags + [
+            "--ckpt_dir", os.path.join(tmp, "ck_agent"), "--num_epochs", "1",
+            "--compat", "tpu", "--attn_axis", "agent",
+            "--scenes_per_batch", "32"])
+        torch.cuda.synchronize()
+        launches_agent = counts()
+
+        # SDD: a pickle of scene groups in pixels, the reference's
+        # [N, 2, T] layout, evaluated with the reference recipe's checkpoint
+        sdd_dir = os.path.join(root, "sdd", "test")
+        os.makedirs(sdd_dir)
+        groups = [np.transpose(np.concatenate([s["obs"], s["pred"]], 1)
+                               * 50.0, (0, 2, 1))
+                  for s in make_social_scenes(64, agents_range=(2, 20),
+                                              seed=17)]
+        with open(os.path.join(sdd_dir, "sdd_test.pkl"), "wb") as f:
+            pickle.dump(groups, f)
+        os.makedirs(os.path.join(tmp, "ck", "sdd"))
+        shutil.copy(os.path.join(tmp, "ck", "eth", "model_0002.pt"),
+                    os.path.join(tmp, "ck", "sdd"))
+        flags_sdd = [("sdd" if a == "eth" else a) for a in flags]
+        best_sdd = cli_test.main(flags_sdd + ["--sweep", "1"])
+
+    require(native_files == 4 and native_mapped,
+            f"phase 15: the native windowing engine did not load the data "
+            f"({native_files} files windowed, library mapped: "
+            f"{native_mapped})")
+    require(len(scenes) == len(numpy_scenes) and all(
+        all(np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+            else a[k] == b[k] for k in a)
+        for a, b in zip(scenes, numpy_scenes)),
+        "phase 15: the native engine's scenes differ from the numpy loop's")
+    steps = len(scenes)                          # one scene a step
+    require(launches_train["packed"] > 0 and launches_train["packed_bwd"] > 0
+            and launches_train["select_fp32"] > 0 and modes_train["dist"] > 0
+            and modes_train["traj"] == 0,
+            f"phase 15: the reference recipe's training did not launch P, Q "
+            f"and kernel B fp32 in mode dist {launches_train} {modes_train}")
+    require(all(train_names.get(n, 0) > 0 for n in ("P", "Q", "B_fp32")),
+            f"phase 15: the profiler did not see P, Q and kernel B fp32 in "
+            f"the CLI's training steps: {train_names}")
+    require(modes_ref["traj"] > 0 and modes_ref["dist"] == modes_train["dist"]
+            and launches_ref["packed"] > launches_train["packed"],
+            f"phase 15: evaluation did not launch P and kernel B in mode "
+            f"traj {launches_ref} {modes_ref}")
+    require(all(eval_names.get(n, 0) > 0 for n in ("P", "B_fp32")),
+            f"phase 15: the profiler did not see P and kernel B fp32 in the "
+            f"CLI's evaluation: {eval_names}")
+    require(launches_agent["attn_masked"] > 0
+            and launches_agent["attn_bwd_masked"] > 0
+            and launches_agent["select_fp32"] > 0,
+            f"phase 15: the agent-axis recipe did not launch A and C with "
+            f"a key mask {launches_agent}")
+    for r in (run, resumed, run_a):
+        for epoch, lr, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 15: non-finite loss at epoch {epoch}: {means}")
+    require(resumed.start_epoch == 1 and all(
+        int(st["step"]) == 2 * steps
+        for st in resumed.opt.state_dict()["state"].values()),
+        "phase 15: the resumed run did not continue from the saved epoch")
+    n_sdd = sum(len(g) for g in groups)
+    for b, what in ((best, "ETH"), (best_sdd, "SDD")):
+        require(np.isfinite([b["ade"], b["fde"]]).all() and b["epoch"] == 2,
+                f"phase 15: {what} evaluation {b}")
+    span = stamps[-1] - stamps[0]
+    rate = (n_train - 1) / span
+    print(f"phase 15 ETH reference recipe through the CLIs ({len(scenes)} "
+          f"train scenes of 12 agents, bucket 16; native windowing engine, "
+          f"{native_files} files, equal to the numpy loop): epochs "
+          + "; ".join(f"{e} total {m['total']:.4f}"
+                      for e, _, m in run.history + resumed.history)
+          + f"; the resumed epoch: {n_train} steps in "
+          f"{span * n_train / (n_train - 1):.2f} s, {rate:.2f} train steps/s "
+          f"= scenes/s (host clock between optimizer steps), the resumed CLI "
+          f"run {resume_s:.2f} s end to end; profiled training steps: "
+          f"{train_names} over 3 steps; evaluation ({test_s:.2f} s, "
+          f"profiled): {eval_names}; ADE "
+          f"{best['ade']:.4f} FDE {best['fde']:.4f} (epoch {best['epoch']}); "
+          f"launches {launches_ref}, kernel B by mode {modes_ref}  [{card}]")
+    print(f"phase 15 agent-axis ETH recipe (--compat tpu --attn_axis agent "
+          f"--scenes_per_batch 32): total "
+          f"{run_a.history[0][2]['total']:.4f}; launches {launches_agent}")
+    print(f"phase 15 SDD through cli.test ({len(groups)} pixel groups, "
+          f"[N, 2, T], {n_sdd} agents, the ETH checkpoint of epoch 2): ADE "
+          f"{best_sdd['ade']:.4f} FDE {best_sdd['fde']:.4f}")
+
+    # both recipes' batches: the kernel route against the plain route
+    # (same parameters, batch and noise), kernel B at their shapes, steps
+    cfg_ref = run.cfg
+    cfg_agent = run_a.cfg
+    D, Z, K = cfg_ref.hidden_dim, cfg_ref.zdim, cfg_ref.sample_k
+    result = {"launches": {k: launches_ref[k] + launches_agent[k]
+                           for k in launches_ref}}
+    sel_times = {}
+    for label, cfg, spb in (("reference recipe", cfg_ref, 1),
+                            ("agent-axis recipe", cfg_agent, 32)):
+        (batch, _), *_ = scene_batches(scenes, training=True,
+                                       rng=np.random.default_rng(15),
+                                       scenes_per_batch=spb,
+                                       compat=cfg.compat)
+        batch = batch.to(dev)
+        B, M = batch.batch_size, batch.batch_size * batch.agent_num
+        require(batch.agent_num == 16 and float(batch.valid.min()) == 0.0,
+                f"phase 15: {label} batch has no padded agent")
+        params = tm.sttode_init(15, cfg)
+        gen = torch.Generator(device=dev).manual_seed(15)
+        noise = tm.TrainNoise(
+            torch.rand(M, 8, D, device=dev, generator=gen) >= 0.1,
+            torch.rand(M, 12, D, device=dev, generator=gen) >= 0.1,
+            torch.randn(M, Z, device=dev, generator=gen),
+            torch.randn(M * K, Z, device=dev, generator=gen))
+        plain = cfg._replace(attn_impl="dense", select_impl="xla")
+        p_k, out_k, g_k = forward_backward(params, cfg, batch, noise, dev)
+        _, out_p, g_p = forward_backward(params, plain, batch, noise, dev)
+        loss_err, grad_ratio, worst, _ = compare_routes(
+            out_k, g_k, out_p, g_p, f"phase 15 {label}")
+        print(f"phase 15 fp32 {label} forward+backward at B = {B} x 16 "
+              f"(padded), kernel vs plain route: loss terms within "
+              f"{loss_err:.3e} (relative), gradients within "
+              f"{grad_ratio:.3e} of each leaf's largest magnitude (worst "
+              f"leaf {worst})")
+
+        # kernel B, mode "dist" (and "traj" at the evaluation's M = 16),
+        # on the batch's operands: the trained recipe's decode at 8 / 12
+        with torch.inference_mode():
+            pf = tm.encode_past(p_k, cfg, batch)
+            z_km = noise.eps_p.reshape(M, K, -1).transpose(0, 1)
+            ops = [pf, z_km, tm.decode_block0_state(p_k, batch.past),
+                   batch.past.reshape(M, -1),
+                   (batch.future - batch.cur_location).reshape(M, -1)]
+            weights = ks.prep_select_weights(p_k, 2 * D, Z, 8, 12)
+            for mode in (("dist", "traj") if spb == 1 else ("dist",)):
+                got = ks.select_decode(p_k, *ops, mode=mode)
+                want = ks.select_decode_reference(weights, *ops, mode=mode)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                # a distance sums 24 squares of metres: its fp32 rounding
+                # scales with it, so "dist" is held relative to its scale
+                scale = float(want.abs().max()) if mode == "dist" else 1.0
+                tol = SELECT_TOL * max(1.0, scale)
+                require(bool(torch.isfinite(got).all()) and err <= tol,
+                        f"phase 15 kernel B {mode} M = {M}: max abs err {err} "
+                        f"> {tol}")
+                extra = ""
+                if mode == "dist":
+                    g_win, w_win = got.argmin(1), want.argmin(1)
+                    gap = (want.gather(1, g_win[:, None])
+                           - want.gather(1, w_win[:, None])).abs()
+                    require(bool((gap <= 2 * tol).all()),
+                            f"phase 15 kernel B M = {M}: argmin winners "
+                            f"differ beyond near-ties")
+                    extra = (f" (distance scale {scale:.1f}), winners differ "
+                             f"at {int((g_win != w_win).sum())} near-ties")
+                ms = paired_ms(lambda: ks.select_decode(p_k, *ops, mode=mode),
+                               lambda: ks.select_decode_reference(
+                                   weights, *ops, mode=mode))
+                sel_times[f"{mode}_M{M}"] = ms
+                print(f"phase 15 kernel B fp32 {mode} at M = {M}, K = 20, "
+                      f"8 / 12 steps: max_abs_err {err:.3e}{extra}; kernel "
+                      f"{ms[0]:.4f} ms plain {ms[1]:.4f} ms  [{card}]")
+
+        step_k = make_train_step(cfg, 1e-4, device=dev)
+        step_p = make_train_step(plain, 1e-4, device=dev)
+        step_times([[step_k, *step_k.init(params)],
+                    [step_p, *step_p.init(params)]], batch, gen, B,
+                   f"phase 15 ETH {label} step at B = {B} x 16", card)
+        del batch, noise, out_k, out_p, g_k, g_p
+
+    # prefetch: the same epochs with the background thread (depth 2) and
+    # without it (0), from the same seeds, give the same mean losses
+    for label, cfg, spb, subset in (("reference recipe", cfg_ref, 1, 64),
+                                    ("agent-axis recipe", cfg_agent, 32,
+                                     len(scenes))):
+        means = []
+        for depth in (2, 0):
+            step = make_train_step(cfg, 1e-4, device=dev)
+            params, opt = step.init(tm.sttode_init(16, cfg))
+            _, _, m = train_epoch(
+                step, params, opt, scene_batches(
+                    scenes[:subset], training=True,
+                    rng=np.random.default_rng(16), scenes_per_batch=spb,
+                    compat=cfg.compat),
+                torch.Generator(device=dev).manual_seed(16),
+                prefetch_depth=depth)
+            means.append(m)
+        require(means[0] == means[1],
+                f"phase 15 prefetch, {label}: depth 2 {means[0]} vs depth 0 "
+                f"{means[1]}")
+        print(f"phase 15 prefetch, {label} ({subset} scenes): the epoch's "
+              f"mean losses with depth 2 equal depth 0's: {means[0]}")
+    result["select_times"] = sel_times
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -597,6 +913,10 @@ def main() -> int:
                 "select_fp32": ks.select_decode.launches_by_dtype[
                     torch.float32],
                 "select_bf16": ks.select_decode.launches_by_dtype[bf16],
+                # the whole-S launches with an additive (key) mask
+                "attn_masked": km.fused_geodesic_attention.launches_masked,
+                "attn_bwd_masked":
+                    km.fused_geodesic_attention_backward.launches_masked,
                 # the poincaré launches among the geodesic-attention ones
                 **{f"{n}_p": d["poincare"] for n, d in by_metric.items()}}
 
@@ -620,6 +940,9 @@ def main() -> int:
         ks.select_decode.launches = 0
         ks.select_decode.launches_by_dtype.update(
             {torch.float32: 0, bf16: 0})
+        ks.select_decode.launches_by_mode.update(dist=0, traj=0)
+        km.fused_geodesic_attention.launches_masked = 0
+        km.fused_geodesic_attention_backward.launches_masked = 0
         for d in by_metric.values():
             d.update(dict.fromkeys(d, 0))
 
@@ -2258,6 +2581,10 @@ def main() -> int:
           f"{rate_a:.1f} scenes/s; dense p50 {p50_ap:.3f} ms, "
           f"{rate_ap:.1f} scenes/s; launches {launches14a}")
 
+    # 15. the ETH-UCY and SDD path through the CLIs
+    eth15 = eth_phase(dev, card, counts, reset)
+    launches15 = eth15["launches"]
+
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
     s_ms, s_plain = select_times["dist_M1408_K20"]
@@ -2294,28 +2621,30 @@ def main() -> int:
         entry("fused_geodesic_attention", "mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:407",
               launches4["attn"] + launches5["attn"] + launches8["attn"]
-              + launches10["attn"] + launches12["attn"], attn_err, a_ms,
+              + launches10["attn"] + launches12["attn"] + launches15["attn"],
+              attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
-              "sttode_tpu/kernels/mhgsa.py:455", launches8["attn_bwd"],
-              bwd_err, b_ms, b_plain, b_bound),
+              "sttode_tpu/kernels/mhgsa.py:455",
+              launches8["attn_bwd"] + launches15["attn_bwd"], bwd_err, b_ms,
+              b_plain, b_bound),
         entry("select_decode_fp32", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches4["select_fp32"] + launches5["select_fp32"]
-              + launches8["select_fp32"], select_err, s_ms, s_plain,
-              s_bound),
+              + launches8["select_fp32"] + launches15["select_fp32"],
+              select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches8["select_bf16"], sel16_err, sel16_ms, sel16_plain,
               s16_bound),
         entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:340",
-              launches5["packed"] + launches10["packed"], packed_err, p_ms,
-              p_plain, p_bound),
+              launches5["packed"] + launches10["packed"]
+              + launches15["packed"], packed_err, p_ms, p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
-              launches10["packed_bwd"], packed_bwd_err, pb_ms, pb_plain,
-              pb_bound),
+              launches10["packed_bwd"] + launches15["packed_bwd"],
+              packed_bwd_err, pb_ms, pb_plain, pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:776", launches12_train["flash"],
               flash_err["fwd"], *rec11["fwd"], f_bound),

@@ -8,10 +8,12 @@ module paths, public names and parameter layouts so that the same weights
 What is ported: best-of-K inference (``models.sttode.sttode_inference``) and
 the ``serving.Predictor`` around it; the stage-1 CVAE training step
 (``models.sttode.sttode_forward``, ``train.make_train_step``: autograd over
-every parameter leaf, then Adam); the NBA recipe around it — the NBA loader
-(``data.nba``), StepLR (``train.schedulers``), checkpoints
-(``train.checkpoint``), the horizon-table evaluation (``evaluation``) and
-the CLIs ``python -m sttode_tpu_torch.cli.train`` / ``cli.test``.
+every parameter leaf, then Adam); the reference's recipes around it — the
+ETH-UCY (with its C++ windowing engine, ``native``), SDD and NBA loaders
+(``data``), bucketed scene batching and a prefetch thread, StepLR
+(``train.schedulers``), checkpoints (``train.checkpoint``), the best-of-K
+and horizon-table evaluations (``evaluation``) and the CLIs
+``python -m sttode_tpu_torch.cli.train`` / ``cli.test``.
 Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
 - ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,

@@ -2,10 +2,13 @@
 
 The JAX package's flag surface, with the same names and defaults, so that a
 command line carries over; plus ``--device`` (default ``cuda``: the port runs
-on the card unless the caller asks for the CPU). What is not ported yet
-raises ``NotImplementedError`` naming it: the ETH-UCY and SDD loaders, the
-flags of machinery the port does not have when they are given a non-default
-value (``refuse_unported``), and the config values ``STTODEConfig.validate``
+on the card unless the caller asks for the CPU). The reference's
+dataset-conditional defaults: NBA 5/10 steps and batches of 32 scenes,
+ETH-UCY and SDD 8/12 steps and one scene a step (``--scenes_per_batch``
+stacks more), ETH's ``--max_train_agent`` 32, SDD's pixels ÷ 50. What is
+not ported yet raises ``NotImplementedError`` naming it: the flags of
+machinery the port does not have when they are given a non-default value
+(``refuse_unported``), and the config values ``STTODEConfig.validate``
 refuses.
 """
 
@@ -21,8 +24,7 @@ from sttode_tpu_torch.models.sttode import STTODEConfig
 ETH_UCY = ("eth", "hotel", "univ", "zara1", "zara2")
 
 # flags whose machinery is not ported, with the one value that runs
-UNPORTED_FLAGS = {"scan_steps": 1, "async_ckpt": False,
-                  "scenes_per_batch": 1}
+UNPORTED_FLAGS = {"scan_steps": 1, "async_ckpt": False}
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -54,10 +56,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--max_train_agent", type=int, default=100)
     p.add_argument("--no_rand_rot", action="store_true")
     p.add_argument("--batch_size", type=int, default=0,
-                   help="0 = dataset default (32 NBA training, 128 NBA "
-                        "evaluation)")
+                   help="0 = dataset default (NBA: 32 training, 128 "
+                        "evaluation; per-scene otherwise)")
     p.add_argument("--scenes_per_batch", type=int, default=1,
-                   help="not ported beyond 1 (scene batching is ETH/SDD)")
+                   help=">1 stacks same-bucket ETH/SDD scenes (needs "
+                        "--compat tpu --attn_axis agent)")
     p.add_argument("--attn_axis", default="scene", choices=("scene", "agent"))
     p.add_argument("--compat", default="reference",
                    choices=("reference", "tpu"))
@@ -141,18 +144,25 @@ def model_config(args) -> STTODEConfig:
     ).validate()
 
 
+def effective_max_train_agent(args) -> int:
+    """The reference caps ETH's training scenes at 32 agents unless the
+    flag is set."""
+    if args.dataset == "eth" and args.max_train_agent == 100:
+        return 32
+    return args.max_train_agent
+
+
 def load_scenes(args, split: str):
-    """split 'train' | 'test' → (past, future) arrays for NBA. The ETH-UCY
-    and SDD loaders are not ported yet."""
-    from sttode_tpu_torch.data.nba import load_nba
-    if args.dataset in ETH_UCY:
-        raise NotImplementedError(
-            "the ETH-UCY loader (sttode_tpu/data/eth_ucy.py::load_eth_ucy) "
-            "is not ported yet")
-    if args.dataset == "sdd":
-        raise NotImplementedError(
-            "the SDD loader (sttode_tpu/data/sdd.py::load_sdd) is not "
-            "ported yet")
+    """split 'train' | 'test' → scene dicts (ETH-UCY from
+    ``data_root/<dataset>/<split>``, SDD from ``data_root/sdd/<split>``) or
+    (past, future) arrays (NBA from ``data_root/nba``)."""
+    from sttode_tpu_torch.data import load_eth_ucy, load_nba, load_sdd
+    ds = args.dataset
+    if ds in ETH_UCY:
+        return load_eth_ucy(os.path.join(args.data_root, ds, split),
+                            obs_len=8, pred_len=12)
+    if ds == "sdd":
+        return load_sdd(os.path.join(args.data_root, "sdd", split))
     return load_nba(os.path.join(args.data_root, "nba"),
                     training=(split == "train"))
 

@@ -1,11 +1,13 @@
-"""Stage-1 CVAE training CLI of the port (port of ``sttode_tpu/cli/train.py``;
-NBA).
+"""Stage-1 CVAE training CLI of the port (port of ``sttode_tpu/cli/train.py``).
 
-    python -m sttode_tpu_torch.cli.train --dataset nba --data_root D --ckpt_dir C
+    python -m sttode_tpu_torch.cli.train --dataset eth --data_root D --ckpt_dir C
 
-The epoch loop: shuffled NBA batches of 32 scenes (numpy, seeded by
-``--seed``) → the training step on the card (``--device cpu`` for the plain
-paths) → StepLR(``--decay_step``, ``--decay_gamma``) set before each epoch →
+The epoch loop: shuffled batches (numpy, seeded by ``--seed``; NBA: 32
+scenes; ETH-UCY and SDD: one scene padded to its agent bucket, or
+``--scenes_per_batch`` scenes of one bucket, rotated at random unless
+``--no_rand_rot``) → a prefetch thread → the training step on the card
+(``--device cpu`` for the plain paths) → StepLR(``--decay_step``,
+``--decay_gamma``) set before each epoch →
 a checkpoint every ``--model_save_epoch`` epochs; ``--epoch_continue N``
 resumes from checkpoint N (parameters, Adam state, epoch, config). The
 model's random draws come from a ``torch.Generator`` seeded by ``--seed`` on
@@ -23,8 +25,7 @@ import torch
 
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.cli import common
-from sttode_tpu_torch.data.nba import nba_batches
-from sttode_tpu_torch.data.preprocess import prepare_nba_batch
+from sttode_tpu_torch.data import nba_batches, prepare_nba_batch, scene_batches
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_init
 from sttode_tpu_torch.train import (checkpoint_path, load_checkpoint,
                                     make_train_step, save_checkpoint,
@@ -43,10 +44,18 @@ class TrainRun(NamedTuple):
     history: list
 
 
-def batch_stream(args, data, nprng):
-    past, fut = data
-    for d in nba_batches(past, fut, args.batch_size or 32, rng=nprng):
-        yield prepare_nba_batch(d), None
+def batch_stream(args, data, nprng, cfg: STTODEConfig):
+    """One epoch's (Batch, aux) pairs, drawn from ``nprng``."""
+    if args.dataset == "nba":
+        past, fut = data
+        for d in nba_batches(past, fut, args.batch_size or 32, rng=nprng):
+            yield prepare_nba_batch(d), None
+    else:
+        yield from scene_batches(
+            data, training=True, rng=nprng,
+            scenes_per_batch=args.scenes_per_batch,
+            max_train_agent=common.effective_max_train_agent(args),
+            rand_rot=not args.no_rand_rot, compat=cfg.compat)
 
 
 def main(argv=None) -> TrainRun:
@@ -96,7 +105,7 @@ def main(argv=None) -> TrainRun:
             lr = schedule(epoch)
             t0 = time.time()
             params, opt, means = train_epoch(
-                step, params, opt, batch_stream(args, data, nprng), gen,
+                step, params, opt, batch_stream(args, data, nprng, cfg), gen,
                 lr=lr, log_every=args.log_every)
             history.append((epoch, lr, means))
             msg = " ".join(f"{k}: {v:.4f}" for k, v in sorted(means.items()))

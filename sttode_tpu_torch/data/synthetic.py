@@ -1,9 +1,11 @@
-"""Synthetic multi-agent scenes (port of
-``sttode_tpu/data/synthetic.py::make_social_scenes``): goal-directed agents
-with social repulsion and noise, made from a seed with numpy, for smoke
-runs and tests."""
+"""Synthetic multi-agent scenes (port of ``sttode_tpu/data/synthetic.py``):
+goal-directed agents with social repulsion and noise, made from a seed with
+numpy, for smoke runs and tests; and ETH-style CSV files of such agents for
+the windowing loader (the repository holds no dataset)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -35,12 +37,46 @@ def make_social_scene(rng: np.random.Generator, *, n_agents: int,
 def make_social_scenes(n_scenes: int, *, agents_range=(3, 8),
                        obs_len: int = 8, pred_len: int = 12,
                        seed: int = 0) -> list[dict]:
-    """Scene dicts with "obs" [N, obs_len, 2] and "pred" [N, pred_len, 2]
-    (the same draws as the JAX package's generator for the same seed)."""
+    """Scene dicts in the data layer's contract (the ETH-UCY loader's ten
+    keys), from the same draws as the JAX package's generator for the same
+    seed."""
     rng = np.random.default_rng(seed)
+    seq_len = obs_len + pred_len
     scenes = []
-    for _ in range(n_scenes):
+    for i in range(n_scenes):
         n = int(rng.integers(agents_range[0], agents_range[1] + 1))
-        traj = make_social_scene(rng, n_agents=n, seq_len=obs_len + pred_len)
-        scenes.append({"obs": traj[:, :obs_len], "pred": traj[:, obs_len:]})
+        traj = make_social_scene(rng, n_agents=n, seq_len=seq_len)
+        rel = np.zeros_like(traj)
+        rel[:, 1:] = traj[:, 1:] - traj[:, :-1]
+        scenes.append({
+            "obs": traj[:, :obs_len],
+            "pred": traj[:, obs_len:],
+            "obs_rel": rel[:, :obs_len],
+            "pred_rel": rel[:, obs_len:],
+            "non_linear": np.ones((n,), np.float32),
+            "ped_ids": np.arange(n, dtype=np.float32),
+            "obs_mask": np.ones((n, obs_len), np.float32),
+            "pred_mask": np.ones((n, pred_len), np.float32),
+            "frame": float(i),
+            "seq_name": "synthetic",
+        })
     return scenes
+
+
+def write_eth_style_csvs(data_root: str, *, n_files: int = 2,
+                         frames_per_file: int = 200,
+                         agents: int = 12, seed: int = 0) -> None:
+    """Write ``n_files`` continuous ETH-style streams of ``frame,ped,x,y``
+    rows (``synthetic_<i>.csv``: frames 0, 10, 20, …, every agent in every
+    frame) under ``data_root``, for the windowing loader."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(data_root, exist_ok=True)
+    for f_idx in range(n_files):
+        traj = make_social_scene(rng, n_agents=agents,
+                                 seq_len=frames_per_file)
+        rows = []
+        for t in range(frames_per_file):
+            for p in range(agents):
+                rows.append([t * 10.0, p + 1.0, traj[p, t, 0], traj[p, t, 1]])
+        np.savetxt(os.path.join(data_root, f"synthetic_{f_idx}.csv"),
+                   np.asarray(rows), delimiter=",")

@@ -1,10 +1,12 @@
-"""NBA evaluation of the port (port of ``sttode_tpu/evaluation.py::
-evaluate_nba``; ``evaluate_scenes`` for ETH-UCY and SDD is not ported yet).
+"""Evaluation of the port (port of ``sttode_tpu/evaluation.py``).
 
-The horizon table of the reference's ``test_model_all``: per agent the
-best-of-K prefix ADE and step FDE at each 0.4 s step, 1.0 s and 3.0 s as the
-mean of the two adjacent steps. ``device_reduce=True`` decodes each batch and
-reduces it on the device, and fetches the sums once after the loop;
+``evaluate_scenes`` (ETH-UCY, SDD): per agent the best-of-K ADE and FDE
+and the miss rate, averaged over the real agents of every scene (the
+reference's ``test.py`` protocol). ``evaluate_nba``: the horizon table of
+the reference's ``test_model_all``, per agent the best-of-K prefix ADE and
+step FDE at each 0.4 s step, 1.0 s and 3.0 s as the mean of the two
+adjacent steps. With ``device_reduce=True`` each batch is decoded and
+reduced on the device and the sums are fetched once after the loop;
 ``device_reduce=False`` keeps the host-numpy loop, the oracle the device
 path is tested against.
 """
@@ -17,10 +19,87 @@ import numpy as np
 import torch
 
 from sttode_tpu_torch import bridge
+from sttode_tpu_torch.data.batching import scene_batches
 from sttode_tpu_torch.data.preprocess import prepare_nba_batch
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_inference
-from sttode_tpu_torch.utils.metrics import (NBA_FUTURE_LENGTH,
+from sttode_tpu_torch.utils.metrics import (NBA_FUTURE_LENGTH, AverageMeter,
+                                            compute_ade, compute_fde,
+                                            count_miss_samples,
                                             nba_horizon_table)
+
+
+def _best_of_k_sums(preds: torch.Tensor, future: torch.Tensor,
+                    valid: torch.Tensor, miss_threshold: float):
+    """[Σ ADE, Σ FDE, Σ missed, Σ valid] of one batch on the device, masked
+    by ``valid``: preds [K, M, T, 2], future [M, T, 2]. The scene origins
+    cancel in pred − gt, so the sums are origin-free."""
+    err = torch.linalg.vector_norm(preds - future[None], dim=-1)  # [K, M, T]
+    ade = err.mean(dim=-1).min(dim=0).values                     # [M]
+    fde = err[..., -1].min(dim=0).values                         # [M]
+    return torch.stack([(ade * valid).sum(), (fde * valid).sum(),
+                        ((fde > miss_threshold) * valid).sum(), valid.sum()])
+
+
+def evaluate_scenes(params, cfg: STTODEConfig, scenes: list[dict],
+                    generator: torch.Generator | None = None, *,
+                    sample_k: int = 20, scenes_per_batch: int = 1,
+                    miss_threshold: float = 1.0,
+                    device_reduce: bool = True) -> dict:
+    """ETH/SDD protocol over scene dicts (``data.scene_batches``, no
+    shuffle or augmentation): {'ade', 'fde', 'miss_rate', 'agents'}. Runs
+    on the device of ``params``; the K latents of every batch come from
+    ``generator`` (on that device)."""
+    device = bridge.tree_leaves(params)[0].device
+    batches = scene_batches(scenes, training=False,
+                            scenes_per_batch=scenes_per_batch,
+                            compat=cfg.compat)
+    with torch.inference_mode():
+        if device_reduce:
+            sums = None
+            for batch, _origs in batches:
+                batch = batch.to(device)
+                preds = sttode_inference(params, cfg, batch,
+                                         generator=generator,
+                                         sample_k=sample_k)
+                s = _best_of_k_sums(preds, batch.future, batch.valid,
+                                    miss_threshold)
+                sums = s if sums is None else sums + s
+            if sums is None:
+                return {"ade": 0.0, "fde": 0.0, "miss_rate": 0.0,
+                        "agents": 0}
+            ade_s, fde_s, miss_s, n_s = sums.double().cpu().tolist()
+            n = max(n_s, 1.0)
+            return {"ade": ade_s / n, "fde": fde_s / n,
+                    "miss_rate": miss_s / n, "agents": int(n)}
+
+        ade_m, fde_m = AverageMeter(), AverageMeter()
+        missed, total = 0, 0
+        for batch, origs in batches:
+            preds = sttode_inference(params, cfg, batch.to(device),
+                                     generator=generator,
+                                     sample_k=sample_k).cpu().numpy()
+            K, M, T, _ = preds.shape
+            B, N = batch.batch_size, batch.agent_num
+            # each scene's origin re-added (the reference's inference tail)
+            preds = preds.reshape(K, B, N, T, 2) + \
+                origs[None, :, None, None, :]
+            gt = batch.future.numpy().reshape(B, N, T, 2) + \
+                origs[:, None, None, :]
+            valid = batch.valid.numpy().reshape(B, N)
+            pred_nk = np.transpose(preds, (1, 2, 0, 3, 4))  # [B, N, K, T, 2]
+            for b in range(B):
+                v = valid[b]
+                n_real = int(v.sum())
+                if n_real == 0:
+                    continue
+                ade_m.update(compute_ade(pred_nk[b], gt[b], v), n=n_real)
+                fde_m.update(compute_fde(pred_nk[b], gt[b], v), n=n_real)
+                real = v > 0
+                missed += count_miss_samples(pred_nk[b][real], gt[b][real],
+                                             miss_threshold)
+                total += n_real
+    return {"ade": ade_m.avg, "fde": fde_m.avg,
+            "miss_rate": missed / max(total, 1), "agents": total}
 
 
 def _horizon_means(preds: torch.Tensor, future: torch.Tensor,

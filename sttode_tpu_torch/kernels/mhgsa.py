@@ -362,6 +362,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.check(err, f"mhgsa_fwd(B={B}, L={L}, S={S}, Dh={Dh}, "
                           f"{metric})")
     _count(fused_geodesic_attention, metric)
+    fused_geodesic_attention.launches_masked += mask is not None
     return out
 
 
@@ -388,6 +389,7 @@ def _launch_bwd(q, k, v, mask, do, need_dmask, metric="oblique",
         _build.check(err, f"mhgsa_bwd(B={B}, L={L}, S={S}, Dh={Dh}, "
                           f"{metric})")
     _count(fused_geodesic_attention_backward, metric)
+    fused_geodesic_attention_backward.launches_masked += mask is not None
     return dq, dk, dv, dmask
 
 
@@ -490,12 +492,15 @@ def fused_geodesic_attention(q: torch.Tensor, k: torch.Tensor,
     return out if len(lead) == 1 else out.reshape(*lead, L, Dh)
 
 
-# kernel launches, counted in _launch and _launch_bwd
+# kernel launches, counted in _launch and _launch_bwd: all of them, per
+# metric, and those with an additive mask
 fused_geodesic_attention.launches = 0
 fused_geodesic_attention.launches_by_metric = dict.fromkeys(METRICS, 0)
+fused_geodesic_attention.launches_masked = 0
 fused_geodesic_attention_backward.launches = 0
 fused_geodesic_attention_backward.launches_by_metric = dict.fromkeys(METRICS,
                                                                      0)
+fused_geodesic_attention_backward.launches_masked = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -374,9 +374,12 @@ def _launch(sources, past_feature, z_km, state0, x_true_flat,
                           f"dtype={dtype})")
     select_decode.launches += 1
     select_decode.launches_by_dtype[dtype] += 1
+    select_decode.launches_by_mode[mode] += 1
     return out
 
 
-# kernel launches, counted in _launch: all of them, and per storage type
+# kernel launches, counted in _launch: all of them, per storage type and per
+# mode
 select_decode.launches = 0
 select_decode.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
+select_decode.launches_by_mode = dict.fromkeys(_MODES, 0)

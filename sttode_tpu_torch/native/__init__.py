@@ -1,0 +1,7 @@
+"""Native (C++) host components of the port: the sliding-window trajectory
+preprocessor of the ETH-UCY loader, the port's own copy of
+``sttode_tpu/native/windowing.cpp``, built with ``g++`` at first use."""
+
+from sttode_tpu_torch.native.binding import window_file
+
+__all__ = ["window_file"]

@@ -9,9 +9,11 @@ what ``optax.adam`` does, lr · m̂ / (√v̂ + ε) with ε = 1e-8.
 
 Unlike the JAX step, the update is in place: the parameter tensors and the
 optimizer state are updated where they are, and the step returns the same
-objects. The JAX package's ``scan_steps`` (several steps per dispatch, a
-workaround for its TPU's dispatch latency) and the prefetch thread are not
-ported.
+objects. ``train_epoch`` takes its batches through a background prefetch
+thread (``data.prefetch``: pinned host memory and non-blocking copies on a
+side CUDA stream), so host preparation and the copy overlap the previous
+step. The JAX package's ``scan_steps`` (several steps per dispatch, a
+workaround for its TPU's dispatch latency) is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from sttode_tpu_torch import bridge
+from sttode_tpu_torch.data.prefetch import prefetch
 from sttode_tpu_torch.models.sttode import Batch, STTODEConfig, sttode_forward
 from sttode_tpu_torch.train.schedulers import set_lr
 
@@ -79,15 +82,20 @@ def train_epoch(step: TrainStep, params, opt_state,
                 batches: Iterable[tuple[Batch, Any]],
                 generator: torch.Generator | None = None, *,
                 lr: float | None = None, log_every: int = 0,
-                log_fn: Callable = print) -> tuple:
+                log_fn: Callable = print, prefetch_depth: int = 2) -> tuple:
     """Drive one epoch over host-prepared (batch, aux) pairs, at learning
     rate ``lr`` when given (the epoch's value of a schedule). Returns
     (params, opt_state, mean metrics). Metrics accumulate on the device and
-    are fetched only at log boundaries and at the end."""
+    are fetched only at log boundaries and at the end. With
+    ``prefetch_depth`` > 0 the batches are prepared and copied to the
+    step's device by a background thread, that many ahead; 0 prepares each
+    in the loop."""
     if lr is not None:
         set_lr(opt_state, lr)
     sums: dict = {}
     count = 0
+    if prefetch_depth:
+        batches = prefetch(batches, size=prefetch_depth, device=step.device)
     for i, (batch, _aux) in enumerate(batches):
         params, opt_state, metrics = step(params, opt_state, batch, generator)
         count += 1

@@ -13,6 +13,7 @@ field by 12). The widths are narrow (hidden 16) so the suite stays fast.
 """
 
 import os
+import pickle
 import signal
 
 import jax
@@ -31,6 +32,7 @@ from sttode_tpu_torch.cli import test as cli_test
 from sttode_tpu_torch.cli import train as cli_train
 from sttode_tpu_torch.data import nba as tnba
 from sttode_tpu_torch.data import preprocess as tprep
+from sttode_tpu_torch.data import synthetic as tsyn
 from sttode_tpu_torch.evaluation import evaluate_nba
 from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.models import sttode as tm
@@ -328,14 +330,31 @@ def test_evaluate_nba_device_reduction_equals_host_oracle(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     _nba_file(tmp_path / "data")
-    args = common.base_parser("x").parse_args(["--dataset", "eth"])
-    with pytest.raises(NotImplementedError, match="ETH-UCY"):
-        common.load_scenes(args, "train")
-    args = common.base_parser("x").parse_args(["--dataset", "sdd"])
-    with pytest.raises(NotImplementedError, match="SDD"):
-        common.load_scenes(args, "test")
-    for flag in (["--async_ckpt"], ["--scenes_per_batch", "2"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
+    # ETH-UCY, SDD and --scenes_per_batch > 1 are ported: they load and run
+    # (the recipes themselves: tests/test_torch_eth.py)
+    eth = tmp_path / "data" / "eth"
+    tsyn.write_eth_style_csvs(str(eth / "train"), n_files=1,
+                              frames_per_file=24, agents=3)
+    args = common.base_parser("x").parse_args(
+        ["--dataset", "eth", "--data_root", str(tmp_path / "data")])
+    assert len(common.load_scenes(args, "train")) == 5
+    sdd = tmp_path / "data" / "sdd" / "test"
+    sdd.mkdir(parents=True)
+    with open(sdd / "s.pkl", "wb") as f:
+        pickle.dump([np.ones((3, 2, 20), np.float32)], f)
+    args = common.base_parser("x").parse_args(
+        ["--dataset", "sdd", "--data_root", str(tmp_path / "data")])
+    (scene,) = common.load_scenes(args, "test")
+    assert scene["obs"].shape == (3, 8, 2) and scene["pred"].shape == \
+        (3, 12, 2)
+    run = cli_train.main(_cli_args(
+        tmp_path, "--dataset", "eth", "--compat", "tpu", "--attn_axis",
+        "agent", "--scenes_per_batch", "2", "--num_epochs", "1"))
+    assert len(run.history) == 1
+    for flag, match in ((["--async_ckpt"], "--async_ckpt"),
+                        (["--learn_prior"], "learn_prior"),
+                        (["--ode_method", "dopri5"], "ode_method")):
+        with pytest.raises(NotImplementedError, match=match):
             cli_train.main(_cli_args(tmp_path, *flag))
     # poincaré trains (test_torch_poincare.py); a curvature ≤ 0 is refused
     with pytest.raises(ValueError, match="curvature"):

@@ -1595,3 +1595,52 @@ def test_poincare_small_bwd_matches_plain(cuda_device, case):
     _grad_check(got, want)
     if case["mask"] == "all_excluded":
         assert torch.all(got[0][:, 0] == 0) and torch.all(got[3][:, 0] == 0)
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_on_a_side_stream_that_the_consumer_waits_for(
+        cuda_device):
+    """The prefetch thread's pinned, non-blocking copies on its side stream
+    arrive whole before the consumer's stream reads them, even while that
+    stream is busy, and in order."""
+    from sttode_tpu_torch.data.batching import scene_batches
+    from sttode_tpu_torch.data.prefetch import prefetch
+
+    scenes = make_social_scenes(24, agents_range=(3, 30), seed=3)
+    want = list(scene_batches(scenes, training=False, scenes_per_batch=4))
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    got = []
+    for batch, origs in prefetch(iter(want), size=2, device=cuda_device):
+        busy = busy @ busy * 1e-3           # keep the consumer's stream busy
+        got.append((batch.past.sum(), batch.future.clone(), batch.valid,
+                    origs))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for (s, fut, valid, origs), (wb, wo) in zip(got, want):
+        assert fut.is_cuda and valid.device == fut.device
+        assert torch.equal(fut.cpu(), wb.future)
+        assert torch.equal(valid.cpu(), wb.valid)
+        assert float(s) == float(wb.past.to(cuda_device).sum())
+        assert origs is wo
+
+
+@pytest.mark.cuda
+def test_train_epoch_prefetch_gives_the_losses_of_no_prefetch(cuda_device):
+    from sttode_tpu_torch.data.batching import scene_batches
+    from sttode_tpu_torch.train import train_epoch
+
+    cfg = tm.STTODEConfig(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8,
+                          sample_k=4, select_impl="auto")
+    scenes = make_social_scenes(24, agents_range=(3, 14), seed=5)
+    means = []
+    for depth in (2, 0):
+        step = make_train_step(cfg, 1e-3, device=cuda_device)
+        params, opt = step.init(tm.sttode_init(2, cfg))
+        _, _, m = train_epoch(
+            step, params, opt, scene_batches(
+                scenes, training=True, rng=np.random.default_rng(7)),
+            torch.Generator(device=cuda_device).manual_seed(7),
+            prefetch_depth=depth)
+        means.append(m)
+    assert means[0] == means[1]
+    assert np.isfinite(list(means[0].values())).all()

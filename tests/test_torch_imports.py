@@ -61,7 +61,9 @@ MODULES = sorted(
                                   or m.endswith(("packed_mhgsa", "evaluation",
                                                  "checkpoint", "schedulers",
                                                  ".nba", "metrics",
-                                                 "profiling"))])
+                                                 "profiling", ".eth_ucy",
+                                                 ".sdd", ".batching",
+                                                 ".prefetch", ".binding"))])
 def test_module_import_builds_and_parses_nothing(monkeypatch, name):
     """Importing a module of the port (the CLIs among them) compiles no
     kernel and reads no command line: a bad argv changes nothing."""
