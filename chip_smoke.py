@@ -109,6 +109,24 @@ paths, then drives both paths at the full width of the repo's model
            recipes' step time, train scenes/s, kernels a step and idle
            share; one epoch with the prefetch thread (depth 2) and one
            without (0) from the same seeds, with equal mean losses.
+  phase 16 stage 2, the DLow sampler (qnet_mlp (512, 256), nk 20, nz 32)
+           over the frozen net: in phase 15's directory, on its CSVs and
+           the reference recipe's stage-1 checkpoints,
+           ``cli.trainsampler --dataset eth`` for 1 epoch and 1 resumed
+           epoch (``--fix_epochs 0``: the lambda decay) and
+           ``cli.test_sampler --sweep 2`` (P only); the stage-2 step on
+           the kernel route against the plain route at the NBA recipe's
+           32 x 11 (P), the ETH agent-axis recipe's 32 x 16 (A, key
+           masks) and with the poincaré metric (1p): losses, dec_motion
+           and every sampler gradient leaf, no net leaf with a gradient;
+           one profiled step of each recipe (its forward kernel, none of
+           C, 2p, Q, Fdq, Fdkv, 4p or kernel B); both routes' step time,
+           train scenes/s, idle share and kernels a step at the ETH
+           reference shape 1 x 16 and at NBA 32 x 11; the sampler's
+           ``Predictor`` on the agent axis, the isolated scene axis (64
+           scenes x 8 agents a call, p50 beside the stage-1 server's) and
+           with the poincaré metric, equal to the plain route's and
+           independent of the seed.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -502,6 +520,38 @@ def compare_routes(out_k, g_k, out_p, g_p, what, kinks=False):
     return loss_err, grad_ratio, worst, l2
 
 
+def serve_rounds(preds, scenes, rounds, single=False):
+    """Serve ``rounds`` rounds of requests from each Predictor of
+    ``preds``, in alternating order (0, 1, ..., then reversed, ...): a
+    round is one ``predict_many`` of all ``scenes``, or with ``single`` one
+    ``predict`` per scene. Returns, per Predictor, (outputs of its last
+    round, p50 ms per request, scenes/s over the time spent in it)."""
+    n = len(preds)
+    lat, busy, out = [[] for _ in preds], [0.0] * n, [None] * n
+    for r in range(rounds):
+        for i in (range(n) if r % 2 == 0 else reversed(range(n))):
+            res = []
+            for batch in ([[s] for s in scenes] if single else [scenes]):
+                t = time.perf_counter()
+                res += preds[i].predict_many(batch, seed=11)
+                dt = time.perf_counter() - t
+                lat[i].append(dt * 1e3)
+                busy[i] += dt
+            out[i] = res
+    return [(out[i], statistics.median(lat[i]),
+             len(scenes) * rounds / busy[i]) for i in range(n)]
+
+
+def compare(out, ref, shape_of, what):
+    err = 0.0
+    for o, r, s in zip(out, ref, shape_of):
+        require(o.shape == s, f"{what}: shape {o.shape} != {s}")
+        require(bool(np.isfinite(o).all()), f"{what}: non-finite")
+        err = max(err, float(np.abs(o - r).max()))
+    require(err <= MODEL_TOL, f"{what}: max abs err {err} > {MODEL_TOL}")
+    return err
+
+
 def step_times(routes, batch, gen, B, label, card, rounds=6,
                names=("kernel route", "plain route")):
     """Train step ms, train scenes/s and the device's idle share of the
@@ -569,10 +619,55 @@ def step_times(routes, batch, gen, B, label, card, rounds=6,
     return medians
 
 
-def eth_phase(dev, card, counts, reset) -> dict:
+TRACE_KERNELS = (
+    ("P", r"packed_fwd_kernel"),
+    ("Q", r"packed_(?:small|warp)_bwd_kernel"),
+    ("A", r"mhgsa_(?:small_)?fwd_kernel"),
+    # C and 2p: the whole-S backward kernels of both metrics
+    ("C", r"mhgsa_(?:small_)?bwd_kernel"),
+    ("B_fp32", r"select_main_kernel(?:<float|If)"),
+    ("B", r"select_(?:main|base)_kernel"),
+    ("F", r"flash_fwd_kernel"),
+    # Fdq, Fdkv, 4p dq and dk/dv, and their wide-head modes
+    ("F_bwd", r"flash_\w*d(?:q|kv)_kernel|wide_d(?:q|kv)_kernel"))
+
+
+def trace_names(events) -> dict:
+    """Launches by kernel of this repo's kernels in a trace (labels of
+    ``TRACE_KERNELS``)."""
+    found: dict = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, pattern in TRACE_KERNELS:
+            if re.search(pattern, e.key):
+                found[label] = found.get(label, 0) + e.count
+    return found
+
+
+def step_clock(hook_fn=None):
+    """Host clock at every optimizer step (a global post-step hook), calling
+    ``hook_fn`` after each."""
+    stamps: list = []
+
+    def hook(opt, args, kwargs):
+        stamps.append(time.perf_counter())
+        if hook_fn is not None:
+            hook_fn()
+
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+    handle = register_optimizer_step_post_hook(hook)
+    return stamps, handle
+
+
+def eth_phase(dev, card, counts, reset, inside=None) -> dict:
     """Phase 15: the ETH-UCY and SDD path. Returns the launches of its main
     paths (the reference recipe's CLIs, the agent-axis CLI) and kernel B's
-    times at the ETH shapes."""
+    times at the ETH shapes, and under "inside" what ``inside(tmp, flags,
+    n_train)`` returns: called in the phase's directory after its CLIs
+    (the ETH CSVs under ``tmp/data``, the reference recipe's stage-1
+    checkpoints of epochs 1 and 2 under ``tmp/ck/eth``, ``n_train`` scenes
+    in the train split), its time not counted in the phase's."""
     from sttode_tpu_torch.cli import test as cli_test
     from sttode_tpu_torch.cli import train as cli_train
     from sttode_tpu_torch.data import load_eth_ucy, scene_batches
@@ -586,37 +681,6 @@ def eth_phase(dev, card, counts, reset) -> dict:
     t_phase = time.perf_counter()
     cuda = torch.profiler.ProfilerActivity.CUDA
     cpu = torch.profiler.ProfilerActivity.CPU
-
-    def trace_names(events) -> dict:
-        """Launches by kernel of this repo's kernels in a trace: P, Q, A, C
-        and kernel B fp32."""
-        found: dict = {}
-        for e in events:
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for label, pattern in (
-                    ("P", r"packed_fwd_kernel"),
-                    ("Q", r"packed_(?:small|warp)_bwd_kernel"),
-                    ("A", r"mhgsa_(?:small_)?fwd_kernel"),
-                    ("C", r"mhgsa_(?:small_)?bwd_kernel"),
-                    ("B_fp32", r"select_main_kernel(?:<float|If)")):
-                if re.search(pattern, e.key):
-                    found[label] = found.get(label, 0) + e.count
-        return found
-
-    def step_clock(hook_fn=None):
-        """Host clock at every optimizer step (a global post-step hook),
-        calling ``hook_fn`` after each."""
-        stamps: list = []
-
-        def hook(opt, args, kwargs):
-            stamps.append(time.perf_counter())
-            if hook_fn is not None:
-                hook_fn()
-
-        from torch.optim.optimizer import register_optimizer_step_post_hook
-        handle = register_optimizer_step_post_hook(hook)
-        return stamps, handle
 
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_eth_") as tmp:
         root = os.path.join(tmp, "data")
@@ -693,6 +757,10 @@ def eth_phase(dev, card, counts, reset) -> dict:
                     os.path.join(tmp, "ck", "sdd"))
         flags_sdd = [("sdd" if a == "eth" else a) for a in flags]
         best_sdd = cli_test.main(flags_sdd + ["--sweep", "1"])
+        t_inside = time.perf_counter()
+        inside_result = None if inside is None else inside(tmp, flags,
+                                                           len(scenes))
+        t_inside = time.perf_counter() - t_inside
 
     require(native_files == 4 and native_mapped,
             f"phase 15: the native windowing engine did not load the data "
@@ -863,8 +931,359 @@ def eth_phase(dev, card, counts, reset) -> dict:
         print(f"phase 15 prefetch, {label} ({subset} scenes): the epoch's "
               f"mean losses with depth 2 equal depth 0's: {means[0]}")
     result["select_times"] = sel_times
-    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    result["inside"] = inside_result
+    print(f"phase 15 took {time.perf_counter() - t_phase - t_inside:.1f} s  "
+          f"[{card}]")
     return result
+
+
+# the counters of the kernels a stage-2 path must not launch: the attention
+# backward of every route and metric (C, 2p; Q; Fdq, Fdkv, 4p) and kernel B
+STAGE2_NOT_LAUNCHED = ("attn_bwd", "packed_bwd", "flash_dq", "flash_dkv",
+                       "select_fp32", "select_bf16")
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Paths of a parameter tree's leaves ("q_mlp/layers/0/w"), in
+    ``bridge.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def stage2_forward_only(launches: dict, what: str) -> None:
+    """Stage 2 runs the frozen encoder's attention forward only and decodes
+    in plain PyTorch: hold a stage-2 path's launches to that."""
+    bad = {k: launches[k] for k in STAGE2_NOT_LAUNCHED if launches[k]}
+    require(not bad, f"{what}: launched {bad}")
+
+
+def stage2_cli(tmp, flags, n_train, counts, reset) -> dict:
+    """Phase 16, its CLIs: the reference's default stage-2 run in phase
+    15's directory, on its ETH CSVs and the reference recipe's stage-1
+    checkpoints: ``cli.trainsampler --dataset eth`` for 1 epoch and 1
+    resumed epoch (``--fix_epochs 0``: the resumed epoch at 2/3 of the
+    rate), then ``cli.test_sampler --sweep 2`` (2 nets × 2 samplers).
+    Checks them and returns their launches and the line to print."""
+    from sttode_tpu_torch.cli import test_sampler as cli_test_sampler
+    from sttode_tpu_torch.cli import trainsampler as cli_trainsampler
+
+    t_cli = time.perf_counter()
+    sflags = flags + ["--fix_epochs", "0"]
+    reset()   # the main path: train, resume, evaluate
+    run = cli_trainsampler.main(sflags + ["--num_epochs", "1"])
+    stamps, handle = step_clock()
+    t = time.perf_counter()
+    resumed = cli_trainsampler.main(sflags + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    handle.remove()
+    launches_train = counts()
+    t = time.perf_counter()
+    best = cli_test_sampler.main(sflags + ["--sweep", "2"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t
+    launches = counts()
+    require(launches_train["packed"] > 0
+            and launches["packed"] > launches_train["packed"]
+            and launches["attn"] == 0,
+            f"phase 16: the stage-2 CLIs did not run on P alone: training "
+            f"{launches_train}, with evaluation {launches}")
+    stage2_forward_only(launches, "phase 16 stage-2 CLIs")
+    for r in (run, resumed):
+        for epoch, lr, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 16: non-finite loss at epoch {epoch}: {means}")
+    lrs = [lr for _, lr, _ in run.history + resumed.history]
+    require(resumed.start_epoch == 1 and abs(lrs[0] - 1e-4) < 1e-15
+            and abs(lrs[1] - 1e-4 * 2 / 3) < 1e-15,
+            f"phase 16: the resumed run or the lambda decay: start epoch "
+            f"{resumed.start_epoch}, learning rates {lrs}")
+    require(all(int(st["step"]) == 2 * n_train
+                for st in resumed.opt.state_dict()["state"].values()),
+            "phase 16: the resumed run did not continue from the saved epoch")
+    require(np.isfinite([best["ade"], best["fde"]]).all()
+            and best["vae"] in (1, 2) and best["sampler"] in (1, 2),
+            f"phase 16: stage-2 evaluation {best}")
+    rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    line = (
+        f"phase 16 ETH stage 2 through the CLIs ({n_train} train scenes, one "
+        f"a step, on phase 15's stage-1 checkpoints): epochs "
+        + "; ".join(f"{e} lr {lr:.3e} total {m['total']:.4f} kld "
+                    f"{m['kld']:.4f} diverse {m['diverse']:.4f}"
+                    for e, lr, m in run.history + resumed.history)
+        + f"; the resumed epoch: {len(stamps)} steps, {rate:.2f} train "
+        f"steps/s = scenes/s (host clock between optimizer steps), the "
+        f"resumed CLI run {resume_s:.2f} s end to end; cli.test_sampler "
+        f"--sweep 2 (4 evaluations) {test_s:.2f} s: best ADE "
+        f"{best['ade']:.4f} FDE {best['fde']:.4f} (vae {best['vae']}, "
+        f"sampler {best['sampler']}); launches {nonzero(launches)}")
+    return {"launches": launches, "line": line,
+            "seconds": time.perf_counter() - t_cli}
+
+
+def sampler_phase(dev, card, counts, reset, cli: dict) -> dict:
+    """Phase 16: stage 2, the DLow sampler, at full width (the sampler:
+    qnet_mlp (512, 256), nk 20, nz 32). Prints ``cli`` (``stage2_cli``'s
+    result); holds the stage-2 step on the kernel route against the plain
+    route; profiles one step of each recipe; times the step; serves with
+    the sampler. Returns the launches of its main paths (the servers)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.data import scene_batches
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.models import sampler as ts
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.serving import Predictor
+    from sttode_tpu_torch.train import make_sampler_train_step
+
+    t_phase = time.perf_counter()
+    print(cli["line"] + f"  [{card}]")
+    scfg = ts.SamplerConfig()
+    sp0 = ts.sampler_init(16, scfg)
+
+    def nba_batch(B, seed):
+        sc = make_social_scenes(B, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=seed)
+        batch, _ = prepare_scene_group(
+            np.stack([s["obs"] for s in sc]),
+            np.stack([s["pred"] for s in sc]),
+            np.ones((B, 11), np.float32), training=True,
+            rng=np.random.default_rng(seed))
+        return batch.to(dev)
+
+    def eth_batch(B, compat, seed):
+        """B scenes of 9-16 agents, padded to bucket 16."""
+        sc = make_social_scenes(B, agents_range=(9, 16), seed=seed)
+        (batch, _), = scene_batches(sc, training=True,
+                                    rng=np.random.default_rng(seed),
+                                    scenes_per_batch=B, compat=compat)
+        require(batch.batch_size == B and batch.agent_num == 16,
+                f"phase 16: ETH batch {batch.batch_size} x "
+                f"{batch.agent_num}")
+        return batch.to(dev)
+
+    cfg_nba = tm.STTODEConfig(past_length=5, future_length=10).validate()
+    cfg_agent = tm.STTODEConfig(compat="tpu", attn_axis="agent").validate()
+    cfg_pagent = cfg_agent._replace(attn_metric="poincare").validate()
+    cfg_ref = tm.STTODEConfig().validate()
+
+    def plain(cfg):
+        return cfg._replace(attn_impl="dense", select_impl="xla")
+
+    def trainable_net(cfg, seed):
+        # trainable leaves, as a caller's stage-1 params may be: the sampler
+        # must leave them without a gradient
+        return bridge.tree_map(lambda t: t.to(dev).requires_grad_(),
+                               tm.sttode_init(seed, cfg))
+
+    def stage2_fb(net, cfg, batch, dtype=torch.float32):
+        sp = bridge.tree_map(lambda t: t.to(dev, dtype, copy=True), sp0)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(sp)]
+        out = ts.sampler_forward(sp, net, scfg, cfg, batch)
+        total, parts = ts.sampler_loss(out, scfg, batch)
+        total.backward()
+        return ([float(total.detach())]
+                + [float(v.detach()) for v in parts.values()],
+                out.dec_motion.detach(), [t.grad for t in leaves])
+
+    f64 = torch.float64
+    names = leaf_names(sp0)
+
+    # the stage-2 step on the kernel route against the plain route (same
+    # weights and batch): the losses, dec_motion, every sampler leaf
+    batch_nba = nba_batch(32, 16)
+    batch_agent = eth_batch(32, "tpu", 16)
+    for label, cfg, batch, key in (
+            ("NBA recipe at B = 32 x 11 (P)", cfg_nba, batch_nba, "packed"),
+            ("ETH agent-axis recipe at 32 x 16 (A, key masks)", cfg_agent,
+             batch_agent, "attn_masked"),
+            ("poincaré agent axis at 32 x 16 (1p)", cfg_pagent, batch_agent,
+             "attn_p")):
+        net = trainable_net(cfg, 16)
+        reset()
+        losses_k, dec_k, g_k = stage2_fb(net, cfg, batch)
+        torch.cuda.synchronize()
+        moved = counts()
+        losses_p, dec_p, g_p = stage2_fb(net, plain(cfg), batch)
+        require(moved[key] > 0, f"phase 16 {label}: {key} not launched "
+                                f"{moved}")
+        stage2_forward_only(moved, f"phase 16 {label}")
+        require(all(t.grad is None for t in bridge.tree_leaves(net)),
+                f"phase 16 {label}: a net leaf received a gradient")
+        loss_err = 0.0
+        for name, a, b in zip(("total", "kld", "diverse"), losses_k,
+                              losses_p):
+            require(abs(a - b) <= TRAIN_TOL * max(1.0, abs(b)),
+                    f"phase 16 {label} {name}: {a} vs plain {b}")
+            loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
+        dec_scale = max(1.0, float(dec_p.abs().max()))
+        dec_err = max_err(dec_k, dec_p)
+        require(bool(torch.isfinite(dec_k).all())
+                and dec_err <= TRAIN_TOL * dec_scale,
+                f"phase 16 {label}: dec_motion max abs err {dec_err}")
+        # the sampler's gradient is ill-conditioned in fp32 on either route
+        # (the KL's −log(A² + 1e-8) gives q_A a 1/A gradient where A is a
+        # cancelling sum near 0): each leaf is held within 1e-3 of its
+        # largest magnitude between the routes (PERF.md §2's large-batch
+        # limit), and against the plain route in float64 the kernel route
+        # at most 3× as far off as the fp32 plain route
+        net64 = bridge.tree_map(lambda t: t.detach().to(f64), net)
+        _, _, g_64 = stage2_fb(net64, plain(cfg), batch.to(f64), f64)
+        ratio = {"routes": [], "kernel_f64": [], "plain_f64": []}
+        for name, a, b, o in zip(names, g_k, g_p, g_64):
+            require((a is None) == (b is None) == (o is None),
+                    f"phase 16 {label}: leaf {name} has a gradient on one "
+                    f"route only")
+            if b is None:        # q_c: only the reconstruction decode
+                continue
+            require(bool(torch.isfinite(a).all()),
+                    f"phase 16 {label}: leaf {name} not finite")
+            for key, x, y in (("routes", a, b), ("kernel_f64", a, o),
+                              ("plain_f64", b, o)):
+                ratio[key].append((float((x.to(f64) - y).abs().max())
+                                   / max(float(y.abs().max()), 1e-30),
+                                   name))
+        worst = {k: max(v) for k, v in ratio.items()}
+        require(worst["routes"][0] <= 10 * TRAIN_TOL
+                and worst["kernel_f64"][0] <= 10 * TRAIN_TOL
+                and worst["kernel_f64"][0] <= 3 * worst["plain_f64"][0],
+                f"phase 16 {label}: sampler gradients, worst leaf (share of "
+                f"its largest magnitude) between the routes, kernel route "
+                f"vs float64, plain route vs float64: {worst}")
+        grad_ratio = worst["routes"][0]
+        print(f"phase 16 fp32 stage-2 forward+backward, {label}, kernel vs "
+              f"plain route: losses (total {losses_k[0]:.4f}, kld "
+              f"{losses_k[1]:.4f}, diverse {losses_k[2]:.4f}) within "
+              f"{loss_err:.3e} (relative), dec_motion within {dec_err:.3e} "
+              f"(scale {dec_scale:.1f}), sampler gradients within "
+              f"{grad_ratio:.3e} of each leaf's largest magnitude (worst "
+              f"leaf {worst['routes'][1]}); against the float64 plain "
+              f"route the kernel route's worst leaf "
+              f"{worst['kernel_f64'][0]:.3e} ({worst['kernel_f64'][1]}), the "
+              f"fp32 plain route's "
+              f"{worst['plain_f64'][0]:.3e} ({worst['plain_f64'][1]}); no "
+              f"net leaf has a gradient; launches {nonzero(moved)}")
+        del net64, g_64
+        del net, g_k, g_p
+
+    # one profiled stage-2 training step of each recipe: its forward
+    # kernel, and no backward attention kernel and no kernel B
+    cpu = torch.profiler.ProfilerActivity.CPU
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    for label, cfg, batch, fwd in (
+            ("NBA recipe 32 x 11", cfg_nba, batch_nba, "P"),
+            ("ETH agent-axis recipe 32 x 16", cfg_agent, batch_agent, "A")):
+        net = trainable_net(cfg, 17)
+        step = make_sampler_train_step(cfg, scfg, 1e-4, net, device=dev)
+        params, opt = step.init(sp0)
+        for _ in range(2):
+            params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        seen: dict = {}
+        for _ in range(3):       # a trace can lose a launch: up to 3 steps
+            reset()
+            with torch.profiler.profile(activities=[cpu, cuda]) as prof:
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+            moved = counts()
+            names = trace_names(prof.key_averages())
+            for k, v in names.items():
+                seen[k] = seen.get(k, 0) + v
+            stage2_forward_only(moved, f"phase 16 profiled {label} step")
+            if names.get(fwd):
+                break
+        require(seen.get(fwd, 0) > 0,
+                f"phase 16: the profiler did not see {fwd} in a {label} "
+                f"stage-2 step: {seen}")
+        forbidden = {k: seen[k] for k in ("C", "Q", "F_bwd", "B")
+                     if seen.get(k)}
+        require(not forbidden, f"phase 16: a {label} stage-2 step launched "
+                               f"{forbidden}")
+        require(all(t.grad is None for t in bridge.tree_leaves(net))
+                and all(t.grad is None
+                        for t in bridge.tree_leaves(step.net_params)),
+                f"phase 16 {label}: a net leaf received a gradient")
+        require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+                f"phase 16 {label}: non-finite metrics {metrics}")
+        print(f"phase 16 profiled stage-2 step, {label}: the trace saw "
+              f"{seen}; the counters {nonzero(moved)}; no net leaf has a "
+              f"gradient")
+        del net, step, params, opt
+
+    # step time, train scenes/s, idle share and kernels a step, both routes
+    batch_ref = eth_batch(1, "reference", 18)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for label, cfg, batch in (("ETH reference shape 1 x 16", cfg_ref,
+                               batch_ref),
+                              ("NBA recipe B = 32 x 11", cfg_nba, batch_nba)):
+        net = bridge.to_device(tm.sttode_init(18, cfg), dev)
+        steps = [make_sampler_train_step(c, scfg, 1e-4, net, device=dev)
+                 for c in (cfg, plain(cfg))]
+        step_times([[st, *st.init(sp0)] for st in steps], batch, gen,
+                   batch.batch_size, f"phase 16 stage-2 step, {label}", card)
+
+    # the sampler's server: kernel route against the plain route (equal, and
+    # independent of the seed), and its p50 beside the stage-1 server's
+    scenes = [s["obs"] for s in make_social_scenes(64, agents_range=(8, 8),
+                                                   seed=0)]
+    shapes = [(20, 8, 12, 2)] * 64
+    launches: dict = {}
+    for label, cfg, key in (
+            ("agent axis (compat tpu)", cfg_agent, "attn_masked"),
+            ("scene axis (reference compat, isolated)", cfg_ref, "packed"),
+            ("poincaré agent axis", cfg_pagent, "attn_p")):
+        net = tm.sttode_init(0, cfg)
+        kw = dict(device=dev, max_group=64, sampler_params=sp0,
+                  sampler_cfg=scfg)
+        preds = [Predictor(net, cfg, **kw), Predictor(net, plain(cfg), **kw)]
+        if key != "attn_p":
+            preds.append(Predictor(net, cfg, device=dev, max_group=64))
+        for pr in preds:
+            pr.warmup([8], scenes_per=64)
+        torch.cuda.synchronize()
+        reset()   # the main path: the sampler's server
+        out = preds[0].predict_many(scenes, seed=11)
+        torch.cuda.synchronize()
+        moved = counts()
+        require(moved[key] > 0, f"phase 16 server, {label}: {key} not "
+                                f"launched {moved}")
+        stage2_forward_only(moved, f"phase 16 server, {label}")
+        for k, v in moved.items():
+            launches[k] = launches.get(k, 0) + v
+        other = preds[0].predict_many(scenes, seed=12)
+        require(all(np.array_equal(a, b) for a, b in zip(out, other)),
+                f"phase 16 server, {label}: the forecasts depend on the seed")
+        if key == "attn_p":
+            err = compare(out, preds[1].predict_many(scenes, seed=11),
+                          shapes, f"phase 16 server, {label}")
+            print(f"phase 16 sampler server, {label}, 64 scenes x 8 agents "
+                  f"a call: max_abs_err vs plain {err:.3e}, independent of "
+                  f"the seed; launches {nonzero(moved)}")
+            continue
+        timed = serve_rounds(preds, scenes, 10)
+        err = compare(timed[0][0], timed[1][0], shapes,
+                      f"phase 16 server, {label}")
+        (_, p50, rate), (_, p50_p, rate_p), (_, p50_1, rate_1) = timed
+        print(f"phase 16 sampler server, {label}, 64 scenes x 8 agents a "
+              f"call: max_abs_err vs plain {err:.3e}, independent of the "
+              f"seed; p50 per predict_many {p50:.3f} ms ({rate:.1f} "
+              f"scenes/s), plain {p50_p:.3f} ms ({rate_p:.1f}), the "
+              f"stage-1 server at the same shape {p50_1:.3f} ms "
+              f"({rate_1:.1f}); launches {nonzero(moved)}  [{card}]")
+    seconds = time.perf_counter() - t_phase + cli["seconds"]
+    print(f"phase 16 took {seconds:.1f} s ({cli['seconds']:.1f} s of CLIs "
+          f"inside phase 15's directory)  [{card}]")
+    return {"launches": {k: launches[k] + cli["launches"][k]
+                         for k in launches}}
 
 
 def main() -> int:
@@ -1178,36 +1597,6 @@ def main() -> int:
                               f"  [{card}]")
                 print(f"select {mode}_{name}: max_abs_err {err:.3e}{extra}")
 
-    def serve_ab(kernel_pred, plain_pred, scenes, rounds, single=False):
-        """Serve ``rounds`` rounds of requests from each Predictor, the two
-        alternating (kernel, plain, plain, kernel, ...): a round is one
-        ``predict_many`` of all ``scenes``, or with ``single`` one ``predict``
-        per scene. Returns, per route, (outputs of its last round, p50 ms
-        per request, scenes/s over the time spent in that route)."""
-        preds = (kernel_pred, plain_pred)
-        lat, busy, out = ([], []), [0.0, 0.0], [None, None]
-        for r in range(rounds):
-            for i in ((0, 1) if r % 2 == 0 else (1, 0)):
-                res = []
-                for batch in ([[s] for s in scenes] if single else [scenes]):
-                    t = time.perf_counter()
-                    res += preds[i].predict_many(batch, seed=11)
-                    dt = time.perf_counter() - t
-                    lat[i].append(dt * 1e3)
-                    busy[i] += dt
-                out[i] = res
-        return [(out[i], statistics.median(lat[i]),
-                 len(scenes) * rounds / busy[i]) for i in (0, 1)]
-
-    def compare(out, ref, shape_of, what):
-        err = 0.0
-        for o, r, s in zip(out, ref, shape_of):
-            require(o.shape == s, f"{what}: shape {o.shape} != {s}")
-            require(bool(np.isfinite(o).all()), f"{what}: non-finite")
-            err = max(err, float(np.abs(o - r).max()))
-        require(err <= MODEL_TOL, f"{what}: max abs err {err} > {MODEL_TOL}")
-        return err
-
     # 4. the serving path, agent axis (64 scenes × 8 agents per call)
     cfg4 = tm.STTODEConfig(compat="tpu", attn_axis="agent").validate()
     params4 = tm.sttode_init(0, cfg4)
@@ -1220,8 +1609,8 @@ def main() -> int:
     kernel4.warmup([8], scenes_per=64)
     plain4.warmup([8], scenes_per=64)
     reset()   # the plain routes launch no kernel: the counts are the path's
-    (out4, p50_4, rate_4), (ref4, p50_4p, rate_4p) = serve_ab(
-        kernel4, plain4, scenes4, 20)
+    (out4, p50_4, rate_4), (ref4, p50_4p, rate_4p) = serve_rounds(
+        (kernel4, plain4), scenes4, 20)
     torch.cuda.synchronize()
     launches4 = counts()
     require(launches4["attn"] > 0 and launches4["select_fp32"] > 0,
@@ -1262,8 +1651,8 @@ def main() -> int:
         torch.cuda.synchronize()
         reset()
         got5 = tm.sttode_inference(params5, cfg5, batch5, z=z5)
-        (out_def, p50_d, rate_d), (ref_def, p50_dp, rate_dp) = serve_ab(
-            kernel_def, plain_def, singles, 6, single=True)
+        (out_def, p50_d, rate_d), (ref_def, p50_dp, rate_dp) = serve_rounds(
+            (kernel_def, plain_def), singles, 6, single=True)
         torch.cuda.synchronize()
         launches5 = counts()
         want5 = tm.sttode_inference(params5, plain_cfg5, batch5, z=z5)
@@ -2566,8 +2955,8 @@ def main() -> int:
     kernel14a.warmup([8], scenes_per=64)
     plain14a.warmup([8], scenes_per=64)
     reset()   # the main path: serving
-    (out14a, p50_a, rate_a), (ref14a, p50_ap, rate_ap) = serve_ab(
-        kernel14a, plain14a, scenes4, 6)
+    (out14a, p50_a, rate_a), (ref14a, p50_ap, rate_ap) = serve_rounds(
+        (kernel14a, plain14a), scenes4, 6)
     torch.cuda.synchronize()
     launches14a = counts()
     require(launches14a["attn_p"] > 0
@@ -2581,9 +2970,16 @@ def main() -> int:
           f"{rate_a:.1f} scenes/s; dense p50 {p50_ap:.3f} ms, "
           f"{rate_ap:.1f} scenes/s; launches {launches14a}")
 
-    # 15. the ETH-UCY and SDD path through the CLIs
-    eth15 = eth_phase(dev, card, counts, reset)
+    # 15. the ETH-UCY and SDD path through the CLIs; in its directory, on its
+    #     stage-1 checkpoints, phase 16's stage-2 CLIs
+    eth15 = eth_phase(dev, card, counts, reset,
+                      inside=lambda tmp, flags, n_train: stage2_cli(
+                          tmp, flags, n_train, counts, reset))
     launches15 = eth15["launches"]
+
+    # 16. stage 2, the DLow sampler
+    launches16 = sampler_phase(dev, card, counts, reset,
+                               eth15["inside"])["launches"]
 
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
@@ -2621,7 +3017,8 @@ def main() -> int:
         entry("fused_geodesic_attention", "mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:407",
               launches4["attn"] + launches5["attn"] + launches8["attn"]
-              + launches10["attn"] + launches12["attn"] + launches15["attn"],
+              + launches10["attn"] + launches12["attn"] + launches15["attn"]
+              + launches16["attn"] - launches16["attn_p"],
               attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
@@ -2640,7 +3037,8 @@ def main() -> int:
         entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:340",
               launches5["packed"] + launches10["packed"]
-              + launches15["packed"], packed_err, p_ms, p_plain, p_bound),
+              + launches15["packed"] + launches16["packed"], packed_err, p_ms,
+              p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
               launches10["packed_bwd"] + launches15["packed_bwd"],
@@ -2658,7 +3056,8 @@ def main() -> int:
               *rec11["dkv"], fdkv_bound),
         entry("fused_geodesic_attention_poincare", "mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:407",
-              launches14["attn_p"] + launches14a["attn_p"], perr["fwd"],
+              launches14["attn_p"] + launches14a["attn_p"]
+              + launches16["attn_p"], perr["fwd"],
               *ptimes[p32][0], bound(*attn_fwd_work(88, 32, 32, 8, False,
                                                     "poincare"),
                                      FP32_FLOP_PER_S)),

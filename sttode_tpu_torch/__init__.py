@@ -1,5 +1,5 @@
 """sttode_tpu_torch — the PyTorch/CUDA port of ``sttode_tpu``: serving and
-stage-1 training.
+training of both stages.
 
 The JAX package ``sttode_tpu`` stays the reference; this package mirrors its
 module paths, public names and parameter layouts so that the same weights
@@ -13,7 +13,15 @@ ETH-UCY (with its C++ windowing engine, ``native``), SDD and NBA loaders
 (``data``), bucketed scene batching and a prefetch thread, StepLR
 (``train.schedulers``), checkpoints (``train.checkpoint``), the best-of-K
 and horizon-table evaluations (``evaluation``) and the CLIs
-``python -m sttode_tpu_torch.cli.train`` / ``cli.test``.
+``python -m sttode_tpu_torch.cli.train`` / ``cli.test``; and stage 2, the
+DLow diversity sampler over the frozen stage-1 net
+(``models.sampler``: ``sampler_forward`` and its KL and diversity losses;
+``train.make_sampler_train_step``, Adam over the sampler's leaves only;
+the lambda decay ``train.schedulers.lambda_lr``), its CLIs
+``cli.trainsampler`` / ``cli.test_sampler`` and
+``Predictor(sampler_params=, sampler_cfg=)``. Stage 2 runs the encoder's
+attention kernels forward only (the frozen net takes no gradient) and
+decodes in plain PyTorch, as the JAX package does.
 Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
 - ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,
@@ -26,8 +34,9 @@ Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 - ``kernels.select_decode.select_decode`` — the whole two-block decompose
   decode of all K samples, in fp32 or bf16 storage.
 
-The entry points (``Predictor``, ``make_train_step``, the CLIs) run on the
-card unless the caller passes ``device="cpu"`` (``--device cpu``).
+The entry points (``Predictor``, ``make_train_step``,
+``make_sampler_train_step``, the CLIs) run on the card unless the caller
+passes ``device="cpu"`` (``--device cpu``).
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead;
 on CUDA tensors it launches the kernel or raises. Importing this package
@@ -37,11 +46,16 @@ builds nothing and needs no CUDA compiler: the kernels are compiled with
 This package never imports ``jax`` or ``sttode_tpu``.
 """
 
+from sttode_tpu_torch.models.sampler import (SamplerConfig, sampler_forward,
+                                             sampler_init)
 from sttode_tpu_torch.models.sttode import (Batch, STTODEConfig,
                                             sttode_forward, sttode_inference,
                                             sttode_init)
 from sttode_tpu_torch.serving import Predictor
-from sttode_tpu_torch.train import make_train_step, train_epoch
+from sttode_tpu_torch.train import (make_sampler_train_step, make_train_step,
+                                    train_epoch)
 
-__all__ = ["Batch", "Predictor", "STTODEConfig", "make_train_step",
-           "sttode_forward", "sttode_inference", "sttode_init", "train_epoch"]
+__all__ = ["Batch", "Predictor", "STTODEConfig", "SamplerConfig",
+           "make_sampler_train_step", "make_train_step", "sampler_forward",
+           "sampler_init", "sttode_forward", "sttode_inference", "sttode_init",
+           "train_epoch"]

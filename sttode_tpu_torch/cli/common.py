@@ -1,7 +1,8 @@
 """Shared CLI plumbing of the port (port of ``sttode_tpu/cli/common.py``).
 
 The JAX package's flag surface, with the same names and defaults, so that a
-command line carries over; plus ``--device`` (default ``cuda``: the port runs
+command line carries over (the stage-2 flags are ``cli.trainsampler``'s
+``add_sampler_args``); plus ``--device`` (default ``cuda``: the port runs
 on the card unless the caller asks for the CPU). The reference's
 dataset-conditional defaults: NBA 5/10 steps and batches of 32 scenes,
 ETH-UCY and SDD 8/12 steps and one scene a step (``--scenes_per_batch``
@@ -19,6 +20,7 @@ import os
 
 import numpy as np
 
+from sttode_tpu_torch.models.sampler import DIVERSITY_CONFIG, SamplerConfig
 from sttode_tpu_torch.models.sttode import STTODEConfig
 
 ETH_UCY = ("eth", "hotel", "univ", "zara1", "zara2")
@@ -142,6 +144,19 @@ def model_config(args) -> STTODEConfig:
         curvature=args.curvature,
         loss_terms=tuple(t for t in args.loss_terms.split(",") if t),
     ).validate()
+
+
+def sampler_config(args) -> SamplerConfig:
+    """The stage-2 config of a command line with the sampler's flags
+    (``cli.trainsampler.add_sampler_args``): K = ``--sample_k`` and the
+    dataset's (diversity weight, scale) from the reference's table (3.0,
+    2.0 for a dataset it does not list)."""
+    w, s = DIVERSITY_CONFIG.get(args.dataset, (3.0, 2.0))
+    return SamplerConfig(
+        nk=args.sample_k, nz=args.nz, qnet_mlp=tuple(args.qnet_mlp),
+        share_eps=not args.no_share_eps,
+        train_w_mean=not args.no_train_w_mean, kld_weight=args.kld_weight,
+        kld_min_clamp=args.kld_min_clamp, div_weight=w, div_scale=s)
 
 
 def effective_max_train_agent(args) -> int:

@@ -400,10 +400,11 @@ def _decode_mp(params: dict, cfg: STTODEConfig, past_feature, z, past_traj,
     if cfg.decode_dtype != "bfloat16":
         return decode(params, cfg, past_feature, z, past_traj, cur_location,
                       sample_num, block0_state=block0_state)
+    b0 = None if block0_state is None else _bf16_tree(block0_state)
     out, rec = decode({"decoder": _bf16_tree(params["decoder"])}, cfg,
                       _bf16_tree(past_feature), _bf16_tree(z),
                       _bf16_tree(past_traj), _bf16_tree(cur_location),
-                      sample_num, block0_state=_bf16_tree(block0_state))
+                      sample_num, block0_state=b0)
     return out.to(torch.float32), rec.to(torch.float32)
 
 

@@ -18,7 +18,10 @@ Seeds are folded with crc32 of the float32 scene bytes, stable across
 processes. The port's draws differ from the JAX package's (different
 generators); the contract is the same.
 
-Not ported yet: the stage-2 sampler path (``sampler_params``).
+With a trained stage-2 sampler (``sampler_params`` and ``sampler_cfg``) the
+nk forecasts come from the sampler's deterministic flow (mean=True, z = b)
+over the frozen net instead of prior draws (JAX's production path): the
+seed then changes nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from sttode_tpu_torch.bridge import resolve_device, to_device
 from sttode_tpu_torch.data.batching import DEFAULT_BUCKETS, bucket_for
 from sttode_tpu_torch.data.preprocess import prepare_scene_group
+from sttode_tpu_torch.models.sampler import SamplerConfig, sampler_forward
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_inference
 
 
@@ -56,16 +60,35 @@ class Predictor:
     ``params`` is a port parameter tree (``sttode_init`` or
     ``bridge.params_from_jax``); it is moved to ``device``. The default is
     the card: without a CUDA device the constructor raises unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``. ``sampler_params`` with ``sampler_cfg``
+    serve the stage-2 sampler's nk forecasts (both or neither; nz must
+    equal the net's zdim, and ``sample_k``, when given, nk)."""
 
     def __init__(self, params, cfg: STTODEConfig, *,
                  device: torch.device | str = "cuda",
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  sample_k: int | None = None, max_group: int = 16,
-                 isolated_group_max: int = 64):
+                 isolated_group_max: int = 64, sampler_params=None,
+                 sampler_cfg: SamplerConfig | None = None):
         self.cfg = cfg.validate()
+        if (sampler_params is None) != (sampler_cfg is None):
+            raise ValueError("pass sampler_params AND sampler_cfg together")
+        if sampler_cfg is not None:
+            if sampler_cfg.nz != cfg.zdim:
+                raise ValueError(
+                    f"sampler nz {sampler_cfg.nz} must equal the net's "
+                    f"zdim {cfg.zdim}")
+            if sample_k is not None and sample_k != sampler_cfg.nk:
+                raise ValueError(
+                    f"sample_k {sample_k} conflicts with the sampler's "
+                    f"nk {sampler_cfg.nk} (the flow emits exactly nk "
+                    f"samples)")
+            sample_k = sampler_cfg.nk
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
+        self.sampler_cfg = sampler_cfg
+        self.sampler_params = None if sampler_params is None else \
+            to_device(sampler_params, self.device)
         self.buckets = tuple(buckets)
         self.sample_k = sample_k or cfg.sample_k
         self.max_group = max(1, int(max_group))                # agent axis
@@ -123,6 +146,13 @@ class Predictor:
         batch, origs = prepare_scene_group(obs, pred_zeros, valid,
                                            training=False)
         batch = batch.to(self.device)
+        if self.sampler_params is not None:
+            dec = sampler_forward(self.sampler_params, self.params,
+                                  self.sampler_cfg, cfg, batch, mean=True,
+                                  isolate_scenes=isolate).dec_motion
+            return (dec.transpose(0, 1).reshape(K, B, bucket,
+                                                cfg.future_length, 2),
+                    idxs, ns, origs)
         if isolate:
             # per-scene draws: rows of scene j are [j·bucket·K, (j+1)·bucket·K)
             z = torch.cat([

@@ -3,8 +3,10 @@ in a ``torch.save`` format).
 
 One file per checkpoint, ``<ckpt_dir>/model_%04d.pt`` (the JAX package's
 ``CKPT_FMT`` directory name plus a suffix), holding the parameter tree, the
-Adam ``state_dict``, the epoch and the ``STTODEConfig`` as JSON, so that
-evaluation rebuilds the model from the checkpoint alone (the reference's
+Adam ``state_dict``, the epoch and the config (``STTODEConfig`` or, for a
+stage-2 sampler under ``<ckpt_dir>/sampler/``, ``SamplerConfig``) as JSON
+with its type's name, so that evaluation rebuilds the model from the
+checkpoint alone (the reference's
 reconstruct-from-checkpoint property). The tree is stored as plain dicts and
 lists (parameter NamedTuples become tagged dicts), so the file loads with
 ``torch.load(weights_only=True)``: no pickled classes. A save writes a
@@ -21,12 +23,14 @@ import re
 import torch
 
 from sttode_tpu_torch import bridge
+from sttode_tpu_torch.models.sampler import SamplerConfig
 from sttode_tpu_torch.models.sttode import STTODEConfig
 
 CKPT_FMT = "model_{:04d}"
 SUFFIX = ".pt"
 _NAME = re.compile(r"model_(\d{4,})\.pt")
 _TAG = "__namedtuple__"
+_CONFIGS = {cls.__name__: cls for cls in (STTODEConfig, SamplerConfig)}
 
 
 def checkpoint_path(ckpt_dir: str, epoch: int) -> str:
@@ -55,19 +59,21 @@ def _from_plain(tree):
     return tree
 
 
-def _config_to_json(cfg: STTODEConfig) -> str:
+def _config_to_json(cfg: STTODEConfig | SamplerConfig) -> str:
     return json.dumps({"type": type(cfg).__name__, **cfg._asdict()})
 
 
-def _config_from_json(s: str) -> STTODEConfig:
-    """JSON round-trips tuples as lists; fields the config does not know are
-    dropped and missing ones take its defaults, as in the JAX package."""
+def _config_from_json(s: str) -> STTODEConfig | SamplerConfig:
+    """The config class named by the JSON's type tag. JSON round-trips
+    tuples as lists; fields the config does not know are dropped and
+    missing ones take its defaults, as in the JAX package."""
     d = json.loads(s)
-    if d.pop("type") != "STTODEConfig":
-        raise ValueError("not an STTODEConfig checkpoint")
-    return STTODEConfig(**{k: tuple(v) if isinstance(v, list) else v
-                           for k, v in d.items()
-                           if k in STTODEConfig._fields})
+    kind = d.pop("type")
+    if kind not in _CONFIGS:
+        raise ValueError(f"unknown checkpoint config type {kind!r}")
+    cls = _CONFIGS[kind]
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items() if k in cls._fields})
 
 
 def checkpoint_epochs(ckpt_dir: str) -> list[int]:
@@ -86,7 +92,8 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 
 
 def save_checkpoint(ckpt_dir: str, epoch: int, params,
-                    opt: torch.optim.Optimizer, cfg: STTODEConfig,
+                    opt: torch.optim.Optimizer,
+                    cfg: STTODEConfig | SamplerConfig,
                     keep_last: int | None = None) -> str:
     """Write ``<ckpt_dir>/model_%04d.pt`` with the parameters (moved to the
     CPU), the optimizer's ``state_dict``, the epoch and the config; return

@@ -1,11 +1,14 @@
-"""Stage-1 (CVAE) training step and epoch driver (port of
-``sttode_tpu/train/loop.py``: ``make_train_step``, ``train_epoch``).
+"""Training steps and the epoch loop (port of ``sttode_tpu/train/loop.py``:
+``make_train_step``, ``make_sampler_train_step``, ``train_epoch``).
 
-A step is ``sttode_forward``, a backward pass through PyTorch autograd over
-every leaf of the parameter tree, and an Adam update. Every leaf is trained,
-the two positional-encoding tables included: the JAX package differentiates
-the whole tree and its optimizer updates them. ``torch.optim.Adam`` computes
-what ``optax.adam`` does, lr · m̂ / (√v̂ + ε) with ε = 1e-8.
+A stage-1 step is ``sttode_forward``, a backward pass through PyTorch
+autograd over every leaf of the parameter tree, and an Adam update. Every
+leaf is trained, the two positional-encoding tables included: the JAX
+package differentiates the whole tree and its optimizer updates them. A
+stage-2 step is ``sampler_forward`` over the frozen net that the step holds,
+``sampler_loss``, a backward pass and an Adam update of the sampler's leaves
+only. ``torch.optim.Adam`` computes what ``optax.adam`` does,
+lr · m̂ / (√v̂ + ε) with ε = 1e-8.
 
 Unlike the JAX step, the update is in place: the parameter tensors and the
 optimizer state are updated where they are, and the step returns the same
@@ -24,6 +27,8 @@ import torch
 
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.data.prefetch import prefetch
+from sttode_tpu_torch.models.sampler import (SamplerConfig, sampler_forward,
+                                             sampler_loss)
 from sttode_tpu_torch.models.sttode import Batch, STTODEConfig, sttode_forward
 from sttode_tpu_torch.train.schedulers import set_lr
 
@@ -76,6 +81,55 @@ def make_train_step(cfg: STTODEConfig, lr: float, *,
     makes its params and optimizer state. Runs on the card unless
     ``device="cpu"``; raises when CUDA is asked for and absent."""
     return TrainStep(cfg, lr, device)
+
+
+class SamplerTrainStep(TrainStep):
+    """The stage-2 step for one net, sampler config, learning rate and
+    device: the stage-1 net is frozen and held by the step (its leaves on
+    the step's device, without gradients); ``init`` and the call take the
+    sampler's parameters, in the call shape of ``TrainStep``, so that
+    ``train_epoch`` drives either.
+
+    >>> step = make_sampler_train_step(cfg, scfg, 1e-4, net_params)
+    >>> sp, opt_state = step.init(sampler_init(0, scfg))
+    >>> sp, opt_state, metrics = step(sp, opt_state, batch, gen)
+    """
+
+    def __init__(self, cfg: STTODEConfig, scfg: SamplerConfig, lr: float,
+                 net_params, device: torch.device | str = "cuda"):
+        super().__init__(cfg, lr, device)
+        self.scfg = scfg
+        self.net_params = bridge.tree_map(
+            lambda t: t.detach().to(self.device, torch.float32), net_params)
+
+    def __call__(self, params, opt_state: torch.optim.Adam, batch: Batch,
+                 generator: torch.Generator | None = None):
+        """One step → (params, opt_state, metrics), metrics {"total", "kld",
+        "diverse"} (the KL and diversity unweighted) as 0-dim tensors on the
+        device. ε is drawn from ``generator`` when the config samples
+        (``train_w_mean=False``)."""
+        batch = batch.to(self.device)
+        opt_state.zero_grad(set_to_none=True)
+        out = sampler_forward(params, self.net_params, self.scfg, self.cfg,
+                              batch, generator=generator)
+        total, parts = sampler_loss(out, self.scfg, batch)
+        total.backward()
+        opt_state.step()
+        metrics = {"total": total, **parts}
+        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_sampler_train_step(cfg: STTODEConfig, scfg: SamplerConfig,
+                            lr: float, net_params, *,
+                            device: torch.device | str = "cuda"
+                            ) -> SamplerTrainStep:
+    """Stage-2 step ``(sampler_params, opt_state, batch, generator) →
+    (sampler_params, opt_state, metrics)`` over the frozen ``net_params``,
+    with ``torch.optim.Adam(lr)`` over the sampler's leaves;
+    ``step.init(sampler_params)`` makes its params and optimizer state.
+    Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
+    and absent."""
+    return SamplerTrainStep(cfg, scfg, lr, net_params, device)
 
 
 def train_epoch(step: TrainStep, params, opt_state,

@@ -28,10 +28,11 @@ from sttode_tpu_torch.data.synthetic import make_social_scenes
 from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.kernels import select_decode as tsd
+from sttode_tpu_torch.models import sampler as ts
 from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.nn.attention import to_ball
 from sttode_tpu_torch.serving import Predictor
-from sttode_tpu_torch.train import make_train_step
+from sttode_tpu_torch.train import make_sampler_train_step, make_train_step
 
 
 @pytest.fixture
@@ -1644,3 +1645,146 @@ def test_train_epoch_prefetch_gives_the_losses_of_no_prefetch(cuda_device):
         means.append(m)
     assert means[0] == means[1]
     assert np.isfinite(list(means[0].values())).all()
+
+
+# --------------------------------------------------------------------------- #
+# stage 2, the DLow sampler: the frozen net's encoder runs forward only       #
+# --------------------------------------------------------------------------- #
+
+def _sampler_case(kind, device):
+    """(net cfg, sampler cfg, net params, sampler params, batch) at full
+    width: the NBA recipe's scene axis at 32 × 11 (kernel P) or the ETH
+    agent-axis recipe at 32 scenes padded to 16 agents (kernel A, key
+    masks)."""
+    from sttode_tpu_torch.data.batching import scene_batches
+    if kind == "nba_scene":
+        cfg = tm.STTODEConfig(past_length=5, future_length=10).validate()
+        scenes = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                                    pred_len=10, seed=21)
+        batch, _ = prepare_scene_group(
+            np.stack([s["obs"] for s in scenes]),
+            np.stack([s["pred"] for s in scenes]),
+            np.ones((32, 11), np.float32), training=True,
+            rng=np.random.default_rng(21))
+    else:
+        cfg = tm.STTODEConfig(compat="tpu", attn_axis="agent").validate()
+        scenes = make_social_scenes(32, agents_range=(9, 16), seed=22)
+        (batch, _), = scene_batches(scenes, training=True,
+                                    rng=np.random.default_rng(22),
+                                    scenes_per_batch=32, compat="tpu")
+        assert batch.agent_num == 16 and float(batch.valid.min()) == 0.0
+    scfg = ts.SamplerConfig()
+    return (cfg, scfg, to_device(tm.sttode_init(21, cfg), device),
+            ts.sampler_init(22, scfg), batch.to(device))
+
+
+def _sampler_step_launches():
+    f = tmhgsa.flash_geodesic_attention_backward
+    return {"A": tmhgsa.fused_geodesic_attention.launches,
+            "P": tpacked.packed_geodesic_attention.launches,
+            "backward": (tmhgsa.fused_geodesic_attention_backward.launches
+                         + tpacked.packed_geodesic_attention_backward.launches
+                         + f.launches_dq + f.launches_dkv),
+            "flash": tmhgsa.flash_geodesic_attention.launches,
+            "B": tsd.select_decode.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["nba_scene", "eth_agent"])
+def test_sampler_step_kernel_route_matches_plain(cuda_device, kind):
+    """The stage-2 forward, losses and every sampler gradient leaf on the
+    kernel route against the plain route (attn_impl="dense") with the same
+    weights and batch: losses and dec_motion within 1e-4 × max(1, |x|).
+    The sampler's gradient is ill-conditioned in fp32 on either route (the
+    KL's −log(A² + 1e-8) gives q_A a 1/A gradient where A is a cancelling
+    sum near 0: the fp32 plain route is ~1.5e-4 of q_A's largest magnitude
+    from float64 at full width on an H100, chip_smoke.py phase 16), so
+    each leaf is held within 1e-3 of its
+    largest magnitude between the routes (PERF.md §2's large-batch limit),
+    and against the plain route in float64 the kernel route at most 3× as
+    far off as the fp32 plain route."""
+    cfg, scfg, net, sp0, batch = _sampler_case(kind, cuda_device)
+    f64 = torch.float64
+
+    def run(c, dtype=torch.float32):
+        sp = bridge.tree_map(lambda t: t.to(cuda_device, dtype, copy=True),
+                             sp0)
+        leaves = [t.requires_grad_() for t in bridge.tree_leaves(sp)]
+        n = bridge.tree_map(lambda t: t.to(dtype), net)
+        b = batch.to(dtype)
+        out = ts.sampler_forward(sp, n, scfg, c, b)
+        total, parts = ts.sampler_loss(out, scfg, b)
+        total.backward()
+        return ([float(total.detach())] + [float(v.detach())
+                                           for v in parts.values()],
+                out.dec_motion.detach(), [t.grad for t in leaves])
+
+    got, dec, g_got = run(cfg)
+    dense = cfg._replace(attn_impl="dense")
+    want, dec_p, g_want = run(dense)
+    _, _, g_64 = run(dense, f64)
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (a, b)
+    scale = max(1.0, float(dec_p.abs().max()))
+    assert float((dec - dec_p).abs().max()) <= 1e-4 * scale
+    err = {"routes": [], "kernel": [], "plain": []}
+    for i, (a, b, o) in enumerate(zip(g_got, g_want, g_64)):
+        if b is None:             # q_c: only the reconstruction reads it
+            assert a is None and o is None, i
+            continue
+        assert bool(torch.isfinite(a).all()), i
+        for key, x, y in (("routes", a, b), ("kernel", a, o),
+                          ("plain", b, o)):
+            err[key].append(float((x.to(f64) - y).abs().max())
+                            / max(float(y.abs().max()), 1e-30))
+    assert max(err["routes"]) <= 1e-3, err
+    assert max(err["kernel"]) <= min(1e-3, 3 * max(err["plain"])), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["nba_scene", "eth_agent"])
+def test_sampler_step_launches_no_backward_kernel(cuda_device, kind):
+    """One stage-2 training step launches the encoder's forward kernel (P
+    on the scene axis, A on the agent axis) and no attention backward
+    (C, 2p, Q, Fdq, Fdkv, 4p), no flash kernel and no kernel B; the frozen
+    net's leaves get no gradient and do not move."""
+    cfg, scfg, net, sp, batch = _sampler_case(kind, cuda_device)
+    step = make_sampler_train_step(cfg, scfg, 1e-4, net, device=cuda_device)
+    params, opt = step.init(sp)
+    before = _sampler_step_launches()
+    params, opt, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _sampler_step_launches().items()}
+    fwd = "P" if kind == "nba_scene" else "A"
+    assert moved[fwd] > 0 and moved["A" if fwd == "P" else "P"] == 0, moved
+    assert moved["backward"] == moved["flash"] == moved["B"] == 0, moved
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    for a, b in zip(bridge.tree_leaves(step.net_params),
+                    bridge.tree_leaves(net)):
+        assert a.grad is None and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["scene", "agent"])
+def test_sampler_predictor_on_card_matches_cpu_plain(cuda_device, axis):
+    """``Predictor(sampler_params=…)`` on the card (kernels A or P) equals
+    the same Predictor on the CPU (plain paths) within 1e-4, for 64 scenes
+    of 8 agents."""
+    kw = {} if axis == "scene" else dict(compat="tpu", attn_axis="agent")
+    cfg = tm.STTODEConfig(**kw).validate()
+    scfg = ts.SamplerConfig()
+    params, sp = tm.sttode_init(23, cfg), ts.sampler_init(24, scfg)
+    scenes = [s["obs"] for s in make_social_scenes(64, agents_range=(8, 8),
+                                                   seed=23)]
+    card = Predictor(params, cfg, device=cuda_device, max_group=64,
+                     sampler_params=sp, sampler_cfg=scfg)
+    cpu = Predictor(params, cfg, device="cpu", max_group=64,
+                    sampler_params=sp, sampler_cfg=scfg)
+    before = _sampler_step_launches()
+    got = card.predict_many(scenes, seed=3)
+    moved = {k: v - before[k] for k, v in _sampler_step_launches().items()}
+    assert moved["P" if axis == "scene" else "A"] > 0, moved
+    assert moved["backward"] == moved["B"] == 0, moved
+    for g, w in zip(got, cpu.predict_many(scenes, seed=4)):
+        assert g.shape == w.shape == (20, 8, 12, 2)
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
