@@ -127,6 +127,24 @@ paths, then drives both paths at the full width of the repo's model
            scenes x 8 agents a call, p50 beside the stage-1 server's) and
            with the poincaré metric, equal to the plain route's and
            independent of the seed.
+  phase 17 the adaptive and adjoint ODE encoder (``ode_phase``): dopri5 on
+           the NBA trunk field (one layer at full width, the port's seeded
+           init, [32, 11, 1, 64], ts = [0, 12]) at rtol / atol 1e-7 /
+           1e-9, 1e-5 / 1e-7 and 1e-3 / 1e-6 on the kernel route (P), the
+           plain route and the CPU: attempted and accepted steps and RHS
+           evaluations (the plain route's equal to the CPU's), the
+           solutions (kernel within 1e-4 of the solution's largest
+           magnitude), ms a solve, µs and P launches an evaluation, idle
+           share; one solve under TF32 (printed); one training step at
+           B = 32 x 11 on both routes with the same noise for dopri5 +
+           adjoint at the default tolerances, dopri5 + scan budget 24 at
+           1e-5 / 1e-7 (P, Q and kernel B "dist"; losses within TRAIN_TOL,
+           the gradients held to the float64 plain route as phase 16
+           holds q_A) and learn_prior on euler (TRAIN_TOL); dropout 0.1
+           (no attention kernel; a forced packed route refused); the CLIs
+           (``cli.train --ode_method dopri5 --ode_adjoint`` 1 + 1 resumed
+           epoch of 2 steps, ``cli.test``, ``cli.trainvae``); the dopri5
+           agent-axis server at 64 scenes x 8 agents beside the euler one.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -553,40 +571,40 @@ def compare(out, ref, shape_of, what):
 
 
 def step_times(routes, batch, gen, B, label, card, rounds=6,
-               names=("kernel route", "plain route")):
+               names=("kernel route", "plain route"), steps=5):
     """Train step ms, train scenes/s and the device's idle share of the
     routes ``[[step, params, opt], ...]`` (named by ``names``), timed in
-    alternating rounds of 5 synchronized steps on ``batch`` (the order
-    reversed every other round); then 5 steps of each under the profiler for
-    the device busy time and kernel B's share of it. Prints one line per
-    route and returns the median step ms of each."""
+    alternating rounds of ``steps`` synchronized steps on ``batch`` (the
+    order reversed every other round); then ``steps`` steps of each under
+    the profiler for the device busy time and kernel B's share of it.
+    Prints one line per route and returns the median step ms of each."""
     n = len(routes)
 
-    def run_steps(i, steps):
+    def run_steps(i, count):
         st, p, o = routes[i]
-        for _ in range(steps):
+        for _ in range(count):
             p, o, _ = st(p, o, batch, gen)
         routes[i][1:] = [p, o]
 
     for i in range(n):
-        run_steps(i, 2)
+        run_steps(i, min(2, steps))
     torch.cuda.synchronize()
     step_ms: list[list] = [[] for _ in range(n)]
     for r in range(rounds):
         for i in (range(n) if r % 2 == 0 else reversed(range(n))):
             t = time.perf_counter()
-            run_steps(i, 5)
+            run_steps(i, steps)
             torch.cuda.synchronize()
-            step_ms[i].append((time.perf_counter() - t) / 5 * 1e3)
+            step_ms[i].append((time.perf_counter() - t) / steps * 1e3)
     busy = []
     for i in range(n):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            run_steps(i, 5)
+            run_steps(i, steps)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) / 5 * 1e3
+            wall = (time.perf_counter() - t) / steps * 1e3
         # device kernels only: a user annotation (Optimizer.step#Adam.step)
         # spans the kernels inside it and would count them twice
         kernels = [e for e in prof.key_averages()
@@ -597,10 +615,10 @@ def step_times(routes, batch, gen, B, label, card, rounds=6,
                      if "select_" in e.key and "_kernel" in e.key)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         busy.append(None if dev_us <= 0 else (
-            dev_us / 5 / 1e3, wall, sum(e.count for e in kernels) / 5,
+            dev_us / steps / 1e3, wall, sum(e.count for e in kernels) / steps,
             sel_us / dev_us,
-            "; ".join(f"{e.self_device_time_total / 5 / 1e3:.3f} ms "
-                      f"x{e.count // 5} {e.key[:60]}" for e in top)))
+            "; ".join(f"{e.self_device_time_total / steps / 1e3:.3f} ms "
+                      f"x{e.count // steps} {e.key[:60]}" for e in top)))
     medians = []
     for i, route in enumerate(names):
         ms = statistics.median(step_ms[i])
@@ -1284,6 +1302,403 @@ def sampler_phase(dev, card, counts, reset, cli: dict) -> dict:
           f"inside phase 15's directory)  [{card}]")
     return {"launches": {k: launches[k] + cli["launches"][k]
                          for k in launches}}
+
+
+ODE_TOLS = ((1e-7, 1e-9), (1e-5, 1e-7), (1e-3, 1e-6))
+
+
+def busy_ms(fn) -> tuple:
+    """(device busy ms, kernel launches) of one call of ``fn`` from the
+    profiler; busy None when the trace holds no device time."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    us = sum(e.self_device_time_total for e in kernels)
+    return (us / 1e3 if us > 0 else None), sum(e.count for e in kernels)
+
+
+def idle_text(busy, ms) -> str:
+    return ("idle share not measured (no device time in the trace)"
+            if busy is None else f"idle share {1 - busy / ms:.3f}")
+
+
+def ode_phase(dev, card, counts, reset, nba_files) -> dict:
+    """Phase 17: the adaptive and adjoint ODE encoder, learn_prior and
+    encoder-layer dropout at full width. (a) dopri5's accounting on the
+    NBA trunk field (one layer at d 64, 8 heads, ff 1024, the port's seeded
+    init, input [32, 11, 1, 64]) at three tolerance pairs on the kernel
+    route (P), the plain route and the CPU, and one solve under TF32;
+    (b) one training step at B = 32 x 11 on both routes with the same
+    noise: dopri5 + adjoint at the default tolerances, dopri5 + scan budget
+    24 at 1e-5 / 1e-7, learn_prior on euler; (c) dropout 0.1; (d) the CLIs
+    (``cli.train --ode_method dopri5 --ode_adjoint``, a resume,
+    ``cli.test``, ``cli.trainvae``); (e) a dopri5 server. Returns the
+    launches of its main paths."""
+    import warnings
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.cli import test as cli_test
+    from sttode_tpu_torch.cli import train as cli_train
+    from sttode_tpu_torch.cli import trainvae as cli_trainvae
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.kernels import select_decode as ks
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.nn import transformer as ttr
+    from sttode_tpu_torch.ode import odeint
+    from sttode_tpu_torch.serving import Predictor
+    from sttode_tpu_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the solver's own accounting on the trunk field
+    cfg_nba = tm.STTODEConfig(past_length=5, future_length=10).validate()
+    D, Z, K, M = cfg_nba.hidden_dim, cfg_nba.zdim, cfg_nba.sample_k, 32 * 11
+    lcfg = cfg_nba.layer_cfg
+    layers = ttr.encoder_stack_init(torch.Generator().manual_seed(17), lcfg,
+                                    1)
+    x = np.random.default_rng(17).standard_normal((32, 11, 1, D)) \
+        .astype(np.float32)
+    routes = {"kernel route": (lcfg, bridge.to_device(layers, dev),
+                               torch.from_numpy(x).to(dev)),
+              "plain route": (lcfg._replace(attn_impl="dense"),
+                              bridge.to_device(layers, dev),
+                              torch.from_numpy(x).to(dev)),
+              "CPU": (lcfg._replace(attn_impl="dense"), layers,
+                      torch.from_numpy(x))}
+
+    def solve(route, rtol, atol, **kw):
+        cfg, p, y = routes[route]
+        return odeint(lambda t, y_, p_: ttr.encoder_stack(p_, y_, cfg), y,
+                      torch.tensor([0.0, 12.0]), p, method="dopri5",
+                      rtol=rtol, atol=atol, return_stats=True, **kw)
+
+    def timed(route, rtol, atol):
+        t = time.perf_counter()
+        solve(route, rtol, atol)
+        if route != "CPU":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    findings = []
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*exhausted")
+        for rtol, atol in ODE_TOLS:
+            res = {}
+            for route in routes:
+                reset()
+                ys, st = solve(route, rtol, atol)
+                if route != "CPU":
+                    torch.cuda.synchronize()
+                res[route] = [ys[-1].cpu(), st, counts()["packed"]]
+            ms = {r: [] for r in routes}
+            for r in range(3):   # kernel, plain alternating
+                for route in (("kernel route", "plain route") if r % 2 == 0
+                              else ("plain route", "kernel route")):
+                    ms[route].append(timed(route, rtol, atol))
+            ms = {r: statistics.median(v) for r, v in ms.items() if v}
+            ms["CPU"] = timed("CPU", rtol, atol)
+            busy = {r: busy_ms(lambda r=r: solve(r, rtol, atol))[0]
+                    for r in ("kernel route", "plain route")}
+            st_k, st_p, st_c = (res[r][1] for r in routes)
+            key = ("attempted_steps", "accepted_steps", "rhs_evals")
+            require(all(st_p[k] == st_c[k] for k in key),
+                    f"phase 17 at {rtol:g} / {atol:g}: the plain route's "
+                    f"counts {st_p} differ from the CPU's {st_c}")
+            y_p = res["plain route"][0]
+            err = max_err(res["kernel route"][0], y_p)
+            scale = max(1.0, float(y_p.abs().max()))
+            if st_k["attempted_steps"] > st_p["attempted_steps"]:
+                findings.append((rtol, atol, st_k, st_p))
+            print(f"phase 17 dopri5 on the trunk field at rtol {rtol:g} / "
+                  f"atol {atol:g}: " + "; ".join(
+                      f"{r} {res[r][1]['attempted_steps']} attempted / "
+                      f"{res[r][1]['accepted_steps']} accepted / "
+                      f"{res[r][1]['rhs_evals']} RHS evaluations, "
+                      f"{ms[r]:.3f} ms a solve, "
+                      f"{ms[r] * 1e3 / res[r][1]['rhs_evals']:.1f} µs an "
+                      f"evaluation, {res[r][2] / res[r][1]['rhs_evals']:.3f}"
+                      f" P launches an evaluation"
+                      + ("" if r == "CPU" else ", " + idle_text(busy[r],
+                                                                ms[r]))
+                      for r in routes)
+                  + f"; kernel vs plain route max abs err {err:.3e} (max "
+                  f"|y| {scale:.3f})  [{card}]")
+            require(err <= 1e-4 * scale,
+                    f"phase 17 at {rtol:g} / {atol:g}: the kernel route's "
+                    f"solution differs by {err} > 1e-4 x {scale}")
+        for rtol, atol, st_k, st_p in findings:
+            print(f"phase 17 FINDING: at {rtol:g} / {atol:g} the kernel "
+                  f"route took {st_k['attempted_steps']} attempts, the plain "
+                  f"route {st_p['attempted_steps']}")
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        t = time.perf_counter()
+        _, st_tf = solve("kernel route", 1e-7, 1e-9,
+                         matmul_precision="inherit")
+        torch.cuda.synchronize()
+        ms_tf = (time.perf_counter() - t) * 1e3
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    print(f"phase 17 dopri5 at 1e-7 / 1e-9 under TF32 (allow_tf32 = True, "
+          f"matmul_precision='inherit'), kernel route: "
+          f"{st_tf['attempted_steps']} attempted / {st_tf['accepted_steps']} "
+          f"accepted / {st_tf['rhs_evals']} RHS evaluations, {ms_tf:.1f} ms "
+          f"a solve  [{card}]")
+
+    # (b) one training step at the NBA recipe's B = 32 x 11 on both routes
+    sc = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                            pred_len=10, seed=17)
+    batch, _ = prepare_scene_group(
+        np.stack([s_["obs"] for s_ in sc]),
+        np.stack([s_["pred"] for s_ in sc]),
+        np.ones((32, 11), np.float32), training=True,
+        rng=np.random.default_rng(17))
+    batch = batch.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    noise = tm.TrainNoise(
+        torch.rand(M, 5, D, device=dev, generator=gen) >= 0.1,
+        torch.rand(M, 10, D, device=dev, generator=gen) >= 0.1,
+        torch.randn(M, Z, device=dev, generator=gen),
+        torch.randn(M * K, Z, device=dev, generator=gen))
+    f64 = torch.float64
+    noise64 = noise._replace(eps_q=noise.eps_q.to(f64),
+                             eps_p=noise.eps_p.to(f64))
+
+    def plain(cfg):
+        return cfg._replace(attn_impl="dense", select_impl="xla")
+
+    def timed_fb(params, cfg, b, nz):
+        t = time.perf_counter()
+        _, out, g = forward_backward(params, cfg, b, nz, dev)
+        torch.cuda.synchronize()
+        return out, g, (time.perf_counter() - t) * 1e3
+
+    steps_b = {}
+    for label, cfg in (
+            ("dopri5 + adjoint at 1e-7 / 1e-9", cfg_nba._replace(
+                ode_method="dopri5", ode_adjoint=True)),
+            ("dopri5 + scan budget 24 at 1e-5 / 1e-7", cfg_nba._replace(
+                ode_method="dopri5", ode_rtol=1e-5, ode_atol=1e-7,
+                ode_scan_budget=24)),
+            ("learn_prior on euler", cfg_nba._replace(learn_prior=True))):
+        cfg = cfg.validate()
+        params = tm.sttode_init(17, cfg)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*exhausted")
+            reset()   # the main path: one training step, kernel route
+            dist0 = ks.select_decode.launches_by_mode["dist"]
+            out_k, g_k, ms_k = timed_fb(params, cfg, batch, noise)
+            launches = counts()
+            dist = ks.select_decode.launches_by_mode["dist"] - dist0
+            add(launches)
+            out_p, g_p, ms_p = timed_fb(params, plain(cfg), batch, noise)
+            if cfg.ode_method == "dopri5":
+                # the float64 plain route, the reference for the gradients
+                _, g_o, ms_o = timed_fb(
+                    bridge.tree_map(lambda t: t.to(f64), params),
+                    plain(cfg), batch.to(f64), noise64)
+        require(launches["packed"] > 0 and launches["packed_bwd"] > 0
+                and launches["select_fp32"] > 0 and dist > 0,
+                f"phase 17 {label}: the step did not launch P, Q and kernel "
+                f"B 'dist' {nonzero(launches)}")
+        if cfg.ode_method == "euler":
+            loss_err, grad_ratio, worst, _ = compare_routes(
+                out_k, g_k, out_p, g_p, f"phase 17 {label}")
+            detail = (f"gradients within {grad_ratio:.3e} of each leaf's "
+                      f"largest magnitude (worst leaf {worst})")
+        else:
+            # dopri5's gradients pass through a step-size controller whose
+            # error ratio fp32 rounding sets (the embedded pair cancels), so
+            # no fp32 route is within TRAIN_TOL of the exact gradient: the
+            # kernel route is held, as phase 16 holds q_A, within 3x the
+            # fp32 plain route's distance to the float64 plain route
+            loss_err = 0.0
+            for name in ("total_loss", "loss_pred", "loss_recover",
+                         "loss_kl", "loss_diverse"):
+                a = float(getattr(out_k, name).detach())
+                b = float(getattr(out_p, name).detach())
+                require(abs(a - b) <= TRAIN_TOL * max(1.0, abs(b)),
+                        f"phase 17 {label} {name}: {a} vs plain {b}")
+                loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
+            worst = {}
+            for key, gs, ref in (("routes", g_k, g_p), ("kernel", g_k, g_o),
+                                 ("plain", g_p, g_o)):
+                require(all(bool(torch.isfinite(a).all()) for a in gs),
+                        f"phase 17 {label}: a non-finite gradient")
+                worst[key] = max(float((a.to(r.dtype) - r).abs().max())
+                                 / max(float(r.abs().max()), 1e-30)
+                                 for a, r in zip(gs, ref))
+            require(worst["kernel"] <= 3 * worst["plain"],
+                    f"phase 17 {label}: against the float64 plain route the "
+                    f"kernel route's worst leaf differs by "
+                    f"{worst['kernel']:.3e}, the fp32 plain route's by "
+                    f"{worst['plain']:.3e}")
+            detail = (f"gradients between the routes within "
+                      f"{worst['routes']:.3e} of a leaf's largest magnitude; "
+                      f"against the float64 plain route ({ms_o:.1f} ms) the "
+                      f"kernel route's worst leaf {worst['kernel']:.3e}, the "
+                      f"fp32 plain route's {worst['plain']:.3e}")
+        steps_b[label] = (cfg, params, ms_k, ms_p)
+        print(f"phase 17 {label}, forward + backward at B = 32 x 11: loss "
+              f"terms within {loss_err:.3e} (relative); {detail}; kernel "
+              f"route {ms_k:.1f} ms, plain {ms_p:.1f} ms; the kernel route's "
+              f"launches {nonzero(launches)}  [{card}]")
+    for label, (cfg, params, ms_k, ms_p) in steps_b.items():
+        if cfg.ode_adjoint:
+            # a step launches some 10^6 kernels: beyond what one profiler
+            # trace holds; the forward + backward above is its step time
+            print(f"phase 17 {label} step, kernel route: {ms_k:.1f} "
+                  f"ms/step, {32e3 / ms_k:.2f} train scenes/s; plain route "
+                  f"{ms_p:.1f} ms/step, {32e3 / ms_p:.2f} train scenes/s "
+                  f"(one forward + backward each; kernels a step and idle "
+                  f"share not measured)  [{card}]")
+            continue
+        step_k = make_train_step(cfg, 1e-4, device=dev)
+        step_p = make_train_step(plain(cfg), 1e-4, device=dev)
+        step_times([[step_k, *step_k.init(params)],
+                    [step_p, *step_p.init(params)]], batch, gen, 32,
+                   f"phase 17 {label} step at B = 32", card, rounds=2,
+                   steps=1 if cfg.ode_method == "dopri5" else 5)
+
+    # (c) dropout 0.1 on the euler recipe: no attention kernel, the plain
+    #     path's weight dropout; a forced kernel refuses
+    cfg_d = cfg_nba._replace(dropout=0.1).validate()
+    step_d = make_train_step(cfg_d, 1e-4, device=dev)
+    pd_, od_ = step_d.init(tm.sttode_init(17, cfg_d))
+    reset()   # the main path: one training step with dropout
+    _, _, metrics_d = step_d(pd_, od_, batch, gen)
+    torch.cuda.synchronize()
+    launches_d = counts()
+    add(launches_d)
+    attn_kernels = {k: launches_d[k] for k in (
+        "attn", "attn_bwd", "packed", "packed_bwd", "flash", "flash_dq",
+        "flash_dkv")}
+    require(not any(attn_kernels.values())
+            and launches_d["select_fp32"] > 0,
+            f"phase 17 dropout: the step launched an attention kernel or no "
+            f"kernel B {nonzero(launches_d)}")
+    require(all(bool(torch.isfinite(v)) for v in metrics_d.values()),
+            f"phase 17 dropout: non-finite losses {metrics_d}")
+    try:
+        tm.sttode_forward(bridge.to_device(tm.sttode_init(17, cfg_d), dev),
+                          cfg_d._replace(attn_impl="packed"), batch,
+                          generator=gen)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    require("does not implement attention dropout" in refused,
+            f"phase 17 dropout: attn_impl='packed' was not refused "
+            f"({refused!r})")
+    print(f"phase 17 dropout 0.1, euler NBA step at B = 32: no attention "
+          f"kernel launched, kernel B {launches_d['select_fp32']}; losses "
+          + " ".join(f"{k} {float(v):.4f}" for k, v in metrics_d.items())
+          + f"; attn_impl='packed' refused: {refused!r}")
+
+    # (d) the CLIs on synthetic NBA files: dopri5 + adjoint (train, resume,
+    #     evaluate) and the VAE-only trainer
+    ode_flags = ["--ode_method", "dopri5", "--ode_adjoint", "--ode_rtol",
+                 "1e-3", "--ode_atol", "1e-6", "--select_impl", "auto"]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        _, flags = nba_files(tmp, 64, 17)
+        t = time.perf_counter()
+        reset()   # the main path: train, resume, evaluate
+        run = cli_train.main(flags + ode_flags + ["--num_epochs", "1"])
+        resumed = cli_train.main(flags + ode_flags + [
+            "--num_epochs", "2", "--epoch_continue", "1"])
+        torch.cuda.synchronize()
+        launches_train = counts()
+        best = cli_test.main(flags)
+        torch.cuda.synchronize()
+        launches_cli = counts()
+        cli_s = time.perf_counter() - t
+        add(launches_cli)
+        reset()   # the main path: the VAE-only trainer
+        vae = cli_trainvae.main(flags + ["--ckpt_dir",
+                                         os.path.join(tmp, "vae"),
+                                         "--num_epochs", "1"])
+        torch.cuda.synchronize()
+        launches_vae = counts()
+        add(launches_vae)
+    require(launches_train["packed"] > 0 and launches_train["packed_bwd"] > 0
+            and launches_train["select_fp32"] > 0,
+            f"phase 17: the dopri5 adjoint CLI training did not launch P, Q "
+            f"and kernel B {nonzero(launches_train)}")
+    require(launches_cli["attn"] > launches_train["attn"],
+            f"phase 17: evaluation at B = 128 did not launch kernel A "
+            f"{nonzero(launches_cli)}")
+    require(run.cfg.ode_method == "dopri5" and run.cfg.ode_adjoint
+            and resumed.start_epoch == 1
+            and all(int(st_["step"]) == 4 for st_ in
+                    resumed.opt.state_dict()["state"].values()),
+            "phase 17: the dopri5 CLI run did not resume its epoch and Adam "
+            "state")
+    for r in (run, resumed, vae):
+        for epoch, lr, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 17: non-finite loss at epoch {epoch}: {means}")
+    require(vae.cfg.loss_terms == ("pred", "recover", "kl")
+            and launches_vae["packed"] > 0
+            and launches_vae["select_fp32"] == 0,
+            f"phase 17: cli.trainvae {vae.cfg.loss_terms} "
+            f"{nonzero(launches_vae)}")
+    table = best["table"]
+    require(table is not None and all(np.isfinite(list(table[k].values()))
+                                      .all() for k in ("ade", "fde")),
+            f"phase 17: the dopri5 horizon table is not finite: {best}")
+    print(f"phase 17 dopri5 + adjoint NBA recipe through the CLIs "
+          f"(--ode_rtol 1e-3 --ode_atol 1e-6, 2 steps an epoch): epochs "
+          + "; ".join(f"{e} total {m['total']:.4f}"
+                      for e, _, m in run.history + resumed.history)
+          + f"; resumed from epoch {resumed.start_epoch}; cli.test best "
+          f"epoch {best['epoch']}: "
+          + " ".join(f"ADE@{h} {v:.4f}" for h, v in table["ade"].items())
+          + f"; {cli_s:.1f} s; launches {nonzero(launches_cli)}; "
+          f"cli.trainvae: total {vae.history[0][2]['total']:.4f}, launches "
+          f"{nonzero(launches_vae)}")
+
+    # (e) the dopri5 server, agent axis, 64 scenes x 8 agents a call, beside
+    #     the euler server in the same rounds
+    cfg_e = tm.STTODEConfig(compat="tpu", attn_axis="agent",
+                            ode_method="dopri5").validate()
+    params_e = tm.sttode_init(17, cfg_e)
+    scenes = [s_["obs"] for s_ in make_social_scenes(
+        64, agents_range=(8, 8), seed=17)]
+    servers = (Predictor(params_e, cfg_e, device=dev, max_group=64),
+               Predictor(params_e, plain(cfg_e), device=dev, max_group=64),
+               Predictor(params_e, cfg_e._replace(ode_method="euler"),
+                         device=dev, max_group=64))
+    for srv in servers:
+        srv.warmup([8], scenes_per=64)
+    reset()   # the main path: serving
+    (out_e, p50_e, rate_e), (ref_e, p50_ep, rate_ep), (_, p50_eu, rate_eu) \
+        = serve_rounds(servers, scenes, 6)
+    torch.cuda.synchronize()
+    launches_e = counts()
+    add(launches_e)
+    require(launches_e["attn_masked"] > 0
+            and launches_e["select_fp32"] > 0,
+            f"phase 17: the dopri5 server did not launch A and kernel B "
+            f"{nonzero(launches_e)}")
+    err_e = compare(out_e, ref_e, [(cfg_e.sample_k, 8, 12, 2)] * 64,
+                    "phase 17 server")
+    print(f"phase 17 dopri5 agent-axis server (1e-7 / 1e-9), 64 scenes x 8 "
+          f"agents/call: max_abs_err vs plain {err_e:.3e}; kernels p50 "
+          f"{p50_e:.3f} ms, {rate_e:.1f} scenes/s; plain p50 {p50_ep:.3f} "
+          f"ms, {rate_ep:.1f} scenes/s; the euler server in the same rounds "
+          f"p50 {p50_eu:.3f} ms, {rate_eu:.1f} scenes/s; launches "
+          f"{nonzero(launches_e)}  [{card}]")
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; its main "
+          f"paths launched {nonzero(total)}")
+    return {"launches": total}
 
 
 def main() -> int:
@@ -2981,6 +3396,9 @@ def main() -> int:
     launches16 = sampler_phase(dev, card, counts, reset,
                                eth15["inside"])["launches"]
 
+    # 17. the adaptive and adjoint ODE encoder, learn_prior and dropout
+    launches17 = ode_phase(dev, card, counts, reset, nba_files)["launches"]
+
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
     s_ms, s_plain = select_times["dist_M1408_K20"]
@@ -3018,17 +3436,21 @@ def main() -> int:
               "sttode_tpu/kernels/mhgsa.py:407",
               launches4["attn"] + launches5["attn"] + launches8["attn"]
               + launches10["attn"] + launches12["attn"] + launches15["attn"]
-              + launches16["attn"] - launches16["attn_p"],
+              + launches16["attn"] - launches16["attn_p"]
+              + launches17["attn"] - launches17["attn_p"],
               attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:455",
-              launches8["attn_bwd"] + launches15["attn_bwd"], bwd_err, b_ms,
+              launches8["attn_bwd"] + launches15["attn_bwd"]
+              + launches17["attn_bwd"] - launches17["attn_bwd_p"], bwd_err,
+              b_ms,
               b_plain, b_bound),
         entry("select_decode_fp32", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches4["select_fp32"] + launches5["select_fp32"]
-              + launches8["select_fp32"] + launches15["select_fp32"],
+              + launches8["select_fp32"] + launches15["select_fp32"]
+              + launches17["select_fp32"],
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
@@ -3037,12 +3459,14 @@ def main() -> int:
         entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:340",
               launches5["packed"] + launches10["packed"]
-              + launches15["packed"] + launches16["packed"], packed_err, p_ms,
+              + launches15["packed"] + launches16["packed"]
+              + launches17["packed"], packed_err, p_ms,
               p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
-              launches10["packed_bwd"] + launches15["packed_bwd"],
-              packed_bwd_err, pb_ms, pb_plain, pb_bound),
+              launches10["packed_bwd"] + launches15["packed_bwd"]
+              + launches17["packed_bwd"], packed_bwd_err, pb_ms, pb_plain,
+              pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:776", launches12_train["flash"],
               flash_err["fwd"], *rec11["fwd"], f_bound),

@@ -21,7 +21,12 @@ the lambda decay ``train.schedulers.lambda_lr``), its CLIs
 ``cli.trainsampler`` / ``cli.test_sampler`` and
 ``Predictor(sampler_params=, sampler_cfg=)``. Stage 2 runs the encoder's
 attention kernels forward only (the frozen net takes no gradient) and
-decodes in plain PyTorch, as the JAX package does.
+decodes in plain PyTorch, as the JAX package does. The model's options
+ride on every path: the ODE encoder's solvers (``ode``: the fixed grid,
+adaptive dopri5 in its while and scan-budget forms, the continuous adjoint
+``odeint_adjoint``; ``--ode_method dopri5 --ode_adjoint``), the learned
+prior (``learn_prior``) and encoder-layer dropout (``dropout``, the plain
+attention path); ``cli.trainvae`` trains the VAE-only objective.
 Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
 - ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,

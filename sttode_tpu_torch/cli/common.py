@@ -69,10 +69,19 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--ode_method", default="euler",
                    choices=("euler", "midpoint", "rk4", "dopri5"))
     p.add_argument("--ode_steps", type=int, default=1)
-    p.add_argument("--ode_adjoint", action="store_true")
-    p.add_argument("--ode_rtol", type=float, default=1e-7)
+    p.add_argument("--ode_adjoint", action="store_true",
+                   help="O(1)-memory continuous-adjoint gradients through "
+                        "the ODE encoder")
+    p.add_argument("--ode_rtol", type=float, default=1e-7,
+                   help="dopri5 relative tolerance (looser = fewer steps)")
     p.add_argument("--ode_atol", type=float, default=1e-9)
-    p.add_argument("--ode_scan_budget", type=int, default=0)
+    p.add_argument("--ode_scan_budget", type=int, default=0,
+                   help="dopri5 only: >0 runs exactly this many RK45 "
+                        "attempts per interval (no host synchronization, "
+                        "directly differentiable; the encoder field needs "
+                        "71 at the default tolerances, 16 at 1e-5/1e-7, 7 "
+                        "at 1e-3/1e-6); 0 = the while form, which trains "
+                        "only with --ode_adjoint")
     p.add_argument("--compute_dtype", default="float32",
                    choices=("float32", "bfloat16"))
     p.add_argument("--select_dtype", default="float32",

@@ -7,9 +7,10 @@ it is trained with KL(sampler ‖ the net's prior) plus a pairwise repulsion
 of the K decodes.
 
 The frozen net: its parameters are used detached (the counterpart of JAX's
-``stop_gradient``) and the past encoder runs without autograd, since its
-output does not depend on the sampler's parameters: no attention backward
-runs and no net leaf receives a gradient. The decodes stay differentiable
+``stop_gradient``; ``pz_layer`` too, under ``learn_prior``) and the past
+encoder runs without autograd, since its output does not depend on the
+sampler's parameters: no attention backward runs, no net leaf receives a
+gradient, and a dopri5 net integrates on the while form. The decodes stay differentiable
 in their activations, so the sampler's parameters receive gradients through
 the net's decoder, as in the reference's trainer. Both decodes go through
 ``_decode_mp`` at ``cfg.decode_dtype``, never through the selection-decode

@@ -4,16 +4,21 @@
 B scenes × N agents are flattened to M = B·N rows. The past encoder's
 interaction attention runs over the scene axis (``attn_axis="scene"``, the
 reference, quirk Q4) or over the agents of each scene with the validity mask
-(``"agent"``, requires ``compat="tpu"``). Best-of-K decoding draws K latents
-per agent from the standard-normal prior and decodes them with the
+(``"agent"``, requires ``compat="tpu"``). The interaction encoder is an ODE
+block (``nn.ode_block``): the fixed grid, or dopri5 in its while or
+scan-budget form (``ode_scan_budget``), with direct or continuous-adjoint
+(``ode_adjoint``) gradients. Best-of-K decoding draws K latents per agent
+from the prior — standard normal, or with ``learn_prior`` the Gaussian
+``pz_layer`` reads off the past feature — and decodes them with the
 two-block decompose decoder.
 
 ``sttode_forward`` is the stage-1 training forward: posterior decode, KL
 against the prior, and the best-of-K diverse loss, with the sparse
 (winner-only) or dense best-of-K gradient. Its random draws (two
-positional-encoding dropout masks and the posterior and prior latents) come
-from a generator, or are injected with ``TrainNoise`` so that a test can
-hand the port the JAX package's draws.
+positional-encoding dropout masks, the encoder layers' dropout masks under
+``dropout > 0``, and the posterior and prior latents) come from a
+generator, or are injected with ``TrainNoise`` so that a test can hand the
+port the JAX package's draws.
 
 Routing on a CUDA device: attention goes to the geodesic-attention kernels
 (forward and backward) unless ``attn_impl="dense"``, and the K-sample decode
@@ -46,7 +51,8 @@ from sttode_tpu_torch.kernels.select_decode import select_decode
 from sttode_tpu_torch.nn import core, embed
 from sttode_tpu_torch.nn.ode_block import ode_encoder
 from sttode_tpu_torch.nn.recurrent import conv1d, conv1d_init, gru, gru_init
-from sttode_tpu_torch.nn.transformer import LayerConfig, encoder_stack_init
+from sttode_tpu_torch.nn.transformer import (LayerConfig, draw_dropout_masks,
+                                             encoder_stack_init)
 from sttode_tpu_torch.utils.distributions import DiagNormal
 
 
@@ -55,7 +61,9 @@ class STTODEConfig(NamedTuple):
     JAX config converts with ``STTODEConfig(**jax_cfg._asdict())``).
 
     ``validate`` raises NotImplementedError on what the port does not run
-    yet rather than running something else (``dropout > 0`` among them).
+    rather than running something else: ``compute_dtype="bfloat16"``, the
+    ring and ulysses attention routes, and ``num_decompose != 2`` on the
+    selection-decode kernel route.
     ``remat`` is carried but unused: PyTorch stores what autograd needs.
     One default differs from the JAX package: ``select_impl="auto"``, the
     selection-decode kernel on CUDA (the JAX default "xla" keeps its
@@ -120,6 +128,13 @@ class STTODEConfig(NamedTuple):
             raise ValueError(f"curvature {self.curvature} must be > 0")
         if self.ode_steps < 1 or self.sample_k < 1:
             raise ValueError("ode_steps and sample_k must be >= 1")
+        if self.ode_method not in ("euler", "midpoint", "rk4", "dopri5"):
+            raise ValueError(f"ode_method {self.ode_method!r}")
+        if self.ode_scan_budget < 0:
+            raise ValueError(f"ode_scan_budget {self.ode_scan_budget} must "
+                             f"be >= 0 (0: dopri5's while form)")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout {self.dropout} must be in [0, 1)")
         if self.select_impl not in ("xla", "fused", "auto"):
             raise ValueError(f"select_impl {self.select_impl!r}")
         if self.diverse_grad not in ("sparse", "dense"):
@@ -135,23 +150,24 @@ class STTODEConfig(NamedTuple):
         unknown = set(self.loss_terms) - {"pred", "recover", "kl", "diverse"}
         if unknown:
             raise ValueError(f"unknown loss_terms {sorted(unknown)}")
-        if self.dropout > 0.0:
+        for name, value, known in (
+                ("attn_impl", self.attn_impl, ("auto", "dense", "fused",
+                                               "packed", "flash", "ring",
+                                               "ulysses")),
+                ("select_dtype", self.select_dtype, ("float32", "bfloat16")),
+                ("decode_dtype", self.decode_dtype, ("float32", "bfloat16")),
+                ("compute_dtype", self.compute_dtype, ("float32",
+                                                       "bfloat16"))):
+            if value not in known:
+                raise ValueError(f"{name} {value!r}")
+        if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
-                "dropout > 0 inside the encoder layer is not ported yet")
-        not_ported = {
-            "attn_impl": (self.attn_impl, ("auto", "dense", "fused",
-                                         "packed", "flash")),
-            "ode_method": (self.ode_method, ("euler", "midpoint", "rk4")),
-            "ode_adjoint": (self.ode_adjoint, (False,)),
-            "learn_prior": (self.learn_prior, (False,)),
-            "select_dtype": (self.select_dtype, ("float32", "bfloat16")),
-            "decode_dtype": (self.decode_dtype, ("float32", "bfloat16")),
-            "compute_dtype": (self.compute_dtype, ("float32",)),
-        }
-        for name, (value, ported) in not_ported.items():
-            if value not in ported:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (ported: {ported})")
+                f"attn_impl={self.attn_impl!r} (sequence-parallel attention) "
+                "is not ported yet")
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is not ported (decode_dtype and "
+                "select_dtype give the decode bf16 storage)")
         if self.num_decompose != 2 and self.select_impl != "xla":
             raise NotImplementedError(
                 "the selection-decode kernel route needs num_decompose=2; "
@@ -227,7 +243,7 @@ def sttode_init(gen: torch.Generator | int, cfg: STTODEConfig,
     if isinstance(gen, int):
         gen = torch.Generator().manual_seed(gen)
     D = cfg.hidden_dim
-    return {
+    params = {
         "past_encoder": _trunk_init(gen, cfg, cfg.past_length, dtype),
         "future_encoder": _trunk_init(gen, cfg, cfg.future_length, dtype),
         "out_mlp": core.mlp_init_normal001(gen, cfg.scale_num * D, [128],
@@ -237,6 +253,14 @@ def sttode_init(gen: torch.Generator | int, cfg: STTODEConfig,
         "decoder": [_decompose_init(gen, cfg, dtype)
                     for _ in range(cfg.num_decompose)],
     }
+    if cfg.learn_prior:
+        # drawn last, so the other leaves are those of a model without it;
+        # its input is the 2D-wide past feature (quirk Q8: the reference's
+        # scale_num·D width is dead code)
+        params["pz_layer"] = {
+            "w": core.normal_001(gen, 2 * D, 2 * cfg.zdim, dtype),
+            "b": torch.zeros(2 * cfg.zdim, dtype=dtype)}
+    return params
 
 
 # --------------------------------------------------------------------------- #
@@ -262,6 +286,7 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                   N: int, valid: torch.Tensor, *,
                   isolate_scenes: bool = False, train: bool = False,
                   keep_mask: torch.Tensor | None = None,
+                  enc_masks: list | None = None,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Shared trunk → [M, 2D] concat(skip, interaction) feature.
 
@@ -269,7 +294,9 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
     batch_size=1 problem: the attention token axis never crosses scenes,
     exactly as running each scene alone (the JAX Predictor's vmapped lanes).
     With ``train`` the positional encoding's dropout applies, its keep-mask
-    [M, T, D] injected or drawn from ``generator``."""
+    [M, T, D] injected or drawn from ``generator``, and under
+    ``cfg.dropout > 0`` so does the encoder layers' (``enc_masks``, one
+    ``LayerDropMasks`` per layer, injected or drawn once for the solve)."""
     D = cfg.hidden_dim
     T = inputs.shape[1]
     x = core.dense(p["input_fc"], inputs)                     # [M, T, D]
@@ -290,9 +317,17 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
     else:
         tokens = x.transpose(0, 1)[:, :, None, :]             # [L=N, B, 1, D]
         mask = _agent_attn_mask(valid, B, N)
+    drop = None
+    if train and cfg.dropout > 0.0:
+        drop = enc_masks if enc_masks is not None else draw_dropout_masks(
+            cfg.layer_cfg, tuple(tokens.shape), cfg.nlayer, generator,
+            tokens.device)
     z = ode_encoder(p["ode_layers"], tokens, cfg.layer_cfg,
                     time=cfg.ode_time, method=cfg.ode_method,
-                    steps=cfg.ode_steps, mask=mask)
+                    steps=cfg.ode_steps, mask=mask, drop=drop,
+                    adjoint=cfg.ode_adjoint, rtol=cfg.ode_rtol,
+                    atol=cfg.ode_atol,
+                    scan_budget=cfg.ode_scan_budget or None)
     if cfg.attn_axis == "scene":
         z = z.reshape(B, N, D)
     else:
@@ -303,17 +338,20 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
 def encode_past(params: dict, cfg: STTODEConfig, batch: Batch, *,
                 isolate_scenes: bool = False, train: bool = False,
                 keep_mask: torch.Tensor | None = None,
+                enc_masks: list | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
     """past_feature [M, 2D]."""
     return _encode_trunk(params["past_encoder"], cfg, batch.inputs,
                          batch.batch_size, batch.agent_num, batch.valid,
                          isolate_scenes=isolate_scenes, train=train,
-                         keep_mask=keep_mask, generator=generator)
+                         keep_mask=keep_mask, enc_masks=enc_masks,
+                         generator=generator)
 
 
 def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
                   past_feature: torch.Tensor, *,
                   keep_mask: torch.Tensor | None = None,
+                  enc_masks: list | None = None,
                   generator: torch.Generator | None = None) -> DiagNormal:
     """Posterior q(z | past, future), a training-only head: the future trunk
     (its PE dropout on), then the posterior head on [past_feature |
@@ -321,7 +359,8 @@ def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
     fut_feat = _encode_trunk(params["future_encoder"], cfg,
                              batch.inputs_for_posterior, batch.batch_size,
                              batch.agent_num, batch.valid, train=True,
-                             keep_mask=keep_mask, generator=generator)
+                             keep_mask=keep_mask, enc_masks=enc_masks,
+                             generator=generator)
     h = torch.cat([past_feature, fut_feat], dim=-1)
     h = core.mlp(params["out_mlp"], h, activation="relu", activate_final=True)
     return DiagNormal.from_params(core.dense(params["qz_layer"], h))
@@ -329,9 +368,11 @@ def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
 
 def prior(params: dict, cfg: STTODEConfig,
           past_feature: torch.Tensor) -> DiagNormal:
-    """p(z) = N(0, I) (``learn_prior`` is not ported)."""
+    """p(z): N(0, I), or under ``learn_prior`` the diagonal Gaussian whose
+    (mu, logvar) ``pz_layer`` reads off the past feature."""
     if cfg.learn_prior:
-        raise NotImplementedError("learn_prior is not ported yet")
+        return DiagNormal.from_params(core.dense(params["pz_layer"],
+                                                 past_feature))
     return DiagNormal.standard((past_feature.shape[0], cfg.zdim),
                                past_feature.dtype, past_feature.device)
 
@@ -447,12 +488,17 @@ def loss_diverse(pred_k, target, valid):
 class TrainNoise(NamedTuple):
     """The training forward's random draws, for injection: the positional
     encoding's dropout keep-masks of the past [M, T_p, D] and future
-    [M, T_f, D] trunks (bool), the posterior latent noise [M, Z] and the
-    prior latent noise [M·K, Z] (m-major: row m·K + k)."""
+    [M, T_f, D] trunks (bool), the posterior latent noise [M, Z], the
+    prior latent noise [M·K, Z] (m-major: row m·K + k), and under
+    ``dropout > 0`` the encoder layers' keep-masks of the past and future
+    trunks (a list of ``nn.transformer.LayerDropMasks``, one per layer;
+    None: drawn from the generator)."""
     pe_past: torch.Tensor
     pe_future: torch.Tensor
     eps_q: torch.Tensor
     eps_p: torch.Tensor
+    enc_past: list | None = None
+    enc_future: list | None = None
 
 
 class ForwardOutput(NamedTuple):
@@ -525,9 +571,11 @@ def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
     nz = noise if noise is not None else TrainNoise(None, None, None, None)
 
     past_feature = encode_past(params, cfg, batch, train=True,
-                               keep_mask=nz.pe_past, generator=generator)
+                               keep_mask=nz.pe_past, enc_masks=nz.enc_past,
+                               generator=generator)
     qz = encode_future(params, cfg, batch, past_feature,
-                       keep_mask=nz.pe_future, generator=generator)
+                       keep_mask=nz.pe_future, enc_masks=nz.enc_future,
+                       generator=generator)
     pz = prior(params, cfg, past_feature)
     qz_sample = qz.rsample(generator, noise=nz.eps_q)
 
@@ -603,19 +651,21 @@ def sttode_inference(params: dict, cfg: STTODEConfig, batch: Batch, *,
     """Best-of-K prior decode: [K, M, T_f, 2] in scene-normalized
     coordinates (the caller re-adds the scene origin).
 
-    The only random draw is z [M·K, Z] (m-major: row m·K + k), taken from
-    ``generator`` (on the batch's device) unless injected with ``z``."""
+    The only random draw is the prior's standard-normal noise [M·K, Z]
+    (m-major: row m·K + k), taken from ``generator`` (on the batch's
+    device) unless injected with ``z``; it is the latent itself under the
+    standard prior, and ``mu + z·sigma`` under ``learn_prior``."""
     K = sample_k or cfg.sample_k
     M = batch.batch_size * batch.agent_num
     Tf = cfg.future_length
     past_feature = encode_past(params, cfg, batch,
                                isolate_scenes=isolate_scenes)
-    if z is None:
-        z = prior(params, cfg, past_feature.repeat_interleave(K, dim=0)) \
-            .rsample(generator)
-    elif tuple(z.shape) != (M * K, cfg.zdim):
+    if z is not None and tuple(z.shape) != (M * K, cfg.zdim):
         raise ValueError(f"z must be [{M * K}, {cfg.zdim}], got "
                          f"{tuple(z.shape)}")
+    if z is None or cfg.learn_prior:
+        z = prior(params, cfg, past_feature.repeat_interleave(K, dim=0)) \
+            .rsample(generator, noise=z)
 
     if cfg.select_impl != "xla" and past_feature.is_cuda:
         state0 = decode_block0_state(params, batch.past)

@@ -40,7 +40,9 @@ tensor ``fused="auto"`` sends
   H100 routing choice, the kernels of either metric staying on the card.
 ``fused=True``, ``fused="packed"`` and ``fused="flash"`` force one kernel,
 ``fused=False`` ("dense") takes the plain path, a max-subtracted softmax over
-the dense scores. Every kernel takes the forward and, when a gradient is
+the dense scores, and the only one with attention-weight dropout: active
+dropout sends "auto" there, and a forced kernel raises ValueError, as in
+JAX. Every kernel takes the forward and, when a gradient is
 taken, the backward; Q3 is the kernel with q and k swapped, under which a
 key validity becomes an additive mask (so it goes to the whole-S kernel, and
 the packed and flash kernels refuse it). Under poincaré the ball map is
@@ -141,15 +143,25 @@ def _kv_valid_mask(kv_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
                   has_kv_valid: bool, compat: str, fused: str | bool,
                   need_weights: bool, metric: str, on_cuda: bool,
-                  curvature: float = 1.0) -> str | None:
+                  curvature: float = 1.0,
+                  dropout_active: bool = False) -> str | None:
     """The kernel that serves one attention call: "packed", "flash",
     "fused" or None (the plain path). Under reference compat the square
     case is the kernel with q and k swapped, and a key validity then counts
-    as an additive mask."""
+    as an additive mask. No kernel implements attention-weight dropout:
+    active dropout sends "auto" to the plain path, and a forced kernel
+    raises, as in JAX."""
     if fused not in ("auto", True, False, "packed", "flash"):
         raise NotImplementedError(
             f"attention route {fused!r} is not ported "
             "(auto/fused/packed/flash/dense)")
+    if dropout_active and fused in (True, "packed", "flash"):
+        route = "fused" if fused is True else fused
+        raise ValueError(
+            f"attn_impl='{route}' does not implement attention dropout; "
+            "set dropout=0 (the reference default) or use a dense route")
+    if dropout_active:
+        return None
     if fused == "packed":
         if metric != "oblique":
             raise ValueError("the packed kernel implements the oblique "
@@ -189,8 +201,10 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        need_weights: bool = True,
                        metric: str = "oblique",
                        curvature: float = 1.0,
-                       kv_valid: torch.Tensor | None = None):
-    """Core attention: scores → (+mask) → softmax → @v.
+                       kv_valid: torch.Tensor | None = None,
+                       dropout_rate: float = 0.0,
+                       dropout_mask: torch.Tensor | None = None):
+    """Core attention: scores → (+mask) → softmax → dropout → @v.
 
     q [..., L, Dh], k/v [..., S, Dh], additive mask broadcastable to
     [..., L, S], key validity ``kv_valid`` [..., S] (1 = real key; no head
@@ -198,13 +212,17 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route). ``fused``: "auto" (routed by ``_kernel_route``), True (the
     whole-S kernel on CUDA), "packed" (the small-shape key-validity kernel)
     or "flash" (the S-tiled key-validity kernel), both refusing additive
-    masks, False (plain path)."""
+    masks, False (plain path). Attention-weight dropout at ``dropout_rate``
+    applies where ``dropout_mask`` (bool keep-mask of the weights' shape)
+    is given, on the plain path only."""
+    dropout_active = dropout_rate > 0.0 and dropout_mask is not None
     route = _kernel_route(tuple(q.shape), tuple(k.shape),
                           has_mask=mask is not None,
                           has_kv_valid=kv_valid is not None, compat=compat,
                           fused=fused, need_weights=need_weights,
                           metric=metric, on_cuda=q.is_cuda,
-                          curvature=curvature)
+                          curvature=curvature,
+                          dropout_active=dropout_active)
     swapped = compat == "reference" and q.shape[-2] == k.shape[-2]
     kv_as_mask = kv_valid is not None and (
         swapped or route not in ("packed", "flash"))
@@ -250,6 +268,8 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mask is not None:
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)
+    if dropout_active:
+        w = core.dropout(w, dropout_rate, keep_mask=dropout_mask)
     return w @ v, w
 
 
@@ -261,12 +281,15 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           fused: str | bool = "auto",
           metric: str = "oblique",
           curvature: float = 1.0,
-          kv_valid: torch.Tensor | None = None):
+          kv_valid: torch.Tensor | None = None,
+          dropout_rate: float = 0.0,
+          dropout_mask: torch.Tensor | None = None):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
     packed [E, 3E] projection when query, key and value are the same tensor,
     split projections otherwise. ``kv_valid`` [..., S] marks real keys and
-    is shared by the heads."""
+    is shared by the heads. ``dropout_mask`` [..., H, L, S] is the keep-mask
+    of the attention weights' dropout at ``dropout_rate``."""
     E = query.shape[-1]
     head_dim = E // num_heads
     if head_dim * num_heads != E:
@@ -288,7 +311,8 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
         split_heads(q, num_heads), split_heads(k, num_heads),
         split_heads(v, num_heads), mask=mask, compat=compat,
         fused=fused, need_weights=need_weights, metric=metric,
-        curvature=curvature, kv_valid=kv_valid)
+        curvature=curvature, kv_valid=kv_valid, dropout_rate=dropout_rate,
+        dropout_mask=dropout_mask)
     out = merge_heads(out_h) @ params.out_proj_w + params.out_proj_b
     if need_weights and w is not None:
         return out, w.mean(dim=-3)

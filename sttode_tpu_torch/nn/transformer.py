@@ -2,8 +2,11 @@
 ``gated_attention``, ``encoder_layer``, ``encoder_stack``).
 
 Tokens are 4-D ``[L, N, S, D]`` as in the JAX package: L is the attended
-token axis, N·S the batch. The layer's own dropout is not ported
-(``STTODEConfig.validate`` refuses ``dropout > 0``).
+token axis, N·S the batch. The layer's dropout (rate ``LayerConfig.dropout``)
+has JAX's four sites: the attention weights, the attention residual, the
+FFN hidden layer and the FFN residual. It applies where a layer is given
+its keep-masks (``LayerDropMasks``, one per layer, injected or drawn with
+``draw_dropout_masks``); without them the layer is deterministic.
 """
 
 from __future__ import annotations
@@ -34,11 +37,22 @@ class EncoderLayerParams(NamedTuple):
     norm2: dict
 
 
+class LayerDropMasks(NamedTuple):
+    """One encoder layer's dropout keep-masks (bool): the attention weights
+    [N·S, H, L, L], the attention residual [L, N, S, D], the FFN hidden
+    layer [L, N, S, ff] and the FFN residual [L, N, S, D] — the draws of
+    JAX's ``encoder_layer`` keys (attn, d1, ffn, d2) in that order."""
+    attn: torch.Tensor
+    resid1: torch.Tensor
+    ffn: torch.Tensor
+    resid2: torch.Tensor
+
+
 class LayerConfig(NamedTuple):
     """Static hyperparameters of one layer. ``attn_impl``: "auto" (the CUDA
     kernels on CUDA tensors, routed by shape), "fused", "packed" or "flash"
-    (one kernel forced) or "dense" (plain path). ``dropout`` is carried for
-    configs but must be 0 (not ported)."""
+    (one kernel forced) or "dense" (plain path). ``dropout``: the layer's
+    dropout rate where it is given keep-masks."""
     d_model: int = 64
     num_heads: int = 8
     ff_dim: int = 1024
@@ -76,16 +90,35 @@ def encoder_stack_init(gen, cfg: LayerConfig, num_layers: int,
     return [encoder_layer_init(gen, cfg, dtype) for _ in range(num_layers)]
 
 
+def draw_dropout_masks(cfg: LayerConfig, src_shape: tuple, num_layers: int,
+                       generator: torch.Generator | None = None,
+                       device=None) -> list[LayerDropMasks]:
+    """Keep-masks (probability 1 − ``cfg.dropout``) of ``num_layers``
+    encoder layers over [L, N, S, D] tokens, drawn from ``generator`` (on
+    ``device``)."""
+    L, N, S, D = src_shape
+    keep = 1.0 - cfg.dropout
+
+    def draw(*shape):
+        return torch.rand(shape, generator=generator, device=device) < keep
+    return [LayerDropMasks(draw(N * S, cfg.num_heads, L, L), draw(L, N, S, D),
+                           draw(L, N, S, cfg.ff_dim), draw(L, N, S, D))
+            for _ in range(num_layers)]
+
+
 def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
                     key: torch.Tensor, value: torch.Tensor, num_heads: int, *,
                     mask: torch.Tensor | None = None,
                     compat: str = "reference", need_weights: bool = False,
                     fused: str | bool = "auto", metric: str = "oblique",
                     curvature: float = 1.0,
-                    kv_valid: torch.Tensor | None = None):
+                    kv_valid: torch.Tensor | None = None,
+                    dropout_rate: float = 0.0,
+                    dropout_mask: torch.Tensor | None = None):
     """Gated geodesic attention over [L, N, S, D]: MHGSA on [N·S, L, D],
     then the ``tanh(info(a)) * sigmoid(gate(a))`` gate. ``kv_valid``
-    [N·S, L] (or broadcastable) marks real key tokens.
+    [N·S, L] (or broadcastable) marks real key tokens; ``dropout_mask``
+    [N·S, H, L, L] keeps attention weights at ``dropout_rate``.
     Returns (out [L, N, S, D], weights or None)."""
     L, N, S, D = query.shape
 
@@ -102,7 +135,8 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
         mask = kv_valid = None   # quirk Q2: masks never reach the kernel
     out, w = mhgsa(params.attn, q, k, v, num_heads, mask=mask, compat=compat,
                    need_weights=need_weights, fused=fused, metric=metric,
-                   curvature=curvature, kv_valid=kv_valid)
+                   curvature=curvature, kv_valid=kv_valid,
+                   dropout_rate=dropout_rate, dropout_mask=dropout_mask)
     gated = torch.tanh(core.dense(params.info, out)) * \
         torch.sigmoid(core.dense(params.gate, out))
     return gated.transpose(0, 1).reshape(L, N, S, D), w
@@ -111,26 +145,40 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
 def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
                   cfg: LayerConfig, *,
                   mask: torch.Tensor | None = None,
-                  kv_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Post-norm encoder layer over [L, N, S, D] tokens."""
+                  kv_valid: torch.Tensor | None = None,
+                  drop: LayerDropMasks | None = None) -> torch.Tensor:
+    """Post-norm encoder layer over [L, N, S, D] tokens, with dropout at
+    ``cfg.dropout`` where ``drop`` gives its keep-masks."""
     if cfg.attn_impl not in _ATTN_IMPL_TO_FUSED:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported "
             "(auto/fused/packed/flash/dense)")
+    rate = cfg.dropout if drop is not None else 0.0
     attn_out, _ = gated_attention(
         params.self_attn, src, src, src, cfg.num_heads, mask=mask,
         compat=cfg.compat, fused=_ATTN_IMPL_TO_FUSED[cfg.attn_impl],
-        metric=cfg.attn_metric, curvature=cfg.curvature, kv_valid=kv_valid)
+        metric=cfg.attn_metric, curvature=cfg.curvature, kv_valid=kv_valid,
+        dropout_rate=rate, dropout_mask=None if drop is None else drop.attn)
+    if rate > 0.0:
+        attn_out = core.dropout(attn_out, rate, keep_mask=drop.resid1)
     src = core.layer_norm(params.norm1, src + attn_out)
     act = core.ACTIVATIONS[cfg.activation]
-    ffn_out = core.dense(params.ffn.linear2,
-                         act(core.dense(params.ffn.linear1, src)))
+    hidden = act(core.dense(params.ffn.linear1, src))
+    if rate > 0.0:
+        hidden = core.dropout(hidden, rate, keep_mask=drop.ffn)
+    ffn_out = core.dense(params.ffn.linear2, hidden)
+    if rate > 0.0:
+        ffn_out = core.dropout(ffn_out, rate, keep_mask=drop.resid2)
     return core.layer_norm(params.norm2, src + ffn_out)
 
 
 def encoder_stack(params: list, src: torch.Tensor, cfg: LayerConfig, *,
                   mask: torch.Tensor | None = None,
-                  kv_valid: torch.Tensor | None = None) -> torch.Tensor:
-    for p in params:
-        src = encoder_layer(p, src, cfg, mask=mask, kv_valid=kv_valid)
+                  kv_valid: torch.Tensor | None = None,
+                  drop: list[LayerDropMasks] | None = None) -> torch.Tensor:
+    """The layers in turn; ``drop`` holds one ``LayerDropMasks`` per layer
+    (JAX's per-layer key order), or None for no dropout."""
+    for i, p in enumerate(params):
+        src = encoder_layer(p, src, cfg, mask=mask, kv_valid=kv_valid,
+                            drop=None if drop is None else drop[i])
     return src

@@ -1,5 +1,6 @@
-"""ODE solvers of the port (fixed grid)."""
+"""ODE solvers of the port: the fixed grid, dopri5 and the continuous
+adjoint."""
 
-from sttode_tpu_torch.ode.solvers import odeint
+from sttode_tpu_torch.ode.solvers import matmul_precision, odeint, odeint_adjoint
 
-__all__ = ["odeint"]
+__all__ = ["matmul_precision", "odeint", "odeint_adjoint"]

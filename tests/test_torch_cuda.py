@@ -1788,3 +1788,146 @@ def test_sampler_predictor_on_card_matches_cpu_plain(cuda_device, axis):
     for g, w in zip(got, cpu.predict_many(scenes, seed=4)):
         assert g.shape == w.shape == (20, 8, 12, 2)
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the adaptive and adjoint ODE encoder, learn_prior and dropout              #
+# --------------------------------------------------------------------------- #
+
+def _trunk_field_solve(layers, x, cfg, rtol, atol):
+    from sttode_tpu_torch.nn import transformer as ttr
+    from sttode_tpu_torch.ode import odeint
+    return odeint(lambda t, y, p: ttr.encoder_stack(p, y, cfg), x,
+                  torch.tensor([0.0, 12.0]), layers, method="dopri5",
+                  rtol=rtol, atol=atol, return_stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rtol,atol", [(1e-5, 1e-7), (1e-3, 1e-6)])
+def test_dopri5_kernel_route_counts_match_cpu(cuda_device, rtol, atol):
+    """dopri5 over the NBA trunk field at full width (P in every RHS
+    evaluation): the kernel route's step counts equal the CPU plain
+    route's, its solution within 1e-4 of the solution's largest magnitude,
+    one P launch an evaluation."""
+    from sttode_tpu_torch.nn import transformer as ttr
+    cfg = ttr.LayerConfig(d_model=64, num_heads=8, ff_dim=1024)
+    layers = ttr.encoder_stack_init(torch.Generator().manual_seed(17), cfg,
+                                    1)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (32, 11, 1, 64)).astype(np.float32))
+    with torch.no_grad():
+        want, st_c = _trunk_field_solve(layers, x,
+                                        cfg._replace(attn_impl="dense"),
+                                        rtol, atol)
+        before = tpacked.packed_geodesic_attention.launches
+        got, st_k = _trunk_field_solve(to_device(layers, cuda_device),
+                                       x.to(cuda_device), cfg, rtol, atol)
+        torch.cuda.synchronize()
+    assert st_k == st_c
+    assert tpacked.packed_geodesic_attention.launches - before == \
+        st_k["rhs_evals"]
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+def _ode_nba_batch(device, B=8):
+    sc = make_social_scenes(B, agents_range=(11, 11), obs_len=5, pred_len=10,
+                            seed=6)
+    batch, _ = prepare_scene_group(
+        np.stack([s["obs"] for s in sc]), np.stack([s["pred"] for s in sc]),
+        np.ones((B, 11), np.float32), training=True,
+        rng=np.random.default_rng(6))
+    return batch.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adjoint", "scan_budget", "learn_prior"])
+def test_ode_model_step_on_card_launches_p_and_q(cuda_device, kind):
+    """One training step of each ODE option on the card: P and Q launch
+    (the adjoint runs Q inside its backward solve's VJPs), the losses equal
+    the CPU plain route's, every gradient leaf is finite."""
+    kw = {"adjoint": dict(ode_method="dopri5", ode_adjoint=True,
+                          ode_rtol=1e-3, ode_atol=1e-6),
+          "scan_budget": dict(ode_method="dopri5", ode_rtol=1e-3,
+                              ode_atol=1e-6, ode_scan_budget=16),
+          "learn_prior": dict(learn_prior=True)}[kind]
+    cfg = tm.STTODEConfig(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8,
+                          sample_k=4, past_length=5, future_length=10,
+                          select_impl="xla", **kw).validate()
+    params = tm.sttode_init(6, cfg)
+    batch = _ode_nba_batch(cuda_device)
+    M = batch.batch_size * batch.agent_num
+    g = torch.Generator().manual_seed(6)
+    noise = tm.TrainNoise(torch.rand(M, 5, 16, generator=g) >= 0.1,
+                          torch.rand(M, 10, 16, generator=g) >= 0.1,
+                          torch.randn(M, 8, generator=g),
+                          torch.randn(M * 4, 8, generator=g))
+    want = tm.sttode_forward(params, cfg._replace(attn_impl="dense"),
+                             batch.to("cpu"), noise=noise)
+    p = bridge.tree_map(lambda t: t.to(cuda_device).requires_grad_(),
+                        params)
+    before = (tpacked.packed_geodesic_attention.launches,
+              tpacked.packed_geodesic_attention_backward.launches)
+    out = tm.sttode_forward(p, cfg, batch, noise=tm.TrainNoise(
+        *(t.to(cuda_device) for t in noise[:4])))
+    out.total_loss.backward()
+    torch.cuda.synchronize()
+    assert tpacked.packed_geodesic_attention.launches > before[0]
+    assert tpacked.packed_geodesic_attention_backward.launches > before[1]
+    for name in ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+                 "loss_diverse"):
+        a, b = float(getattr(out, name).detach()), float(getattr(want, name))
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), name
+    assert all(bool(torch.isfinite(t.grad).all())
+               for t in bridge.tree_leaves(p))
+
+
+@pytest.mark.cuda
+def test_dropout_step_on_card_runs_no_attention_kernel(cuda_device):
+    cfg = tm.STTODEConfig(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8,
+                          sample_k=4, past_length=5, future_length=10,
+                          dropout=0.1).validate()
+    step = make_train_step(cfg, 1e-3, device=cuda_device)
+    params, opt = step.init(tm.sttode_init(6, cfg))
+    before = (tpacked.packed_geodesic_attention.launches,
+              tpacked.packed_geodesic_attention_backward.launches,
+              tmhgsa.fused_geodesic_attention.launches,
+              tmhgsa.fused_geodesic_attention_backward.launches)
+    batch = _ode_nba_batch(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    _, _, metrics = step(params, opt, batch, gen)
+    torch.cuda.synchronize()
+    assert (tpacked.packed_geodesic_attention.launches,
+            tpacked.packed_geodesic_attention_backward.launches,
+            tmhgsa.fused_geodesic_attention.launches,
+            tmhgsa.fused_geodesic_attention_backward.launches) == before
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    with pytest.raises(ValueError, match="does not implement attention "
+                                         "dropout"):
+        tm.sttode_forward(to_device(tm.sttode_init(6, cfg), cuda_device),
+                          cfg._replace(attn_impl="packed"), batch,
+                          generator=gen)
+
+
+@pytest.mark.cuda
+def test_dopri5_predictor_on_card_matches_plain_route(cuda_device):
+    """A dopri5 learn_prior model served on the card (the while form under
+    inference mode, A with key masks) gives the plain route's forecasts on
+    the card (the same seeded draws)."""
+    cfg = tm.STTODEConfig(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8,
+                          sample_k=4, compat="tpu", attn_axis="agent",
+                          ode_method="dopri5", ode_rtol=1e-5, ode_atol=1e-7,
+                          learn_prior=True).validate()
+    params = tm.sttode_init(6, cfg)
+    scenes = [s["obs"] for s in make_social_scenes(6, agents_range=(3, 8),
+                                                   seed=6)]
+    before = tmhgsa.fused_geodesic_attention.launches_masked
+    got = Predictor(params, cfg, device=cuda_device).predict_many(scenes,
+                                                                  seed=2)
+    assert tmhgsa.fused_geodesic_attention.launches_masked > before
+    want = Predictor(params, cfg._replace(attn_impl="dense",
+                                          select_impl="xla"),
+                     device=cuda_device).predict_many(scenes, seed=2)
+    for a, b in zip(got, want):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
