@@ -145,6 +145,26 @@ paths, then drives both paths at the full width of the repo's model
            (``cli.train --ode_method dopri5 --ode_adjoint`` 1 + 1 resumed
            epoch of 2 steps, ``cli.test``, ``cli.trainvae``); the dopri5
            agent-axis server at 64 scenes x 8 agents beside the euler one.
+  phase 18 ``scan_steps``, S optimizer steps captured as one CUDA graph
+           (``scan_phase``): (a) the bench recipe (B = 128 × 11, bf16,
+           kernel B): 48 eager steps against the S = 16 step's warm-up
+           chunk and 2 replays from the same parameters, injected noise
+           and Adam form (every loss term, parameter leaf and Adam
+           moment), ``set_lr`` between replays (0: the parameters stay;
+           3e-4: both move alike), kernel B's winners at the first and
+           last weights and an eager kernel-B call after the replays
+           against a fresh packing; (b) the eager step (plain Adam, and
+           the capturable one) against the captured one, alternating:
+           ms/step, train scenes/s, idle share, capture s and pool bytes,
+           and two profiled replays' A, C and B kernels against the launch
+           counters; (c) the stage-2 step at 1 × 16 (S = 16) and the
+           scan-budget dopri5 step (budget 24, NBA 32 × 11, S = 2), a
+           warm-up chunk and a replay each against eager steps, the while
+           form's step eager; in phase 15's
+           directory ``cli.train --dataset eth --scan_steps 16
+           --async_ckpt`` for 1 + 1 resumed epoch (the resume reads the
+           background-saved file) and ``cli.trainsampler --scan_steps
+           16`` for 1 epoch.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -949,6 +969,7 @@ def eth_phase(dev, card, counts, reset, inside=None) -> dict:
         print(f"phase 15 prefetch, {label} ({subset} scenes): the epoch's "
               f"mean losses with depth 2 equal depth 0's: {means[0]}")
     result["select_times"] = sel_times
+    result["resume_s"] = resume_s
     result["inside"] = inside_result
     print(f"phase 15 took {time.perf_counter() - t_phase - t_inside:.1f} s  "
           f"[{card}]")
@@ -1698,6 +1719,413 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
           f"{nonzero(launches_e)}  [{card}]")
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; its main "
           f"paths launched {nonzero(total)}")
+    return {"launches": total}
+
+
+def scan_cli(tmp, flags, n_train, counts, reset) -> dict:
+    """Phase 18 (c), its CLIs in phase 15's directory, on its ETH CSVs:
+    ``cli.train --dataset eth --scan_steps 16 --async_ckpt`` for 1 epoch
+    and 1 resumed epoch (into their own checkpoint directory), then
+    ``cli.trainsampler --scan_steps 16`` for 1 epoch on those checkpoints.
+    Checks that the resumed run read the file the background save wrote
+    and returns the launches, the resumed run's seconds and the line to
+    print."""
+    from sttode_tpu_torch.cli import train as cli_train
+    from sttode_tpu_torch.cli import trainsampler as cli_trainsampler
+    from sttode_tpu_torch.train import checkpoint_path, load_checkpoint
+
+    t_cli = time.perf_counter()
+    ck = os.path.join(tmp, "ck_scan")
+    sflags = flags + ["--ckpt_dir", ck, "--scan_steps", "16", "--async_ckpt"]
+    reset()   # the main path: train, resume, stage 2
+    t = time.perf_counter()
+    run = cli_train.main(sflags + ["--num_epochs", "1"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    path = checkpoint_path(os.path.join(ck, "eth"), 1)
+    saved, _, epoch, _ = load_checkpoint(path)
+    require(epoch == 1 and all(
+        torch.equal(a.cpu(), b.detach().cpu()) for a, b in zip(
+            _leaves(saved), _leaves(run.params))),
+        "phase 18: the background-saved checkpoint is not the trained state")
+    t = time.perf_counter()
+    resumed = cli_train.main(sflags + ["--num_epochs", "2",
+                                       "--epoch_continue", "1"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    require(resumed.start_epoch == 1 and all(
+        int(st["step"]) == 2 * n_train
+        for st in resumed.opt.state_dict()["state"].values()),
+        "phase 18: the resumed run did not continue from the background-"
+        "saved epoch")
+    launches_train = counts()
+    t = time.perf_counter()
+    stage2 = cli_trainsampler.main(sflags + ["--num_epochs", "1",
+                                             "--fix_epochs", "0"])
+    torch.cuda.synchronize()
+    stage2_s = time.perf_counter() - t
+    launches = counts()
+    require(launches_train["packed"] > 0 and launches_train["packed_bwd"] > 0
+            and launches_train["select_fp32"] > 0
+            and launches["packed"] > launches_train["packed"]
+            and launches["packed_bwd"] == launches_train["packed_bwd"],
+            f"phase 18: the scan_steps CLIs did not launch P, Q and kernel B "
+            f"(stage 2: P alone): training {launches_train}, with stage 2 "
+            f"{launches}")
+    for r in (run, resumed, stage2):
+        for e, _, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 18: non-finite loss at epoch {e}: {means}")
+    line = (
+        f"phase 18 (c) cli.train --dataset eth --scan_steps 16 --async_ckpt "
+        f"({n_train} train scenes, one a step; 16 a CUDA graph replay): "
+        f"epochs " + "; ".join(f"{e} total {m['total']:.4f}"
+                               for e, _, m in run.history + resumed.history)
+        + f"; the first CLI run {first_s:.2f} s, the resumed one (read the "
+        f"background-saved epoch 1) {resume_s:.2f} s end to end, "
+        f"{n_train / resume_s:.2f} train steps/s; its graphs "
+        f"{graphs(resumed.step)}; cli.trainsampler --scan_steps 16, 1 "
+        f"epoch: {stage2_s:.2f} s, total "
+        f"{stage2.history[0][2]['total']:.4f}, graphs "
+        f"{graphs(stage2.step)}; launches {nonzero(launches)}")
+    return {"launches": launches, "line": line, "resume_s": resume_s,
+            "seconds": time.perf_counter() - t_cli}
+
+
+def graphs(step) -> str:
+    """A step's captures: S and pool MiB of each, capture seconds."""
+    gs = list(step.graphs.values())
+    return (f"{len(gs)} (S = "
+            + ", ".join(f"{g.steps}: {g.pool_bytes / 2 ** 20:.1f} MiB"
+                        for g in gs)
+            + f"; captures {sum(g.capture_s for g in gs):.2f} s)")
+
+
+def _leaves(tree):
+    from sttode_tpu_torch import bridge
+    return bridge.tree_leaves(tree)
+
+
+def scan_phase(dev, card, counts, reset, cli: dict, eager_resume_s) -> dict:
+    """Phase 18: ``scan_steps``, S optimizer steps as one CUDA graph replay.
+    (a) the bench recipe (B = 128 × 11, bf16, kernel B): 48 eager steps
+    against 3 calls of the S = 16 step (the first runs its chunk eagerly
+    as the capture's warm-up, then 2 replays) from the same parameters
+    with the same injected noise, then ``set_lr`` between replays (0, then
+    3e-4) and kernel B's winners after the replays against a fresh
+    packing; (b) the eager step (the plain Adam of a step built with
+    scan_steps 1, and the graph's capturable Adam) against the graph's,
+    alternating (ms/step, train scenes/s, idle share, capture s, pool
+    bytes) and two profiled replays' kernels against the counters; (c)
+    the stage-2 step at 1 × 16 (S = 16) and the scan-budget dopri5 step
+    (budget 24, NBA 32 × 11, S = 2), each a warm-up chunk and one replay
+    against eager steps, and ``cli`` (``scan_cli``'s result). Returns the
+    launches of its main paths."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.data import scene_batches
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.kernels import select_decode as ks
+    from sttode_tpu_torch.models import sampler as ts
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.train import (make_sampler_train_step,
+                                        make_train_step, set_lr,
+                                        stack_batches, stack_noise)
+
+    t_phase = time.perf_counter()
+    S = 16
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def scene_group(B, N, T, seed):
+        sc = make_social_scenes(B, agents_range=(N, N), obs_len=T[0],
+                                pred_len=T[1], seed=seed)
+        batch, _ = prepare_scene_group(
+            np.stack([s["obs"] for s in sc]),
+            np.stack([s["pred"] for s in sc]), np.ones((B, N), np.float32),
+            training=True, rng=np.random.default_rng(seed))
+        return batch.to(dev)
+
+    def draws(cfg, M, gen):
+        D, Z, K = cfg.hidden_dim, cfg.zdim, cfg.sample_k
+        return tm.TrainNoise(
+            torch.rand(M, cfg.past_length, D, device=dev, generator=gen)
+            >= cfg.pe_dropout,
+            torch.rand(M, cfg.future_length, D, device=dev, generator=gen)
+            >= cfg.pe_dropout,
+            torch.randn(M, Z, device=dev, generator=gen),
+            torch.randn(M * K, Z, device=dev, generator=gen))
+
+    def moments(opt):
+        return [v for p in opt.param_groups[0]["params"]
+                for k, v in opt.state.get(p, {}).items() if k != "step"]
+
+    def pair(make, params, batches, noises, steps, what, lr=1e-4):
+        """Eager single steps against ``len(batches) / steps`` calls of the
+        step built with ``steps`` (the first its warm-up chunk, the others
+        replays) from the same parameters and noise: each loss term within
+        TRAIN_TOL × max(1, |loss|), each parameter leaf and Adam moment
+        within TRAIN_TOL × its largest magnitude. The eager steps run on
+        the graph's Adam form (capturable), so that both sides compute the
+        same updates. The graph step is the main path: the counts are set
+        to 0 just before it. Returns (the worst differences (losses,
+        parameters, moments), its launches, the two routes)."""
+        eager, graph = make(lr, 1), make(lr, steps)
+        require(graph.mode == "graph", f"{what}: mode {graph.mode}")
+        pe, oe = graph.init(params)
+        pg, og = graph.init(params)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        me = [eager(pe, oe, b, gen, noise=n)[2]
+              for b, n in zip(batches, noises)]
+        torch.cuda.synchronize()
+        reset()   # the main path: the captured step
+        mg = [graph(pg, og, stack_batches(batches[i:i + steps]), gen,
+                    noise=stack_noise(noises[i:i + steps]))[2]
+              for i in range(0, len(batches), steps)]
+        torch.cuda.synchronize()
+        launches = counts()
+        add(launches)
+        worst = compare_runs(me, mg, (pe, oe), (pg, og), what)
+        return worst, launches, (eager, pe, oe), (graph, pg, og)
+
+    def compare_runs(me, mg, run_e, run_g, what):
+        loss = max(
+            float((torch.stack([m[k] for m in me])
+                   - torch.cat([m[k] for m in mg])).abs().max()
+                  / max(1.0, float(torch.stack([m[k] for m in me])
+                                   .abs().max())))
+            for k in me[0])
+        leaves = []
+        for get in (lambda r: _leaves(r[0]), lambda r: moments(r[1])):
+            worst = 0.0
+            for a, b in zip(get(run_g), get(run_e)):
+                worst = max(worst, float((a - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30))
+            leaves.append(worst)
+        require(loss <= TRAIN_TOL and max(leaves) <= TRAIN_TOL,
+                f"{what}: graph vs eager losses {loss:.3e}, parameters "
+                f"{leaves[0]:.3e}, Adam moments {leaves[1]:.3e}")
+        return loss, *leaves
+
+    # (a) the bench recipe: 48 eager steps against the warm-up chunk and 2
+    #     replays of S = 16
+    cfg = tm.STTODEConfig(past_length=5, future_length=10,
+                          select_dtype="bfloat16",
+                          decode_dtype="bfloat16").validate()
+    B, N = 128, 11
+    M = B * N
+    bs = [scene_group(B, N, (5, 10), 1800 + i) for i in range(3 * S)]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    noises = [draws(cfg, M, gen) for _ in bs]
+    p0 = tm.sttode_init(18, cfg)
+
+    def make(lr, steps):
+        return make_train_step(cfg, lr, device=dev, scan_steps=steps)
+
+    worst_a, launches_a, (eager, pe, oe), (graph, pg, og) = pair(
+        make, p0, bs, noises, S, "phase 18 (a) bench recipe")
+    require(launches_a["attn"] > 0 and launches_a["attn_bwd"] > 0
+            and launches_a["select_bf16"] > 0,
+            f"phase 18 (a): the captured step launched no A, C or kernel B "
+            f"bf16 {launches_a}")
+    # set_lr between replays: at 0 the parameters stay, at 3e-4 both
+    # routes move alike
+    lr_worst = []
+    for lr in (0.0, 3e-4):
+        before = [t.detach().clone() for t in _leaves(pg)]
+        set_lr(oe, lr)
+        set_lr(og, lr)
+        me = [eager(pe, oe, b, gen, noise=n)[2]
+              for b, n in zip(bs[:S], noises[:S])]
+        reset()   # the main path: a replay at the new rate
+        mg = [graph(pg, og, stack_batches(bs[:S]), gen,
+                    noise=stack_noise(noises[:S]))[2]]
+        torch.cuda.synchronize()
+        add(counts())
+        lr_worst.append(compare_runs(me, mg, (pe, oe), (pg, og),
+                                     f"phase 18 (a) after set_lr({lr})"))
+        still = all(torch.equal(a, b) for a, b in zip(_leaves(pg), before))
+        require(still == (lr == 0.0),
+                f"phase 18 (a): after set_lr({lr}) a replay "
+                f"{'moved' if still is False else 'kept'} the parameters")
+    # kernel B inside the replays packed the weights of each step: the
+    # winners at the first and the last weights differ, and every replayed
+    # loss equals the eager step's; an eager call after the replays packs
+    # the weights they wrote (its cache is keyed on versions, which each
+    # replay moves): its distances equal a fresh packing's
+    with torch.inference_mode():
+        def decode(p):
+            pf = tm.encode_past(p, cfg, bs[0])
+            z_km = noises[0].eps_p.reshape(M, 20, -1).transpose(0, 1)
+            return ks.select_decode(
+                p, pf, z_km, tm.decode_block0_state(p, bs[0].past),
+                bs[0].past.reshape(M, -1),
+                (bs[0].future - bs[0].cur_location).reshape(M, -1),
+                dtype=torch.bfloat16)
+
+        dists = [decode(bridge.to_device(p0, dev)), decode(pg)]
+        ks._PACKED.clear()
+        fresh = decode(pg)
+        moved = int((dists[0].argmin(1) != dists[1].argmin(1)).sum())
+    require(moved > 0, "phase 18 (a): kernel B's winners did not move with "
+                       "the weights, so the replays do not test its packing")
+    require(torch.equal(dists[1], fresh),
+            "phase 18 (a): an eager kernel-B call after the replays used "
+            "stale packed weights")
+    print(f"phase 18 (a) bench recipe (B = 128 x 11, bf16, kernel B), 48 "
+          f"eager steps vs the S = 16 step's warm-up chunk and 2 replays, "
+          f"same noise and Adam form: loss terms within {worst_a[0]:.3e} "
+          f"(relative), "
+          f"parameters {worst_a[1]:.3e}, Adam moments {worst_a[2]:.3e} (of "
+          f"each leaf's largest magnitude); set_lr(0) kept every parameter "
+          f"through a replay, set_lr(3e-4) moved both alike (worst "
+          f"{max(max(w) for w in lr_worst):.3e}); kernel B's winners at "
+          f"the first and the last weights differ at {moved} of {M} rows, "
+          f"and an eager call after the replays equals a fresh packing; "
+          f"launches {nonzero(launches_a)}")
+
+    # (b) times: eager S = 1 (a step built with scan_steps 1: the plain
+    #     Adam; and on the graph's capturable Adam) against the graph at
+    #     S = 16, alternating; two profiled replays' kernels against the
+    #     counters
+    stacked = stack_batches(bs[:S])
+    graph(pg, og, stacked, gen)          # its warm-up chunk and capture
+    torch.cuda.synchronize()
+    timed = graph.graphs[list(graph.graphs)[-1]]
+    pp, op = eager.init(pg)              # the plain Adam: S = 1's own
+    eager(pp, op, bs[0], gen)
+    order = ("eager", "capturable", "graph")
+    step_ms: dict = {name: [] for name in order}
+    for r in range(6):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "eager":
+                for b in bs[:S]:
+                    eager(pp, op, b, gen)
+            elif name == "capturable":
+                for b in bs[:S]:
+                    eager(pe, oe, b, gen)
+            else:
+                graph(pg, og, stacked, gen)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t) / S * 1e3)
+    eager_ms = statistics.median(step_ms["eager"])
+    cap_ms = statistics.median(step_ms["capturable"])
+    graph_ms = statistics.median(step_ms["graph"])
+    busy_e, n_e = busy_ms(lambda: [eager(pp, op, b, gen) for b in bs[:S]])
+    # three replays under the profiler, the first its warm-up (a trace
+    # that starts with the replay can miss its first kernels), the other
+    # two traced: their kernels against the counters
+    traces: list = []
+    reset()   # the main path: the profiled replays
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=2,
+                                             repeat=1),
+            on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+        for _ in range(3):
+            graph(pg, og, stacked, gen)
+            torch.cuda.synchronize()
+            prof.step()
+    three = counts()
+    add(three)
+    one = {k: v // 3 for k, v in three.items()}
+    kernels = [e for e in (traces[0] if traces else [])
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_g = sum(e.self_device_time_total for e in kernels) / 2e3
+    seen = {label: sum(e.count for e in kernels if re.search(pat, e.key))
+            for label, pat in (("attn", r"mhgsa_(?:small_)?fwd_kernel"),
+                               ("attn_bwd", r"mhgsa_(?:small_)?bwd_kernel"),
+                               ("select_bf16", r"select_main_kernel"))}
+    traced = sum(seen.values()) > 0
+    require(not traced or all(seen[k] == 2 * one[k] for k in seen),
+            f"phase 18 (b): the two traced replays' kernels {seen} differ "
+            f"from twice the counters' {nonzero(one)} a replay")
+    idle_e = "not measured" if busy_e is None else \
+        f"{1 - busy_e / S / eager_ms:.3f}"
+    idle_g = "not measured" if busy_g <= 0 else \
+        f"{1 - busy_g / S / graph_ms:.3f}"
+    print(f"phase 18 (b) bench recipe step, eager (1 step a call, plain "
+          f"Adam): {eager_ms:.3f} ms/step, {B * 1e3 / eager_ms:.1f} train "
+          f"scenes/s, idle share {idle_e} ({n_e / S:.0f} kernels/step); "
+          f"eager on the capturable Adam: {cap_ms:.3f} ms/step; "
+          f"captured (S = 16, one replay a call): {graph_ms:.3f} ms/step, "
+          f"{B * 1e3 / graph_ms:.1f} train scenes/s, idle share {idle_g} "
+          f"({sum(e.count for e in kernels) / 2 / S:.0f} kernels/step); "
+          f"its capture {timed.capture_s:.3f} s (after its warm-up chunk, "
+          f"16 eager steps), graph pool {timed.pool_bytes / 2 ** 20:.1f} "
+          f"MiB ({timed.pool_bytes} bytes); two traced replays: "
+          + (f"A, C, B launches {seen}, twice the counters' a replay"
+             if traced else "the trace holds no kernel names (counters "
+             f"{nonzero(one)})") + f"  [{card}]")
+    del bs, noises, stacked, pp, op
+
+    # (c) the stage-2 step at 1 x 16 and the scan-budget dopri5 step
+    scfg = ts.SamplerConfig()
+    cfg2 = tm.STTODEConfig().validate()
+    net = tm.sttode_init(19, cfg2)
+    eth = [b.to(dev) for b, _ in scene_batches(
+        make_social_scenes(2 * S, agents_range=(12, 12), seed=19),
+        training=True, rng=np.random.default_rng(19))]
+    require({(b.batch_size, b.agent_num) for b in eth} == {(1, 16)},
+            "phase 18 (c): the ETH batches are not 1 x 16")
+    t = time.perf_counter()
+    worst_2, launches_2, _, (g2, _, _) = pair(
+        lambda lr, steps: make_sampler_train_step(
+            cfg2, scfg, lr, net, device=dev, scan_steps=steps),
+        ts.sampler_init(19, scfg, pred_model_dim=cfg2.hidden_dim,
+                        past_feature_dim=2 * cfg2.hidden_dim),
+        eth, [None] * len(eth), S,
+        "phase 18 (c) stage 2")
+    s2_s = time.perf_counter() - t
+    require(launches_2["packed"] > 0 and launches_2["packed_bwd"] == 0,
+            f"phase 18 (c): the stage-2 step did not run on P alone "
+            f"{launches_2}")
+    cfg_d = tm.STTODEConfig(past_length=5, future_length=10,
+                            ode_method="dopri5", ode_scan_budget=24,
+                            ode_rtol=1e-5, ode_atol=1e-7,
+                            select_impl="auto").validate()
+    nba = [scene_group(32, 11, (5, 10), 1900 + i) for i in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t = time.perf_counter()
+    worst_d, launches_d, _, (gd, _, _) = pair(
+        lambda lr, steps: make_train_step(cfg_d, lr, device=dev,
+                                          scan_steps=steps),
+        tm.sttode_init(19, cfg_d), nba, [draws(cfg_d, 352, gen)
+                                         for _ in nba], 2,
+        "phase 18 (c) dopri5 scan budget 24")
+    d_s = time.perf_counter() - t
+    require(launches_d["packed"] > 0 and launches_d["packed_bwd"] > 0
+            and launches_d["select_fp32"] > 0,
+            f"phase 18 (c): the dopri5 step did not launch P, Q and kernel B "
+            f"{launches_d}")
+    while_mode = make_train_step(cfg_d._replace(ode_scan_budget=0,
+                                                ode_adjoint=True), 1e-4,
+                                 device=dev, scan_steps=S).mode
+    require(while_mode == "eager",
+            f"phase 18 (c): the while form's step mode is {while_mode}")
+    s2, sd = g2.graph_stats(), gd.graph_stats()
+    print(f"phase 18 (c) stage-2 step at 1 x 16 (S = 16): graph vs eager "
+          f"losses {worst_2[0]:.3e}, sampler parameters {worst_2[1]:.3e}, "
+          f"moments {worst_2[2]:.3e}; capture {s2['capture_s']:.3f} s, pool "
+          f"{s2['pool_bytes'] / 2 ** 20:.1f} MiB ({s2_s:.1f} s with the "
+          f"eager steps); dopri5 scan budget 24 (1e-5 / 1e-7) at 32 x 11, "
+          f"S = 2: losses {worst_d[0]:.3e}, parameters {worst_d[1]:.3e}, "
+          f"moments {worst_d[2]:.3e}; capture {sd['capture_s']:.3f} s, pool "
+          f"{sd['pool_bytes'] / 2 ** 20:.1f} MiB ({d_s:.1f} s); the while "
+          f"form's step: mode {while_mode}")
+    print(cli["line"] + f"; phase 15's eager resumed run {eager_resume_s:.2f}"
+          f" s  [{card}]")
+    add(cli["launches"])
+    print(f"phase 18 took {time.perf_counter() - t_phase + cli['seconds']:.1f}"
+          f" s ({cli['seconds']:.1f} s of CLIs inside phase 15's directory)"
+          f"  [{card}]")
     return {"launches": total}
 
 
@@ -3387,17 +3815,25 @@ def main() -> int:
 
     # 15. the ETH-UCY and SDD path through the CLIs; in its directory, on its
     #     stage-1 checkpoints, phase 16's stage-2 CLIs
+    #     and phase 18's scan_steps CLIs
     eth15 = eth_phase(dev, card, counts, reset,
-                      inside=lambda tmp, flags, n_train: stage2_cli(
-                          tmp, flags, n_train, counts, reset))
+                      inside=lambda tmp, flags, n_train: {
+                          "stage2": stage2_cli(tmp, flags, n_train, counts,
+                                               reset),
+                          "scan": scan_cli(tmp, flags, n_train, counts,
+                                           reset)})
     launches15 = eth15["launches"]
 
     # 16. stage 2, the DLow sampler
     launches16 = sampler_phase(dev, card, counts, reset,
-                               eth15["inside"])["launches"]
+                               eth15["inside"]["stage2"])["launches"]
 
     # 17. the adaptive and adjoint ODE encoder, learn_prior and dropout
     launches17 = ode_phase(dev, card, counts, reset, nba_files)["launches"]
+
+    # 18. scan_steps: S optimizer steps captured as one CUDA graph
+    launches18 = scan_phase(dev, card, counts, reset, eth15["inside"]["scan"],
+                            eth15["resume_s"])["launches"]
 
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
@@ -3437,35 +3873,40 @@ def main() -> int:
               launches4["attn"] + launches5["attn"] + launches8["attn"]
               + launches10["attn"] + launches12["attn"] + launches15["attn"]
               + launches16["attn"] - launches16["attn_p"]
-              + launches17["attn"] - launches17["attn_p"],
+              + launches17["attn"] - launches17["attn_p"]
+              + launches18["attn"],
               attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:455",
               launches8["attn_bwd"] + launches15["attn_bwd"]
-              + launches17["attn_bwd"] - launches17["attn_bwd_p"], bwd_err,
+              + launches17["attn_bwd"] - launches17["attn_bwd_p"]
+              + launches18["attn_bwd"], bwd_err,
               b_ms,
               b_plain, b_bound),
         entry("select_decode_fp32", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches4["select_fp32"] + launches5["select_fp32"]
               + launches8["select_fp32"] + launches15["select_fp32"]
-              + launches17["select_fp32"],
+              + launches17["select_fp32"] + launches18["select_fp32"],
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
-              launches8["select_bf16"], sel16_err, sel16_ms, sel16_plain,
+              launches8["select_bf16"] + launches18["select_bf16"],
+              sel16_err, sel16_ms, sel16_plain,
               s16_bound),
         entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:340",
               launches5["packed"] + launches10["packed"]
               + launches15["packed"] + launches16["packed"]
-              + launches17["packed"], packed_err, p_ms,
+              + launches17["packed"] + launches18["packed"], packed_err,
+              p_ms,
               p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
               launches10["packed_bwd"] + launches15["packed_bwd"]
-              + launches17["packed_bwd"], packed_bwd_err, pb_ms, pb_plain,
+              + launches17["packed_bwd"] + launches18["packed_bwd"],
+              packed_bwd_err, pb_ms, pb_plain,
               pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:776", launches12_train["flash"],

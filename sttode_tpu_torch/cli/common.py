@@ -7,7 +7,7 @@ on the card unless the caller asks for the CPU). The reference's
 dataset-conditional defaults: NBA 5/10 steps and batches of 32 scenes,
 ETH-UCY and SDD 8/12 steps and one scene a step (``--scenes_per_batch``
 stacks more), ETH's ``--max_train_agent`` 32, SDD's pixels ÷ 50. What is
-not ported yet raises ``NotImplementedError`` naming it: the flags of
+not ported yet raises ``NotImplementedError`` naming it: a CLI's flags of
 machinery the port does not have when they are given a non-default value
 (``refuse_unported``), and the config values ``STTODEConfig.validate``
 refuses.
@@ -24,9 +24,6 @@ from sttode_tpu_torch.models.sampler import DIVERSITY_CONFIG, SamplerConfig
 from sttode_tpu_torch.models.sttode import STTODEConfig
 
 ETH_UCY = ("eth", "hotel", "univ", "zara1", "zara2")
-
-# flags whose machinery is not ported, with the one value that runs
-UNPORTED_FLAGS = {"scan_steps": 1, "async_ckpt": False}
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -53,7 +50,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--keep_last_ckpts", type=int, default=0,
                    help="retain only the newest N checkpoints (0 = keep all)")
     p.add_argument("--async_ckpt", action="store_true",
-                   help="not ported: checkpoints are written synchronously")
+                   help="write checkpoints from a background thread, so "
+                        "that training steps overlap the write")
     p.add_argument("--epoch_continue", type=int, default=0)
     p.add_argument("--max_train_agent", type=int, default=100)
     p.add_argument("--no_rand_rot", action="store_true")
@@ -119,14 +117,18 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="comma-separated subset of pred,recover,kl,diverse")
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--scan_steps", type=int, default=1,
-                   help="not ported beyond 1: one optimizer step per call")
+                   help="optimizer steps run in one call over stacked "
+                        "same-bucket batches: on the card one CUDA graph "
+                        "replay (dopri5's while form runs them eagerly); "
+                        "1 = one step a call")
     return p
 
 
-def refuse_unported(args, extra: dict | None = None) -> None:
-    """Raise NotImplementedError naming the first flag whose machinery is
-    not ported and that was given another value than the one that runs."""
-    for flag, ok in {**UNPORTED_FLAGS, **(extra or {})}.items():
+def refuse_unported(args, flags: dict) -> None:
+    """Raise NotImplementedError naming the first of ``flags`` (flag → the
+    one value that runs) whose machinery is not ported and that was given
+    another value."""
+    for flag, ok in flags.items():
         if getattr(args, flag) != ok:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r} is not ported yet")

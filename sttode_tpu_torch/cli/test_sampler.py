@@ -106,7 +106,6 @@ def main(argv=None) -> dict:
                         help="evaluate the last N stage-1 × the last N "
                              "sampler checkpoints")
     args = parser.parse_args(argv)
-    common.refuse_unported(args)
     device = bridge.resolve_device(args.device)
     common.model_config(args)              # refuses unported flag values
     cdir = common.ckpt_dir(args)

@@ -8,11 +8,15 @@ scenes; ETH-UCY and SDD: one scene padded to its agent bucket, or
 ``--no_rand_rot``) → a prefetch thread → the training step on the card
 (``--device cpu`` for the plain paths) → StepLR(``--decay_step``,
 ``--decay_gamma``) set before each epoch →
-a checkpoint every ``--model_save_epoch`` epochs; ``--epoch_continue N``
-resumes from checkpoint N (parameters, Adam state, epoch, config). The
-model's random draws come from a ``torch.Generator`` seeded by ``--seed`` on
-the device. On SIGTERM the run finishes the epoch, writes a checkpoint and
-returns, so that ``--epoch_continue`` resumes it.
+a checkpoint every ``--model_save_epoch`` epochs (from a background
+thread with ``--async_ckpt``); ``--epoch_continue N`` resumes from
+checkpoint N (parameters, Adam state, epoch, config), whatever
+``--scan_steps`` wrote it. ``--scan_steps S`` runs S same-bucket steps a
+call, on the card as one CUDA graph replay; the run prints the step's mode
+("graph" or "eager"). The model's random draws come from a
+``torch.Generator`` seeded by ``--seed`` on the device. On SIGTERM the run
+finishes the epoch, writes a checkpoint and returns, so that
+``--epoch_continue`` resumes it.
 """
 
 from __future__ import annotations
@@ -27,21 +31,23 @@ from sttode_tpu_torch import bridge
 from sttode_tpu_torch.cli import common
 from sttode_tpu_torch.data import nba_batches, prepare_nba_batch, scene_batches
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_init
-from sttode_tpu_torch.train import (checkpoint_path, load_checkpoint,
-                                    make_train_step, save_checkpoint,
-                                    step_lr, train_epoch)
+from sttode_tpu_torch.train import (checkpoint_path, flush_saves,
+                                    load_checkpoint, make_train_step,
+                                    save_checkpoint, step_lr, train_epoch)
 from sttode_tpu_torch.utils.profiling import param_count
 
 
 class TrainRun(NamedTuple):
     """What ``main`` returns: the trained parameters and optimizer, the
     config, the epoch the run started from and, per epoch run, (epoch,
-    learning rate, mean metrics)."""
+    learning rate, mean metrics), and the training step (its ``mode`` and
+    captured graphs, ``step.graph_stats()``)."""
     params: object
     opt: torch.optim.Optimizer
     cfg: STTODEConfig
     start_epoch: int
     history: list
+    step: object = None
 
 
 def batch_stream(args, data, nprng, cfg: STTODEConfig):
@@ -83,10 +89,10 @@ def main(argv=None) -> TrainRun:
         print(f"resumed epoch {start_epoch} from {path}")
     print(f"model parameters: {param_count(params):,}")
 
-    step = make_train_step(cfg, args.lr, device=device)
-    params, opt = step.init(params)
-    if opt_state is not None:
-        opt.load_state_dict(opt_state)
+    step = make_train_step(cfg, args.lr, device=device,
+                           scan_steps=args.scan_steps)
+    params, opt = step.init(params, opt_state)
+    print(f"train step: {step.mode}, {args.scan_steps} step(s) a call")
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     # Preemption: finish the current epoch, checkpoint, and return, so that
@@ -114,7 +120,8 @@ def main(argv=None) -> TrainRun:
             epoch += 1
             if epoch % args.model_save_epoch == 0:
                 path = save_checkpoint(cdir, epoch, params, opt, cfg,
-                                       keep_last=args.keep_last_ckpts or None)
+                                       keep_last=args.keep_last_ckpts or None,
+                                       background=args.async_ckpt)
                 saved_epoch = epoch
                 print(f"saved {path}")
             if preempted["flag"]:
@@ -125,7 +132,8 @@ def main(argv=None) -> TrainRun:
                 break
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
-    return TrainRun(params, opt, cfg, start_epoch, history)
+        flush_saves()
+    return TrainRun(params, opt, cfg, start_epoch, history, step)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,10 @@ Loads the frozen stage-1 net from ``<ckpt_dir>/<dataset>/model_%04d.pt``
 Adam under the reference's lambda decay (``--lr`` for ``--fix_epochs``
 epochs, then linear towards 0; set before each epoch), resumes from the
 newest checkpoint under ``<ckpt_dir>/<dataset>/sampler/`` and writes one
-there every ``--model_save_epoch`` epochs. Batches as in ``cli.train``
-(``batch_stream``, seeded by ``--seed``; the prefetch thread). Runs on the
-card unless ``--device cpu``.
+there every ``--model_save_epoch`` epochs (from a background thread with
+``--async_ckpt``). Batches as in ``cli.train`` (``batch_stream``, seeded
+by ``--seed``; the prefetch thread), ``--scan_steps`` steps a call (one
+CUDA graph replay on the card). Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -26,22 +27,24 @@ from sttode_tpu_torch.cli import common
 from sttode_tpu_torch.cli.train import batch_stream
 from sttode_tpu_torch.models.sampler import SamplerConfig, sampler_init
 from sttode_tpu_torch.models.sttode import STTODEConfig
-from sttode_tpu_torch.train import (checkpoint_path, lambda_lr,
-                                    latest_checkpoint, load_checkpoint,
-                                    make_sampler_train_step, save_checkpoint,
-                                    train_epoch)
+from sttode_tpu_torch.train import (checkpoint_path, flush_saves,
+                                    lambda_lr, latest_checkpoint,
+                                    load_checkpoint, make_sampler_train_step,
+                                    save_checkpoint, train_epoch)
 
 
 class SamplerRun(NamedTuple):
     """What ``main`` returns: the trained sampler parameters and optimizer,
     the sampler's and the frozen net's configs, the epoch the run started
-    from and, per epoch run, (epoch, learning rate, mean metrics)."""
+    from, per epoch run, (epoch, learning rate, mean metrics), and the
+    training step."""
     params: object
     opt: torch.optim.Optimizer
     scfg: SamplerConfig
     cfg: STTODEConfig
     start_epoch: int
     history: list
+    step: object = None
 
 
 def add_sampler_args(parser):
@@ -61,7 +64,6 @@ def main(argv=None) -> SamplerRun:
     parser = add_sampler_args(
         common.base_parser("STTODE stage-2 sampler training (PyTorch)"))
     args = parser.parse_args(argv)
-    common.refuse_unported(args)
     device = bridge.resolve_device(args.device)
     nprng = common.seed_everything(args.seed)
     common.model_config(args)              # refuses unported flag values
@@ -95,10 +97,9 @@ def main(argv=None) -> SamplerRun:
         print(f"resumed sampler epoch {start_epoch}")
 
     step = make_sampler_train_step(cfg, scfg, args.lr, net_params,
-                                   device=device)
-    params, opt = step.init(sampler_params)
-    if opt_state is not None:
-        opt.load_state_dict(opt_state)
+                                   device=device, scan_steps=args.scan_steps)
+    params, opt = step.init(sampler_params, opt_state)
+    print(f"sampler step: {step.mode}, {args.scan_steps} step(s) a call")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     data = common.load_scenes(args, "train")
     history = []
@@ -114,9 +115,11 @@ def main(argv=None) -> SamplerRun:
               f"lr {lr:.3e} {msg}")
         if (epoch + 1) % args.model_save_epoch == 0:
             path = save_checkpoint(sdir, epoch + 1, params, opt, scfg,
-                                   keep_last=args.keep_last_ckpts or None)
+                                   keep_last=args.keep_last_ckpts or None,
+                                   background=args.async_ckpt)
             print(f"saved {path}")
-    return SamplerRun(params, opt, scfg, cfg, start_epoch, history)
+    flush_saves()
+    return SamplerRun(params, opt, scfg, cfg, start_epoch, history, step)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,8 @@ _SENTINEL = object()
 
 def tree_to(item, fn: Callable[[torch.Tensor], torch.Tensor]):
     """Apply ``fn`` to every tensor of ``item``: tensors, dataclasses (the
-    port's ``Batch``), tuples and lists of them; anything else (numpy
-    arrays, numbers, None) is kept as it is."""
+    port's ``Batch``), NamedTuples (``TrainNoise``), tuples and lists of
+    them; anything else (numpy arrays, numbers, None) is kept as it is."""
     if isinstance(item, torch.Tensor):
         return fn(item)
     if dataclasses.is_dataclass(item) and not isinstance(item, type):
@@ -32,6 +32,8 @@ def tree_to(item, fn: Callable[[torch.Tensor], torch.Tensor]):
             f.name: fn(getattr(item, f.name))
             for f in dataclasses.fields(item)
             if isinstance(getattr(item, f.name), torch.Tensor)})
+    if isinstance(item, tuple) and hasattr(item, "_fields"):
+        return type(item)(*(tree_to(v, fn) for v in item))
     if isinstance(item, (tuple, list)):
         return type(item)(tree_to(v, fn) for v in item)
     return item

@@ -220,8 +220,12 @@ _PACKED_MAX = 8
 def _packed_weights(sources: list, dtype: torch.dtype, d2: int,
                     zw: int) -> tuple:
     """``pack_select_weights`` of ``sources`` (the 24 parameter tensors) in
-    ``dtype``, kept while every source is alive and unchanged in place."""
-    if any(t.is_inference() for t in sources):
+    ``dtype``, kept while every source is alive and unchanged in place.
+    While a CUDA graph is being captured the packing is always done and
+    never cached: the hit-or-miss decision is the host's, and a replay
+    after an in-place update of the weights must repack them."""
+    if any(t.is_inference() for t in sources) or (
+            sources[0].is_cuda and torch.cuda.is_current_stream_capturing()):
         return pack_select_weights(_convert(sources, dtype), d2, zw)
     key = (dtype, d2, zw, tuple(id(t) for t in sources))
     hit = _PACKED.get(key)

@@ -169,7 +169,7 @@ def sampler_kld(sampler_dist: DiagNormal, vae_dist: DiagNormal,
     else:
         denom = agent_num
     loss_uw = torch.sum(kl) / denom
-    loss_uw = torch.maximum(loss_uw, loss_uw.new_tensor(min_clip))
+    loss_uw = torch.maximum(loss_uw, torch.full_like(loss_uw, min_clip))
     return weight * loss_uw, loss_uw
 
 

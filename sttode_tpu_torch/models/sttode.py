@@ -271,7 +271,7 @@ def _add_category(x: torch.Tensor) -> torch.Tensor:
     """Append a 3-dim one-hot category marking only the last agent slot."""
     B, N, _ = x.shape
     category = x.new_zeros((B, N, 3))
-    category[:, N - 1, 2] = 1.0
+    category[:, N - 1, 2].fill_(1.0)
     return torch.cat([x, category], dim=-1)
 
 
@@ -471,7 +471,8 @@ def loss_kl(qz: DiagNormal, pz: DiagNormal, min_clip, valid):
     """Σ KL / (real agent count), floored at min_clip with max() (quirk Q5:
     zero gradient while the unfloored loss is below the floor)."""
     loss = _masked_mean(torch.sum(qz.kl(pz), dim=-1), valid)
-    return torch.maximum(loss, loss.new_tensor(min_clip))
+    # the floor made on the device (a host scalar tensor would be copied)
+    return torch.maximum(loss, torch.full_like(loss, min_clip))
 
 
 def loss_diverse(pred_k, target, valid):
@@ -608,7 +609,8 @@ def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
                                          pz_sample, state0, K)
             best = torch.argmin(dist, dim=1)                   # [M]
             # the winners' latents, gathered from the non-stopped samples
-            z_best = pz_sample.reshape(M, K, -1)[torch.arange(M), best]
+            z_best = pz_sample.reshape(M, K, -1)[
+                torch.arange(M, device=best.device), best]
             # ONE differentiable decode for (posterior, winner), interleaved
             # as a sample axis of 2
             pf2 = past_feature.repeat_interleave(2, dim=0)

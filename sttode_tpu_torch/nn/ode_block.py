@@ -36,8 +36,12 @@ def ode_encoder(params: list, src: torch.Tensor, cfg: LayerConfig, *,
         return encoder_stack(p, y, cfg, mask=mask, kv_valid=kv_valid,
                              drop=drop)
 
+    # dopri5 keeps its time arithmetic on the state's device: the grid is
+    # made there (a host grid would be copied to the device, a host sync
+    # that a CUDA graph capture refuses); the fixed grid is read on the host
     ts = torch.linspace(0.0, time, steps + 1, dtype=torch.float64
-                        if src.dtype == torch.float64 else torch.float32)
+                        if src.dtype == torch.float64 else torch.float32,
+                        device=src.device if method == "dopri5" else "cpu")
     integrate = odeint_adjoint if adjoint else odeint
     z = integrate(rhs, src, ts, params, method=method, rtol=rtol, atol=atol,
                   scan_budget=scan_budget)

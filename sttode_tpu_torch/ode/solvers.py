@@ -340,6 +340,41 @@ def _dopri5_interval_scan(f, y0: list, k1: list, t0, t1, rtol, atol,
     return y, k1, (n, n_acc, (t1 - t).abs() <= tol)
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether ``t``'s device stream is being captured into a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+# the bool device tensor that a capture's scan-form solves OR their
+# exhaustion into (module-wide: autograd runs a captured backward, the
+# adjoint's solves included, on its own thread)
+_EXHAUSTED: torch.Tensor | None = None
+
+
+@contextlib.contextmanager
+def exhaustion_flag(flag: torch.Tensor):
+    """Inside, a scan-form dopri5 solve that is captured into a CUDA graph
+    ORs whether its budget ran out into ``flag`` (a 0-dim bool tensor on
+    the device, made before the capture), in place and on the device; the
+    graph's owner reads it after replays (``warn_exhausted``)."""
+    global _EXHAUSTED
+    prev, _EXHAUSTED = _EXHAUSTED, flag
+    try:
+        yield flag
+    finally:
+        _EXHAUSTED = prev
+
+
+def warn_exhausted(kind: str, budget: int, stacklevel: int = 2) -> None:
+    """The warning of a dopri5 solve whose ``kind`` budget ran out."""
+    # otherwise silent: the state stops advancing mid-interval
+    warnings.warn(
+        f"sttode_tpu_torch.ode: dopri5 {kind}={budget} exhausted before "
+        f"reaching an interval end — the returned trajectory (and any "
+        f"gradients through it) is truncated mid-interval; raise {kind} "
+        f"or loosen rtol/atol", RuntimeWarning, stacklevel=stacklevel + 1)
+
+
 def _dopri5_odeint(f, y0: list, ts: torch.Tensor, rtol, atol,
                    max_steps: int, scan_budget: int | None):
     """→ (per-leaf solutions stacked over ts, stats)."""
@@ -356,6 +391,19 @@ def _dopri5_odeint(f, y0: list, ts: torch.Tensor, rtol, atol,
                                         atol, max_steps)
         ys.append(y)
         counts.append(c)
+    if scan_budget is not None and _capturing(ts):
+        # under a CUDA graph capture the counts stay on the device: the
+        # steps are not read, and exhaustion is ORed into the capture's
+        # flag (``exhaustion_flag``) for its owner to warn of
+        exhausted = torch.logical_not(torch.stack([c[2] for c in counts])
+                                      .all())
+        if _EXHAUSTED is not None:
+            _EXHAUSTED.logical_or_(exhausted)
+        n_intervals = ts.shape[0] - 1
+        return [torch.stack(leaf) for leaf in zip(*ys)], {
+            "attempted_steps": None, "accepted_steps": None,
+            "rhs_evals": 1 + n_intervals * (1 + 6 * scan_budget),
+            "budget_exhausted": exhausted}
     if scan_budget is not None:
         # the one host read of the scan form
         flat = torch.stack([torch.stack([a, b, d.to(torch.int32)])
@@ -366,12 +414,7 @@ def _dopri5_odeint(f, y0: list, ts: torch.Tensor, rtol, atol,
     budget = scan_budget if scan_budget is not None else max_steps
     kind = "scan_budget" if scan_budget is not None else "max_steps"
     if exhausted:
-        # otherwise silent: the state stops advancing mid-interval
-        warnings.warn(
-            f"sttode_tpu_torch.ode: dopri5 {kind}={budget} exhausted before "
-            f"reaching an interval end — the returned trajectory (and any "
-            f"gradients through it) is truncated mid-interval; raise {kind} "
-            f"or loosen rtol/atol", RuntimeWarning, stacklevel=3)
+        warn_exhausted(kind, budget, stacklevel=3)
     n_intervals = ts.shape[0] - 1
     # 1 initial k1, per interval 1 starting-step probe, and 6 per attempt
     # (FSAL reuses k7 only on accept); the scan form evaluates all 6 stages
@@ -418,7 +461,10 @@ def odeint(func: Callable, y0: Tree, ts, *args, method: str = "euler",
     through (the while form raises ValueError under autograd: use the scan
     form or :func:`odeint_adjoint`). ``return_stats=True`` returns
     ``(ys, stats)``: attempted and accepted steps, RHS evaluations and
-    ``budget_exhausted`` (Python values). Exhaustion also warns.
+    ``budget_exhausted`` (Python values; while a CUDA graph is captured,
+    the scan form reads nothing: its steps are None, ``budget_exhausted``
+    a 0-dim device tensor, also ORed into an ``exhaustion_flag``).
+    Exhaustion also warns.
     ``matmul_precision``: None pins adaptive methods to "float32" and
     leaves fixed-grid ones on the ambient setting; or "float32",
     "tensorfloat32", "bfloat16" or "inherit" (see :func:`matmul_precision`).

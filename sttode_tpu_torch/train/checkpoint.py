@@ -11,7 +11,16 @@ reconstruct-from-checkpoint property). The tree is stored as plain dicts and
 lists (parameter NamedTuples become tagged dicts), so the file loads with
 ``torch.load(weights_only=True)``: no pickled classes. A save writes a
 temporary file beside the target and renames it into place, so a half-written
-file is never listed or read. Reading a JAX orbax checkpoint is not ported.
+file is never listed or read. The optimizer state is stored device-free
+(tensors on the CPU, the learning rate a float, ``capturable`` off), so a
+file is the same whatever device and ``scan_steps`` wrote it, and resumes
+on either. ``save_checkpoint(..., background=True)`` (``--async_ckpt``)
+snapshots the state to host memory and writes the file from a background
+thread, JAX's contract: a new save first waits for the one in flight,
+``keep_last`` prunes only after the new file is in place, and
+``wait_for_saves`` / ``flush_saves`` (the same here: the file has no
+sidecars) and ``load_checkpoint`` wait for it. Reading a JAX orbax
+checkpoint is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 
 import torch
 
@@ -45,7 +55,7 @@ def _to_plain(tree):
                 **{f: _to_plain(getattr(tree, f)) for f in tree._fields}}
     if isinstance(tree, (list, tuple)):
         return [_to_plain(v) for v in tree]
-    return tree.detach().to("cpu")
+    return tree.detach().to("cpu", copy=True)
 
 
 def _from_plain(tree):
@@ -91,30 +101,91 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return checkpoint_path(ckpt_dir, epochs[-1]) if epochs else None
 
 
-def save_checkpoint(ckpt_dir: str, epoch: int, params,
-                    opt: torch.optim.Optimizer,
-                    cfg: STTODEConfig | SamplerConfig,
-                    keep_last: int | None = None) -> str:
-    """Write ``<ckpt_dir>/model_%04d.pt`` with the parameters (moved to the
-    CPU), the optimizer's ``state_dict``, the epoch and the config; return
-    its path. ``keep_last`` then deletes all but the newest that many
-    checkpoints (at least one: the one just written)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = checkpoint_path(ckpt_dir, epoch)
+def _opt_to_plain(opt: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict`` copied to the CPU, device-free: the
+    learning rate a float and ``capturable`` off (``TrainStep.init`` puts
+    an Adam on the card back into its capturable form)."""
+    sd = opt.state_dict()
+    state = {i: {k: v.detach().to("cpu", copy=True)
+                 if isinstance(v, torch.Tensor) else v
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    groups = [{**g, "lr": float(g["lr"]),
+               **({"capturable": False} if "capturable" in g else {})}
+              for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
+# the background save in flight: its thread and the error it raised
+_inflight: dict = {"thread": None, "error": None}
+
+
+def wait_for_saves() -> None:
+    """Block until the background save in flight (if any) has committed;
+    re-raise its error."""
+    thread = _inflight["thread"]
+    if thread is not None:
+        thread.join()
+        _inflight["thread"] = None
+    err, _inflight["error"] = _inflight["error"], None
+    if err is not None:
+        raise err
+
+
+# JAX's flush also writes deferred sidecars and prunes; the port's file has
+# no sidecars and its save prunes after its own commit
+flush_saves = wait_for_saves
+
+
+def _write(payload: dict, ckpt_dir: str, path: str,
+           keep_last: int | None) -> None:
     tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save({"params": _to_plain(params), "opt_state": opt.state_dict(),
-                "epoch": int(epoch), "config": _config_to_json(cfg)}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     if keep_last is not None:
         for e in checkpoint_epochs(ckpt_dir)[:-max(keep_last, 1)]:
             os.remove(checkpoint_path(ckpt_dir, e))
+
+
+def _write_in_background(*args) -> None:
+    try:
+        _write(*args)
+    except BaseException as e:  # noqa: BLE001 — re-raised by wait_for_saves
+        _inflight["error"] = e
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, params,
+                    opt: torch.optim.Optimizer,
+                    cfg: STTODEConfig | SamplerConfig,
+                    keep_last: int | None = None, *,
+                    background: bool = False) -> str:
+    """Write ``<ckpt_dir>/model_%04d.pt`` with the parameters and the
+    optimizer's state (copied to the CPU), the epoch and the config; return
+    its path. ``keep_last`` then deletes all but the newest that many
+    checkpoints (at least one: the one just written). A save first waits
+    for a background save in flight. ``background=True`` returns once the
+    state is copied to host memory and writes the file from a background
+    thread (``wait_for_saves`` joins it)."""
+    wait_for_saves()
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = checkpoint_path(ckpt_dir, epoch)
+    payload = {"params": _to_plain(params), "opt_state": _opt_to_plain(opt),
+               "epoch": int(epoch), "config": _config_to_json(cfg)}
+    if background:
+        thread = threading.Thread(target=_write_in_background, args=(
+            payload, ckpt_dir, path, keep_last), name="save_checkpoint")
+        _inflight["thread"] = thread
+        thread.start()
+    else:
+        _write(payload, ckpt_dir, path, keep_last)
     return path
 
 
 def load_checkpoint(path: str, device: torch.device | str = "cpu"):
     """Restore (params, optimizer state_dict, epoch, cfg); the tensors land
     on ``device``. Load the state into an optimizer over the restored
-    parameters with ``opt.load_state_dict``."""
+    parameters with ``TrainStep.init(params, opt_state)``. A background
+    save in flight is waited for first."""
+    wait_for_saves()
     ck = torch.load(path, map_location=device, weights_only=True)
     return (_from_plain(ck["params"]), ck["opt_state"], int(ck["epoch"]),
             _config_from_json(ck["config"]))

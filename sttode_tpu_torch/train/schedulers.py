@@ -33,7 +33,12 @@ def lambda_lr(base_lr: float, fix_epochs: int, total_epochs: int):
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
     """Set the learning rate of every parameter group of ``opt``; its
-    moments are kept."""
+    moments are kept. A learning rate held as a tensor (a capturable Adam
+    on the card) is filled in place, so that a captured step's replays
+    read the new value."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return opt

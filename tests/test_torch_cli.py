@@ -249,8 +249,13 @@ def test_cli_train_trains_saves_and_resumes(tmp_path, capsys):
     assert all(int(s["step"]) == 2 * steps
                for s in resumed.opt.state_dict()["state"].values())
     assert all(g["lr"] == 5e-4 for g in resumed.opt.param_groups)
-    with pytest.raises(NotImplementedError, match="--scan_steps"):
-        cli_train.main(args + ["--scan_steps", "4"])
+    # --scan_steps is ported (tests/test_torch_scan.py): a stacked call of
+    # the epoch's two steps continues the resumed run
+    scanned = cli_train.main(args + ["--num_epochs", "3", "--epoch_continue",
+                                     "2", "--scan_steps", "4"])
+    assert [h[:2] for h in scanned.history] == [(2, 2.5e-4)]
+    assert all(int(s["step"]) == 3 * steps
+               for s in scanned.opt.state_dict()["state"].values())
     with pytest.raises(NotImplementedError, match="--supervise"):
         cli_train.main(args + ["--supervise"])
     with pytest.raises(NotImplementedError, match="attn_impl"):
@@ -351,8 +356,11 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         tmp_path, "--dataset", "eth", "--compat", "tpu", "--attn_axis",
         "agent", "--scenes_per_batch", "2", "--num_epochs", "1"))
     assert len(run.history) == 1
-    with pytest.raises(NotImplementedError, match="--async_ckpt"):
-        cli_train.main(_cli_args(tmp_path, "--async_ckpt"))
+    # --async_ckpt is ported: the background save is in place when the run
+    # returns (tests/test_torch_scan.py)
+    run = cli_train.main(_cli_args(tmp_path, "--async_ckpt", "--num_epochs",
+                                   "1", "--model_save_epoch", "1"))
+    assert tck.checkpoint_epochs(str(tmp_path / "ck" / "nba")) == [1]
     # learn_prior and dopri5 are ported (test_torch_ode_model.py); training
     # through dopri5's while form has no gradient, as in JAX, and the error
     # names the two forms that have one

@@ -1931,3 +1931,355 @@ def test_dopri5_predictor_on_card_matches_plain_route(cuda_device):
     for a, b in zip(got, want):
         assert np.isfinite(a).all()
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# scan_steps: S optimizer steps captured as one CUDA graph                    #
+# --------------------------------------------------------------------------- #
+
+_SCAN_SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4,
+                   past_length=5, future_length=10, min_clip=0.0)
+
+
+def _scan_batches(device, n, B=4, N=8, seed=30):
+    out = []
+    for i in range(n):
+        scenes = make_social_scenes(B, agents_range=(N, N), obs_len=5,
+                                    pred_len=10, seed=seed + i)
+        valid = np.ones((B, N), np.float32)
+        valid[i % B, N - 1] = 0.0
+        batch, _ = prepare_scene_group(
+            np.stack([s["obs"] for s in scenes]),
+            np.stack([s["pred"] for s in scenes]), valid, training=True,
+            rng=np.random.default_rng(seed + i))
+        out.append(batch.to(device))
+    return out
+
+
+def _scan_noise(cfg, batch, gen):
+    M, D = batch.batch_size * batch.agent_num, cfg.hidden_dim
+    dev = batch.past.device
+    return tm.TrainNoise(
+        torch.rand(M, cfg.past_length, D, device=dev, generator=gen) >= 0.1,
+        torch.rand(M, cfg.future_length, D, device=dev, generator=gen) >= 0.1,
+        torch.randn(M, cfg.zdim, device=dev, generator=gen),
+        torch.randn(M * cfg.sample_k, cfg.zdim, device=dev, generator=gen))
+
+
+def _scan_runs(make, params, batches, noises, S):
+    """Eager single steps and calls of the step captured over S steps from
+    the same parameters and noise (the first call runs its chunk eagerly as
+    the capture's warm-up, the others replay): (eager metrics, graph
+    metrics, eager (params, opt), graph (params, opt), the graph step). The
+    eager steps run on the graph's Adam form (capturable: the bias
+    correction on the device), so that both sides compute the same
+    updates; a plain Adam rounds them apart."""
+    from sttode_tpu_torch.train import stack_batches, stack_noise
+    eager, graph = make(1), make(S)
+    assert graph.mode == "graph" and eager.mode == "eager"
+    pe, oe = graph.init(params)
+    pg, og = graph.init(params)
+    gen = torch.Generator(device=batches[0].past.device).manual_seed(3)
+    me = [eager(pe, oe, b, gen, noise=n)[2] for b, n in zip(batches, noises)]
+    mg = [graph(pg, og, stack_batches(batches[i:i + S]), gen,
+                noise=None if noises[0] is None
+                else stack_noise(noises[i:i + S]))[2]
+          for i in range(0, len(batches), S)]
+    torch.cuda.synchronize()
+    return me, mg, (pe, oe), (pg, og), graph
+
+
+def _assert_same_runs(me, mg, run_e, run_g):
+    """Losses, parameters and Adam moments within 1e-4 × max(1, |x|) (the
+    eager and captured steps run the same kernels and the same Adam form
+    on the same inputs: measured equal bit for bit)."""
+    for k in me[0]:
+        a = torch.cat([m[k] for m in mg])
+        b = torch.stack([m[k] for m in me])
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max())), k
+    for (pa, oa), (pb, ob) in ((run_g, run_e),):
+        for a, b in zip(bridge.tree_leaves(pa), bridge.tree_leaves(pb)):
+            assert float((a - b).abs().max()) <= 1e-4 * max(
+                1.0, float(b.abs().max()))
+        for a, b in zip(oa.param_groups[0]["params"],
+                        ob.param_groups[0]["params"]):
+            # a leaf no step reaches has no state on either side
+            assert oa.state.get(a, {}).keys() == ob.state.get(b, {}).keys()
+            for key in oa.state.get(a, {}):
+                x, y = oa.state[a][key], ob.state[b][key]
+                assert float((x - y).abs().max()) <= 1e-4 * max(
+                    1.0, float(y.abs().max())), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fused_bf16", "packed", "stage2",
+                                  "dopri5_scan"])
+def test_captured_step_equals_eager_steps(cuda_device, kind):
+    """The warm-up chunk and two replays of the captured S-step call give
+    the losses, parameters and Adam moments of 3·S eager steps with the
+    same injected noise:
+    stage 1 on the whole-S kernels with kernel B bf16 and on the packed
+    kernels with kernel B fp32, stage 2 (P forward only), and the
+    scan-budget dopri5 step."""
+    S = 2 if kind == "dopri5_scan" else 4
+    batches = _scan_batches(cuda_device, 3 * S)
+    if kind == "stage2":
+        cfg = tm.STTODEConfig(**_SCAN_SMALL).validate()
+        scfg = ts.SamplerConfig(nk=4, nz=8, qnet_mlp=(32, 16),
+                                train_w_mean=False)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        noises = [torch.randn(1, 8, device=cuda_device, generator=gen)
+                  for _ in batches]
+        net = tm.sttode_init(4, cfg)
+        params = ts.sampler_init(5, scfg, pred_model_dim=16,
+                                 past_feature_dim=32)
+
+        def make(steps):
+            return make_sampler_train_step(cfg, scfg, 1e-3, net,
+                                           device=cuda_device,
+                                           scan_steps=steps)
+    else:
+        kw = {"fused_bf16": dict(attn_impl="fused", select_impl="auto",
+                                 select_dtype="bfloat16",
+                                 decode_dtype="bfloat16"),
+              "packed": dict(attn_impl="packed", select_impl="auto"),
+              "dopri5_scan": dict(ode_method="dopri5", ode_scan_budget=12,
+                                  ode_rtol=1e-3, ode_atol=1e-6,
+                                  select_impl="auto")}[kind]
+        cfg = tm.STTODEConfig(**_SCAN_SMALL, **kw).validate()
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        noises = [_scan_noise(cfg, b, gen) for b in batches]
+        params = tm.sttode_init(4, cfg)
+
+        def make(steps):
+            return make_train_step(cfg, 1e-3, device=cuda_device,
+                                   scan_steps=steps)
+    me, mg, run_e, run_g, graph = _scan_runs(make, params, batches, noises, S)
+    _assert_same_runs(me, mg, run_e, run_g)
+    stats = graph.graph_stats()
+    assert stats["graphs"] == 1 and stats["replays"] == 2
+    assert stats["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_replays_draw_fresh_noise_and_count_launches(cuda_device):
+    """Without injected noise each replay draws anew from the registered
+    generator, and its draws are those of eager steps from the same seed
+    (the rate set to 0, so the parameters stay); the launch counters add
+    the captured launches once a replay."""
+    from sttode_tpu_torch.train import set_lr, stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="packed",
+                          select_impl="auto").validate()
+    batches = _scan_batches(cuda_device, 3)
+    stacked = stack_batches(batches)
+    eager = make_train_step(cfg, 0.0, device=cuda_device)
+    graph = make_train_step(cfg, 0.0, device=cuda_device, scan_steps=3)
+    pe, oe = eager.init(tm.sttode_init(7, cfg))
+    pg, og = graph.init(tm.sttode_init(7, cfg))
+    set_lr(oe, 0.0)
+    ge = torch.Generator(device=cuda_device)
+    gg = torch.Generator(device=cuda_device)
+    graph(pg, og, stacked, gg)                    # warm-up and capture
+    ge.manual_seed(9)
+    gg.manual_seed(9)
+    got = []
+    for _ in range(2):
+        want = torch.stack([eager(pe, oe, b, ge)[2]["total"]
+                            for b in batches])
+        before = (tpacked.packed_geodesic_attention.launches,
+                  tpacked.packed_geodesic_attention_backward.launches,
+                  tsd.select_decode.launches)
+        got.append(graph(pg, og, stacked, gg)[2]["total"])
+        torch.cuda.synchronize()
+        assert (tpacked.packed_geodesic_attention.launches - before[0],
+                tpacked.packed_geodesic_attention_backward.launches
+                - before[1], tsd.select_decode.launches - before[2]) == \
+            (2 * 3, 2 * 3, 3)
+        assert torch.equal(got[-1], want)
+    assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+def test_set_lr_between_replays_takes_effect(cuda_device):
+    from sttode_tpu_torch.train import set_lr, stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="packed").validate()
+    batches = _scan_batches(cuda_device, 2)
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    params, opt = step.init(tm.sttode_init(8, cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    stacked = stack_batches(batches)
+    step(params, opt, stacked, gen)
+    lr = opt.param_groups[0]["lr"]
+    assert isinstance(lr, torch.Tensor) and lr.is_cuda
+    set_lr(opt, 0.0)
+    assert opt.param_groups[0]["lr"] is lr
+    before = [t.detach().clone() for t in bridge.tree_leaves(params)]
+    step(params, opt, stacked, gen)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in
+               zip(bridge.tree_leaves(params), before))
+    set_lr(opt, 1e-3)
+    step(params, opt, stacked, gen)
+    torch.cuda.synchronize()
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(bridge.tree_leaves(params), before))
+    assert step.graph_stats()["graphs"] == 1
+
+
+@pytest.mark.cuda
+def test_kernel_b_packs_inside_the_capture(cuda_device, monkeypatch):
+    """Kernel B's packed-weight cache decides on the host: under capture
+    the packing is always recorded and never cached, so replays after
+    Adam's in-place updates select with the current weights (the
+    captured losses equal eager ones over several replays)."""
+    from sttode_tpu_torch.train import stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="packed",
+                          select_impl="fused").validate()
+    batches = _scan_batches(cuda_device, 2)
+    real = tsd.pack_select_weights
+    captured = []
+
+    def pack(*a, **kw):
+        out = real(*a, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            captured.append(out)
+        return out
+
+    monkeypatch.setattr(tsd, "pack_select_weights", pack)
+    step = make_train_step(cfg, 1e-1, device=cuda_device, scan_steps=2)
+    params, opt = step.init(tm.sttode_init(9, cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    step(params, opt, stack_batches(batches), gen)
+    assert len(captured) == 2                    # one packing a step
+    assert not any(v[2] is c for v in tsd._PACKED.values() for c in captured)
+    # with a large rate the weights move far each step; replays still match
+    # eager steps, which repack after each update
+    noises = [_scan_noise(cfg, b, gen) for b in batches * 3]
+    me, mg, run_e, run_g, _ = _scan_runs(
+        lambda s: make_train_step(cfg, 1e-2, device=cuda_device,
+                                  scan_steps=s),
+        tm.sttode_init(9, cfg), batches * 3, noises, 2)
+    _assert_same_runs(me, mg, run_e, run_g)
+
+
+@pytest.mark.cuda
+def test_eager_select_decode_after_replays_packs_the_replayed_weights(
+        cuda_device):
+    """A replay writes the parameters without moving their versions unless
+    the step marks them changed: an eager kernel-B call after replays must
+    pack the weights the replays wrote, not those of an earlier eager
+    call (its cache is keyed on versions)."""
+    from sttode_tpu_torch.train import stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="packed",
+                          select_impl="fused").validate()
+    batches = _scan_batches(cuda_device, 2)
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    params, opt = step.init(tm.sttode_init(12, cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    stacked = stack_batches(batches)
+    b = batches[0]
+    M = b.batch_size * b.agent_num
+    z_km = torch.randn(cfg.sample_k, M, cfg.zdim, device=cuda_device,
+                       generator=gen)
+
+    def decode():
+        with torch.inference_mode():
+            return tsd.select_decode(
+                params, tm.encode_past(params, cfg, b), z_km,
+                tm.decode_block0_state(params, b.past),
+                b.past.reshape(M, -1),
+                (b.future - b.cur_location).reshape(M, -1))
+
+    step(params, opt, stacked, gen)               # warm-up and capture
+    first = decode()
+    step(params, opt, stacked, gen)               # a replay
+    after = decode()
+    tsd._PACKED.clear()
+    fresh = decode()
+    assert step.graph_stats()["replays"] == 1
+    assert torch.isfinite(after).all()
+    assert torch.equal(after, fresh) and not torch.equal(after, first)
+
+
+@pytest.mark.cuda
+def test_replayed_scan_budget_exhaustion_warns(cuda_device):
+    """dopri5's scan form under capture keeps its exhaustion on the device:
+    after replays whose budget ran out, the step's ``check_budget`` (which
+    ``train_epoch`` calls at its log lines and its end) warns, once."""
+    import warnings
+    from sttode_tpu_torch.train import stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, ode_method="dopri5",
+                          ode_scan_budget=1, ode_rtol=1e-7,
+                          ode_atol=1e-9).validate()
+    stacked = stack_batches(_scan_batches(cuda_device, 2))
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    assert step.mode == "graph"
+    params, opt = step.init(tm.sttode_init(13, cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    with pytest.warns(RuntimeWarning, match="scan_budget=1 exhausted"):
+        step(params, opt, stacked, gen)           # the eager warm-up warns
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        step(params, opt, stacked, gen)           # a replay reads nothing
+    with pytest.warns(RuntimeWarning, match="scan_budget=1 exhausted"):
+        step.check_budget()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        step.check_budget()
+
+
+@pytest.mark.cuda
+def test_while_form_steps_run_eagerly(cuda_device):
+    from sttode_tpu_torch.train import stack_batches, stack_noise
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, ode_method="dopri5",
+                          ode_adjoint=True, ode_rtol=1e-3,
+                          ode_atol=1e-6).validate()
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    assert step.mode == "eager"
+    assert make_train_step(cfg, 1e-3, device=cuda_device).mode == "eager"
+    batches = _scan_batches(cuda_device, 2)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    noises = [_scan_noise(cfg, b, gen) for b in batches]
+    one = make_train_step(cfg, 1e-3, device=cuda_device)
+    p1, o1 = one.init(tm.sttode_init(10, cfg))
+    p2, o2 = step.init(tm.sttode_init(10, cfg))
+    want = [one(p1, o1, b, noise=n)[2]["total"]
+            for b, n in zip(batches, noises)]
+    got = step(p2, o2, stack_batches(batches), noise=stack_noise(noises))
+    assert torch.equal(got[2]["total"], torch.stack(want))
+    assert step.graphs == {}
+
+
+@pytest.mark.cuda
+def test_captured_step_makes_no_host_sync(cuda_device, monkeypatch):
+    """The warm-up chunk, the capture and the replays run under
+    ``set_sync_debug_mode("error")``; a host read put into the step makes
+    the capture raise, and the error propagates. Last in the file: a
+    failed capture is left to the CUDA runtime."""
+    from sttode_tpu_torch.train import stack_batches
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="fused",
+                          select_impl="auto").validate()
+    stacked = stack_batches(_scan_batches(cuda_device, 2))
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    params, opt = step.init(tm.sttode_init(11, cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            step(params, opt, stacked, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    real = tm.loss_kl
+
+    def synced(*a, **kw):
+        out = real(*a, **kw)
+        float(out)                                # a host read
+        return out
+
+    monkeypatch.setattr(tm, "loss_kl", synced)
+    bad = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    p2, o2 = bad.init(tm.sttode_init(11, cfg))
+    with pytest.raises(RuntimeError):
+        bad(p2, o2, stacked, gen)
+    torch.cuda.synchronize()

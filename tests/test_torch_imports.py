@@ -63,7 +63,8 @@ MODULES = sorted(
                                                  ".nba", "metrics",
                                                  "profiling", ".eth_ucy",
                                                  ".sdd", ".batching",
-                                                 ".prefetch", ".binding"))])
+                                                 ".prefetch", ".binding",
+                                                 ".graph", ".counters"))])
 def test_module_import_builds_and_parses_nothing(monkeypatch, name):
     """Importing a module of the port (the CLIs among them) compiles no
     kernel and reads no command line: a bad argv changes nothing."""

@@ -668,8 +668,8 @@ def test_cli_trainsampler_trains_resumes_and_test_sampler_sweeps(
 def test_cli_sampler_parsers_match_jax_and_refuse(tmp_path):
     """The stage-2 flags and their defaults equal JAX's (the port adds
     ``--device``), so does ``sampler_config`` for every dataset; the CLIs
-    exit on --nz ≠ the net's zdim with JAX's message, on missing
-    checkpoints, and refuse what is not ported."""
+    exit on --nz ≠ the net's zdim with JAX's message and on missing
+    checkpoints, and take --scan_steps and --async_ckpt."""
     tparser = cli_trainsampler.add_sampler_args(common.base_parser("x"))
     jparser = jtrainsampler.add_sampler_args(jcommon.base_parser("x"))
     targs, jargs = vars(tparser.parse_args([])), vars(jparser.parse_args([]))
@@ -691,6 +691,9 @@ def test_cli_sampler_parsers_match_jax_and_refuse(tmp_path):
     with pytest.raises(SystemExit, match=r"--nz 32 must equal the frozen "
                                          r"net's zdim 8 .*pass --nz 8"):
         cli_trainsampler.main(args + ["--num_epochs", "1"])
-    for flag in (["--scan_steps", "2"], ["--async_ckpt"]):
-        with pytest.raises(NotImplementedError, match=flag[0][2:]):
-            cli_trainsampler.main(args + SAMPLER_FLAGS + flag)
+    # --scan_steps and --async_ckpt are ported (tests/test_torch_scan.py)
+    run = cli_trainsampler.main(args + SAMPLER_FLAGS + [
+        "--num_epochs", "1", "--scan_steps", "2", "--async_ckpt"])
+    assert len(run.history) == 1
+    assert tck.checkpoint_epochs(str(tmp_path / "ck" / "eth" /
+                                     "sampler")) == [1]
