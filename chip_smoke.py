@@ -137,7 +137,8 @@ paths, then drives both paths at the full width of the repo's model
            magnitude), ms a solve, µs and P launches an evaluation, idle
            share; one solve under TF32 (printed); one training step at
            B = 32 x 11 on both routes with the same noise for dopri5 +
-           adjoint at the default tolerances, dopri5 + scan budget 24 at
+           adjoint at 1e-5 / 1e-7 (the trunk solve's 92 RHS evaluations,
+           not the default tolerances' 416), dopri5 + scan budget 24 at
            1e-5 / 1e-7 (P, Q and kernel B "dist"; losses within TRAIN_TOL,
            the gradients held to the float64 plain route as phase 16
            holds q_A) and learn_prior on euler (TRAIN_TOL); dropout 0.1
@@ -165,6 +166,27 @@ paths, then drives both paths at the full width of the repo's model
            --async_ckpt`` for 1 + 1 resumed epoch (the resume reads the
            background-saved file) and ``cli.trainsampler --scan_steps
            16`` for 1 epoch.
+  phase 19 the decoder side and the last training options
+           (``decoder_phase``; d_model 64, 8 heads, ff 1024, one layer,
+           time 12): (a) ``decoder_stack`` forced onto packed (tgt 32,
+           memory 24: P, Q), fused (128 / 96 and the square 128 / 128, Q3
+           swapped: A, C) and flash (256 / 2304: F, Fdq, Fdkv), and
+           ``ode_decoder`` on fused, each against the plain route forward
+           and backward (outputs within MODEL_TOL, every decoder leaf's,
+           tgt's and memory's gradient within TRAIN_TOL × its largest
+           magnitude, the kinks rule at 256 / 2304; None weights), with
+           ms beside the plain route's; (b) ``mhgsa`` with ``bias_kv``,
+           ``add_zero_attn`` and both at [11, 16, 64] (packed, S = 17, 18)
+           and [11, 128, 64] (fused, S = 129, 130), against the plain
+           route, the square call swapped and the appended one unswapped
+           (by result); (c) ``cli.train --supervise --profile_dir
+           --select_impl auto`` 2 NBA epochs (the supervisor's checkpoints;
+           P, Q and kernel B fp32 by name in the trace of epoch 0) and
+           ``cli.trainvae --supervise``; (d) a rollback under
+           ``scan_steps`` 4: a NaN parameter, ``after_epoch`` →
+           rollback, parameters and Adam moments equal to the last-good
+           checkpoint and the next replay equal to an eager chunk from it,
+           bit for bit; (e) ``time_fn`` beside CUDA events.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -181,6 +203,7 @@ and plain routes timed in alternating rounds within the same run.
 from __future__ import annotations
 
 import json
+import math
 import os
 import pickle
 import re
@@ -459,21 +482,25 @@ def device_us(fn, calls: int = 20):
     return us / calls if us > 0 else None
 
 
-def kernel_names(fn, pattern: str = r"(mhgsa_\w*bwd_kernel)") -> set:
-    """The names (``pattern``'s group) of the kernels one call of ``fn``
-    launches, from the profiler's trace, taken up to three times while a
-    trace holds none; empty where none does."""
-    for _ in range(3):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+def kernel_names(fn, pattern: str = r"(mhgsa_\w*bwd_kernel)",
+                 calls: int = 20) -> set:
+    """The names (``pattern``'s group) of the kernels that calls of ``fn``
+    launch, from one profiler trace of ``calls`` calls after an untraced
+    warm-up call, as ``device_us`` traces: a trace can miss launches (one
+    call traced after a warm-up call under a profiler schedule came back
+    empty in phase 13 on an H100, where ``device_us``' 20-call windows of
+    the same kernel held it), so the names are those of any call in the
+    window."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
             fn()
-            torch.cuda.synchronize()
-        names = {m.group(1) for m in (re.search(pattern, e.key)
-                                      for e in prof.key_averages()) if m}
-        if names:
-            return names
-    return set()
+        torch.cuda.synchronize()
+    return {m.group(1) for m in (re.search(pattern, e.key)
+                                 for e in prof.key_averages()) if m}
 
 
 def host_us(fn, calls: int = 20) -> float:
@@ -543,6 +570,12 @@ def compare_routes(out_k, g_k, out_p, g_p, what, kinks=False):
         tol = TRAIN_TOL * max(1.0, abs(b))
         require(abs(a - b) <= tol, f"{what} {name}: {a} vs plain {b}")
         loss_err = max(loss_err, abs(a - b) / max(1.0, abs(b)))
+    return (loss_err, *compare_grads(g_k, g_p, what, kinks))
+
+
+def compare_grads(g_k, g_p, what, kinks=False):
+    """``compare_routes``' rule for the gradient leaves alone: returns
+    (worst gradient ratio, its leaf, worst relative L2)."""
     grad_ratio, worst, l2 = 0.0, None, 0.0
     for i, (a, b) in enumerate(zip(g_k, g_p)):
         require(bool(torch.isfinite(a).all()), f"{what}: leaf {i} NaN")
@@ -555,7 +588,7 @@ def compare_routes(out_k, g_k, out_p, g_p, what, kinks=False):
             and (not kinks or l2 <= TRAIN_TOL),
             f"{what}: gradient leaf {worst} differs by {grad_ratio:.3e} of "
             f"its largest magnitude (worst relative L2 {l2:.3e})")
-    return loss_err, grad_ratio, worst, l2
+    return grad_ratio, worst, l2
 
 
 def serve_rounds(preds, scenes, rounds, single=False):
@@ -1355,8 +1388,8 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
     init, input [32, 11, 1, 64]) at three tolerance pairs on the kernel
     route (P), the plain route and the CPU, and one solve under TF32;
     (b) one training step at B = 32 x 11 on both routes with the same
-    noise: dopri5 + adjoint at the default tolerances, dopri5 + scan budget
-    24 at 1e-5 / 1e-7, learn_prior on euler; (c) dropout 0.1; (d) the CLIs
+    noise: dopri5 + adjoint and dopri5 + scan budget 24, both at 1e-5 /
+    1e-7, learn_prior on euler; (c) dropout 0.1; (d) the CLIs
     (``cli.train --ode_method dopri5 --ode_adjoint``, a resume,
     ``cli.test``, ``cli.trainvae``); (e) a dopri5 server. Returns the
     launches of its main paths."""
@@ -1505,8 +1538,9 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
 
     steps_b = {}
     for label, cfg in (
-            ("dopri5 + adjoint at 1e-7 / 1e-9", cfg_nba._replace(
-                ode_method="dopri5", ode_adjoint=True)),
+            ("dopri5 + adjoint at 1e-5 / 1e-7", cfg_nba._replace(
+                ode_method="dopri5", ode_adjoint=True, ode_rtol=1e-5,
+                ode_atol=1e-7)),
             ("dopri5 + scan budget 24 at 1e-5 / 1e-7", cfg_nba._replace(
                 ode_method="dopri5", ode_rtol=1e-5, ode_atol=1e-7,
                 ode_scan_budget=24)),
@@ -2126,6 +2160,355 @@ def scan_phase(dev, card, counts, reset, cli: dict, eager_resume_s) -> dict:
     print(f"phase 18 took {time.perf_counter() - t_phase + cli['seconds']:.1f}"
           f" s ({cli['seconds']:.1f} s of CLIs inside phase 15's directory)"
           f"  [{card}]")
+    return {"launches": total}
+
+
+# (route, tgt L, memory L_mem, kinks): phase 19 (a)'s decoder cases. The
+# square cross (128 / 128) runs in quirk Q3's swapped orientation; at
+# 256 x 2304 (2,816 rows into the FFN's 1,024 ReLUs) a ReLU whose input
+# lies within rounding of 0 can switch between the routes
+DECODER_CASES = (("packed", 32, 24, False), ("fused", 128, 96, False),
+                 ("fused", 128, 128, False), ("flash", 256, 2304, True))
+ROUTE_KERNELS = {"packed": ("packed", "packed_bwd"),
+                 "fused": ("attn", "attn_bwd"),
+                 "flash": ("flash", "flash_dq", "flash_dkv")}
+
+
+def decoder_phase(dev, card, counts, reset, nba_files) -> dict:
+    """Phase 19: the decoder side and the last training options at full
+    width (d_model 64, 8 heads, ff 1024, one layer, reference compat,
+    time 12, the port's seeded init, numpy-seeded tokens [L, 11, 1, 64]).
+    (a) ``decoder_stack`` on each forced kernel route against the plain
+    route, forward and backward (outputs, every decoder leaf's gradient,
+    tgt's and memory's; None weights; the launch counters), and
+    ``ode_decoder`` on fused; (b) ``mhgsa`` with ``bias_kv``,
+    ``add_zero_attn`` and both on packed and fused; (c) ``cli.train
+    --supervise --profile_dir`` and ``cli.trainvae --supervise`` on NBA
+    files; (d) a rollback under a captured step; (e) ``time_fn``. Returns
+    the launches of its main paths."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.cli import train as cli_train
+    from sttode_tpu_torch.cli import trainvae as cli_trainvae
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.nn import attention as tattn
+    from sttode_tpu_torch.nn import ode_block as tode
+    from sttode_tpu_torch.nn import transformer as ttr
+    from sttode_tpu_torch.train import (checkpoint_epochs, checkpoint_path,
+                                        load_checkpoint, make_train_step,
+                                        set_lr, stack_batches, stack_noise)
+    from sttode_tpu_torch.train.supervisor import Supervisor
+    from sttode_tpu_torch.utils.profiling import time_fn
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the decoder stack (and ode_decoder) on each forced route
+    lcfg = ttr.LayerConfig(d_model=64, num_heads=8, ff_dim=1024)
+    layers = bridge.to_device(ttr.decoder_stack_init(
+        torch.Generator().manual_seed(19), lcfg, 1), dev)
+    rng = np.random.default_rng(19)
+
+    def tokens(L):
+        return torch.from_numpy(rng.standard_normal((L, 11, 1, 64))
+                                .astype(np.float32)).to(dev)
+
+    def stack(p, x, m, cfg):
+        out, sw, cw = ttr.decoder_stack(p, x, m, cfg)
+        return out, (sw, cw)
+
+    def ode(p, x, m, cfg):
+        out, w = tode.ode_decoder(p, x, m, cfg, time=12.0)
+        return out, (w["self"], w["cross"])
+
+    def forward_backward(fn, cfg, x, m, cot):
+        """(out, weights, gradients of every decoder leaf, tgt and memory)
+        on fresh trainable copies."""
+        p = bridge.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                            layers)
+        x, m = x.clone().requires_grad_(), m.clone().requires_grad_()
+        out, w = fn(p, x, m, cfg)
+        (out * cot).sum().backward()
+        return out.detach(), w, [t.grad for t in bridge.tree_leaves(p)] + [
+            x.grad, m.grad]
+
+    cases = [(f"decoder_stack {r} tgt {L} memory {Lm}", stack, r, L, Lm, kk)
+             for r, L, Lm, kk in DECODER_CASES] + [
+        ("ode_decoder fused tgt 128 memory 96", ode, "fused", 128, 96, False)]
+    for label, fn, route, L, Lm, kinks in cases:
+        cfg_k, cfg_p = lcfg._replace(attn_impl=route), lcfg._replace(
+            attn_impl="dense")
+        x, m, cot = tokens(L), tokens(Lm), tokens(L)
+        reset()   # the main path: the decoder's forward and backward
+        out_k, w_k, g_k = forward_backward(fn, cfg_k, x, m, cot)
+        torch.cuda.synchronize()
+        launches = counts()
+        add(launches)
+        out_p, w_p, g_p = forward_backward(fn, cfg_p, x, m, cot)
+        require(all(launches[k] > 0 for k in ROUTE_KERNELS[route]),
+                f"phase 19 (a) {label}: the route did not launch its "
+                f"kernels {nonzero(launches)}")
+        require(w_k == (None, None) and w_p[0].shape == (11, L, L)
+                and w_p[1].shape == (11, L, Lm),
+                f"phase 19 (a) {label}: weights on the kernel route or "
+                f"missing on the plain one")
+        err = max_err(out_k, out_p)
+        require(bool(torch.isfinite(out_k).all()) and err <= MODEL_TOL,
+                f"phase 19 (a) {label}: max abs err {err} > {MODEL_TOL}")
+        ratio, worst, l2 = compare_grads(g_k, g_p, f"phase 19 (a) {label}",
+                                         kinks=kinks)
+        ms_k, ms_p = paired_ms(
+            lambda: forward_backward(fn, cfg_k, x, m, cot),
+            lambda: forward_backward(fn, cfg_p, x, m, cot),
+            calls=3, rounds=4)
+        print(f"phase 19 (a) {label}, {route} against the plain route, "
+              f"forward + backward: out max abs err {err:.3e}; gradients "
+              f"(every decoder leaf, tgt, memory) within {ratio:.3e} of a "
+              f"leaf's largest magnitude (worst leaf {worst}, relative L2 "
+              f"{l2:.3e}{', kinks rule' if kinks else ''}); weights None; "
+              f"{ms_k:.3f} ms, plain {ms_p:.3f} ms; launches "
+              f"{nonzero(launches)}  [{card}]")
+
+    # (b) mhgsa with bias_kv / add_zero_attn: an appended key makes a square
+    #     reference-compat self-attention S = L + 1 (or + 2), unswapped
+    gen = torch.Generator().manual_seed(19)
+    mp = tattn.mhgsa_init(gen, 64)
+    mp = bridge.to_device(mp._replace(
+        in_proj_b=0.1 * torch.randn(192, generator=gen),
+        out_proj_b=0.1 * torch.randn(64, generator=gen)), dev)
+    bias = tuple(torch.randn(64, generator=gen).to(dev) for _ in range(2))
+    for route, L in (("packed", 16), ("fused", 128)):
+        x0 = torch.from_numpy(rng.standard_normal((11, L, 64)).astype(
+            np.float32)).to(dev)
+        cot = torch.from_numpy(rng.standard_normal((11, L, 64)).astype(
+            np.float32)).to(dev)
+        results = []
+        for use_bias, zero in ((False, False), (True, False), (False, True),
+                               (True, True)):
+            def attend(fused, compat="reference"):
+                p = bridge.tree_map(
+                    lambda t: t.detach().clone().requires_grad_(), mp)
+                b = tuple(t.detach().clone().requires_grad_() for t in bias)
+                x = x0.clone().requires_grad_()
+                out, _ = tattn.mhgsa(p, x, x, x, 8, compat=compat,
+                                     fused=fused,
+                                     bias_kv=b if use_bias else None,
+                                     add_zero_attn=zero)
+                (out * cot).sum().backward()
+                return out.detach(), [t.grad for t in bridge.tree_leaves(
+                    p)] + ([t.grad for t in b] if use_bias else []) + [x.grad]
+
+            S = L + int(use_bias) + int(zero)
+            reset()   # the main path: the attention's forward and backward
+            out_k, g_k = attend(True if route == "fused" else "packed")
+            torch.cuda.synchronize()
+            launches = counts()
+            add(launches)
+            out_p, g_p = attend(False)
+            out_t, _ = attend(False, compat="tpu")
+            kern = ROUTE_KERNELS[route]
+            require(all(launches[k] > 0 for k in kern),
+                    f"phase 19 (b) {route} S = {S}: {nonzero(launches)}")
+            err = max_err(out_k, out_p)
+            require(err <= MODEL_TOL, f"phase 19 (b) {route} L = {L}, "
+                    f"S = {S}: max abs err {err}")
+            ratio, _, _ = compare_grads(g_k, g_p,
+                                        f"phase 19 (b) {route} S = {S}")
+            # the orientation, by result: square runs swapped (≠ compat
+            # "tpu"), an appended key unswapped (= compat "tpu")
+            swap_gap = max_err(out_p, out_t)
+            require((swap_gap > 1e-3) == (S == L),
+                    f"phase 19 (b) {route} L = {L}, S = {S}: the plain "
+                    f"route's reference and tpu orientations differ by "
+                    f"{swap_gap}")
+            results.append(f"S = {S} ({'swapped' if S == L else 'unswapped'}"
+                           f"; reference vs tpu orientation {swap_gap:.2e})"
+                           f" out {err:.2e}, gradients {ratio:.2e}")
+        print(f"phase 19 (b) mhgsa on {route}, query [11, {L}, 64], without "
+              f"the options, bias_kv, add_zero_attn, both, against the "
+              f"plain route: " + "; ".join(results) + f"  [{card}]")
+
+    # (c) the CLIs with --supervise and --profile_dir on NBA files
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_nba_") as tmp:
+        _, flags = nba_files(tmp, 20 * 32, 19)
+        prof_dir = os.path.join(tmp, "prof")
+        epoch0: dict = {}
+        real_epoch = cli_train.train_epoch
+
+        def first_epoch_counted(*a, **kw):
+            out = real_epoch(*a, **kw)
+            if not epoch0:
+                torch.cuda.synchronize()
+                epoch0.update(counts())
+            return out
+
+        cli_train.train_epoch = first_epoch_counted
+        t = time.perf_counter()
+        try:
+            reset()   # the main path: the supervised, profiled run
+            run = cli_train.main(flags + [
+                "--supervise", "--profile_dir", prof_dir, "--select_impl",
+                "auto", "--num_epochs", "2"])
+            torch.cuda.synchronize()
+            launches_cli = counts()
+            add(launches_cli)
+            reset()   # the main path: the supervised VAE-only run
+            vae = cli_trainvae.main(flags + [
+                "--supervise", "--ckpt_dir", os.path.join(tmp, "vae"),
+                "--num_epochs", "1"])
+            torch.cuda.synchronize()
+            launches_vae = counts()
+            add(launches_vae)
+        finally:
+            cli_train.train_epoch = real_epoch
+        cli_s = time.perf_counter() - t
+        ck = checkpoint_epochs(os.path.join(tmp, "ck", "nba"))
+        ck_vae = checkpoint_epochs(os.path.join(tmp, "vae", "nba"))
+        files = os.listdir(prof_dir)
+        require(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+                f"phase 19 (c): the trace directory holds {files}")
+        trace_mb = os.path.getsize(os.path.join(prof_dir, files[0])) / 2**20
+        with open(os.path.join(prof_dir, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    in_trace = {label for label, pat in TRACE_KERNELS
+                if any(re.search(pat, n) for n in names)}
+    want = {"packed": "P", "packed_bwd": "Q", "select_fp32": "B_fp32"}
+    require(all(epoch0.get(k, 0) > 0 for k in want),
+            f"phase 19 (c): epoch 0 did not launch P, Q and kernel B fp32 "
+            f"{nonzero(epoch0)}")
+    missing = {want.get(k, k) for k, v in epoch0.items()
+               if v > 0 and k in want and want[k] not in in_trace}
+    require(not missing and all(epoch0.get(k, 0) == 0 for k in (
+        "attn", "attn_bwd", "flash", "flash_dq", "flash_dkv", "select_bf16")),
+            f"phase 19 (c): the trace of epoch 0 lacks {missing} (launch "
+            f"counters {nonzero(epoch0)}, trace {sorted(in_trace)})")
+    require(ck == [1, 2] and ck_vae == [1] and [h[0] for h in run.history]
+            == [0, 1] and vae.cfg.loss_terms == ("pred", "recover", "kl"),
+            f"phase 19 (c): supervisor checkpoints {ck} / {ck_vae}, epochs "
+            f"{[h[0] for h in run.history]}")
+    for r in (run, vae):
+        for epoch, _, means in r.history:
+            require(all(np.isfinite(list(means.values()))),
+                    f"phase 19 (c): non-finite loss at epoch {epoch}")
+    print(f"phase 19 (c) cli.train --supervise --profile_dir --select_impl "
+          f"auto (NBA, 20 steps an epoch, 2 epochs) and cli.trainvae "
+          f"--supervise (1 epoch): supervisor checkpoints {ck} and {ck_vae}; "
+          f"the trace of epoch 0 ({trace_mb:.1f} MiB) names "
+          f"{sorted(in_trace)}, the counters saw {nonzero(epoch0)} in epoch "
+          f"0; {cli_s:.1f} s; launches {nonzero(launches_cli)}, trainvae "
+          f"{nonzero(launches_vae)}  [{card}]")
+
+    # (d) a rollback under a captured step (scan_steps 4, NBA recipe at
+    #     B = 32 x 11, kernel B fp32): the replay after the rollback goes on
+    #     from the last-good checkpoint, equal bit for bit to an eager chunk
+    #     from it with the same noise and Adam form
+    cfg_r = tm.STTODEConfig(past_length=5, future_length=10,
+                            select_impl="auto").validate()
+    S_ = 4
+    gen_r = torch.Generator(device=dev).manual_seed(19)
+    batches, noises = [], []
+    for i in range(4 * S_):
+        sc = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=190 + i)
+        b, _ = prepare_scene_group(
+            np.stack([s_["obs"] for s_ in sc]),
+            np.stack([s_["pred"] for s_ in sc]), np.ones((32, 11),
+                                                         np.float32),
+            training=True, rng=np.random.default_rng(190 + i))
+        batches.append(b.to(dev))
+        M = 32 * 11
+        noises.append(tm.TrainNoise(
+            torch.rand(M, 5, 64, device=dev, generator=gen_r) >= 0.1,
+            torch.rand(M, 10, 64, device=dev, generator=gen_r) >= 0.1,
+            torch.randn(M, 32, device=dev, generator=gen_r),
+            torch.randn(M * 20, 32, device=dev, generator=gen_r)))
+    step = make_train_step(cfg_r, 1e-4, device=dev, scan_steps=S_)
+    require(step.mode == "graph", "phase 19 (d): the step is not captured")
+    params, opt = step.init(tm.sttode_init(19, cfg_r))
+
+    def chunk(i, p, o):
+        sl = slice(i * S_, (i + 1) * S_)
+        return step(p, o, stack_batches(batches[sl]), gen_r,
+                    noise=stack_noise(noises[sl]))[2]
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_sup_") as tmp:
+        sup = Supervisor(tmp, cfg_r, save_every=1)
+        reset()   # the main path: two epochs and a replay after a rollback
+        m0, m1 = chunk(0, params, opt), chunk(1, params, opt)
+        loss0 = float(torch.cat([m0["total"], m1["total"]]).mean())
+        _, _, e0, a0 = sup.after_epoch(0, loss0, params, opt)
+        with torch.no_grad():
+            bridge.tree_leaves(params)[0].view(-1)[0] = float("nan")
+        m2 = chunk(2, params, opt)
+        loss1 = float(m2["total"].mean())
+        _, _, e1, a1 = sup.after_epoch(1, loss1, params, opt)
+        saved_p, saved_o, _, _ = load_checkpoint(checkpoint_path(tmp, 1))
+        restored = all(torch.equal(a.detach().cpu(), b) for a, b in zip(
+            bridge.tree_leaves(params), bridge.tree_leaves(saved_p)))
+        moments = all(
+            torch.equal(opt.state[p][k].cpu(), saved_o["state"][i][k])
+            for i, p in enumerate(opt.param_groups[0]["params"])
+            for k in ("exp_avg", "exp_avg_sq", "step") if p in opt.state)
+        set_lr(opt, 1e-4 * sup.lr_scale)
+        m3 = chunk(3, params, opt)
+        torch.cuda.synchronize()
+        launches_r = counts()
+        add(launches_r)
+        stats = step.graph_stats()
+        # the eager chunk from the checkpoint, on the graph's Adam form
+        eager = make_train_step(cfg_r, 1e-4, device=dev)
+        pe, oe = step.init(saved_p, saved_o)
+        set_lr(oe, 1e-4 * 0.5)
+        me = [eager(pe, oe, b, gen_r, noise=n)[2] for b, n in
+              zip(batches[3 * S_:], noises[3 * S_:])]
+        torch.cuda.synchronize()
+    same_losses = all(torch.equal(m3[k], torch.stack([m[k] for m in me]))
+                      for k in m3)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        bridge.tree_leaves(params), bridge.tree_leaves(pe)))
+    require((a0, e0, a1, e1) == ("ok", 0, "rollback", 1)
+            and math.isnan(loss1) and sup.lr_scale == 0.5,
+            f"phase 19 (d): actions {(a0, e0, a1, e1)}, losses {loss0}, "
+            f"{loss1}, lr_scale {sup.lr_scale}")
+    require(restored and moments, "phase 19 (d): the parameters or Adam "
+            "moments after the rollback differ from the checkpoint")
+    require(same_losses and same_params and stats["graphs"] == 1
+            and stats["replays"] == 3,
+            f"phase 19 (d): the replay after the rollback differs from the "
+            f"eager chunk from the checkpoint (losses equal {same_losses}, "
+            f"parameters equal {same_params}; graphs {stats})")
+    require(launches_r["packed"] > 0 and launches_r["packed_bwd"] > 0
+            and launches_r["select_fp32"] > 0,
+            f"phase 19 (d): {nonzero(launches_r)}")
+    print(f"phase 19 (d) rollback under scan_steps {S_} (NBA recipe, B = 32 "
+          f"x 11): epoch 0 ok (loss {loss0:.4f}), a NaN parameter → epoch 1 "
+          f"loss {loss1} → rollback to epoch {e1}, lr_scale "
+          f"{sup.lr_scale}; parameters and Adam moments equal the "
+          f"checkpoint bit for bit; the next replay's losses "
+          + " ".join(f"{float(v):.6f}" for v in m3["total"])
+          + f" equal an eager chunk's from the checkpoint bit for bit, as do "
+          f"the parameters after it; {stats['graphs']} graph, "
+          f"{stats['replays']} replays (no recapture); launches "
+          f"{nonzero(launches_r)}  [{card}]")
+
+    # (e) time_fn on the fused decoder's forward, beside CUDA events
+    x, m = tokens(128), tokens(96)
+    cfg_f = lcfg._replace(attn_impl="fused")
+    with torch.no_grad():
+        fwd = lambda: ttr.decoder_stack(layers, x, m, cfg_f)[0]  # noqa: E731
+        tf = time_fn(fwd, iters=20)
+        ev_ms, _ = paired_ms(fwd, fwd, calls=20, rounds=4)
+    print(f"phase 19 (e) time_fn on the fused decoder's forward (tgt 128, "
+          f"memory 96): {tf['seconds_per_call'] * 1e3:.4f} ms a call; CUDA "
+          f"events {ev_ms:.4f} ms  [{card}]")
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s; its main "
+          f"paths launched {nonzero(total)}")
     return {"launches": total}
 
 
@@ -3388,7 +3771,7 @@ def main() -> int:
     with torch.inference_mode():
         names2p = kernel_names(lambda: km.fused_geodesic_attention_backward(
             *pargs[p32], **P))
-    require(names2p in ({"mhgsa_small_bwd_kernel"}, set()),
+    require(names2p == {"mhgsa_small_bwd_kernel"},
             f"phase 13: 2p at 88 x 32² x 8 launched {names2p}")
     print("poincare whole-S backward (2p) at 88 x 32 x 32 x 8: small-S mode ("
           + ", ".join(f"{k_} {v_}" for k_, v_ in km.small_bwd_layout(
@@ -3835,6 +4218,11 @@ def main() -> int:
     launches18 = scan_phase(dev, card, counts, reset, eth15["inside"]["scan"],
                             eth15["resume_s"])["launches"]
 
+    # 19. the decoder side (forced kernel routes at L != S, bias_kv) and the
+    #     training options --supervise, --profile_dir and the rollback
+    launches19 = decoder_phase(dev, card, counts, reset,
+                               nba_files)["launches"]
+
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
     s_ms, s_plain = select_times["dist_M1408_K20"]
@@ -3874,21 +4262,22 @@ def main() -> int:
               + launches10["attn"] + launches12["attn"] + launches15["attn"]
               + launches16["attn"] - launches16["attn_p"]
               + launches17["attn"] - launches17["attn_p"]
-              + launches18["attn"],
+              + launches18["attn"] + launches19["attn"],
               attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:455",
               launches8["attn_bwd"] + launches15["attn_bwd"]
               + launches17["attn_bwd"] - launches17["attn_bwd_p"]
-              + launches18["attn_bwd"], bwd_err,
+              + launches18["attn_bwd"] + launches19["attn_bwd"], bwd_err,
               b_ms,
               b_plain, b_bound),
         entry("select_decode_fp32", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
               launches4["select_fp32"] + launches5["select_fp32"]
               + launches8["select_fp32"] + launches15["select_fp32"]
-              + launches17["select_fp32"] + launches18["select_fp32"],
+              + launches17["select_fp32"] + launches18["select_fp32"]
+              + launches19["select_fp32"],
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
@@ -3899,25 +4288,30 @@ def main() -> int:
               "sttode_tpu/kernels/packed_mhgsa.py:340",
               launches5["packed"] + launches10["packed"]
               + launches15["packed"] + launches16["packed"]
-              + launches17["packed"] + launches18["packed"], packed_err,
+              + launches17["packed"] + launches18["packed"]
+              + launches19["packed"], packed_err,
               p_ms,
               p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
               launches10["packed_bwd"] + launches15["packed_bwd"]
-              + launches17["packed_bwd"] + launches18["packed_bwd"],
+              + launches17["packed_bwd"] + launches18["packed_bwd"]
+              + launches19["packed_bwd"],
               packed_bwd_err, pb_ms, pb_plain,
               pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",
-              "sttode_tpu/kernels/mhgsa.py:776", launches12_train["flash"],
+              "sttode_tpu/kernels/mhgsa.py:776",
+              launches12_train["flash"] + launches19["flash"],
               flash_err["fwd"], *rec11["fwd"], f_bound),
         entry("flash_geodesic_attention_dq", "flash_mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:847",
-              launches12_train["flash_dq"], flash_err["dq"], *rec11["dq"],
+              launches12_train["flash_dq"] + launches19["flash_dq"],
+              flash_err["dq"], *rec11["dq"],
               fdq_bound),
         entry("flash_geodesic_attention_dkv", "flash_mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:880",
-              launches12_train["flash_dkv"], flash_err["dkv"],
+              launches12_train["flash_dkv"] + launches19["flash_dkv"],
+              flash_err["dkv"],
               *rec11["dkv"], fdkv_bound),
         entry("fused_geodesic_attention_poincare", "mhgsa_fwd.cu",
               "sttode_tpu/kernels/mhgsa.py:407",

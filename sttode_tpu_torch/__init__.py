@@ -26,7 +26,16 @@ ride on every path: the ODE encoder's solvers (``ode``: the fixed grid,
 adaptive dopri5 in its while and scan-budget forms, the continuous adjoint
 ``odeint_adjoint``; ``--ode_method dopri5 --ode_adjoint``), the learned
 prior (``learn_prior``) and encoder-layer dropout (``dropout``, the plain
-attention path); ``cli.trainvae`` trains the VAE-only objective.
+attention path); ``cli.trainvae`` trains the VAE-only objective. The
+training options ride on the CLIs: ``--supervise`` (``train.supervisor``:
+divergence detection and an in-place rollback to the last-good
+checkpoint), ``--profile_dir`` (``utils.profiling.trace``), ``cli.test
+--save_plots`` (``utils.visualize``), the gradient guards and guarded
+Adam (``train.guards``), ``ReduceOnPlateau`` and ``ExpParamAnnealer``. The
+decoder side, which the model never instantiates, is ported too
+(``nn.transformer.decoder_layer`` / ``decoder_stack``,
+``nn.ode_block.ode_decoder``, ``mhgsa``'s ``bias_kv`` and
+``add_zero_attn``).
 Hand-written CUDA kernels carry these paths on an NVIDIA Hopper card:
 
 - ``kernels.mhgsa.fused_geodesic_attention`` — whole-S geodesic attention,

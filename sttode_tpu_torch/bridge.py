@@ -9,7 +9,8 @@ the port uses the JAX layouts. NamedTuples are matched by class name and
 field names to the port's own classes; this module does not import JAX.
 ``params_to_numpy`` goes back (port tree → the same tree of numpy arrays),
 and ``tree_leaves`` lists a tree's leaves in the JAX package's order
-(dict keys sorted), for the optimizer and for leaf-by-leaf comparisons.
+(dict keys sorted), for the optimizer and for leaf-by-leaf comparisons;
+``tree_leaves_with_path`` names them as JAX's paths do.
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ import torch
 
 from sttode_tpu_torch.nn.attention import MHGSAParams
 from sttode_tpu_torch.nn.recurrent import Conv1dParams, GRUParams
-from sttode_tpu_torch.nn.transformer import (EncoderLayerParams, FFNParams,
+from sttode_tpu_torch.nn.transformer import (DecoderLayerParams,
+                                             EncoderLayerParams, FFNParams,
                                              GatedAttentionParams)
 
 _NAMEDTUPLES = {cls.__name__: cls for cls in (
     MHGSAParams, GatedAttentionParams, FFNParams, EncoderLayerParams,
-    GRUParams, Conv1dParams)}
+    DecoderLayerParams, GRUParams, Conv1dParams)}
 
 
 def tree_map(fn: Callable, tree):
@@ -79,6 +81,22 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, path: tuple = ()) -> list:
+    """(path, leaf) pairs in ``tree_leaves``' order; a path holds the dict
+    keys, sequence indices and NamedTuple field names from the root, as
+    ``jax.tree_util.tree_leaves_with_path`` names them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for f in tree._fields
+                for x in tree_leaves_with_path(getattr(tree, f), path + (f,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
 
 
 def params_to_numpy(tree):

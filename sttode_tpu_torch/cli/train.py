@@ -16,11 +16,18 @@ call, on the card as one CUDA graph replay; the run prints the step's mode
 ("graph" or "eager"). The model's random draws come from a
 ``torch.Generator`` seeded by ``--seed`` on the device. On SIGTERM the run
 finishes the epoch, writes a checkpoint and returns, so that
-``--epoch_continue`` resumes it.
+``--epoch_continue`` resumes it. ``--supervise`` hands the checkpoints to
+a ``train.supervisor.Supervisor``: a healthy epoch is checkpointed every
+``--model_save_epoch`` epochs, a diverged one (a non-finite or exploding
+mean loss) is rolled back in place to the last-good checkpoint and run
+again at half the learning rate, and the run aborts when it cannot roll
+back. ``--profile_dir D`` traces the first epoch with ``torch.profiler``
+into a Chrome-trace JSON file in D (``utils.profiling.trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import time
 from typing import NamedTuple
@@ -34,7 +41,8 @@ from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_init
 from sttode_tpu_torch.train import (checkpoint_path, flush_saves,
                                     load_checkpoint, make_train_step,
                                     save_checkpoint, step_lr, train_epoch)
-from sttode_tpu_torch.utils.profiling import param_count
+from sttode_tpu_torch.train.supervisor import Supervisor
+from sttode_tpu_torch.utils.profiling import param_count, trace
 
 
 class TrainRun(NamedTuple):
@@ -67,14 +75,15 @@ def batch_stream(args, data, nprng, cfg: STTODEConfig):
 def main(argv=None) -> TrainRun:
     parser = common.base_parser("STTODE stage-1 CVAE training (PyTorch)")
     parser.add_argument("--supervise", action="store_true",
-                        help="not ported: divergence detection + rollback")
+                        help="enable divergence detection + rollback "
+                             "(train.supervisor)")
     parser.add_argument("--profile_dir", default="",
-                        help="not ported: trace of the first epoch")
+                        help="write a torch.profiler trace of the first "
+                             "epoch here")
     parser.add_argument("--distributed", action="store_true",
                         help="not ported: multi-process training")
     args = parser.parse_args(argv)
-    common.refuse_unported(args, {"supervise": False, "profile_dir": "",
-                                  "distributed": False})
+    common.refuse_unported(args, {"distributed": False})
     device = bridge.resolve_device(args.device)
     nprng = common.seed_everything(args.seed)
     cfg = common.model_config(args)
@@ -94,6 +103,8 @@ def main(argv=None) -> TrainRun:
     params, opt = step.init(params, opt_state)
     print(f"train step: {step.mode}, {args.scan_steps} step(s) a call")
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    supervisor = (Supervisor(cdir, cfg, save_every=args.model_save_epoch)
+                  if args.supervise else None)
 
     # Preemption: finish the current epoch, checkpoint, and return, so that
     # --epoch_continue resumes exactly where the run stopped.
@@ -108,22 +119,36 @@ def main(argv=None) -> TrainRun:
     try:
         epoch, saved_epoch = start_epoch, -1
         while epoch < args.num_epochs:
-            lr = schedule(epoch)
+            lr = schedule(epoch) * (supervisor.lr_scale if supervisor
+                                    else 1.0)
             t0 = time.time()
-            params, opt, means = train_epoch(
-                step, params, opt, batch_stream(args, data, nprng, cfg), gen,
-                lr=lr, log_every=args.log_every)
+            profiling = bool(args.profile_dir) and epoch == start_epoch
+            with (trace(args.profile_dir) if profiling
+                  else contextlib.nullcontext()):
+                params, opt, means = train_epoch(
+                    step, params, opt, batch_stream(args, data, nprng, cfg),
+                    gen, lr=lr, log_every=args.log_every)
+            if profiling:
+                print(f"profiler trace written to {args.profile_dir}")
             history.append((epoch, lr, means))
             msg = " ".join(f"{k}: {v:.4f}" for k, v in sorted(means.items()))
             print(f"epoch {epoch:03d} [{time.time() - t0:.1f}s] lr {lr:.3e} "
                   f"{msg}")
-            epoch += 1
-            if epoch % args.model_save_epoch == 0:
-                path = save_checkpoint(cdir, epoch, params, opt, cfg,
+            if supervisor is not None:
+                # the supervisor owns the checkpoint cadence
+                params, opt, epoch, action = supervisor.after_epoch(
+                    epoch, means["total"], params, opt)
+                if action == "abort":
+                    break
+                if action == "rollback":
+                    continue
+            elif (epoch + 1) % args.model_save_epoch == 0:
+                path = save_checkpoint(cdir, epoch + 1, params, opt, cfg,
                                        keep_last=args.keep_last_ckpts or None,
                                        background=args.async_ckpt)
-                saved_epoch = epoch
+                saved_epoch = epoch + 1
                 print(f"saved {path}")
+            epoch += 1
             if preempted["flag"]:
                 if saved_epoch != epoch:
                     path = save_checkpoint(cdir, epoch, params, opt, cfg)

@@ -283,13 +283,22 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           curvature: float = 1.0,
           kv_valid: torch.Tensor | None = None,
           dropout_rate: float = 0.0,
-          dropout_mask: torch.Tensor | None = None):
+          dropout_mask: torch.Tensor | None = None,
+          bias_kv: tuple | None = None,
+          add_zero_attn: bool = False):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
     packed [E, 3E] projection when query, key and value are the same tensor,
     split projections otherwise. ``kv_valid`` [..., S] marks real keys and
-    is shared by the heads. ``dropout_mask`` [..., H, L, S] is the keep-mask
-    of the attention weights' dropout at ``dropout_rate``."""
+    is shared by the heads. ``dropout_mask`` [..., H, L, S'] is the
+    keep-mask of the attention weights' dropout at ``dropout_rate``.
+
+    ``bias_kv`` (bias_k [E], bias_v [E]) appends one learned key/value
+    position after the projections, ``add_zero_attn`` an all-zero one
+    (both: bias first), so S' = S + 1 or S + 2: the additive mask gets a 0
+    column and ``kv_valid`` a valid key for each. The route and the Q3 swap
+    are decided on the new shape: a square reference-compat self-attention
+    runs swapped, the same call with an appended position unswapped."""
     E = query.shape[-1]
     head_dim = E // num_heads
     if head_dim * num_heads != E:
@@ -300,6 +309,17 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
         wq, wk, wv = params.in_proj_w.chunk(3, dim=1)
         bq, bk, bv = params.in_proj_b.chunk(3)
         q, k, v = query @ wq + bq, key @ wk + bk, value @ wv + bv
+    extra = ([bias_kv] if bias_kv is not None else []) + (
+        [(k.new_zeros(k.shape[-1]),) * 2] if add_zero_attn else [])
+    for k_extra, v_extra in extra:
+        shape = (*k.shape[:-2], 1, k.shape[-1])
+        k = torch.cat([k, k_extra.expand(shape)], dim=-2)
+        v = torch.cat([v, v_extra.expand(shape)], dim=-2)
+        if mask is not None:
+            mask = torch.cat([mask, torch.zeros_like(mask[..., :1])], dim=-1)
+        if kv_valid is not None:
+            kv_valid = torch.cat([kv_valid, torch.ones_like(kv_valid[..., :1])],
+                                 dim=-1)
     # quirk Q10: a forward no-op after the row normalization, kept so the
     # numerics follow the reference's operation order; oblique only: under
     # poincaré it would pull q toward the ball's origin and skew distances

@@ -1,4 +1,5 @@
-"""ODE-wrapped encoder (port of ``sttode_tpu/nn/ode_block.py::ode_encoder``).
+"""ODE-wrapped transformer blocks (port of ``sttode_tpu/nn/ode_block.py``:
+``ode_encoder``, ``ode_decoder``).
 
 The encoder stack is the vector field. Integrating it with Euler over
 [0, time] in one step gives the reference's ``relu(x + 12·layer(x))``
@@ -15,9 +16,21 @@ from __future__ import annotations
 
 import torch
 
-from sttode_tpu_torch.nn.transformer import (LayerConfig, LayerDropMasks,
+from sttode_tpu_torch.nn.transformer import (DecoderDropMasks, LayerConfig,
+                                             LayerDropMasks, decoder_stack,
                                              encoder_stack)
 from sttode_tpu_torch.ode import odeint, odeint_adjoint
+
+
+def _grid(time: float, steps: int, y: torch.Tensor,
+          method: str) -> torch.Tensor:
+    """The solve's output grid over [0, time]. dopri5 keeps its time
+    arithmetic on the state's device: the grid is made there (a host grid
+    would be copied to the device, a host sync that a CUDA graph capture
+    refuses); the fixed grid is read on the host."""
+    return torch.linspace(0.0, time, steps + 1, dtype=torch.float64
+                          if y.dtype == torch.float64 else torch.float32,
+                          device=y.device if method == "dopri5" else "cpu")
 
 
 def ode_encoder(params: list, src: torch.Tensor, cfg: LayerConfig, *,
@@ -36,13 +49,33 @@ def ode_encoder(params: list, src: torch.Tensor, cfg: LayerConfig, *,
         return encoder_stack(p, y, cfg, mask=mask, kv_valid=kv_valid,
                              drop=drop)
 
-    # dopri5 keeps its time arithmetic on the state's device: the grid is
-    # made there (a host grid would be copied to the device, a host sync
-    # that a CUDA graph capture refuses); the fixed grid is read on the host
-    ts = torch.linspace(0.0, time, steps + 1, dtype=torch.float64
-                        if src.dtype == torch.float64 else torch.float32,
-                        device=src.device if method == "dopri5" else "cpu")
+    ts = _grid(time, steps, src, method)
     integrate = odeint_adjoint if adjoint else odeint
     z = integrate(rhs, src, ts, params, method=method, rtol=rtol, atol=atol,
                   scan_budget=scan_budget)
     return torch.relu(z[-1])
+
+
+def ode_decoder(params: list, tgt: torch.Tensor, memory: torch.Tensor,
+                cfg: LayerConfig, *, time: float = 12.0,
+                method: str = "euler", steps: int = 1,
+                tgt_mask: torch.Tensor | None = None,
+                memory_mask: torch.Tensor | None = None,
+                drop: list[DecoderDropMasks] | None = None):
+    """ODE-integrated decoder (the reference's ODEG, which its model never
+    instantiates): the decoder stack over the fixed ``memory`` is the field,
+    integrated over [0, time] with ``steps`` steps of ``method``. Returns
+    (relu(z(T)), {"self": weights, "cross": weights}), the weights those of
+    one more stack evaluation at z(T), as in JAX (None on a forced kernel
+    route)."""
+    def rhs(t, y, p):
+        del t    # autonomous field
+        out, _, _ = decoder_stack(p, y, memory, cfg, tgt_mask=tgt_mask,
+                                  memory_mask=memory_mask, drop=drop)
+        return out
+
+    z = odeint(rhs, tgt, _grid(time, steps, tgt, method), params,
+               method=method)[-1]
+    _, sw, cw = decoder_stack(params, z, memory, cfg, tgt_mask=tgt_mask,
+                              memory_mask=memory_mask, drop=drop)
+    return torch.relu(z), {"self": sw, "cross": cw}

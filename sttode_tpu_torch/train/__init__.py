@@ -1,7 +1,9 @@
 """Training of the port: the stage-1 and stage-2 steps, their captured
 multi-step form and the epoch loop (``train.loop``, ``train.graph``), the
-StepLR and lambda schedules (``train.schedulers``) and checkpoints, saved
-in the foreground or the background (``train.checkpoint``)."""
+StepLR, lambda and plateau schedules (``train.schedulers``), checkpoints,
+saved in the foreground or the background (``train.checkpoint``), the
+gradient guards and guarded Adam (``train.guards``) and the divergence
+supervisor (``train.supervisor``)."""
 
 from sttode_tpu_torch.train.checkpoint import (checkpoint_epochs,
                                                checkpoint_path, flush_saves,
@@ -13,10 +15,13 @@ from sttode_tpu_torch.train.loop import (SamplerTrainStep, TrainStep,
                                          make_sampler_train_step,
                                          make_train_step, stack_batches,
                                          stack_noise, train_epoch)
-from sttode_tpu_torch.train.schedulers import lambda_lr, set_lr, step_lr
+from sttode_tpu_torch.train.schedulers import (ExpParamAnnealer,
+                                               ReduceOnPlateau, lambda_lr,
+                                               set_lr, step_lr)
 
-__all__ = ["SamplerTrainStep", "TrainStep", "checkpoint_epochs",
-           "checkpoint_path", "flush_saves", "lambda_lr", "latest_checkpoint",
-           "load_checkpoint", "make_sampler_train_step", "make_train_step",
-           "save_checkpoint", "set_lr", "stack_batches", "stack_noise",
-           "step_lr", "train_epoch", "wait_for_saves"]
+__all__ = ["ExpParamAnnealer", "ReduceOnPlateau", "SamplerTrainStep",
+           "TrainStep", "checkpoint_epochs", "checkpoint_path", "flush_saves",
+           "lambda_lr", "latest_checkpoint", "load_checkpoint",
+           "make_sampler_train_step", "make_train_step", "save_checkpoint",
+           "set_lr", "stack_batches", "stack_noise", "step_lr", "train_epoch",
+           "wait_for_saves"]

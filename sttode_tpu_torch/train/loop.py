@@ -33,6 +33,7 @@ them per bucket signature into chunks, in JAX's order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Iterable
 
 import torch
@@ -92,11 +93,13 @@ class TrainStep:
     graph replay, else "eager"."""
 
     def __init__(self, cfg: STTODEConfig, lr: float,
-                 device: torch.device | str = "cuda", scan_steps: int = 1):
+                 device: torch.device | str = "cuda", scan_steps: int = 1,
+                 optimizer: Callable | None = None):
         if scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
         self.cfg = cfg.validate()
-        self.lr = lr
+        self.optimizer = optimizer or functools.partial(torch.optim.Adam,
+                                                        lr=lr)
         self.device = bridge.resolve_device(device)
         self.scan_steps = scan_steps
         self.mode = "graph" if (scan_steps > 1 and self.device.type == "cuda"
@@ -105,16 +108,15 @@ class TrainStep:
 
     def init(self, params, opt_state: dict | None = None
              ) -> tuple[Any, torch.optim.Adam]:
-        """(params as trainable leaf tensors on the step's device, the Adam
-        state over them), the state loaded from ``opt_state`` (a
+        """(params as trainable leaf tensors on the step's device, the
+        optimizer over them), the state loaded from ``opt_state`` (a
         checkpoint's ``state_dict``) when given. A graph step's Adam is
         capturable, the learning rate a device tensor."""
         params = bridge.tree_map(
             lambda t: t.detach().to(self.device, torch.float32)
             .clone().requires_grad_(), params)
         graph = self.mode == "graph"
-        opt = torch.optim.Adam(bridge.tree_leaves(params), lr=self.lr,
-                               capturable=graph)
+        opt = self.optimizer(bridge.tree_leaves(params), capturable=graph)
         if opt_state is not None:
             opt.load_state_dict(opt_state)
         if graph:
@@ -213,14 +215,18 @@ def _make_capturable(opt: torch.optim.Adam, device: torch.device) -> None:
 
 
 def make_train_step(cfg: STTODEConfig, lr: float, *, scan_steps: int = 1,
-                    device: torch.device | str = "cuda") -> TrainStep:
+                    device: torch.device | str = "cuda",
+                    optimizer: Callable | None = None) -> TrainStep:
     """Stage-1 step ``(params, opt_state, batch, generator) → (params,
-    opt_state, metrics)`` with ``torch.optim.Adam(lr)``; ``step.init(params)``
+    opt_state, metrics)`` with ``torch.optim.Adam(lr)``, or the optimizer
+    that ``optimizer(leaves, capturable=...)`` makes (a factory that
+    carries its own learning rate, e.g. ``train.guards.guarded_adam``: the
+    counterpart of JAX's ``make_train_step(cfg, opt)``); ``step.init(params)``
     makes its params and optimizer state. ``scan_steps`` > 1 takes a
     stacked batch and runs its steps in one call (one CUDA graph replay on
     the card). Runs on the card unless ``device="cpu"``; raises when CUDA is
     asked for and absent."""
-    return TrainStep(cfg, lr, device, scan_steps)
+    return TrainStep(cfg, lr, device, scan_steps, optimizer)
 
 
 class SamplerTrainStep(TrainStep):

@@ -1,6 +1,15 @@
-"""Utilities of the port: distributions, the parameter count
-(``utils.profiling``) and the NBA horizon table (``utils.metrics``)."""
+"""Utilities of the port: distributions, metrics and the NBA horizon table
+(``utils.metrics``), logging, flat parameter views (``utils.flat_params``),
+tracing, timing and the parameter table (``utils.profiling``) and
+trajectory plots (``utils.visualize``, matplotlib imported at the first
+plot)."""
 
 from sttode_tpu_torch.utils.distributions import DiagNormal
+from sttode_tpu_torch.utils.logging import Logger, print_log
+from sttode_tpu_torch.utils.metrics import (AverageMeter, best_sample_indices,
+                                            compute_ade, compute_fde,
+                                            count_miss_samples)
 
-__all__ = ["DiagNormal"]
+__all__ = ["DiagNormal", "Logger", "print_log", "AverageMeter",
+           "best_sample_indices", "compute_ade", "compute_fde",
+           "count_miss_samples"]

@@ -256,8 +256,15 @@ def test_cli_train_trains_saves_and_resumes(tmp_path, capsys):
     assert [h[:2] for h in scanned.history] == [(2, 2.5e-4)]
     assert all(int(s["step"]) == 3 * steps
                for s in scanned.opt.state_dict()["state"].values())
-    with pytest.raises(NotImplementedError, match="--supervise"):
-        cli_train.main(args + ["--supervise"])
+    # --supervise is ported (tests/test_torch_train_options.py): the
+    # supervisor continues the resumed run and writes its checkpoint
+    supervised = cli_train.main(args + ["--num_epochs", "4",
+                                        "--epoch_continue", "3",
+                                        "--supervise"])
+    assert [h[:2] for h in supervised.history] == [(3, 1.25e-4)]
+    assert tck.checkpoint_epochs(str(cdir)) == [1, 2, 3, 4]
+    with pytest.raises(NotImplementedError, match="--distributed"):
+        cli_train.main(args + ["--distributed"])
     with pytest.raises(NotImplementedError, match="attn_impl"):
         cli_train.main(args + ["--attn_impl", "ring"])
 
@@ -292,8 +299,11 @@ def test_cli_test_prints_a_finite_table(tmp_path, capsys):
     for part in ("ade", "fde"):
         assert set(best["table"][part]) == {"1.0s", "2.0s", "3.0s", "4.0s"}
         assert np.isfinite(list(best["table"][part].values())).all()
-    with pytest.raises(NotImplementedError, match="--save_plots"):
-        cli_test.main(_cli_args(tmp_path, "--save_plots", "x"))
+    # --save_plots is ported (tests/test_torch_train_options.py)
+    cli_test.main(_cli_args(tmp_path, "--batch_size", "16", "--save_plots",
+                            str(tmp_path / "plots"), "--max_plots", "2"))
+    assert sorted(os.listdir(tmp_path / "plots")) == [
+        "court_0000.png", "court_0001.png"]
     with pytest.raises(SystemExit):
         cli_test.main(_cli_args(tmp_path, "--ckpt_dir",
                                 str(tmp_path / "empty")))

@@ -1522,22 +1522,26 @@ _POINCARE_SMALL_BWD_CASES = [
     dict(B=2, L=40, S=40, Dh=64, c=0.7, mask="all_excluded")]
 
 
-def _bwd_kernels(fn):
-    """``fn()``, the names of the whole-S backward kernels it launches, from
-    the profiler's trace (taken again, up to twice, where a trace holds no
-    kernel), and the number of calls made."""
-    for calls in range(1, 4):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+def _bwd_kernels(fn, calls: int = 20):
+    """``fn()``'s output, the names of the whole-S backward kernels it
+    launches and the number of calls made: one untraced warm-up call, then
+    one profiler trace of ``calls`` calls, whose names are those of any
+    traced call. A trace can miss the launches at its ends: traces of one
+    cold call, and of one or three calls after a warm-up call under a
+    profiler schedule, came back empty at times; 20-call windows have
+    not."""
+    out = fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
             out = fn()
-            torch.cuda.synchronize()
-        names = {m.group(1) for m in (
-            re.search(r"(mhgsa_\w*bwd_kernel)", e.key)
-            for e in prof.key_averages()) if m}
-        if names:
-            break
-    return out, names, calls
+        torch.cuda.synchronize()
+    names = {m.group(1) for m in (
+        re.search(r"(mhgsa_\w*bwd_kernel)", e.key)
+        for e in prof.key_averages()) if m}
+    return out, names, 1 + calls
 
 
 @pytest.mark.cuda
@@ -2249,6 +2253,165 @@ def test_while_form_steps_run_eagerly(cuda_device):
     got = step(p2, o2, stack_batches(batches), noise=stack_noise(noises))
     assert torch.equal(got[2]["total"], torch.stack(want))
     assert step.graphs == {}
+
+
+def _grads_close(got, want, what, tol=1e-4):
+    """Each gradient leaf within ``tol`` × its largest magnitude."""
+    assert len(got) == len(want), what
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), f"{what}: leaf {i}"
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((a - b).abs().max())
+        assert err <= tol * scale, f"{what}: leaf {i} {err:.3e} of {scale:.3e}"
+
+
+def _decoder_launches():
+    return {"packed": (tpacked.packed_geodesic_attention.launches,
+                       tpacked.packed_geodesic_attention_backward.launches),
+            "fused": (tmhgsa.fused_geodesic_attention.launches,
+                      tmhgsa.fused_geodesic_attention_backward.launches),
+            "flash": (tmhgsa.flash_geodesic_attention.launches,
+                      tmhgsa.flash_geodesic_attention_backward.launches_dq,
+                      tmhgsa.flash_geodesic_attention_backward.launches_dkv)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,L,Lm,compat", [
+    ("packed", 32, 24, "reference"), ("packed", 16, 16, "reference"),
+    ("packed", 12, 30, "tpu"), ("fused", 128, 96, "reference"),
+    ("fused", 64, 64, "reference"), ("fused", 40, 200, "tpu"),
+    ("flash", 256, 2304, "reference"), ("flash", 100, 300, "tpu")])
+def test_decoder_kernel_routes_match_plain(cuda_device, route, L, Lm,
+                                           compat):
+    """``decoder_stack`` (d_model 64, 8 heads, ff 256, one layer) forced
+    onto each kernel route at L != L_mem (and the square cross, Q3 swapped
+    under reference compat) against the plain route on the card: the
+    output within 1e-4, every gradient leaf (the layer's, tgt's, memory's)
+    within 1e-4 × its largest magnitude; None weights; the route's
+    kernels launched."""
+    from sttode_tpu_torch.nn import transformer as ttr
+    cfg = ttr.LayerConfig(d_model=64, num_heads=8, ff_dim=256, compat=compat)
+    layers = bridge.to_device(ttr.decoder_stack_init(
+        torch.Generator().manual_seed(L + Lm), cfg, 1), cuda_device)
+    rng = np.random.default_rng(L * 7 + Lm)
+    x, m, cot = (torch.from_numpy(rng.standard_normal((n, 3, 1, 64)).astype(
+        np.float32)).to(cuda_device) for n in (L, Lm, L))
+
+    def run(impl):
+        p = bridge.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                            layers)
+        xx, mm = x.clone().requires_grad_(), m.clone().requires_grad_()
+        out, sw, cw = ttr.decoder_stack(p, xx, mm,
+                                        cfg._replace(attn_impl=impl))
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), (sw, cw), [t.grad for t in bridge.tree_leaves(
+            p)] + [xx.grad, mm.grad]
+
+    before = _decoder_launches()[route]
+    out_k, w_k, g_k = run(route)
+    after = _decoder_launches()[route]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    out_p, w_p, g_p = run("dense")
+    assert w_k == (None, None) and w_p[1].shape == (3, L, Lm)
+    assert float((out_k - out_p).abs().max()) <= 1e-4
+    _grads_close(g_k, g_p, f"decoder {route} {L}x{Lm}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,L", [("packed", 16), ("packed", 9),
+                                     ("fused", 128), ("fused", 50)])
+@pytest.mark.parametrize("bias,zero", [(False, False), (True, False),
+                                       (False, True), (True, True)])
+def test_mhgsa_bias_kv_kernel_routes_match_plain(cuda_device, route, L,
+                                                 bias, zero):
+    """``mhgsa`` with ``bias_kv`` / ``add_zero_attn`` on the packed and
+    fused kernels against the plain route (square without the options:
+    swapped; with them S = L + 1 or + 2, unswapped), forward and every
+    gradient (the projections, bias_k, bias_v, the query)."""
+    from sttode_tpu_torch.nn import attention as tattn
+    gen = torch.Generator().manual_seed(L + 2 * bias + zero)
+    mp = tattn.mhgsa_init(gen, 64)
+    mp = to_device(mp._replace(
+        in_proj_b=0.1 * torch.randn(192, generator=gen),
+        out_proj_b=0.1 * torch.randn(64, generator=gen)), cuda_device)
+    bkv = tuple(torch.randn(64, generator=gen).to(cuda_device)
+                for _ in range(2))
+    x0 = torch.randn(5, L, 64, generator=gen).to(cuda_device)
+    cot = torch.randn(5, L, 64, generator=gen).to(cuda_device)
+
+    def run(fused):
+        p = bridge.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                            mp)
+        b = tuple(t.detach().clone().requires_grad_() for t in bkv)
+        x = x0.clone().requires_grad_()
+        out, w = tattn.mhgsa(p, x, x, x, 8, compat="reference", fused=fused,
+                             bias_kv=b if bias else None, add_zero_attn=zero)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), [t.grad for t in bridge.tree_leaves(p)] + (
+            [t.grad for t in b] if bias else []) + [x.grad]
+
+    before = _decoder_launches()[route][:2]
+    out_k, g_k = run(True if route == "fused" else "packed")
+    assert all(a > b for a, b in zip(_decoder_launches()[route][:2], before))
+    out_p, g_p = run(False)
+    assert float((out_k - out_p).abs().max()) <= 1e-4
+    _grads_close(g_k, g_p, f"mhgsa {route} L {L} bias {bias} zero {zero}")
+
+
+@pytest.mark.cuda
+def test_rollback_under_a_captured_step(cuda_device, tmp_path):
+    """A NaN parameter under ``scan_steps`` 2: ``Supervisor.after_epoch``
+    rolls back in place (the graph stays bound: no recapture), and the
+    next replay equals eager steps from the last-good checkpoint on the
+    same Adam form and noise."""
+    from sttode_tpu_torch.train import (load_checkpoint, set_lr,
+                                        stack_batches, stack_noise)
+    from sttode_tpu_torch.train.checkpoint import checkpoint_path
+    from sttode_tpu_torch.train.supervisor import Supervisor
+    cfg = tm.STTODEConfig(**_SCAN_SMALL, attn_impl="packed",
+                          select_impl="auto").validate()
+    batches = _scan_batches(cuda_device, 8)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    noises = [_scan_noise(cfg, b, gen) for b in batches]
+    step = make_train_step(cfg, 1e-3, device=cuda_device, scan_steps=2)
+    params, opt = step.init(tm.sttode_init(12, cfg))
+
+    def chunk(i):
+        return step(params, opt, stack_batches(batches[2 * i:2 * i + 2]), gen,
+                    noise=stack_noise(noises[2 * i:2 * i + 2]))[2]
+
+    sup = Supervisor(str(tmp_path), cfg, save_every=1)
+    m0, m1 = chunk(0), chunk(1)
+    assert sup.after_epoch(0, float(torch.cat([m0["total"], m1["total"]])
+                                    .mean()), params, opt)[3] == "ok"
+    with torch.no_grad():
+        bridge.tree_leaves(params)[3].view(-1)[0] = float("nan")
+    loss = float(chunk(2)["total"].mean())
+    _, _, epoch, action = sup.after_epoch(1, loss, params, opt)
+    assert (action, epoch, sup.lr_scale) == ("rollback", 1, 0.5)
+    saved_p, saved_o, _, _ = load_checkpoint(checkpoint_path(str(tmp_path),
+                                                             1))
+    for a, b in zip(bridge.tree_leaves(params), bridge.tree_leaves(saved_p)):
+        assert torch.equal(a.detach().cpu(), b)
+    set_lr(opt, 5e-4)
+    m3 = chunk(3)
+    assert step.graph_stats()["graphs"] == 1
+    assert step.graph_stats()["replays"] == 3
+    eager = make_train_step(cfg, 1e-3, device=cuda_device)
+    pe, oe = step.init(saved_p, saved_o)
+    set_lr(oe, 5e-4)
+    me = [eager(pe, oe, b, gen, noise=n)[2] for b, n in
+          zip(batches[6:], noises[6:])]
+    torch.cuda.synchronize()
+    for k in m3:
+        b = torch.stack([m[k] for m in me])
+        assert float((m3[k] - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max())), k
+    for a, b in zip(bridge.tree_leaves(params), bridge.tree_leaves(pe)):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))
 
 
 @pytest.mark.cuda

@@ -64,7 +64,11 @@ MODULES = sorted(
                                                  "profiling", ".eth_ucy",
                                                  ".sdd", ".batching",
                                                  ".prefetch", ".binding",
-                                                 ".graph", ".counters"))])
+                                                 ".graph", ".counters",
+                                                 ".guards", ".supervisor",
+                                                 ".logging", ".flat_params",
+                                                 ".visualize", ".transformer",
+                                                 ".ode_block"))])
 def test_module_import_builds_and_parses_nothing(monkeypatch, name):
     """Importing a module of the port (the CLIs among them) compiles no
     kernel and reads no command line: a bad argv changes nothing."""
@@ -75,3 +79,17 @@ def test_module_import_builds_and_parses_nothing(monkeypatch, name):
     monkeypatch.setattr("sys.argv", ["x", "--no-such-flag"])
     importlib.import_module(name)
     assert _build._lib is None
+
+
+def test_visualize_imports_matplotlib_lazily():
+    """``utils.visualize`` imports matplotlib inside its plot functions, not
+    at module level: the card's machine may not have it."""
+    tree = ast.parse((ROOT / "sttode_tpu_torch" / "utils" /
+                      "visualize.py").read_text())
+    top = [a.name for node in tree.body if isinstance(node, ast.Import)
+           for a in node.names] + [node.module for node in tree.body
+                                   if isinstance(node, ast.ImportFrom)]
+    assert not any(m and m.startswith("matplotlib") for m in top), top
+    assert any(isinstance(node, ast.Import) and any(
+        a.name.startswith("matplotlib") for a in node.names)
+        for node in ast.walk(tree))
