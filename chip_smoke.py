@@ -119,8 +119,8 @@ paths, then drives both paths at the full width of the repo's model
            32 x 11 (P), the ETH agent-axis recipe's 32 x 16 (A, key
            masks) and with the poincaré metric (1p): losses, dec_motion
            and every sampler gradient leaf, no net leaf with a gradient;
-           one profiled step of each recipe (its forward kernel, none of
-           C, 2p, Q, Fdq, Fdkv, 4p or kernel B); both routes' step time,
+           20 profiled steps of each recipe in one trace (its forward
+           kernel, none of C, 2p, Q, Fdq, Fdkv, 4p or kernel B); both routes' step time,
            train scenes/s, idle share and kernels a step at the ETH
            reference shape 1 x 16 and at NBA 32 x 11; the sampler's
            ``Predictor`` on the agent axis, the isolated scene axis (64
@@ -187,6 +187,25 @@ paths, then drives both paths at the full width of the repo's model
            rollback, parameters and Adam moments equal to the last-good
            checkpoint and the next replay equal to an eager chunk from it,
            bit for bit; (e) ``time_fn`` beside CUDA events.
+  phase 20 the last single-process modules (``riemannian_phase``): (a) the
+           NBA reference recipe's step (B = 32 × 11, ``select_impl
+           "auto"``) under ``train.riemannian.riemannian_sgd`` over the
+           encoder layers' ``in_proj_w`` (projected with
+           ``project_to_manifold`` first): 4 eager steps of the capturable
+           form against one ``scan_steps`` 4 replay, bit for bit, the
+           marked rows unit-norm within 1e-5, P, Q and kernel B fp32 in the
+           counters and in a trace of 20 replays, ms a step eager and
+           captured; (b) every public function of ``manifolds.oblique``'s
+           Riemannian ops, ``manifolds.euclidean``, ``train.riemannian``,
+           ``nn.hyperbolic``, ``nn.dot_attention``, ``nn.gumbel``,
+           ``RelaxedOneHot``, ``utils.delta``, ``utils.analysis`` and
+           ``gru_cell`` on the card against the CPU on the same inputs
+           (``card_vs_cpu``: 1e-5 in fp32; float64 near antipodes and at the
+           ball's edge), gradients included; (c) ``batched_delta_hyp`` at
+           batch_size 1500 (2 tries) and ``features_delta`` (sample 1500)
+           over the past encoder's features of 8 NBA batches on P, against
+           float64 on the card and 400 points against the CPU: seconds and
+           peak memory.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -1247,8 +1266,8 @@ def sampler_phase(dev, card, counts, reset, cli: dict) -> dict:
         del net64, g_64
         del net, g_k, g_p
 
-    # one profiled stage-2 training step of each recipe: its forward
-    # kernel, and no backward attention kernel and no kernel B
+    # profiled stage-2 training steps of each recipe: its forward kernel,
+    # and no backward attention kernel and no kernel B
     cpu = torch.profiler.ProfilerActivity.CPU
     cuda = torch.profiler.ProfilerActivity.CUDA
     for label, cfg, batch, fwd in (
@@ -1260,19 +1279,17 @@ def sampler_phase(dev, card, counts, reset, cli: dict) -> dict:
         for _ in range(2):
             params, opt, _ = step(params, opt, batch)
         torch.cuda.synchronize()
-        seen: dict = {}
-        for _ in range(3):       # a trace can lose a launch: up to 3 steps
-            reset()
-            with torch.profiler.profile(activities=[cpu, cuda]) as prof:
+        # 20 steps in one trace after the warm-up steps: traces of one step
+        # each (three in a row) came back empty on the card, as traces of a
+        # few calls did in phase 13 (kernel_names)
+        reset()
+        with torch.profiler.profile(activities=[cpu, cuda]) as prof:
+            for _ in range(20):
                 params, opt, metrics = step(params, opt, batch)
-                torch.cuda.synchronize()
-            moved = counts()
-            names = trace_names(prof.key_averages())
-            for k, v in names.items():
-                seen[k] = seen.get(k, 0) + v
-            stage2_forward_only(moved, f"phase 16 profiled {label} step")
-            if names.get(fwd):
-                break
+            torch.cuda.synchronize()
+        moved = counts()
+        seen = trace_names(prof.key_averages())
+        stage2_forward_only(moved, f"phase 16 profiled {label} steps")
         require(seen.get(fwd, 0) > 0,
                 f"phase 16: the profiler did not see {fwd} in a {label} "
                 f"stage-2 step: {seen}")
@@ -1286,7 +1303,7 @@ def sampler_phase(dev, card, counts, reset, cli: dict) -> dict:
                 f"phase 16 {label}: a net leaf received a gradient")
         require(all(bool(torch.isfinite(v)) for v in metrics.values()),
                 f"phase 16 {label}: non-finite metrics {metrics}")
-        print(f"phase 16 profiled stage-2 step, {label}: the trace saw "
+        print(f"phase 16 20 profiled stage-2 steps, {label}: the trace saw "
               f"{seen}; the counters {nonzero(moved)}; no net leaf has a "
               f"gradient")
         del net, step, params, opt
@@ -2510,6 +2527,478 @@ def decoder_phase(dev, card, counts, reset, nba_files) -> dict:
     print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s; its main "
           f"paths launched {nonzero(total)}")
     return {"launches": total}
+
+
+def riemannian_phase(dev, card, counts, reset) -> dict:
+    """Phase 20: the last single-process modules. (a) the NBA reference
+    recipe's step (B = 32 × 11, scene axis, ``select_impl="auto"``, full
+    width) with ``riemannian_sgd`` over the encoder layers' ``in_proj_w``,
+    projected onto the oblique manifold first: 4 eager steps of the
+    capturable form against one replay of the ``scan_steps=4`` step from
+    the same parameters and noise, bit for bit; the marked rows unit-norm
+    within 1e-5; P, Q and kernel B fp32 in the counters and in a trace
+    of 20 replays; ms a step eager and captured. (b) every new module's
+    public function on the card against the same function on the CPU on
+    the same inputs (``card_vs_cpu``), gradients through
+    ``to_poincare(riemannian=True)`` and ``hyp_linear`` among them. (c)
+    δ-hyperbolicity at full size: ``batched_delta_hyp`` at the default
+    batch_size 1500 (2 tries) and ``features_delta`` over the past
+    encoder's features of NBA batches on the kernel route (sample 1500),
+    each against float64 on the card and 400 of the points against the
+    CPU; seconds and peak memory. Returns the launches of its main
+    paths."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.train import (make_train_step, stack_batches,
+                                        stack_noise)
+    from sttode_tpu_torch.train.riemannian import (RiemannianSGD,
+                                                   flat_mask,
+                                                   project_to_manifold,
+                                                   riemannian_sgd)
+    from sttode_tpu_torch.utils import delta as tdelta
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the NBA recipe's step under riemannian_sgd, eager against captured
+    cfg = tm.STTODEConfig(past_length=5, future_length=10,
+                          select_impl="auto").validate()
+    S_, lr, M = 4, 1e-5, 32 * 11
+    gen = torch.Generator(device=dev).manual_seed(20)
+    batches, noises = [], []
+    for i in range(2 * S_):
+        sc = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=200 + i)
+        b, _ = prepare_scene_group(
+            np.stack([s_["obs"] for s_ in sc]),
+            np.stack([s_["pred"] for s_ in sc]), np.ones((32, 11),
+                                                         np.float32),
+            training=True, rng=np.random.default_rng(200 + i))
+        batches.append(b.to(dev))
+        D, Z = cfg.hidden_dim, cfg.zdim
+        noises.append(tm.TrainNoise(
+            torch.rand(M, 5, D, device=dev, generator=gen) >= cfg.pe_dropout,
+            torch.rand(M, 10, D, device=dev, generator=gen) >= cfg.pe_dropout,
+            torch.randn(M, Z, device=dev, generator=gen),
+            torch.randn(M * cfg.sample_k, Z, device=dev, generator=gen)))
+
+    def in_proj(path) -> bool:
+        return path[-1] == "in_proj_w"
+
+    def mask(p):
+        return bridge.tree_map_with_path(lambda path, _: in_proj(path), p)
+
+    p0 = project_to_manifold(tm.sttode_init(20, cfg), mask)
+    sgd = riemannian_sgd(lr, flat_mask(mask, p0))
+    graph = make_train_step(cfg, lr, device=dev, scan_steps=S_,
+                            optimizer=sgd)
+    eager = make_train_step(cfg, lr, device=dev, optimizer=sgd)
+    require(graph.mode == "graph", "phase 20 (a): the step is not captured")
+    pg, og = graph.init(p0)
+    marked = sum(og.on_manifold.values())
+    require(isinstance(og, RiemannianSGD) and marked == 2 * cfg.nlayer
+            and isinstance(og.param_groups[0]["lr"], torch.Tensor),
+            f"phase 20 (a): the optimizer {type(og).__name__}, {marked} "
+            f"marked leaves, lr {og.param_groups[0]['lr']!r}")
+    first, second = slice(0, S_), slice(S_, 2 * S_)
+
+    def chunk(sl):
+        return stack_batches(batches[sl]), stack_noise(noises[sl])
+
+    # the first call runs its chunk eagerly as the capture's warm-up
+    b0, n0 = chunk(first)
+    graph(pg, og, b0, gen, noise=n0)
+    # the eager side from the same parameters, on the graph's optimizer form
+    pe, oe = graph.init(pg)
+    me = [eager(pe, oe, b, gen, noise=n)[2]
+          for b, n in zip(batches[second], noises[second])]
+    torch.cuda.synchronize()
+    stacked, noise = chunk(second)
+    reset()   # the main path: a replay of the captured Riemannian step
+    mg = graph(pg, og, stacked, gen, noise=noise)[2]
+    torch.cuda.synchronize()
+    launches = counts()
+    add(launches)
+    same_losses = all(torch.equal(mg[k], torch.stack([m[k] for m in me]))
+                      for k in mg)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        bridge.tree_leaves(pg), bridge.tree_leaves(pe)))
+    stats = graph.graph_stats()
+    norm_err, moved = 0.0, 0
+    for (path, a), b in zip(bridge.tree_leaves_with_path(pg),
+                            bridge.tree_leaves(p0)):
+        if in_proj(path):
+            norm_err = max(norm_err, float(
+                (torch.linalg.vector_norm(a.detach(), dim=-1) - 1).abs()
+                .max()))
+            moved += not torch.equal(a.detach().cpu(), b)
+    require(all(bool(torch.isfinite(v).all()) for v in mg.values()),
+            f"phase 20 (a): non-finite losses {mg}")
+    require(same_losses and same_params and stats["graphs"] == 1
+            and stats["replays"] == 1,
+            f"phase 20 (a): the replay differs from 4 eager steps (losses "
+            f"equal {same_losses}, parameters equal {same_params}; graphs "
+            f"{stats})")
+    require(norm_err <= 1e-5 and moved == marked,
+            f"phase 20 (a): marked rows off the sphere by {norm_err:.3e}, "
+            f"{moved} of {marked} marked leaves moved")
+    require(launches["packed"] > 0 and launches["packed_bwd"] > 0
+            and launches["select_fp32"] > 0,
+            f"phase 20 (a): the replay did not launch P, Q and kernel B fp32 "
+            f"{nonzero(launches)}")
+    # 20 warm replays in one trace (traces of a few calls can come back
+    # empty: phase 16, kernel_names): the kernels by name
+    reset()   # the main path: the profiled replays
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            graph(pg, og, stacked, gen, noise=noise)
+        torch.cuda.synchronize()
+    traced = counts()
+    add(traced)
+    in_trace = trace_names(prof.key_averages())
+    require(all(in_trace.get(k, 0) > 0 for k in ("P", "Q", "B_fp32")),
+            f"phase 20 (a): the trace of 20 replays names {in_trace} "
+            f"(counters {nonzero(traced)})")
+    step_ms: dict = {"eager": [], "captured": []}
+    for r in range(5):
+        for name in (("eager", "captured") if r % 2 == 0
+                     else ("captured", "eager")):
+            t = time.perf_counter()
+            if name == "eager":
+                for b, n in zip(batches[second], noises[second]):
+                    eager(pe, oe, b, gen, noise=n)
+            else:
+                graph(pg, og, stacked, gen, noise=noise)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t) / S_ * 1e3)
+    ms_e = statistics.median(step_ms["eager"])
+    ms_g = statistics.median(step_ms["captured"])
+    print(f"phase 20 (a) NBA recipe step (B = 32 x 11, select_impl auto) "
+          f"with riemannian_sgd(lr {lr:g}) on the {marked} encoder in_proj_w "
+          f"leaves: one scan_steps {S_} replay equals {S_} eager steps of "
+          f"the capturable form bit for bit (losses "
+          + " ".join(f"{float(v):.6f}" for v in mg["total"])
+          + f"; every parameter), the marked rows unit-norm within "
+          f"{norm_err:.3e}; replay launches {nonzero(launches)}; the trace "
+          f"of 20 replays names {in_trace}; eager {ms_e:.3f} ms a step, "
+          f"captured {ms_g:.3f} ms a step ({32e3 / ms_g:.1f} train "
+          f"scenes/s)  [{card}]")
+
+    # (b) every new module's public function, the card against the CPU
+    worst_b, checked = card_vs_cpu(dev)
+    print(f"phase 20 (b) {checked} calls of the new modules' functions "
+          f"(oblique, euclidean, riemannian_sgd, hyperbolic, dot attention, "
+          f"gumbel, RelaxedOneHot, delta, analysis, gru_cell), outputs and "
+          f"gradients, the card against the CPU: the worst difference is "
+          f"{worst_b[1]:.3f} of its tolerance {worst_b[2]:g} ({worst_b[0]})"
+          f"  [{card}]")
+
+    # (c) δ-hyperbolicity at full size on the card
+    params = bridge.to_device(p0, dev)
+    reset()   # the main path: the past encoder's features on P
+    with torch.no_grad():
+        t = time.perf_counter()
+        feats = torch.cat([tm.encode_past(params, cfg, b) for b in batches])
+        torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t
+    launches_f = counts()
+    add(launches_f)
+    require(launches_f["packed"] > 0, f"phase 20 (c): the past encoder did "
+            f"not launch P {nonzero(launches_f)}")
+    results = {}
+    for name, call in (
+            ("batched_delta_hyp", lambda x, r: tdelta.batched_delta_hyp(
+                x, n_tries=2, batch_size=1500, rng=r)),
+            ("features_delta", lambda x, r: tdelta.features_delta(
+                [x[i:i + M] for i in range(0, len(x), M)], lambda f: f,
+                sample=1500, rng=r))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        got = call(feats, np.random.default_rng(20))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        want = call(feats.double(), np.random.default_rng(20))
+        small = call(feats[:400].double().cpu(), np.random.default_rng(21))
+        small_card = call(feats[:400].double(), np.random.default_rng(21))
+        err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+        err_small = max(abs(a - b) / max(abs(b), 1e-12)
+                        for a, b in zip(small_card, small))
+        require(all(math.isfinite(v) and v >= 0 for v in got)
+                and err <= 1e-4 and err_small <= 1e-12,
+                f"phase 20 (c) {name}: {got} against float64 {want} "
+                f"(relative {err:.3e}); 400 points card {small_card} vs CPU "
+                f"{small}")
+        results[name] = (got, sec, peak, err, err_small)
+    (dm, ds), sec_b, peak_b, err_b, small_b = results["batched_delta_hyp"]
+    (fd, fdiam), sec_f, peak_f, err_f, small_f = results["features_delta"]
+    print(f"phase 20 (c) δ-hyperbolicity on the card over the past encoder's "
+          f"features of {len(batches)} NBA batches ({feats.shape[0]} x "
+          f"{feats.shape[1]} fp32, {t_feat * 1e3:.1f} ms on P): "
+          f"batched_delta_hyp(batch_size 1500, 2 tries) = {dm:.6f} ± "
+          f"{ds:.6f} in {sec_b:.3f} s, peak {peak_b:.3f} GiB allocated "
+          f"beyond the resident; features_delta(sample 1500) = δ {fd:.6f}, "
+          f"diameter {fdiam:.6f} in {sec_f:.3f} s, peak {peak_f:.3f} GiB; "
+          f"against float64 on the card within {max(err_b, err_f):.3e} "
+          f"(relative), 400 points against the CPU within "
+          f"{max(small_b, small_f):.3e}  [{card}]")
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s; its main "
+          f"paths launched {nonzero(total)}")
+    return {"launches": total}
+
+
+def card_vs_cpu(dev) -> tuple[tuple, int]:
+    """Phase 20 (b): each public function of the modules ported last
+    (``manifolds.oblique``'s Riemannian ops, ``manifolds.euclidean``,
+    ``train.riemannian``, ``nn.hyperbolic``, ``nn.dot_attention``,
+    ``nn.gumbel``, ``RelaxedOneHot``, ``utils.delta``, ``utils.analysis``,
+    ``nn.recurrent.gru_cell``) on the card and on the CPU on the same
+    numpy-seeded inputs, with the random draws injected: every output and,
+    where marked, the gradient of Σ w·out with respect to every float input
+    within ``tol`` × max(1, |CPU|) (1e-5 in fp32; float64 near the
+    sphere's antipodes and at the ball's edge, 1e-9). Raises at the first
+    that disagrees; returns (the worst (label, share of its tolerance,
+    tolerance)) and the count of calls checked."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.manifolds import euclidean as teuc
+    from sttode_tpu_torch.manifolds import oblique as tobl
+    from sttode_tpu_torch.nn import dot_attention as tdot
+    from sttode_tpu_torch.nn import gumbel as tgum
+    from sttode_tpu_torch.nn import hyperbolic as th
+    from sttode_tpu_torch.nn import recurrent as trec
+    from sttode_tpu_torch.train import riemannian as triem
+    from sttode_tpu_torch.utils import analysis as tan
+    from sttode_tpu_torch.utils import delta as tdelta
+    from sttode_tpu_torch.utils.distributions import (RelaxedOneHot,
+                                                      draw_gumbel)
+
+    rng = np.random.default_rng(20)
+    gen = torch.Generator().manual_seed(20)
+    cpu = torch.device("cpu")
+    worst = ("", 0.0, 0.0)
+    checked = 0
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def sphere(*shape, dtype=np.float32):
+        x = rng.standard_normal(shape)
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(dtype)
+
+    def ball(*shape, radius=0.9, dtype=np.float32):
+        return (sphere(*shape, dtype=np.float64) * rng.uniform(
+            0.05, radius, (*shape[:-1], 1))).astype(dtype)
+
+    def check(label, fn, args, *, grad=False, tol=1e-5):
+        """fn(*args) on both devices; args a list of numpy trees (integer
+        and bool leaves are not differentiated)."""
+        nonlocal worst, checked
+        results = []
+        for d in (dev, cpu):
+            targs = bridge.tree_map(lambda a: torch.tensor(
+                a, device=d, requires_grad=grad and a.dtype.kind == "f"),
+                args)
+            outs = fn(*targs)
+            outs = list(outs) if isinstance(outs, tuple) else [outs]
+            grads = []
+            if grad:
+                w = np.random.default_rng(2).standard_normal
+                sum((o * torch.tensor(w(tuple(o.shape)), dtype=o.dtype,
+                                      device=d)).sum()
+                    for o in outs if o.is_floating_point()).backward()
+                grads = [torch.zeros_like(t) if t.grad is None else t.grad
+                         for t in bridge.tree_leaves(targs)
+                         if t.requires_grad]
+            results.append([t.detach().cpu() for t in outs + grads])
+        for i, (a, b) in enumerate(zip(*results)):
+            a, b = a.double(), b.double()
+            err = float((a - b).abs().max()) / max(1.0, float(
+                b.abs().max())) if b.numel() else 0.0
+            require(err <= tol, f"phase 20 (b) {label}: output / gradient "
+                    f"{i} differs on the card from the CPU by {err:.3e} > "
+                    f"{tol:g}")
+            if err / tol > worst[1]:
+                worst = (label, err / tol, tol)
+        checked += 1
+
+    # the oblique manifold (fp32; float64 near the antipodes) and the
+    # Euclidean one
+    x, u, y = sphere(6, 4, 8), normal(6, 4, 8, scale=0.7), sphere(6, 4, 8)
+    u[0] *= 1e-6      # expmap's retraction branch
+    y[1] = x[1] + 1e-6 * rng.standard_normal((4, 8))  # logmap's small branch
+    for name, fn in (
+            ("proj_tan", lambda m, x, u, y: m.proj_tan(u, x)),
+            ("inner", lambda m, x, u, y: (m.inner(u), m.inner(u, y))),
+            ("dist_point", lambda m, x, u, y: m.dist_point(x, y)),
+            ("expmap", lambda m, x, u, y: m.expmap(u, x)),
+            ("logmap", lambda m, x, u, y: m.logmap(y, x)),
+            ("retr", lambda m, x, u, y: m.retr(u, x)),
+            ("ptransp", lambda m, x, u, y: m.ptransp(u, x, y)),
+            ("egrad2rgrad", lambda m, x, u, y: m.egrad2rgrad(u, x))):
+        for m in (tobl, teuc):
+            check(f"{m.__name__.rsplit('.', 1)[1]}.{name}",
+                  lambda *a, m=m, fn=fn: fn(m, *a), [x, u, y], grad=True)
+    check("oblique.retr_transp", lambda x, u, y: tobl.retr_transp(u, x, y),
+          [x, u, y], grad=True)
+    check("euclidean.dist, mobius_add, mobius_matvec",
+          lambda x, u, y: (teuc.dist(x, y), teuc.mobius_add(x, y),
+                           teuc.mobius_matvec(u[0, :3], x)), [x, u, y],
+          grad=True)
+    xa = sphere(6, 4, 8, dtype=np.float64)
+    ya = -xa + 1e-3 * rng.standard_normal(xa.shape)
+    ya /= np.linalg.norm(ya, axis=-1, keepdims=True)
+    ua = 3.0 * np.asarray(tobl.proj_tan(torch.from_numpy(
+        rng.standard_normal(xa.shape)), torch.from_numpy(xa)))
+    for name, fn in (("logmap", lambda x, u, y: tobl.logmap(y, x)),
+                     ("expmap", lambda x, u, y: tobl.expmap(u, x)),
+                     ("dist_point", lambda x, u, y: tobl.dist_point(x, y))):
+        check(f"oblique.{name} near antipodes (float64)", fn, [xa, ua, ya],
+              grad=True, tol=1e-9)
+    # Riemannian SGD: the projection, then a step on a prefix mask
+    tree = {"enc": {"w": normal(4, 6), "b": normal(4, 6)},
+            "head": {"w": normal(3, 6)}}
+
+    def riemannian_step(tree):
+        p = triem.project_to_manifold(tree, {"enc": True, "head": False})
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in bridge.tree_leaves(p)]
+        opt = triem.riemannian_sgd(0.05, triem.flat_mask(
+            {"enc": True, "head": False}, p))(leaves)
+        for t in leaves:
+            t.grad = torch.cos(3 * t.detach())
+        opt.step()
+        return tuple(t.detach() for t in leaves)
+
+    check("riemannian project_to_manifold + riemannian_sgd step",
+          riemannian_step, [tree])
+    # the hyperbolic layers, on JAX's layouts; fp32 inside the ball, float64
+    # at its edge
+    mlr = {"a_vals": normal(5, 8, scale=0.3), "p_vals": normal(5, 8,
+                                                             scale=0.3)}
+    lin = {"w": normal(8, 6, scale=0.3), "b": normal(6, scale=0.3)}
+    cat = {"l1": {"w": normal(8, 5, scale=0.3)},
+           "l2": {"w": normal(6, 5, scale=0.3)}}
+    xb, x6 = ball(12, 8), ball(12, 6)
+    for c in (1.0, 0.7):
+        check(f"hyperbolic_mlr c = {c}", lambda p, x, c=c: th.hyperbolic_mlr(
+            p, x, c=c), [mlr, xb], grad=True)
+        check(f"hyp_linear c = {c}", lambda p, x, c=c: th.hyp_linear(
+            p, x, c=c), [lin, xb], grad=True)
+    check("hyp_linear without bias", th.hyp_linear, [{"w": lin["w"]}, xb],
+          grad=True)
+    check("concat_poincare", th.concat_poincare, [cat, xb, x6], grad=True)
+    check("hyperbolic_distance", th.hyperbolic_distance, [xb, ball(12, 8)],
+          grad=True)
+    feats, base = normal(12, 8, scale=0.8), normal(8, scale=0.3)
+    for clip in (None, 1.0):
+        check(f"to_poincare riemannian clip_r {clip}",
+              lambda x, b, clip=clip: (
+                  th.to_poincare(x, c=0.7, clip_r=clip),
+                  th.to_poincare(x, c=0.7, clip_r=clip, xp=b)),
+              [feats, base], grad=True)
+    check("to_poincare riemannian=False", lambda x: th.to_poincare(
+        x, riemannian=False), [feats], grad=True)
+    check("from_poincare", lambda y, b: (th.from_poincare(y),
+                                         th.from_poincare(y, xp=b)),
+          [xb, base], grad=True)
+    edge = sphere(12, 8, dtype=np.float64) * (1 - 1e-3)
+    check("from_poincare, hyperbolic_distance at the ball's edge (float64)",
+          lambda y, z: (th.from_poincare(y), th.hyperbolic_distance(y, z)),
+          [edge, ball(12, 8, dtype=np.float64)], grad=True, tol=1e-9)
+    check("to_poincare beyond the ball's edge (float64)",
+          lambda x: th.to_poincare(x, clip_r=3.0),
+          [4.0 * rng.standard_normal((12, 8))], grad=True, tol=1e-9)
+    # dot-product attention: packed self-attention and cross-attention,
+    # additive masks, the heads' mean weights, dropout with its keep-mask
+    E, H = 64, 8
+    attn = (normal(E, 3 * E, scale=0.15), normal(3 * E, scale=0.1),
+            normal(E, E, scale=0.12), normal(E, scale=0.1))
+    q, kv = normal(11, 32, E), normal(11, 20, E)
+    mask = np.where(rng.uniform(size=(11, 32, 20)) < 0.3, -1e9, 0.0).astype(
+        np.float32)
+    keep = rng.uniform(size=(11, H, 32, 32)) >= 0.1
+    from sttode_tpu_torch.nn.attention import MHGSAParams
+    check("dot_mhsa self-attention (packed projection), weights",
+          lambda p, q: tdot.dot_mhsa(MHGSAParams(*p), q, q, q, H,
+                                     need_weights=True), [attn, q],
+          grad=True)
+    check("dot_mhsa cross-attention, masked, weights",
+          lambda p, q, kv, m: tdot.dot_mhsa(MHGSAParams(*p), q, kv, kv, H,
+                                            mask=m, need_weights=True),
+          [attn, q, kv, mask], grad=True)
+    check("dot_mhsa dropout 0.1 with its keep-mask",
+          lambda p, q, k: tdot.dot_mhsa(MHGSAParams(*p), q, q, q, H,
+                                        dropout_rate=0.1, dropout_mask=k)[0],
+          [attn, q, keep], grad=True)
+    # the Gumbel dictionaries and RelaxedOneHot, the Gumbel noise injected
+    logits = normal(64, 10)
+    g = draw_gumbel((64, 10), generator=gen).numpy()
+    for hard in (False, True):
+        check(f"gumbel_softmax hard={hard}", lambda lg, g, hard=hard:
+              tgum.gumbel_softmax(lg, gumbel=g, temperature=0.5, hard=hard),
+              [logits, g], grad=True)
+    dp = {"mlp": {"layers": [{"w": normal(32, 64, scale=0.2),
+                              "b": normal(64, scale=0.1)},
+                             {"w": normal(64, 10, scale=0.2),
+                              "b": normal(10, scale=0.1)}]},
+          "dictionary": normal(10, 16, scale=0.1),
+          "factor": {"w": normal(32, 1, scale=0.2), "b": normal(1)}}
+    xd = normal(64, 32)
+    check("mlp_dict, mlp_dict_softmax", lambda p, x, g: (
+        *tgum.mlp_dict(p, x, gumbel=g), *tgum.mlp_dict_softmax(p, x)),
+        [dp, xd, g], grad=True)
+    other = normal(64, 10)
+    check("RelaxedOneHot probs, rsample, sample, kl, kl(p), mode",
+          lambda lg, o, g: (
+              RelaxedOneHot(lg, 0.3).probs,
+              RelaxedOneHot(lg, 0.3).rsample(gumbel=g),
+              RelaxedOneHot(lg, 0.3).sample(gumbel=g),
+              RelaxedOneHot(lg).kl(), RelaxedOneHot(lg).kl(
+                  RelaxedOneHot(o)), RelaxedOneHot(lg).mode()),
+          [logits, other, g], grad=True)
+    # δ-hyperbolicity (float64, several row blocks) and the analysis toolbox
+    pts = rng.standard_normal((300, 16))
+    check("features_delta, batched_delta_hyp (float64)",
+          lambda x: torch.tensor([
+              *tdelta.features_delta([x[:100], x[100:]], lambda f: f,
+                                     rng=np.random.default_rng(0)),
+              *tdelta.batched_delta_hyp(x, n_tries=2, batch_size=200,
+                                        rng=np.random.default_rng(0))]),
+          [pts], tol=1e-12)
+    a1, a2 = normal(4, 24, 32), normal(4, 40, 32)
+    for metric in ("euclidean", "cosine", "cosine_v2"):
+        check(f"compute_similarity {metric}",
+              lambda a, b, metric=metric: tan.compute_similarity(
+                  a, b, metric=metric), [a1, a2], grad=True)
+    lg, labels = normal(64, 10), rng.integers(0, 10, 64)
+    onehot = np.eye(10, dtype=np.float32)[labels]
+    check("smooth_one_hot, cross_entropy, compute_acc, "
+          "label_smoothing_loss_acc", lambda lg, lb, oh: (
+              tan.smooth_one_hot(lb, 10), tan.cross_entropy(lg, oh),
+              tan.compute_acc(lg, oh),
+              *tan.label_smoothing_loss_acc(lg, lb, 10),
+              tan.label_smoothing_loss_acc(torch.softmax(lg, -1), lb, 10,
+                                           softmaxed=True)[0]),
+          [lg, labels, onehot], grad=True)
+    f1 = normal(256, 32)
+    f2 = f1 + normal(256, 32, scale=0.3)
+    check("grassmann_distance", tan.grassmann_distance, [f1, f2], tol=1e-4)
+    # the GRU cell
+    gp = (normal(32, 288, scale=0.2), normal(96, 288, scale=0.1),
+          normal(288, scale=0.1), normal(288, scale=0.1))
+    check("gru_cell", lambda p, h, x: trec.gru_cell(trec.GRUParams(*p), h, x),
+          [gp, normal(352, 96), normal(352, 32)], grad=True)
+    return worst, checked
 
 
 def main() -> int:
@@ -4223,6 +4712,11 @@ def main() -> int:
     launches19 = decoder_phase(dev, card, counts, reset,
                                nba_files)["launches"]
 
+    # 20. the last single-process modules: the NBA step under riemannian_sgd
+    #     eager against captured, each new function on the card against the
+    #     CPU, δ-hyperbolicity at full size
+    launches20 = riemannian_phase(dev, card, counts, reset)["launches"]
+
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
     s_ms, s_plain = select_times["dist_M1408_K20"]
@@ -4277,7 +4771,7 @@ def main() -> int:
               launches4["select_fp32"] + launches5["select_fp32"]
               + launches8["select_fp32"] + launches15["select_fp32"]
               + launches17["select_fp32"] + launches18["select_fp32"]
-              + launches19["select_fp32"],
+              + launches19["select_fp32"] + launches20["select_fp32"],
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
@@ -4289,14 +4783,14 @@ def main() -> int:
               launches5["packed"] + launches10["packed"]
               + launches15["packed"] + launches16["packed"]
               + launches17["packed"] + launches18["packed"]
-              + launches19["packed"], packed_err,
+              + launches19["packed"] + launches20["packed"], packed_err,
               p_ms,
               p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",
               "sttode_tpu/kernels/packed_mhgsa.py:370",
               launches10["packed_bwd"] + launches15["packed_bwd"]
               + launches17["packed_bwd"] + launches18["packed_bwd"]
-              + launches19["packed_bwd"],
+              + launches19["packed_bwd"] + launches20["packed_bwd"],
               packed_bwd_err, pb_ms, pb_plain,
               pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",

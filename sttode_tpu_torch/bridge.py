@@ -10,7 +10,8 @@ field names to the port's own classes; this module does not import JAX.
 ``params_to_numpy`` goes back (port tree → the same tree of numpy arrays),
 and ``tree_leaves`` lists a tree's leaves in the JAX package's order
 (dict keys sorted), for the optimizer and for leaf-by-leaf comparisons;
-``tree_leaves_with_path`` names them as JAX's paths do.
+``tree_leaves_with_path`` names them as JAX's paths do (and
+``tree_map_with_path`` maps over them).
 """
 
 from __future__ import annotations
@@ -97,6 +98,23 @@ def tree_leaves_with_path(tree, path: tuple = ()) -> list:
         return [x for i, v in enumerate(tree)
                 for x in tree_leaves_with_path(v, path + (i,))]
     return [(path, tree)]
+
+
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` at every leaf, paths as in
+    ``tree_leaves_with_path`` (``jax.tree_util.tree_map_with_path``'s
+    counterpart); the tree's structure is kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               path + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def params_to_numpy(tree):

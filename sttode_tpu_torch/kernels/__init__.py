@@ -7,6 +7,7 @@
 Nothing here is compiled at import; ``_build.load()`` compiles at the first
 launch."""
 
-from sttode_tpu_torch.kernels.mhgsa import flash_geodesic_attention
+from sttode_tpu_torch.kernels.mhgsa import (flash_geodesic_attention,
+                                            fused_geodesic_attention)
 
-__all__ = ["flash_geodesic_attention"]
+__all__ = ["flash_geodesic_attention", "fused_geodesic_attention"]

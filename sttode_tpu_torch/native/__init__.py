@@ -2,6 +2,6 @@
 preprocessor of the ETH-UCY loader, the port's own copy of
 ``sttode_tpu/native/windowing.cpp``, built with ``g++`` at first use."""
 
-from sttode_tpu_torch.native.binding import window_file
+from sttode_tpu_torch.native.binding import native_available, window_file
 
-__all__ = ["window_file"]
+__all__ = ["native_available", "window_file"]

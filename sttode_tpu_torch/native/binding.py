@@ -79,6 +79,15 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the engine builds (at the first call) and loads here."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 

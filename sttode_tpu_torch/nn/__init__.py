@@ -1,7 +1,10 @@
 """Layers of the port: the functional core, geodesic attention, transformer
-encoder and decoder layers, ODE blocks, embeddings and recurrence. Every
-layer is an ``*_init(gen, ...) -> params`` and a function over the
-parameter tree, as in the JAX package."""
+encoder and decoder layers, ODE blocks, embeddings and recurrence, and
+(imported by name, as in the JAX package) the Poincaré-ball layers
+``nn.hyperbolic``, the dot-product baseline ``nn.dot_attention`` and the
+Gumbel dictionaries ``nn.gumbel``. Every layer is an
+``*_init(gen, ...) -> params`` and a function over the parameter tree, as
+in the JAX package."""
 
 from sttode_tpu_torch.nn import (attention, core, embed, ode_block, recurrent,
                                  transformer)

@@ -48,8 +48,21 @@ def kaiming_normal(gen, d_in: int, d_out: int,
                                                dtype=dtype)
 
 
+def kaiming_normal_fan_out(gen, d_in: int, d_out: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """kaiming_normal_ with mode fan_out (gain √2): std = √(2 / fan_out)."""
+    return math.sqrt(2.0 / d_out) * torch.randn((d_in, d_out), generator=gen,
+                                                dtype=dtype)
+
+
 def normal_001(gen, d_in: int, d_out: int, dtype=torch.float32) -> torch.Tensor:
     return 0.01 * torch.randn((d_in, d_out), generator=gen, dtype=dtype)
+
+
+def zeros(_gen, *shape, dtype=torch.float32) -> torch.Tensor:
+    """A zero initializer in the initializers' call shape (the generator is
+    not drawn from)."""
+    return torch.zeros(shape, dtype=dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32) -> dict:

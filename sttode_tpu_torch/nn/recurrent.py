@@ -63,9 +63,18 @@ def _gru_gates(gi: torch.Tensor, gh: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
+def gru_cell(params: GRUParams, h: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """One GRU step: x [..., D], h [..., H] → the new h."""
+    return _gru_gates(x @ params.w_ih + params.b_ih,
+                      h @ params.w_hh + params.b_hh, h)
+
+
 def gru(params: GRUParams, xs: torch.Tensor,
         h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """xs [B, T, D] → (ys [B, T, H], h_T [B, H])."""
+    """xs [B, T, D] → (ys [B, T, H], h_T [B, H]). The input projection of
+    every step is one matmul before the time loop; each step applies the
+    gates that ``gru_cell`` applies."""
     B, T, _ = xs.shape
     H = params.w_hh.shape[0]
     h = xs.new_zeros((B, H)) if h0 is None else h0

@@ -29,6 +29,7 @@ import json
 import os
 import re
 import threading
+import time
 
 import torch
 
@@ -39,6 +40,8 @@ from sttode_tpu_torch.models.sttode import STTODEConfig
 CKPT_FMT = "model_{:04d}"
 SUFFIX = ".pt"
 _NAME = re.compile(r"model_(\d{4,})\.pt")
+_TMP = re.compile(r"model_\d{4,}\.pt\.tmp\.\d+")
+ORPHAN_GRACE_S = 900.0   # a save's write is seconds; 15 min is ample margin
 _TAG = "__namedtuple__"
 _CONFIGS = {cls.__name__: cls for cls in (STTODEConfig, SamplerConfig)}
 
@@ -136,14 +139,41 @@ def wait_for_saves() -> None:
 flush_saves = wait_for_saves
 
 
+def prune_checkpoints(ckpt_dir: str, keep_last: int) -> list[str]:
+    """Delete all but the newest ``keep_last`` complete checkpoints under
+    ``ckpt_dir`` (all of them when ``keep_last`` ≤ 0) and return the
+    removed paths. A save's temporary file is not a checkpoint; one left
+    by a crashed save (crash debris, as JAX's orphaned directories are) is
+    swept once it is older than ``ORPHAN_GRACE_S``, so that a save in
+    flight, in this process or another, is never touched."""
+    removed = []
+    epochs = checkpoint_epochs(ckpt_dir)
+    for e in epochs[:-keep_last] if keep_last > 0 else epochs:
+        p = checkpoint_path(ckpt_dir, e)
+        os.remove(p)
+        removed.append(p)
+    now = time.time()
+    for name in os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else ():
+        if not _TMP.fullmatch(name):
+            continue
+        p = os.path.join(ckpt_dir, name)
+        try:
+            if now - os.path.getmtime(p) < ORPHAN_GRACE_S:
+                continue
+            os.remove(p)
+        except OSError:
+            continue   # vanished mid-scan: another process owns it
+        removed.append(p)
+    return removed
+
+
 def _write(payload: dict, ckpt_dir: str, path: str,
            keep_last: int | None) -> None:
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     if keep_last is not None:
-        for e in checkpoint_epochs(ckpt_dir)[:-max(keep_last, 1)]:
-            os.remove(checkpoint_path(ckpt_dir, e))
+        prune_checkpoints(ckpt_dir, max(keep_last, 1))
 
 
 def _write_in_background(*args) -> None:

@@ -220,12 +220,13 @@ def make_train_step(cfg: STTODEConfig, lr: float, *, scan_steps: int = 1,
     """Stage-1 step ``(params, opt_state, batch, generator) → (params,
     opt_state, metrics)`` with ``torch.optim.Adam(lr)``, or the optimizer
     that ``optimizer(leaves, capturable=...)`` makes (a factory that
-    carries its own learning rate, e.g. ``train.guards.guarded_adam``: the
-    counterpart of JAX's ``make_train_step(cfg, opt)``); ``step.init(params)``
-    makes its params and optimizer state. ``scan_steps`` > 1 takes a
-    stacked batch and runs its steps in one call (one CUDA graph replay on
-    the card). Runs on the card unless ``device="cpu"``; raises when CUDA is
-    asked for and absent."""
+    carries its own learning rate, e.g. ``train.guards.guarded_adam`` or
+    ``train.riemannian.riemannian_sgd``: the counterpart of JAX's
+    ``make_train_step(cfg, opt)``); ``step.init(params)`` makes its params
+    and optimizer state. ``scan_steps`` > 1 takes a stacked batch and runs
+    its steps in one call (one CUDA graph replay on the card). Runs on the
+    card unless ``device="cpu"``; raises when CUDA is asked for and
+    absent."""
     return TrainStep(cfg, lr, device, scan_steps, optimizer)
 
 

@@ -1,6 +1,6 @@
 """Learning-rate schedules (port of ``sttode_tpu/train/schedulers.py``:
-``step_lr``, ``lambda_lr``, ``set_lr``, ``ReduceOnPlateau`` and
-``ExpParamAnnealer``).
+``step_lr``, ``lambda_lr``, ``adam_with_schedule``, ``set_lr``,
+``ReduceOnPlateau`` and ``ExpParamAnnealer``).
 
 The reference steps its scheduler once per epoch, so a schedule is a function
 of the epoch that the trainer evaluates before each epoch and writes into the
@@ -8,6 +8,8 @@ optimizer with ``set_lr``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -76,6 +78,14 @@ class ExpParamAnnealer:
     @property
     def val(self) -> float:
         return self.finish - (self.finish - self.start) * (self.rate ** self.t)
+
+
+def adam_with_schedule(schedule_fn, epoch: int = 0, **adam_kwargs):
+    """An optimizer factory for ``make_train_step(..., optimizer=)``: Adam
+    at ``schedule_fn(epoch)``; the trainer moves it between epochs with
+    ``set_lr``, its moments kept (JAX's ``inject_hyperparams`` Adam)."""
+    return functools.partial(torch.optim.Adam, lr=schedule_fn(epoch),
+                             **adam_kwargs)
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:

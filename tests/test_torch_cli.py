@@ -41,6 +41,10 @@ from sttode_tpu_torch.train import loop as tloop
 from sttode_tpu_torch.train import schedulers as tsched
 from sttode_tpu_torch.utils.profiling import param_count
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4,
              past_length=5, future_length=10)
 LOSSES = ("total_loss", "loss_pred", "loss_recover", "loss_kl",

@@ -32,6 +32,10 @@ from sttode_tpu_torch.nn import attention as tattn
 from sttode_tpu_torch.nn import ode_block as tode
 from sttode_tpu_torch.nn import transformer as ttr
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 D, H, FF = 16, 4, 32
 N, S_ = 3, 1
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -57,6 +57,10 @@ from sttode_tpu_torch.train import checkpoint as tck
 from sttode_tpu_torch.train import loop as tloop
 from sttode_tpu_torch.utils import metrics as tmetrics
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4)
 TOL = dict(rtol=1e-4, atol=1e-4)
 BATCH_FIELDS = ("past", "past_vel", "future", "future_vel", "valid")

@@ -39,6 +39,10 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.nn import attention as tattn
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 JAX_TOL = 3e-5
 GRAD_TOL = 5e-5
 DENSE_TOL = 1e-5

@@ -48,6 +48,10 @@ from sttode_tpu.kernels import mhgsa as jm
 from sttode_tpu_torch.kernels import mhgsa as km
 from tests.test_torch_oblique_sweep import _poly, _sfu, _tile, oblique_sweeps
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 EXP_NEG_PI = math.exp(-math.pi)
 OUT_TOL = 1e-5            # attention outputs, the port's tolerance

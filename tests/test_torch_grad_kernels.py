@@ -32,6 +32,10 @@ from sttode_tpu_torch.bridge import params_from_jax
 from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import select_decode as tsd
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 GRAD_ATOL = 5e-5
 
 

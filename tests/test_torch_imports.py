@@ -68,7 +68,10 @@ MODULES = sorted(
                                                  ".guards", ".supervisor",
                                                  ".logging", ".flat_params",
                                                  ".visualize", ".transformer",
-                                                 ".ode_block"))])
+                                                 ".ode_block", ".euclidean",
+                                                 ".riemannian", ".hyperbolic",
+                                                 ".dot_attention", ".gumbel",
+                                                 ".delta", ".analysis"))])
 def test_module_import_builds_and_parses_nothing(monkeypatch, name):
     """Importing a module of the port (the CLIs among them) compiles no
     kernel and reads no command line: a bad argv changes nothing."""
@@ -93,3 +96,60 @@ def test_visualize_imports_matplotlib_lazily():
     assert any(isinstance(node, ast.Import) and any(
         a.name.startswith("matplotlib") for a in node.names)
         for node in ast.walk(tree))
+
+
+# JAX names the port leaves out: the sequence-parallel package and sharded
+# restores (ROADMAP Queue 1 item 7), and what serves only the TPU or XLA
+# (ROADMAP "Not to port"); ode/solvers' Pytree alias is the port's Tree
+NOT_PORTED = {
+    "parallel/__init__": None, "parallel/mesh": None,
+    "parallel/ring_attention": None, "parallel/ulysses": None,
+    "utils/compilation_cache": None,
+    "train/__init__": {"restore_shardings"},
+    "train/checkpoint": {"restore_shardings"},
+    "kernels/mhgsa": {"FLASH_GRAM_3PASS"},
+    "kernels/packed_mhgsa": {"packed_vmem_fit"},
+    "models/sttode": {"GRU_UNROLL", "SELECT_FUSED_MIN_ROWS",
+                      "SELECT_GRU_HOIST_MAX_ROWS"},
+    "ode/solvers": {"Pytree"},
+    "utils/profiling": {"PEAK_HBM_GBPS", "PEAK_TFLOPS", "cost_analysis",
+                        "roofline"},
+}
+
+
+def _top_level_names(package: str) -> dict:
+    """Module (path under the package, no suffix) → its public top-level
+    names: functions, classes, assigned names, and an __init__'s imports."""
+    out = {}
+    for path in sorted((ROOT / package).rglob("*.py")):
+        names = set()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names.update(t.id for t in node.targets
+                             if isinstance(t, ast.Name))
+            elif isinstance(node, ast.AnnAssign) and \
+                    isinstance(node.target, ast.Name):
+                names.add(node.target.id)
+            elif isinstance(node, ast.ImportFrom) and \
+                    path.name == "__init__.py":
+                names.update(a.asname or a.name for a in node.names)
+        rel = path.relative_to(ROOT / package).with_suffix("")
+        out[str(rel)] = {n for n in names if not n.startswith("_")}
+    return out
+
+
+def test_port_has_every_jax_name_but_the_ones_not_ported():
+    """The name comparison of the two packages: every module of the JAX
+    package has a counterpart with each of its public top-level names,
+    except those listed in NOT_PORTED (None: the whole module)."""
+    jax_names = _top_level_names("sttode_tpu")
+    port_names = _top_level_names("sttode_tpu_torch")
+    missing = {}
+    for mod, names in jax_names.items():
+        if mod not in port_names:
+            missing[mod] = None
+        elif names - port_names[mod]:
+            missing[mod] = names - port_names[mod]
+    assert missing == NOT_PORTED

@@ -28,6 +28,10 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import select_decode as tsd
 from sttode_tpu_torch.models import sttode as tm
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 def T(a):
     return torch.from_numpy(np.array(a, np.float32))
 

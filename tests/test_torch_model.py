@@ -28,6 +28,10 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import select_decode as tsd
 from sttode_tpu_torch.models import sttode as tm
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4)
 CASES = {

@@ -45,6 +45,10 @@ import torch
 from sttode_tpu.kernels import mhgsa as jm
 from sttode_tpu_torch.kernels import mhgsa as km
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 SFU_REL = 2.0 ** -21      # rsqrt, ex2: PTX bounds of 1–2 ulp
 GRAD_TOL = 5e-5           # the sweeps' card tolerance, × max(1, max |g|)

@@ -32,6 +32,10 @@ from sttode_tpu_torch import bridge
 from sttode_tpu_torch.nn import transformer as ttr
 from sttode_tpu_torch.ode import matmul_precision, odeint, odeint_adjoint
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 F32 = np.float32
 
 

@@ -34,6 +34,10 @@ from sttode_tpu_torch.nn import attention as tattn
 from sttode_tpu_torch.nn.transformer import LayerDropMasks
 from sttode_tpu_torch.train import loop as tloop
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_dim=16, num_heads=4, ff_dim=32, zdim=8, sample_k=2,
              past_length=5, future_length=10, select_impl="xla",
              min_clip=0.0, attn_impl="dense")

@@ -29,6 +29,10 @@ from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.kernels import packed_mhgsa as tpacked
 from sttode_tpu_torch.nn import attention as tattn
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = 5e-5
 

@@ -55,6 +55,10 @@ from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.nn import attention as tattn
 from sttode_tpu_torch.train import checkpoint as tck
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 FUSED_TOL, FUSED_GRAD_TOL = 1e-5, 5e-5
 FLASH_TOL, FLASH_GRAD_TOL = 2e-5, 1e-4
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -50,6 +50,10 @@ import torch
 from sttode_tpu_torch.kernels import mhgsa as km
 from sttode_tpu_torch.nn.attention import to_ball
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 SFU_REL = 2.0 ** -21      # rcp, rsqrt, ex2: PTX bounds of 1–2 ulp
 LG2_ABS = 2.0 ** -22      # lg2.approx: absolute error bound

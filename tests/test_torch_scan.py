@@ -52,6 +52,10 @@ from tests.test_torch_sampler import (SAMPLER_FLAGS, _jax_eps, _np_tree,
 from tests.test_torch_sampler import _cli_args as _sampler_cli_args
 from tests.test_torch_train import B, N, SMALL, _jax_noise
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 S = 3
 LR = 1e-4
 

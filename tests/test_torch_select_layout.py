@@ -25,6 +25,10 @@ import torch
 from sttode_tpu_torch.kernels import select_decode as ks
 from sttode_tpu_torch.models import sttode as tm
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 
 def _rna_tf32(x: np.ndarray) -> np.ndarray:
     """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away

@@ -11,6 +11,10 @@ from sttode_tpu_torch.data.synthetic import make_social_scenes
 from sttode_tpu_torch.models import sttode as tm
 from sttode_tpu_torch.serving import Predictor, _digest, _generator
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4)
 
 

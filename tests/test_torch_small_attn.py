@@ -43,6 +43,10 @@ from sttode_tpu_torch.kernels import mhgsa as km
 from sttode_tpu_torch.kernels import packed_mhgsa as kp
 from sttode_tpu_torch.nn.attention import to_ball
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 EXP_NEG_PI = math.exp(-math.pi)
 SFU_REL = 2.0 ** -21      # rcp, rsqrt, ex2: PTX bounds of 1–2 ulp

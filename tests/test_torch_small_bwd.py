@@ -53,6 +53,10 @@ from sttode_tpu.kernels import packed_mhgsa as jpacked
 from sttode_tpu_torch.kernels import mhgsa as km
 from sttode_tpu_torch.kernels import packed_mhgsa as kp
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 SFU_REL = 2.0 ** -21      # rsqrt, ex2: PTX bounds of 1–2 ulp
 GRAD_TOL = 5e-5           # the card's gradient tolerance, × max(1, max |g|)

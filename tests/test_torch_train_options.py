@@ -51,6 +51,10 @@ from sttode_tpu_torch.utils import profiling as tprof
 from sttode_tpu_torch.utils import visualize as tviz
 from tests.test_torch_cli import _nba_file
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_dim=16, num_heads=4, ff_dim=32, zdim=8, sample_k=2,
              past_length=5, future_length=10)
 

@@ -29,6 +29,10 @@ from sttode_tpu.manifolds import pmath as jp
 from sttode_tpu_torch.kernels import mhgsa as tmhgsa
 from sttode_tpu_torch.nn import attention as tattn
 
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
 TOL = {"oblique": (3e-5, 5e-5), "poincare": (2e-5, 1e-4)}
 
 
