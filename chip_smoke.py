@@ -206,6 +206,24 @@ paths, then drives both paths at the full width of the repo's model
            over the past encoder's features of 8 NBA batches on P, against
            float64 on the card and 400 points against the CPU: seconds and
            peak memory.
+  phase 21 data parallelism and the ring over torch.distributed
+           (``parallel_phase``): (a) world 1 over NCCL in this process,
+           ``make_train_step(mesh=)`` on the bench recipe (B = 128 x 11,
+           bf16 selection, a generator of one seed) for 2 steps against
+           the single-process step bit for bit (each loss term, gradient
+           leaf and parameter; the first that differs is named), A, C and
+           B bf16 in the counters, ms a step of both; (b) world 2 on the
+           one card over gloo (two processes, ``parallel_rank``; the
+           ring's sends staged through host memory): the NBA reference
+           recipe (32 x 11: P, Q, B fp32) and the bench recipe (A and C
+           at L 64 x S 128; B bf16, and B fp32 in its fp32 twin) on the
+           routes "auto" and "ring", each of 2 steps against the
+           single-process step from the same state (losses; fp32
+           gradients and parameters, ``DP_KINK_*`` and
+           ``compare_adam_params``), the parameters equal on both ranks
+           bit for bit, each rank's launches and ms a step; (c)
+           ``cli.train --distributed --dist_backend gloo`` at world 2, one
+           epoch of 2 NBA steps: both ranks join.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -3001,39 +3019,408 @@ def card_vs_cpu(dev) -> tuple[tuple, int]:
     return worst, checked
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    from sttode_tpu_torch import bridge
+# (recipe, scenes, selection and decode storage, route); the bench recipe
+# also in fp32, whose winners do not flip at bf16's near-ties, so that its
+# gradients and parameters compare
+PARALLEL_CASES = tuple(
+    (name, B, dtype, route) for name, B, dtype in (
+        ("NBA reference recipe", 32, "float32"),
+        ("bench recipe", 128, "float32"), ("bench recipe", 128, "bfloat16"))
+    for route in ("auto", "ring"))
+PARALLEL_LR = 1e-4
+# world 2 against the single process: each rank's dense layers run on half
+# the rows, so the GEMMs round some rows otherwise; a decoder ReLU whose
+# input lies at rounding then switches and moves one row's share of a
+# gradient leaf (1 / M = 7.1e-4 at M = 1408): each leaf within this
+# relative L2 and each element within DP_KINK_ELEM of its largest magnitude
+DP_KINK_L2 = 1e-3
+DP_KINK_ELEM = 1e-2
+
+
+def parallel_recipe(name, B, dtype, route):
+    """A phase-21 case on the CPU, from seeds: (config, parameters, 2
+    global batches of B scenes × 11 agents, their global noise)."""
     from sttode_tpu_torch.data.preprocess import prepare_scene_group
     from sttode_tpu_torch.data.synthetic import make_social_scenes
-    from sttode_tpu_torch.kernels import _build
+    from sttode_tpu_torch.models import sttode as tm
+    cfg = tm.STTODEConfig(past_length=5, future_length=10,
+                          select_impl="auto", select_dtype=dtype,
+                          decode_dtype=dtype, attn_impl=route).validate()
+    batches, noises = [], []
+    for i in range(2):
+        sc = make_social_scenes(B, agents_range=(11, 11), obs_len=5,
+                                pred_len=10, seed=210 + i)
+        b, _ = prepare_scene_group(
+            np.stack([s_["obs"] for s_ in sc]),
+            np.stack([s_["pred"] for s_ in sc]),
+            np.ones((B, 11), np.float32), training=True,
+            rng=np.random.default_rng(210 + i))
+        batches.append(b)
+        noises.append(tm.draw_train_noise(
+            cfg, B, 11, torch.Generator().manual_seed(21 + i), "cpu"))
+    return cfg, tm.sttode_init(21, cfg), batches, noises
+
+
+def _noise_to(noise, dev):
+    return type(noise)(*(None if t is None else t.to(dev) for t in noise))
+
+
+def parallel_rank(spec_path: str, rank: int) -> int:
+    """One of phase 21 (b)'s two ranks on the one card, over gloo: each
+    case's ``make_train_step(mesh=)`` for 2 steps on this rank's scenes
+    with the global noise (metrics, every gradient leaf after each step,
+    the parameters after both, whether they are equal on both ranks, this
+    rank's launch counts), then ms a step over 5 more steps. Writes its
+    results under the spec's directory."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
+    from sttode_tpu_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    counts, reset = launch_counters()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(dp=2)
+        out = {"staging": collectives.staging(mesh.get_group("data"), dev)}
+        for case in spec["cases"]:
+            cfg, params, batches, noises = parallel_recipe(*case)
+            step = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
+            p, opt = step.init(params)
+            leaves = bridge.tree_leaves(p)
+            local = [shard_batch(b, mesh).to(dev) for b in batches]
+            noises = [_noise_to(n, dev) for n in noises]
+            reset()   # the main path: the mesh step on this rank
+            metrics, grads, states = [], [], []
+            for b, n in zip(local, noises):
+                p, opt, m = step(p, opt, b, noise=n)
+                metrics.append({k: float(v) for k, v in m.items()})
+                grads.append([t.grad.detach().cpu() for t in leaves])
+                # the state after the step: the parameters and Adam's
+                states.append((bridge.tree_map(
+                    lambda t: t.detach().to("cpu", copy=True), p),
+                    bridge.tree_map(lambda t: t.to("cpu", copy=True)
+                                    if isinstance(t, torch.Tensor) else t,
+                                    opt.state_dict())))
+            torch.cuda.synchronize()
+            launches = counts()
+            flat = torch.cat([t.detach().reshape(-1) for t in leaves])
+            equal = bool(torch.equal(
+                collectives.broadcast(flat.clone(), 0, None), flat))
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(p, opt, local[0], noise=noises[0])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            out[case] = {"metrics": metrics, "grads": grads,
+                         "states": states, "equal": equal,
+                         "launches": launches, "ms": statistics.median(ms)}
+        torch.save(out, os.path.join(spec["dir"], f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    """A free TCP port on this host's loopback (for a rendezvous)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, limit_s: float, what: str) -> None:
+    """Wait for every process within ``limit_s`` seconds; kill those left."""
+    deadline = time.monotonic() + limit_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        require(False, f"{what}: not done within {limit_s:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def compare_adam_params(got, want, g_got, g_ref, what) -> tuple[float, int]:
+    """Hold the parameters after an Adam step from the same state to a
+    reference's: an entry more than PARALLEL_LR / 10 apart must have had a
+    reference gradient within TRAIN_TOL of its leaf's largest magnitude
+    (Adam moves an entry by ~lr whatever its gradient's size, so a
+    gradient at rounding can take either sign) or a gradient that a ReLU
+    at rounding moved (the two gradients more than TRAIN_TOL of that
+    magnitude apart). Returns (the largest difference, the entries so
+    excused)."""
+    worst, excused = 0.0, 0
+    for i, (a, b, ga, gb) in enumerate(zip(got, want, g_got, g_ref)):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        far = d > PARALLEL_LR / 10
+        if bool(far.any()):
+            tol = TRAIN_TOL * gb.abs().max()
+            ok = (gb.abs() <= tol) | ((ga - gb).abs() > tol)
+            require(bool((ok | ~far).all()),
+                    f"{what}: parameter leaf {i} differs by {float(d.max())} "
+                    f"where its gradient is neither at rounding nor moved")
+            excused += int(far.sum())
+    return worst, excused
+
+
+def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
+    """Phase 21: data parallelism and the ring over torch.distributed.
+    (a) world 1 over NCCL in this process: ``make_train_step(mesh=)`` on
+    the bench recipe (B = 128 × 11, bf16 selection, a generator of one
+    seed) for 2 steps against the single-process step, bit for bit (each
+    loss term, every gradient leaf, every parameter; the first that
+    differs is named), A, C and B bf16 in the counters, ms a step of both.
+    (b) world 2 on the one card over gloo (two processes,
+    ``parallel_rank``; NCCL takes one rank a device): the NBA reference
+    recipe (32 × 11: P, Q, B fp32) and the bench recipe (A, C at L 64 × S
+    128; B bf16, and B fp32 in its fp32 twin) on the routes "auto" and
+    "ring", scene axis, 2 steps, each against the single-process step on
+    the card from the same state: losses within TRAIN_TOL; in fp32 every
+    gradient leaf by
+    ``DP_KINK_L2`` / ``DP_KINK_ELEM`` and the parameters by
+    ``compare_adam_params`` (bf16 selection's winners may differ at
+    near-ties, §2 of PERF.md); equal on both ranks bit for bit, each
+    rank's launches, ms a step (host-bound).
+    (c) ``cli.train --distributed --dist_backend gloo`` at world 2 on the
+    card, one epoch of 2 NBA steps: both ranks join. Returns (a)'s
+    launches."""
+    import torch.distributed as dist
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
+    from sttode_tpu_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    # (a) world 1 over NCCL: the mesh step against the single-process step
+    cfg, params, batches, _ = parallel_recipe(*PARALLEL_CASES[4])
+    batches = [b.to(dev) for b in batches]
+    names = leaf_names(params)
+    torch.cuda.set_device(0)
+    runs: dict = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_dist_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(dp=1)
+            steps = {name: make_train_step(cfg, PARALLEL_LR, device=dev,
+                                           mesh=m)
+                     for name, m in (("single", None), ("mesh", mesh))}
+            for name, step in steps.items():
+                p, opt = step.init(params)
+                leaves = bridge.tree_leaves(p)
+                gen = torch.Generator(device=dev).manual_seed(21)
+                reset()   # the main path (the mesh step's run is kept)
+                record = []
+                for b in batches:
+                    b = b if step.mesh is None else shard_batch(b, mesh)
+                    p, opt, m = step(p, opt, b, gen)
+                    record.append(({k: v.clone() for k, v in m.items()},
+                                   [t.grad.clone() for t in leaves]))
+                torch.cuda.synchronize()
+                runs[name] = (record, [t.detach().clone() for t in leaves],
+                              counts(), p, opt)
+            launches = runs["mesh"][2]
+            (rec_s, par_s, _, p_s, o_s), (rec_m, par_m, _, p_m, o_m) = \
+                runs["single"], runs["mesh"]
+            for i, ((m_s, g_s), (m_m, g_m)) in enumerate(zip(rec_s, rec_m)):
+                for k in m_s:
+                    require(torch.equal(m_s[k], m_m[k]),
+                            f"phase 21 (a) step {i + 1}: loss term {k} "
+                            f"{float(m_m[k])!r} on the mesh, "
+                            f"{float(m_s[k])!r} single")
+                for n_, a, b in zip(names, g_m, g_s):
+                    require(torch.equal(a, b),
+                            f"phase 21 (a) step {i + 1}: the gradient of "
+                            f"{n_} differs by {max_err(a, b):.3e}")
+            for n_, a, b in zip(names, par_m, par_s):
+                require(torch.equal(a, b), f"phase 21 (a): parameter {n_} "
+                        f"differs by {max_err(a, b):.3e}")
+            require(launches["attn"] > 0 and launches["attn_bwd"] > 0
+                    and launches["select_bf16"] > 0,
+                    f"phase 21 (a): the mesh step did not launch A, C and "
+                    f"B bf16 {nonzero(launches)}")
+            ms: dict = {"single": [], "mesh": []}
+            local = shard_batch(batches[0], mesh)
+            gen = torch.Generator(device=dev).manual_seed(22)
+            for r in range(6):
+                for name in (("single", "mesh") if r % 2 == 0
+                             else ("mesh", "single")):
+                    _, _, _, p_, o_ = runs[name]
+                    b = batches[0] if name == "single" else local
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    steps[name](p_, o_, b, gen)
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t) * 1e3)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 21 (a) bench recipe (B = 128 x 11, bf16 selection) "
+          f"make_train_step(mesh=) at world 1 over NCCL: 2 steps equal the "
+          f"single-process step bit for bit (losses "
+          + " ".join(f"{float(m['total']):.6f}" for m, _ in rec_m)
+          + f"; every gradient leaf and parameter); launches "
+          f"{nonzero(launches)}; ms a step single "
+          f"{statistics.median(ms['single']):.3f}, mesh "
+          f"{statistics.median(ms['mesh']):.3f}  [{card}]")
+
+    # (b) world 2 on the one card over gloo
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_dist_") as tmp:
+        spec = os.path.join(tmp, "spec.pt")
+        torch.save({"cases": PARALLEL_CASES, "dir": tmp, "device": str(dev),
+                    "rendezvous": os.path.join(tmp, "rendezvous")}, spec)
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.parallel_rank(sys.argv[1], int(sys.argv[2])))",
+             spec, str(r)], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE)) for r in range(2)]
+        wait_all(procs, 240, "phase 21 (b)")
+        wall_b = time.perf_counter() - t
+        require(all(p.returncode == 0 for p in procs),
+                f"phase 21 (b): ranks exited {[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    # (c) the CLI with --distributed at world 2, started now: it runs while
+    #     (b)'s single-process references are computed
+    tmp_c = tempfile.mkdtemp(dir=HERE, prefix=".smoke_nba_")
+    procs = []
+    try:
+        _, flags = nba_files(tmp_c, 64, 21)
+        port = str(free_port())
+        logs = [os.path.join(tmp_c, f"rank{r}.log") for r in range(2)]
+        t_c = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "sttode_tpu_torch.cli.train",
+             "--distributed", "--dist_backend", "gloo", *flags,
+             "--ckpt_dir", os.path.join(tmp_c, f"ck{r}"), "--num_epochs",
+             "1"],
+            cwd=HERE, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=port, RANK=str(r), LOCAL_RANK=str(r),
+                     WORLD_SIZE="2"))
+            for r, log in enumerate(logs)]
+        for case in PARALLEL_CASES:
+            name, B, dtype, route = case
+            what = f"phase 21 (b) {name} {dtype} {route}"
+            fp32 = dtype == "float32"
+            kernels = ("select_fp32" if fp32 else "select_bf16",) + (
+                () if route == "ring" else ("packed", "packed_bwd") if B == 32
+                else ("attn", "attn_bwd"))
+            got = [r_[case] for r_ in ranks]
+            require(got[0]["metrics"] == got[1]["metrics"] and
+                    all(g["equal"] for g in got),
+                    f"{what}: the ranks' metrics or parameters differ")
+            # each step against the single-process step from the same state
+            # (the initial one, then the mesh's after step 1), so that a
+            # ReLU switched at rounding in one step does not carry over
+            cfg, params, batches, noises = parallel_recipe(*case)
+            step = make_train_step(cfg._replace(attn_impl="auto"), PARALLEL_LR,
+                                   device=dev)
+            rec = []
+            for i, (b, n) in enumerate(zip(batches, noises)):
+                p, opt = step.init(*((params,) if i == 0
+                                     else got[0]["states"][i - 1]))
+                p, opt, m = step(p, opt, b.to(dev), noise=_noise_to(n, dev))
+                rec.append(({k: float(v) for k, v in m.items()},
+                            [t.grad.detach().cpu() for t in
+                             bridge.tree_leaves(p)],
+                            [t.detach().cpu() for t in bridge.tree_leaves(p)]))
+            loss_err, grad_ratio, grad_l2 = 0.0, 0.0, 0.0
+            p_err, excused = 0.0, 0
+            for i, ((m_ref, g_ref, par), m_got, g_got, st) in enumerate(zip(
+                    rec, got[0]["metrics"], got[0]["grads"],
+                    got[0]["states"])):
+                for k, want in m_ref.items():
+                    tol = TRAIN_TOL * max(1.0, abs(want))
+                    require(abs(m_got[k] - want) <= tol,
+                            f"{what} step {i + 1}: {k} {m_got[k]} vs "
+                            f"single-process {want}")
+                    loss_err = max(loss_err, abs(m_got[k] - want) /
+                                   max(1.0, abs(want)))
+                if fp32:
+                    for j, (a, b) in enumerate(zip(g_got, g_ref)):
+                        big = max(float(b.abs().max()), 1e-30)
+                        ratio = float((a - b).abs().max()) / big
+                        l2 = float(torch.linalg.vector_norm(a - b)) / max(
+                            float(torch.linalg.vector_norm(b)), 1e-30)
+                        require(ratio <= DP_KINK_ELEM and l2 <= DP_KINK_L2,
+                                f"{what} step {i + 1}: gradient leaf {j} "
+                                f"differs by {ratio:.3e} of its largest "
+                                f"magnitude, {l2:.3e} in relative L2")
+                        grad_ratio = max(grad_ratio, ratio)
+                        grad_l2 = max(grad_l2, l2)
+                    e, x = compare_adam_params(
+                        bridge.tree_leaves(st[0]), par, g_got, g_ref,
+                        f"{what} step {i + 1}")
+                    p_err, excused = max(p_err, e), excused + x
+            held = "(gradients and parameters not held: bf16 winners)"
+            if fp32:
+                held = (f"gradient leaves within {grad_ratio:.3e} of their "
+                        f"largest and {grad_l2:.3e} in relative L2, "
+                        f"parameters within {p_err:.3e} ({excused} entries "
+                        f"at a gradient at rounding or moved)")
+            for r_, g in enumerate(got):
+                require(all(g["launches"][k] > 0 for k in kernels),
+                        f"{what}: rank {r_} did not launch {kernels} "
+                        f"{nonzero(g['launches'])}")
+            print(f"{what} ({B} x 11; world 2 on one card over gloo, staged "
+                  f"through host memory: {ranks[0]['staging']}): 2 steps "
+                  f"against the single-process step, losses within "
+                  f"{loss_err:.3e} (relative), {held}, equal on both ranks; "
+                  f"launches rank 0 "
+                  f"{nonzero(got[0]['launches'])}, rank 1 "
+                  f"{nonzero(got[1]['launches'])}; ms a step rank 0 "
+                  f"{got[0]['ms']:.3f}, rank 1 {got[1]['ms']:.3f} (host-bound)"
+                  f"  [{card}]")
+        print(f"phase 21 (b) two ranks: {wall_b:.1f} s from start to exit  "
+              f"[{card}]")
+        wait_all(procs, 180, "phase 21 (c)")
+        wall_c = time.perf_counter() - t_c
+        text = [open(log).read() for log in logs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp_c, ignore_errors=True)
+    for r, (p, out) in enumerate(zip(procs, text)):
+        require(p.returncode == 0 and
+                f"distributed: process {r} of 2 over gloo" in out
+                and "epoch 000" in out,
+                f"phase 21 (c) rank {r} exited {p.returncode}: {out[-2000:]}")
+    print(f"phase 21 (c) cli.train --distributed --dist_backend gloo at "
+          f"world 2 on the card: both ranks joined ("
+          + "; ".join(line for out in text for line in out.splitlines()
+                      if line.startswith("distributed:"))
+          + f") and trained one epoch of 2 NBA steps in {wall_c:.1f} s  "
+          f"[{card}]")
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s; its main "
+          f"path (a) launched {nonzero(launches)}  [{card}]")
+    return {"launches": launches}
+
+
+def launch_counters():
+    """(counts, reset): the kernel wrappers' launch counts by name, and
+    setting every one to 0 (in this process)."""
     from sttode_tpu_torch.kernels import mhgsa as km
     from sttode_tpu_torch.kernels import packed_mhgsa as kp
     from sttode_tpu_torch.kernels import select_decode as ks
-    from sttode_tpu_torch.models import sttode as tm
-    from sttode_tpu_torch.serving import Predictor
-    from sttode_tpu_torch.train import make_train_step
-
-    # every plain matmul and conv in full fp32, as the kernels compute
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     bf16 = torch.bfloat16
-
-    # 1. device and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({_build.library_path().name}, one nvcc per source)")
-    ptxas = build_report(_build.library_path())
 
     def counts():
         return {"attn": km.fused_geodesic_attention.launches,
@@ -3079,6 +3466,45 @@ def main() -> int:
         km.fused_geodesic_attention_backward.launches_masked = 0
         for d in by_metric.values():
             d.update(dict.fromkeys(d, 0))
+
+    return counts, reset
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.kernels import _build
+    from sttode_tpu_torch.kernels import mhgsa as km
+    from sttode_tpu_torch.kernels import packed_mhgsa as kp
+    from sttode_tpu_torch.kernels import select_decode as ks
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.serving import Predictor
+    from sttode_tpu_torch.train import make_train_step
+
+    # every plain matmul and conv in full fp32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+
+    # 1. device and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({_build.library_path().name}, one nvcc per source)")
+    ptxas = build_report(_build.library_path())
+
+    counts, reset = launch_counters()
 
     rng = np.random.default_rng(0)
 
@@ -4717,6 +5143,11 @@ def main() -> int:
     #     CPU, δ-hyperbolicity at full size
     launches20 = riemannian_phase(dev, card, counts, reset)["launches"]
 
+    # 21. data parallelism and the ring over torch.distributed: world 1 over
+    #     NCCL bit for bit, world 2 on the one card over gloo, --distributed
+    launches21 = parallel_phase(dev, card, counts, reset,
+                                nba_files)["launches"]
+
     a_ms, a_plain = attn_times["train_scene_axis_q11x8x128x8_swapped"]
     b_ms, b_plain = bwd_times["train_scene_axis_q11x8x128x8_swapped"]
     s_ms, s_plain = select_times["dist_M1408_K20"]
@@ -4756,14 +5187,15 @@ def main() -> int:
               + launches10["attn"] + launches12["attn"] + launches15["attn"]
               + launches16["attn"] - launches16["attn_p"]
               + launches17["attn"] - launches17["attn_p"]
-              + launches18["attn"] + launches19["attn"],
+              + launches18["attn"] + launches19["attn"] + launches21["attn"],
               attn_err, a_ms,
               a_plain, a_bound),
         entry("fused_geodesic_attention_backward", "mhgsa_bwd.cu",
               "sttode_tpu/kernels/mhgsa.py:455",
               launches8["attn_bwd"] + launches15["attn_bwd"]
               + launches17["attn_bwd"] - launches17["attn_bwd_p"]
-              + launches18["attn_bwd"] + launches19["attn_bwd"], bwd_err,
+              + launches18["attn_bwd"] + launches19["attn_bwd"]
+              + launches21["attn_bwd"], bwd_err,
               b_ms,
               b_plain, b_bound),
         entry("select_decode_fp32", "select_decode.cu",
@@ -4775,7 +5207,8 @@ def main() -> int:
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
-              launches8["select_bf16"] + launches18["select_bf16"],
+              launches8["select_bf16"] + launches18["select_bf16"]
+              + launches21["select_bf16"],
               sel16_err, sel16_ms, sel16_plain,
               s16_bound),
         entry("packed_geodesic_attention", "packed_mhgsa_fwd.cu",

@@ -7,10 +7,8 @@ on the card unless the caller asks for the CPU). The reference's
 dataset-conditional defaults: NBA 5/10 steps and batches of 32 scenes,
 ETH-UCY and SDD 8/12 steps and one scene a step (``--scenes_per_batch``
 stacks more), ETH's ``--max_train_agent`` 32, SDD's pixels ÷ 50. What is
-not ported yet raises ``NotImplementedError`` naming it: a CLI's flags of
-machinery the port does not have when they are given a non-default value
-(``refuse_unported``), and the config values ``STTODEConfig.validate``
-refuses.
+not ported yet raises ``NotImplementedError`` naming it: the config values
+``STTODEConfig.validate`` refuses.
 """
 
 from __future__ import annotations
@@ -122,16 +120,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "replay (dopri5's while form runs them eagerly); "
                         "1 = one step a call")
     return p
-
-
-def refuse_unported(args, flags: dict) -> None:
-    """Raise NotImplementedError naming the first of ``flags`` (flag → the
-    one value that runs) whose machinery is not ported and that was given
-    another value."""
-    for flag, ok in flags.items():
-        if getattr(args, flag) != ok:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)!r} is not ported yet")
 
 
 def horizons_for(dataset: str) -> tuple[int, int]:

@@ -23,6 +23,12 @@ mean loss) is rolled back in place to the last-good checkpoint and run
 again at half the learning rate, and the run aborts when it cannot roll
 back. ``--profile_dir D`` traces the first epoch with ``torch.profiler``
 into a Chrome-trace JSON file in D (``utils.profiling.trace``).
+``--distributed`` joins the processes that a launcher started (torchrun's
+environment: ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``) over ``--dist_backend`` (nccl on the card, gloo on the CPU
+or for several processes on one card), or exits when that environment is
+missing; as in the JAX package's CLI, the step then has no mesh, so each
+process trains the whole run.
 """
 
 from __future__ import annotations
@@ -33,11 +39,13 @@ import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.cli import common
 from sttode_tpu_torch.data import nba_batches, prepare_nba_batch, scene_batches
 from sttode_tpu_torch.models.sttode import STTODEConfig, sttode_init
+from sttode_tpu_torch.parallel.mesh import init_distributed
 from sttode_tpu_torch.train import (checkpoint_path, flush_saves,
                                     load_checkpoint, make_train_step,
                                     save_checkpoint, step_lr, train_epoch)
@@ -81,9 +89,36 @@ def main(argv=None) -> TrainRun:
                         help="write a torch.profiler trace of the first "
                              "epoch here")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported: multi-process training")
+                        help="join the processes of a launcher (torchrun's "
+                             "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, "
+                             "LOCAL_RANK; parallel.init_distributed)")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="--distributed's backend: nccl (the default "
+                             "on cuda) or gloo (the default on cpu; also "
+                             "several processes on one card)")
     args = parser.parse_args(argv)
-    common.refuse_unported(args, {"distributed": False})
+    if args.distributed:
+        backend = args.dist_backend or (
+            "gloo" if torch.device(args.device).type == "cpu" else "nccl")
+        if not init_distributed(backend):
+            # an explicit request: a process without its launcher's
+            # environment must not quietly train alone
+            raise SystemExit(
+                "--distributed was passed but no launcher environment is "
+                "set: run under torchrun (MASTER_ADDR, MASTER_PORT, RANK, "
+                "WORLD_SIZE, LOCAL_RANK); drop the flag for single-process "
+                "training")
+        print(f"distributed: process {dist.get_rank()} of "
+              f"{dist.get_world_size()} over {backend}", flush=True)
+    try:
+        return _train(args)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
+
+
+def _train(args) -> TrainRun:
     device = bridge.resolve_device(args.device)
     nprng = common.seed_everything(args.seed)
     cfg = common.model_config(args)

@@ -37,6 +37,19 @@ whole-S one otherwise. On the CPU both take the plain PyTorch path, except
 that ``select_impl="fused"`` in training and ``attn_impl="packed"`` or
 ``"flash"`` run the kernel's plain version, as the JAX package runs its
 Pallas kernels in interpret mode off the TPU.
+
+Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh over "data"):
+each rank passes its own block of whole scenes (``parallel.shard_batch``)
+and computes the model that the single process computes on the whole
+batch. On the scene axis the scenes are the attention's tokens (quirk
+Q4), so each rank attends its scenes to the keys and values of every
+rank's (``nn.attention``: gathered, or the ring under ``attn_impl="ring"``);
+on the agent axis the attention stays within a scene, except that the
+ring splits each scene's agents over the ranks. The loss normalizers are
+global (the batch size, the count of real agents, and the KL floor's
+gate, which reads the global mean), and so is the noise: the draws are
+those of the single process over the whole batch, of which each rank
+keeps its rows. The selection kernel decodes each rank's own rows.
 """
 
 from __future__ import annotations
@@ -49,10 +62,15 @@ import torch
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.kernels.select_decode import select_decode
 from sttode_tpu_torch.nn import core, embed
+from sttode_tpu_torch.nn.attention import ULYSSES_NOT_PORTED
 from sttode_tpu_torch.nn.ode_block import ode_encoder
 from sttode_tpu_torch.nn.recurrent import conv1d, conv1d_init, gru, gru_init
-from sttode_tpu_torch.nn.transformer import (LayerConfig, draw_dropout_masks,
+from sttode_tpu_torch.nn.transformer import (LayerConfig, LayerDropMasks,
+                                             draw_dropout_masks,
                                              encoder_stack_init)
+from sttode_tpu_torch.parallel import collectives
+from sttode_tpu_torch.parallel.mesh import (TP_NOT_PORTED, axis_rank,
+                                            axis_size, mesh_shape)
 from sttode_tpu_torch.utils.distributions import DiagNormal
 
 
@@ -62,7 +80,7 @@ class STTODEConfig(NamedTuple):
 
     ``validate`` raises NotImplementedError on what the port does not run
     rather than running something else: ``compute_dtype="bfloat16"``, the
-    ring and ulysses attention routes, and ``num_decompose != 2`` on the
+    ulysses attention route, and ``num_decompose != 2`` on the
     selection-decode kernel route.
     ``remat`` is carried but unused: PyTorch stores what autograd needs.
     One default differs from the JAX package: ``select_impl="auto"``, the
@@ -160,10 +178,8 @@ class STTODEConfig(NamedTuple):
                                                        "bfloat16"))):
             if value not in known:
                 raise ValueError(f"{name} {value!r}")
-        if self.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} (sequence-parallel attention) "
-                "is not ported yet")
+        if self.attn_impl == "ulysses":
+            raise NotImplementedError(ULYSSES_NOT_PORTED)
         if self.compute_dtype != "float32":
             raise NotImplementedError(
                 "compute_dtype='bfloat16' is not ported (decode_dtype and "
@@ -287,7 +303,8 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                   isolate_scenes: bool = False, train: bool = False,
                   keep_mask: torch.Tensor | None = None,
                   enc_masks: list | None = None,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  mesh=None) -> torch.Tensor:
     """Shared trunk → [M, 2D] concat(skip, interaction) feature.
 
     ``isolate_scenes`` (scene axis only) makes every scene its own
@@ -296,7 +313,9 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
     With ``train`` the positional encoding's dropout applies, its keep-mask
     [M, T, D] injected or drawn from ``generator``, and under
     ``cfg.dropout > 0`` so does the encoder layers' (``enc_masks``, one
-    ``LayerDropMasks`` per layer, injected or drawn once for the solve)."""
+    ``LayerDropMasks`` per layer, injected or drawn once for the solve).
+    Under a ``mesh`` the B scenes are this rank's (see the module's
+    docstring)."""
     D = cfg.hidden_dim
     T = inputs.shape[1]
     x = core.dense(p["input_fc"], inputs)                     # [M, T, D]
@@ -310,10 +329,32 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
         raise ValueError("attn_axis='agent' requires compat='tpu': reference "
                          "compat drops attention masks (Q2), so padded "
                          "agents would leak into attention")
-    mask = None
+    mask = kv_valid = enc_mesh = None
+    group = None if mesh is None else mesh.get_group("data")
+    split_agents = False
     if cfg.attn_axis == "scene":
         tokens = (x.reshape(1, B * N, 1, D) if isolate_scenes
                   else x[:, :, None, :])                      # [L=B, N, 1, D]
+        # the scenes, split over the ranks, are the tokens
+        enc_mesh = None if isolate_scenes else mesh
+    elif cfg.attn_impl == "ring":
+        # the ring's only mask form is key validity
+        tokens = x.transpose(0, 1)[:, :, None, :]             # [L=N, B, 1, D]
+        kv_valid = valid.reshape(B, N)
+        if mesh is not None:
+            # the ring splits each scene's agents: every rank takes its
+            # block of them in every scene, and gives the scenes back after
+            n = axis_size(mesh, "data")
+            if N % n:
+                raise ValueError(f"attn_impl='ring' on the agent axis splits "
+                                 f"the {N} agents over data = {n}: they "
+                                 f"must divide")
+            tokens = collectives.take(collectives.gather(tokens, group, 1),
+                                      group, 0)         # [N/n, B·n, 1, D]
+            kv_valid = collectives.all_gather(kv_valid, group, 0).narrow(
+                1, axis_rank(mesh, "data") * (N // n), N // n)
+            enc_mesh = mesh
+            split_agents = True
     else:
         tokens = x.transpose(0, 1)[:, :, None, :]             # [L=N, B, 1, D]
         mask = _agent_attn_mask(valid, B, N)
@@ -324,10 +365,12 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
             tokens.device)
     z = ode_encoder(p["ode_layers"], tokens, cfg.layer_cfg,
                     time=cfg.ode_time, method=cfg.ode_method,
-                    steps=cfg.ode_steps, mask=mask, drop=drop,
-                    adjoint=cfg.ode_adjoint, rtol=cfg.ode_rtol,
+                    steps=cfg.ode_steps, mask=mask, kv_valid=kv_valid,
+                    drop=drop, adjoint=cfg.ode_adjoint, rtol=cfg.ode_rtol,
                     atol=cfg.ode_atol,
-                    scan_budget=cfg.ode_scan_budget or None)
+                    scan_budget=cfg.ode_scan_budget or None, mesh=enc_mesh)
+    if split_agents:
+        z = collectives.take(collectives.gather(z, group, 0), group, 1)
     if cfg.attn_axis == "scene":
         z = z.reshape(B, N, D)
     else:
@@ -339,20 +382,22 @@ def encode_past(params: dict, cfg: STTODEConfig, batch: Batch, *,
                 isolate_scenes: bool = False, train: bool = False,
                 keep_mask: torch.Tensor | None = None,
                 enc_masks: list | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                mesh=None) -> torch.Tensor:
     """past_feature [M, 2D]."""
     return _encode_trunk(params["past_encoder"], cfg, batch.inputs,
                          batch.batch_size, batch.agent_num, batch.valid,
                          isolate_scenes=isolate_scenes, train=train,
                          keep_mask=keep_mask, enc_masks=enc_masks,
-                         generator=generator)
+                         generator=generator, mesh=mesh)
 
 
 def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
                   past_feature: torch.Tensor, *,
                   keep_mask: torch.Tensor | None = None,
                   enc_masks: list | None = None,
-                  generator: torch.Generator | None = None) -> DiagNormal:
+                  generator: torch.Generator | None = None,
+                  mesh=None) -> DiagNormal:
     """Posterior q(z | past, future), a training-only head: the future trunk
     (its PE dropout on), then the posterior head on [past_feature |
     future_feature]."""
@@ -360,7 +405,7 @@ def encode_future(params: dict, cfg: STTODEConfig, batch: Batch,
                              batch.inputs_for_posterior, batch.batch_size,
                              batch.agent_num, batch.valid, train=True,
                              keep_mask=keep_mask, enc_masks=enc_masks,
-                             generator=generator)
+                             generator=generator, mesh=mesh)
     h = torch.cat([past_feature, fut_feat], dim=-1)
     h = core.mlp(params["out_mlp"], h, activation="relu", activate_final=True)
     return DiagNormal.from_params(core.dense(params["qz_layer"], h))
@@ -460,26 +505,35 @@ def loss_pred(pred, target, batch_size, valid):
     return torch.sum(se) / batch_size / pred.shape[1]
 
 
-def _masked_mean(per_agent, valid):
+def _masked_mean(per_agent, valid, count=None):
     """Mean of a per-agent [M] quantity over the real agents (the
-    reference's B·N denominator on an unpadded batch)."""
-    return torch.sum(per_agent * valid) / torch.clamp(torch.sum(valid),
-                                                      min=1.0)
+    reference's B·N denominator on an unpadded batch); ``count`` is the
+    real agents' count when it is not ``valid``'s (under a mesh: every
+    rank's)."""
+    if count is None:
+        count = torch.sum(valid)
+    return torch.sum(per_agent * valid) / torch.clamp(count, min=1.0)
 
 
-def loss_kl(qz: DiagNormal, pz: DiagNormal, min_clip, valid):
+def loss_kl(qz: DiagNormal, pz: DiagNormal, min_clip, valid, count=None,
+            group=None):
     """Σ KL / (real agent count), floored at min_clip with max() (quirk Q5:
-    zero gradient while the unfloored loss is below the floor)."""
-    loss = _masked_mean(torch.sum(qz.kl(pz), dim=-1), valid)
+    zero gradient while the unfloored loss is below the floor). Under a
+    mesh ``count`` is every rank's count of real agents and ``group`` sums
+    the ranks' shares before the floor, so that its gate reads the global
+    mean."""
+    loss = _masked_mean(torch.sum(qz.kl(pz), dim=-1), valid, count)
+    if group is not None:
+        loss = collectives.global_sum(loss, group)
     # the floor made on the device (a host scalar tensor would be copied)
     return torch.maximum(loss, torch.full_like(loss, min_clip))
 
 
-def loss_diverse(pred_k, target, valid):
+def loss_diverse(pred_k, target, valid, count=None):
     """Best-of-K: min over samples of ΣSE, averaged over agents.
     pred_k [M, K, T, 2], target [M, T, 2]."""
     dist = torch.sum(torch.square(target[:, None] - pred_k), dim=(-1, -2))
-    return _masked_mean(torch.min(dist, dim=1).values, valid)
+    return _masked_mean(torch.min(dist, dim=1).values, valid, count)
 
 
 # --------------------------------------------------------------------------- #
@@ -500,6 +554,88 @@ class TrainNoise(NamedTuple):
     eps_p: torch.Tensor
     enc_past: list | None = None
     enc_future: list | None = None
+
+
+def draw_train_noise(cfg: STTODEConfig, B: int, N: int,
+                     generator: torch.Generator | None, device,
+                     dtype=torch.float32) -> TrainNoise:
+    """The draws of ``sttode_forward`` over B scenes × N agents, from
+    ``generator`` (on ``device``; the latent noise in ``dtype``, the
+    model's), in the order the forward uses them: the
+    past trunk's PE keep-mask and encoder masks, the future trunk's, the
+    posterior noise, the prior noise (when "diverse" is a loss term).
+    Fields that the config does not draw are None."""
+    M, D = B * N, cfg.hidden_dim
+    tokens = (B, N, 1, D) if cfg.attn_axis == "scene" else (N, B, 1, D)
+
+    def trunk(T):
+        pe = (torch.rand((M, T, D), generator=generator, device=device)
+              < 1.0 - cfg.pe_dropout) if cfg.pe_dropout > 0.0 else None
+        enc = draw_dropout_masks(cfg.layer_cfg, tokens, cfg.nlayer,
+                                 generator, device) \
+            if cfg.dropout > 0.0 else None
+        return pe, enc
+
+    pe_past, enc_past = trunk(cfg.past_length)
+    pe_future, enc_future = trunk(cfg.future_length)
+    eps_q = torch.randn((M, cfg.zdim), generator=generator, dtype=dtype,
+                        device=device)
+    eps_p = torch.randn((M * cfg.sample_k, cfg.zdim), generator=generator,
+                        dtype=dtype, device=device) \
+        if "diverse" in cfg.loss_terms else None
+    return TrainNoise(pe_past, pe_future, eps_q, eps_p, enc_past, enc_future)
+
+
+def _rows(x, index: int, rows: int, dim: int = 0):
+    return None if x is None else x.narrow(dim, index * rows, rows)
+
+
+def _local_noise(noise: TrainNoise, cfg: STTODEConfig, B: int, N: int,
+                 index: int) -> TrainNoise:
+    """This rank's part of the global draws: block ``index`` of B scenes
+    (its rows, and its scenes' entries of the encoder masks: the query
+    rows of the attention masks and the token rows of the others on the
+    scene axis, the batch rows on the agent axis)."""
+    M, K = B * N, cfg.sample_k
+    scene = cfg.attn_axis == "scene"
+
+    def enc(masks):
+        if masks is None:
+            if cfg.dropout > 0.0:
+                raise ValueError("under a mesh an injected TrainNoise "
+                                 "carries the encoder's dropout masks")
+            return None
+        return [LayerDropMasks(
+            _rows(m.attn, index, B, 2 if scene else 0),
+            *(_rows(t, index, B, 0 if scene else 1)
+              for t in (m.resid1, m.ffn, m.resid2))) for m in masks]
+
+    return TrainNoise(_rows(noise.pe_past, index, M),
+                      _rows(noise.pe_future, index, M),
+                      _rows(noise.eps_q, index, M),
+                      _rows(noise.eps_p, index, M * K),
+                      enc(noise.enc_past), enc(noise.enc_future))
+
+
+def check_mesh(cfg: STTODEConfig, mesh) -> None:
+    """Raise NotImplementedError for a mesh the model does not run on: a
+    "model" axis (tensor parallelism), a "seq" axis (the whole step split
+    over data × sequence), or an ODE method other than Euler (dopri5's
+    error norm is a reduction over the whole state, so the ranks would
+    accept different steps)."""
+    if mesh is None:
+        return
+    shape = mesh_shape(mesh)
+    if shape.get("model", 1) > 1:
+        raise NotImplementedError(TP_NOT_PORTED)
+    if shape.get("seq", 1) > 1:
+        raise NotImplementedError(
+            "the model on a mesh with a \"seq\" axis is not ported yet; "
+            "parallel.ring_attention takes such a mesh")
+    if cfg.ode_method != "euler":
+        raise NotImplementedError(
+            f"ode_method={cfg.ode_method!r} under a mesh is not ported yet: "
+            f"the ranks would integrate with different steps")
 
 
 class ForwardOutput(NamedTuple):
@@ -558,31 +694,52 @@ def _select_dist(params, cfg: STTODEConfig, batch: Batch, past_feature,
 
 def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
                    generator: torch.Generator | None = None,
-                   noise: TrainNoise | None = None) -> ForwardOutput:
+                   noise: TrainNoise | None = None,
+                   mesh=None) -> ForwardOutput:
     """Full CVAE training forward: posterior decode + KL + best-of-K diverse
     loss. The random draws are ``noise`` when given, else drawn from
-    ``generator`` (on the batch's device). With ``diverse_grad="sparse"``
-    the K samples are decoded without gradients only to pick each agent's
-    winner, and ONE differentiable decode of (posterior, winner) follows;
-    "dense" back-propagates through all K."""
+    ``generator`` (on the batch's device, ``draw_train_noise``). With
+    ``diverse_grad="sparse"`` the K samples are decoded without gradients
+    only to pick each agent's winner, and ONE differentiable decode of
+    (posterior, winner) follows; "dense" back-propagates through all K.
+
+    Under a ``mesh`` (data parallelism, ``check_mesh``) ``batch`` is this
+    rank's block of whole scenes and ``noise`` the global draws (those of
+    the whole batch; drawn so from ``generator`` when not given). The loss
+    values are the global losses, alike on every rank; each rank's
+    backward pass gives its share of the gradient, whose sum over the
+    ranks is the single process's gradient. The other outputs are this
+    rank's rows."""
     B, N = batch.batch_size, batch.agent_num
     M = B * N
     K = cfg.sample_k
     valid = batch.valid
-    nz = noise if noise is not None else TrainNoise(None, None, None, None)
+    check_mesh(cfg, mesh)
+    group = None if mesh is None else mesh.get_group("data")
+    dp = axis_size(mesh, "data")
+    if noise is None:
+        noise = draw_train_noise(cfg, B * dp, N, generator,
+                                 batch.past.device, batch.past.dtype)
+    nz = noise if mesh is None else _local_noise(
+        noise, cfg, B, N, axis_rank(mesh, "data"))
 
     past_feature = encode_past(params, cfg, batch, train=True,
                                keep_mask=nz.pe_past, enc_masks=nz.enc_past,
-                               generator=generator)
+                               generator=generator, mesh=mesh)
     qz = encode_future(params, cfg, batch, past_feature,
                        keep_mask=nz.pe_future, enc_masks=nz.enc_future,
-                       generator=generator)
+                       generator=generator, mesh=mesh)
     pz = prior(params, cfg, past_feature)
     qz_sample = qz.rsample(generator, noise=nz.eps_q)
 
     # decompose block 0's GRU state depends only on past_traj: one scan
     # serves every decode below
     state0 = decode_block0_state(params, batch.past)
+
+    # the real agents of the whole batch: the means' denominator
+    count = torch.sum(valid)
+    if group is not None:
+        count = collectives.all_reduce(count.detach().clone(), group)
 
     sparse = cfg.diverse_grad == "sparse" and K > 1 and \
         "diverse" in cfg.loss_terms
@@ -594,7 +751,7 @@ def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
                                              qz_sample, batch.past,
                                              batch.cur_location, 1,
                                              block0_state=state0)
-    l_kl = loss_kl(qz, pz, cfg.min_clip, valid)
+    l_kl = loss_kl(qz, pz, cfg.min_clip, valid, count, group)
 
     if "diverse" not in cfg.loss_terms:
         # VAE-only objective: no K-sample decode at all
@@ -623,17 +780,22 @@ def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
             recover_traj = rec2.reshape(M, 2, cfg.past_length, 2)[:, 0]
             best_se = torch.sum(torch.square(batch.future - best_pred),
                                 dim=(-1, -2))
-            l_div = _masked_mean(best_se, valid)
+            l_div = _masked_mean(best_se, valid, count)
         else:
             diverse, _ = _decode_mp(params, cfg,
                                     past_feature.repeat_interleave(K, dim=0),
                                     pz_sample, batch.past,
                                     batch.cur_location, K, block0_state=state0)
             diverse = diverse.reshape(M, K, cfg.future_length, 2)
-            l_div = loss_diverse(diverse, batch.future, valid)
+            l_div = loss_diverse(diverse, batch.future, valid, count)
 
-    l_pred = loss_pred(pred_traj, batch.future, B, valid)
-    l_recover = loss_pred(recover_traj, batch.past, B, valid)
+    l_pred = loss_pred(pred_traj, batch.future, B * dp, valid)
+    l_recover = loss_pred(recover_traj, batch.past, B * dp, valid)
+    parts = torch.stack([l_pred, l_recover, l_div])
+    if group is not None:
+        # each rank's terms are its shares of the global ones
+        parts = collectives.global_sum(parts, group)
+    l_pred, l_recover, l_div = parts.unbind()
     terms = {"pred": l_pred, "recover": l_recover, "kl": l_kl,
              "diverse": l_div}
     total = sum(terms[name] for name in cfg.loss_terms)
@@ -649,22 +811,34 @@ def sttode_inference(params: dict, cfg: STTODEConfig, batch: Batch, *,
                      generator: torch.Generator | None = None,
                      z: torch.Tensor | None = None,
                      sample_k: int | None = None,
-                     isolate_scenes: bool = False) -> torch.Tensor:
+                     isolate_scenes: bool = False,
+                     mesh=None) -> torch.Tensor:
     """Best-of-K prior decode: [K, M, T_f, 2] in scene-normalized
     coordinates (the caller re-adds the scene origin).
 
     The only random draw is the prior's standard-normal noise [M·K, Z]
     (m-major: row m·K + k), taken from ``generator`` (on the batch's
     device) unless injected with ``z``; it is the latent itself under the
-    standard prior, and ``mu + z·sigma`` under ``learn_prior``."""
+    standard prior, and ``mu + z·sigma`` under ``learn_prior``. Under a
+    ``mesh`` ``batch`` is this rank's block of whole scenes, ``z`` (or
+    the draw) is that of the whole batch, and the result is this rank's
+    rows."""
     K = sample_k or cfg.sample_k
     M = batch.batch_size * batch.agent_num
     Tf = cfg.future_length
+    check_mesh(cfg, mesh)
+    dp = axis_size(mesh, "data")
     past_feature = encode_past(params, cfg, batch,
-                               isolate_scenes=isolate_scenes)
-    if z is not None and tuple(z.shape) != (M * K, cfg.zdim):
-        raise ValueError(f"z must be [{M * K}, {cfg.zdim}], got "
+                               isolate_scenes=isolate_scenes, mesh=mesh)
+    if z is not None and tuple(z.shape) != (dp * M * K, cfg.zdim):
+        raise ValueError(f"z must be [{dp * M * K}, {cfg.zdim}], got "
                          f"{tuple(z.shape)}")
+    if mesh is not None:
+        if z is None:
+            z = torch.randn((dp * M * K, cfg.zdim), generator=generator,
+                            dtype=past_feature.dtype,
+                            device=past_feature.device)
+        z = _rows(z, axis_rank(mesh, "data"), M * K)
     if z is None or cfg.learn_prior:
         z = prior(params, cfg, past_feature.repeat_interleave(K, dim=0)) \
             .rsample(generator, noise=z)

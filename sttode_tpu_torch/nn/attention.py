@@ -52,6 +52,12 @@ kernel sees them, as in JAX. On a CPU tensor every route but a forced
 kernel's plain version. The packed boundary is the JAX package's starting
 point, not an H100 crossover: ``chip_smoke.py`` times the kernels at the NBA
 recipe's shapes.
+
+Under a ``mesh`` (``parallel``) the tensors are each rank's block of the
+token axes: ``fused="ring"`` runs ``parallel.ring_attention`` (JAX's
+"ring" route), every other route attends the rank's queries to the keys
+and values gathered from every rank (``_mesh_attention``); the all-to-all
+route "ulysses" is not ported.
 """
 
 from __future__ import annotations
@@ -151,10 +157,12 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
     as an additive mask. No kernel implements attention-weight dropout:
     active dropout sends "auto" to the plain path, and a forced kernel
     raises, as in JAX."""
+    if fused == "ulysses":
+        raise NotImplementedError(ULYSSES_NOT_PORTED)
     if fused not in ("auto", True, False, "packed", "flash"):
         raise NotImplementedError(
             f"attention route {fused!r} is not ported "
-            "(auto/fused/packed/flash/dense)")
+            "(auto/fused/packed/flash/dense/ring)")
     if dropout_active and fused in (True, "packed", "flash"):
         route = "fused" if fused is True else fused
         raise ValueError(
@@ -203,7 +211,8 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        curvature: float = 1.0,
                        kv_valid: torch.Tensor | None = None,
                        dropout_rate: float = 0.0,
-                       dropout_mask: torch.Tensor | None = None):
+                       dropout_mask: torch.Tensor | None = None,
+                       mesh=None, ring_axis: str = "data"):
     """Core attention: scores → (+mask) → softmax → dropout → @v.
 
     q [..., L, Dh], k/v [..., S, Dh], additive mask broadcastable to
@@ -214,8 +223,30 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or "flash" (the S-tiled key-validity kernel), both refusing additive
     masks, False (plain path). Attention-weight dropout at ``dropout_rate``
     applies where ``dropout_mask`` (bool keep-mask of the weights' shape)
-    is given, on the plain path only."""
+    is given, on the plain path only.
+
+    Under a ``mesh`` (``parallel.make_mesh``) q, k, v and ``kv_valid`` hold
+    this rank's block of the token axes, split over ``mesh[ring_axis]``
+    ("seq" where the mesh has it, ``parallel.ring_attention.resolve_sp_axes``);
+    the result is this rank's rows. ``fused="ring"`` runs the ring
+    (``parallel.ring_attention``; no dropout, key validity only); every
+    other route attends this rank's queries to the keys and values
+    gathered from every rank, on the route the local shapes pick
+    (``_mesh_attention``). Quirk Q3's swap is decided on the global shapes
+    in both."""
     dropout_active = dropout_rate > 0.0 and dropout_mask is not None
+    if fused == "ring":
+        return _ring_attention(q, k, v, mesh, ring_axis, mask=mask,
+                               compat=compat, metric=metric,
+                               curvature=curvature, kv_valid=kv_valid,
+                               dropout_active=dropout_active)
+    if mesh is not None:
+        return _mesh_attention(q, k, v, mesh, ring_axis, mask=mask,
+                               compat=compat, fused=fused,
+                               need_weights=need_weights, metric=metric,
+                               curvature=curvature, kv_valid=kv_valid,
+                               dropout_rate=dropout_rate,
+                               dropout_mask=dropout_mask)
     route = _kernel_route(tuple(q.shape), tuple(k.shape),
                           has_mask=mask is not None,
                           has_kv_valid=kv_valid is not None, compat=compat,
@@ -273,6 +304,83 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return w @ v, w
 
 
+ULYSSES_NOT_PORTED = ("attn_impl='ulysses' (all-to-all sequence "
+                      "parallelism) is not ported yet; use attn_impl='ring'")
+
+
+def _ring_attention(q, k, v, mesh, ring_axis: str, *, mask, compat: str,
+                    metric: str, curvature: float, kv_valid,
+                    dropout_active: bool):
+    """The "ring" route (JAX's): q [..., L, Dh], k/v [..., S, Dh] blocks of
+    the token axes folded to [B, ·, Dh], ``kv_valid`` broadcast over the
+    folded axes; q and k swap under quirk Q3."""
+    if dropout_active:
+        # loud, not silent: the ring has no attention-weight dropout
+        raise ValueError(
+            "attn_impl='ring' does not implement attention dropout; set "
+            "dropout=0 (the reference default) or use a dense route")
+    if mesh is None:
+        raise ValueError("attn_impl='ring' needs a mesh — pass it through "
+                         "sttode_forward(..., mesh=) / make_train_step")
+    if mask is not None:
+        raise ValueError("ring path supports key-validity masks only; pass "
+                         "kv_valid instead of an additive mask")
+    from sttode_tpu_torch.parallel.ring_attention import \
+        ring_geodesic_attention
+    *lead, L, Dh = q.shape
+    S = k.shape[-2]
+    # both token axes are split alike: square locally iff globally
+    qq, kk = (k, q) if (compat == "reference" and L == S) else (q, k)
+    B = 1
+    for d in lead:
+        B *= d
+    val = None
+    if kv_valid is not None:
+        kvv = kv_valid
+        while kvv.ndim < len(lead) + 1:   # insert axes before S (e.g. the
+            kvv = kvv[..., None, :]       # folded head axis)
+        val = torch.broadcast_to(kvv, (*lead, S)).reshape(B, S)
+    out = ring_geodesic_attention(
+        qq.reshape(B, L, Dh), kk.reshape(B, S, Dh), v.reshape(B, S, Dh),
+        mesh, axis=ring_axis, kv_valid=val, metric=metric,
+        curvature=curvature)
+    return out.reshape(*lead, L, Dh), None
+
+
+def _mesh_attention(q, k, v, mesh, ring_axis: str, *, mask, compat: str,
+                    fused, need_weights: bool, metric: str,
+                    curvature: float, kv_valid, dropout_rate: float,
+                    dropout_mask):
+    """Every route but the ring under a mesh: this rank's query block
+    against the key and value blocks of every rank, gathered along the
+    token axis (``collectives.gather``, whose backward sums the gathered
+    cotangent over the ranks). Under quirk Q3's swap, decided on the
+    global shapes, the kernel's queries are the keys: q and v are
+    gathered, not k, and the validity marks q's tokens, as the swapped
+    single-process call does. The call then runs unswapped on the route
+    its local shapes pick. ``dropout_mask`` is this rank's rows of the
+    global one."""
+    from sttode_tpu_torch.parallel import collectives
+    from sttode_tpu_torch.parallel.ring_attention import resolve_sp_axes
+    if mask is not None:
+        raise ValueError("under a mesh the attention supports key-validity "
+                         "masks only; pass kv_valid instead of an additive "
+                         "mask")
+    group = mesh.get_group(resolve_sp_axes(mesh, ring_axis)[0])
+    # both token axes are split alike: square locally iff globally
+    qq, kk = (k, q) if (compat == "reference" and
+                        q.shape[-2] == k.shape[-2]) else (q, k)
+    kk = collectives.gather(kk, group, kk.dim() - 2)
+    vv = collectives.gather(v, group, v.dim() - 2)
+    if kv_valid is not None:
+        kv_valid = collectives.all_gather(kv_valid, group, kv_valid.dim() - 1)
+    return geodesic_attention(qq, kk, vv, compat="tpu", fused=fused,
+                              need_weights=need_weights, metric=metric,
+                              curvature=curvature, kv_valid=kv_valid,
+                              dropout_rate=dropout_rate,
+                              dropout_mask=dropout_mask)
+
+
 def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           value: torch.Tensor, num_heads: int, *,
           mask: torch.Tensor | None = None,
@@ -285,7 +393,8 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           dropout_rate: float = 0.0,
           dropout_mask: torch.Tensor | None = None,
           bias_kv: tuple | None = None,
-          add_zero_attn: bool = False):
+          add_zero_attn: bool = False,
+          mesh=None, ring_axis: str = "data"):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
     packed [E, 3E] projection when query, key and value are the same tensor,
@@ -298,7 +407,9 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
     (both: bias first), so S' = S + 1 or S + 2: the additive mask gets a 0
     column and ``kv_valid`` a valid key for each. The route and the Q3 swap
     are decided on the new shape: a square reference-compat self-attention
-    runs swapped, the same call with an appended position unswapped."""
+    runs swapped, the same call with an appended position unswapped.
+    ``mesh`` and ``ring_axis``: see ``geodesic_attention`` (the tokens of
+    query, key and value are this rank's blocks)."""
     E = query.shape[-1]
     head_dim = E // num_heads
     if head_dim * num_heads != E:
@@ -332,7 +443,7 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
         split_heads(v, num_heads), mask=mask, compat=compat,
         fused=fused, need_weights=need_weights, metric=metric,
         curvature=curvature, kv_valid=kv_valid, dropout_rate=dropout_rate,
-        dropout_mask=dropout_mask)
+        dropout_mask=dropout_mask, mesh=mesh, ring_axis=ring_axis)
     out = merge_heads(out_h) @ params.out_proj_w + params.out_proj_b
     if need_weights and w is not None:
         return out, w.mean(dim=-3)

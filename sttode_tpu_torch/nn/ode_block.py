@@ -40,14 +40,16 @@ def ode_encoder(params: list, src: torch.Tensor, cfg: LayerConfig, *,
                 drop: list[LayerDropMasks] | None = None,
                 adjoint: bool = False, rtol: float = 1e-7,
                 atol: float = 1e-9,
-                scan_budget: int | None = None) -> torch.Tensor:
+                scan_budget: int | None = None,
+                mesh=None) -> torch.Tensor:
     """ODE-integrated encoder over [L, N, S, D] tokens, ReLU epilogue.
     ``steps`` is the fixed grid's density over [0, time]; ``drop`` the
-    layers' dropout keep-masks (None: no dropout)."""
+    layers' dropout keep-masks (None: no dropout); ``mesh`` the layers'
+    (``nn.transformer.encoder_layer``)."""
     def rhs(t, y, p):
         del t    # autonomous field
         return encoder_stack(p, y, cfg, mask=mask, kv_valid=kv_valid,
-                             drop=drop)
+                             drop=drop, mesh=mesh)
 
     ts = _grid(time, steps, src, method)
     integrate = odeint_adjoint if adjoint else odeint

@@ -1,0 +1,13 @@
+"""Parallelism over ``torch.distributed`` (port of ``sttode_tpu/parallel``):
+the process-group mesh, the placement of batches and parameters, and ring
+sequence-parallel attention. The all-to-all (Ulysses) attention and tensor
+parallelism are not ported."""
+
+from sttode_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    make_mesh,
+    param_sharding,
+    shard_batch,
+)
+
+__all__ = ["batch_sharding", "make_mesh", "param_sharding", "shard_batch"]

@@ -28,6 +28,16 @@ batches through a background prefetch thread (``data.prefetch``: pinned
 host memory and non-blocking copies on a side CUDA stream), so host
 preparation and the copy overlap the previous step, and with S > 1 stacks
 them per bucket signature into chunks, in JAX's order.
+
+With a ``mesh`` (``parallel.make_mesh``, data parallelism) every rank
+calls the step with its block of whole scenes (``parallel.shard_batch``)
+and the global noise: the forward computes the single process's model
+and losses (``models.sttode``: the gathered scene axis, the global
+normalizers and noise), each rank's backward gives its share of every
+gradient leaf, one all-reduce sums the shares, and every rank runs the
+same update from rank 0's initial values, so the parameters stay equal bit
+for bit across the ranks. The metrics are the global losses, alike on
+every rank.
 """
 
 from __future__ import annotations
@@ -42,8 +52,11 @@ from sttode_tpu_torch import bridge
 from sttode_tpu_torch.data.prefetch import prefetch, tree_to
 from sttode_tpu_torch.models.sampler import (SamplerConfig, sampler_forward,
                                              sampler_loss)
-from sttode_tpu_torch.models.sttode import Batch, STTODEConfig, sttode_forward
+from sttode_tpu_torch.models.sttode import (Batch, STTODEConfig, check_mesh,
+                                            sttode_forward)
 from sttode_tpu_torch.ode import warn_exhausted
+from sttode_tpu_torch.parallel import collectives
+from sttode_tpu_torch.parallel.mesh import TP_NOT_PORTED, replicate
 from sttode_tpu_torch.train import graph as tgraph
 from sttode_tpu_torch.train.schedulers import set_lr
 
@@ -90,13 +103,23 @@ class TrainStep:
     >>> params, opt_state, metrics = step(params, opt_state, batch, gen)
 
     ``step.mode`` is "graph" when the step runs S > 1 steps as one CUDA
-    graph replay, else "eager"."""
+    graph replay, else "eager". ``step.mesh`` is the data-parallel mesh or
+    None."""
 
     def __init__(self, cfg: STTODEConfig, lr: float,
                  device: torch.device | str = "cuda", scan_steps: int = 1,
-                 optimizer: Callable | None = None):
+                 optimizer: Callable | None = None, mesh=None,
+                 tp: bool = False):
         if scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+        if tp:
+            raise NotImplementedError(TP_NOT_PORTED)
+        if mesh is not None and scan_steps > 1:
+            raise NotImplementedError(
+                "scan_steps > 1 under a mesh (the captured step's "
+                "collectives) is not ported yet")
+        check_mesh(cfg, mesh)
+        self.mesh = mesh
         self.cfg = cfg.validate()
         self.optimizer = optimizer or functools.partial(torch.optim.Adam,
                                                         lr=lr)
@@ -111,10 +134,14 @@ class TrainStep:
         """(params as trainable leaf tensors on the step's device, the
         optimizer over them), the state loaded from ``opt_state`` (a
         checkpoint's ``state_dict``) when given. A graph step's Adam is
-        capturable, the learning rate a device tensor."""
+        capturable, the learning rate a device tensor. Under a mesh every
+        rank starts from rank 0's parameters (``param_sharding``'s
+        replicated placement)."""
         params = bridge.tree_map(
             lambda t: t.detach().to(self.device, torch.float32)
             .clone().requires_grad_(), params)
+        if self.mesh is not None:
+            replicate(params, self.mesh)
         graph = self.mode == "graph"
         opt = self.optimizer(bridge.tree_leaves(params), capturable=graph)
         if opt_state is not None:
@@ -126,7 +153,7 @@ class TrainStep:
     def _loss(self, params, batch: Batch, generator, noise):
         """(total loss, metrics) of one step's forward."""
         out = sttode_forward(params, self.cfg, batch, generator=generator,
-                             noise=noise)
+                             noise=noise, mesh=self.mesh)
         return out.total_loss, dict(zip(METRICS, (
             out.total_loss, out.loss_pred, out.loss_recover, out.loss_kl,
             out.loss_diverse)))
@@ -135,6 +162,8 @@ class TrainStep:
         opt_state.zero_grad(set_to_none=True)
         total, metrics = self._loss(params, batch, generator, noise)
         total.backward()
+        if self.mesh is not None:
+            _sum_grads(params, self.mesh.get_group("data"))
         opt_state.step()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -198,6 +227,18 @@ class TrainStep:
                 "pool_bytes": sum(g.pool_bytes or 0 for g in gs)}
 
 
+def _sum_grads(params, group) -> None:
+    """Sum every gradient leaf over ``group``: one all-reduce of the leaves
+    laid end to end."""
+    grads = [p.grad for p in bridge.tree_leaves(params) if p.grad is not None]
+    flat = collectives.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                  group)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+
+
 def _make_capturable(opt: torch.optim.Adam, device: torch.device) -> None:
     """Put an Adam on the card in its capturable form: the learning rate a
     0-dim device tensor, ``capturable`` set, and a loaded state's step
@@ -216,7 +257,8 @@ def _make_capturable(opt: torch.optim.Adam, device: torch.device) -> None:
 
 def make_train_step(cfg: STTODEConfig, lr: float, *, scan_steps: int = 1,
                     device: torch.device | str = "cuda",
-                    optimizer: Callable | None = None) -> TrainStep:
+                    optimizer: Callable | None = None, mesh=None,
+                    tp: bool = False) -> TrainStep:
     """Stage-1 step ``(params, opt_state, batch, generator) → (params,
     opt_state, metrics)`` with ``torch.optim.Adam(lr)``, or the optimizer
     that ``optimizer(leaves, capturable=...)`` makes (a factory that
@@ -226,8 +268,11 @@ def make_train_step(cfg: STTODEConfig, lr: float, *, scan_steps: int = 1,
     and optimizer state. ``scan_steps`` > 1 takes a stacked batch and runs
     its steps in one call (one CUDA graph replay on the card). Runs on the
     card unless ``device="cpu"``; raises when CUDA is asked for and
-    absent."""
-    return TrainStep(cfg, lr, device, scan_steps, optimizer)
+    absent. ``mesh``: data parallelism over its "data" axis (see the
+    module's docstring); ``tp=True``, ``scan_steps`` > 1 under a mesh and
+    the meshes ``models.sttode.check_mesh`` refuses raise
+    NotImplementedError."""
+    return TrainStep(cfg, lr, device, scan_steps, optimizer, mesh, tp)
 
 
 class SamplerTrainStep(TrainStep):
@@ -263,14 +308,18 @@ class SamplerTrainStep(TrainStep):
 
 def make_sampler_train_step(cfg: STTODEConfig, scfg: SamplerConfig,
                             lr: float, net_params, *, scan_steps: int = 1,
-                            device: torch.device | str = "cuda"
+                            device: torch.device | str = "cuda", mesh=None
                             ) -> SamplerTrainStep:
     """Stage-2 step ``(sampler_params, opt_state, batch, generator) →
     (sampler_params, opt_state, metrics)`` over the frozen ``net_params``,
     with ``torch.optim.Adam(lr)`` over the sampler's leaves;
     ``step.init(sampler_params)`` makes its params and optimizer state.
     ``scan_steps`` as in ``make_train_step``. Runs on the card unless
-    ``device="cpu"``; raises when CUDA is asked for and absent."""
+    ``device="cpu"``; raises when CUDA is asked for and absent. A ``mesh``
+    raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError("the stage-2 step under a mesh is not "
+                                  "ported yet")
     return SamplerTrainStep(cfg, scfg, lr, net_params, device, scan_steps)
 
 

@@ -267,10 +267,15 @@ def test_cli_train_trains_saves_and_resumes(tmp_path, capsys):
                                         "--supervise"])
     assert [h[:2] for h in supervised.history] == [(3, 1.25e-4)]
     assert tck.checkpoint_epochs(str(cdir)) == [1, 2, 3, 4]
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    # --distributed is ported (tests/test_torch_parallel.py): without a
+    # launcher's environment it exits, as JAX's CLI does; the CLI's step has
+    # no mesh, as JAX's has none, so the ring asks for one
+    with pytest.raises(SystemExit, match="--distributed"):
         cli_train.main(args + ["--distributed"])
-    with pytest.raises(NotImplementedError, match="attn_impl"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         cli_train.main(args + ["--attn_impl", "ring"])
+    with pytest.raises(NotImplementedError, match="ulysses"):
+        cli_train.main(args + ["--attn_impl", "ulysses"])
 
 
 def test_cli_train_checkpoints_and_stops_on_sigterm(tmp_path, monkeypatch,

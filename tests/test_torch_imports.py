@@ -98,12 +98,11 @@ def test_visualize_imports_matplotlib_lazily():
         for node in ast.walk(tree))
 
 
-# JAX names the port leaves out: the sequence-parallel package and sharded
+# JAX names the port leaves out: the all-to-all attention and sharded
 # restores (ROADMAP Queue 1 item 7), and what serves only the TPU or XLA
 # (ROADMAP "Not to port"); ode/solvers' Pytree alias is the port's Tree
 NOT_PORTED = {
-    "parallel/__init__": None, "parallel/mesh": None,
-    "parallel/ring_attention": None, "parallel/ulysses": None,
+    "parallel/ulysses": None,
     "utils/compilation_cache": None,
     "train/__init__": {"restore_shardings"},
     "train/checkpoint": {"restore_shardings"},

@@ -231,7 +231,10 @@ def test_ode_encoder(rng, layer_setup, compat, method, steps):
 
 def test_unported_routes_raise(rng):
     q = T(randn(rng, 2, 4, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ulysses"):
+        tattn.geodesic_attention(q, q, q, fused="ulysses")
+    # the ring is ported (tests/test_torch_parallel.py) and needs a mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         tattn.geodesic_attention(q, q, q, fused="ring")
     # the poincaré metric is ported (held to JAX in test_torch_poincare.py);
     # a metric neither package has is refused
@@ -242,6 +245,6 @@ def test_unported_routes_raise(rng):
         jrun(jattn.geodesic_scores, x, y, metric="poincare"), **TOL)
     with pytest.raises(ValueError, match="metric"):
         tattn.geodesic_scores(q, q, metric="euclidean")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ulysses"):
         ttr.encoder_layer(None, T(randn(rng, 2, 2, 1, 8)),
-                          ttr.LayerConfig(d_model=8, attn_impl="ring"))
+                          ttr.LayerConfig(d_model=8, attn_impl="ulysses"))

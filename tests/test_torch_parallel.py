@@ -1,0 +1,513 @@
+"""The port's parallel layer against the JAX package, on the CPU, in
+several gloo processes.
+
+Each group of ranks (2, 4, and 2 × 2 data × sequence) is a set of child
+processes (``tests/torch_parallel_child.py``, no JAX; one torch thread,
+a file rendezvous under the test's temporary directory, a 60 s
+collective timeout) that run the cases of a spec file and write their
+results; the parent starts every group at once, computes the JAX side
+meanwhile on conftest's 8-device CPU mesh, and joins the children within
+``JOIN_S`` seconds, killing them after. The inputs are made from seeds
+with numpy and JAX's own draws (as ``tests/test_torch_train.py`` makes
+them) and handed to the port through ``bridge``.
+
+What is held, and to what:
+- ``ring_geodesic_attention`` on each rank's blocks, assembled, against
+  JAX's ``ring_geodesic_attention`` on the same mesh shape and JAX's
+  ``dense_reference``, both metrics, with a key validity: forward within
+  2e-5, gradients of sum(out²) within 5e-5 × max(1, max |g|);
+- ``sttode_forward(mesh=)`` (every loss term, alike on every rank, and
+  every gradient leaf summed over the ranks) against JAX's unsharded
+  forward within 1e-4 abs/rel: the scene axis at reference compat on the
+  routes "auto" (the gathered keys and values, q and v under quirk Q3),
+  "packed" (the gathered call on the packed kernel's plain version) and
+  "ring", the agent axis at compat "tpu" on "auto" and "ring" (each
+  scene's agents split over the ranks); a padded batch whose ranks hold
+  different counts of real agents, with the KL floor between the global
+  mean and rank 0's, so that a per-rank normalizer or clamp differs;
+- ``make_train_step(mesh=)`` for 2 steps against JAX's
+  ``make_train_step(mesh=make_mesh(dp=8), params_like=)`` (plain SGD on
+  both sides, so the parameters compare within 1e-5 after the steps;
+  Adam is held to optax in ``test_torch_train.py``): the metrics within
+  1e-4, the parameters equal bit for bit on every rank though the ranks
+  but 0 start from other values;
+- the mesh step with a generator against the single-process step with a
+  generator of the same seed (default Adam): the noise is global, so the
+  metrics agree within 1e-5;
+- ``sttode_inference(mesh=)`` against JAX's ``sttode_inference``;
+- ``make_mesh``'s shapes and errors, and every refusal: tensor
+  parallelism, ``scan_steps`` > 1, the stage-2 step and dopri5 under a
+  mesh, a "seq" axis in the model, ulysses, the ring with dropout;
+- ``cli.train --distributed`` at world 2 (torchrun's environment, a free
+  local port) and without the environment.
+"""
+
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+
+from sttode_tpu.data import preprocess as jprep
+from sttode_tpu.data import synthetic as jsyn
+from sttode_tpu.models import sttode as jm
+from sttode_tpu.parallel import make_mesh as jmake_mesh
+from sttode_tpu.parallel import param_sharding as jparam_sharding
+from sttode_tpu.parallel import shard_batch as jshard_batch
+from sttode_tpu.parallel.ring_attention import dense_reference as jdense
+from sttode_tpu.parallel.ring_attention import \
+    ring_geodesic_attention as jring
+from sttode_tpu.train import make_train_step as jmake_train_step
+from sttode_tpu_torch import bridge
+from sttode_tpu_torch.cli import train as cli_train
+from sttode_tpu_torch.data import preprocess as tprep
+from sttode_tpu_torch.models import sttode as tm
+
+# one intra-op thread: pytest-xdist runs 6 workers on 8 cores, and
+# torch's default of one thread a core each oversubscribes them
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHILD = os.path.join(ROOT, "tests", "torch_parallel_child.py")
+JOIN_S = 150.0
+TOL = dict(rtol=1e-4, atol=1e-4)
+SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4,
+             past_length=5, future_length=10, select_impl="xla")
+B, N = 4, 4
+LOSSES = ("total_loss", "loss_pred", "loss_recover", "loss_kl",
+          "loss_diverse")
+MODEL_CASES = {
+    # name: (config, port route)
+    "scene_auto": (dict(min_clip=0.0), "auto"),
+    "scene_packed": (dict(min_clip=0.0), "packed"),
+    "scene_ring": (dict(min_clip=0.0), "ring"),
+    "agent_auto": (dict(compat="tpu", attn_axis="agent", min_clip=0.0),
+                   "auto"),
+    "agent_ring": (dict(compat="tpu", attn_axis="agent", min_clip=0.0),
+                   "ring"),
+}
+WORLD4 = ("scene_auto", "scene_ring", "agent_ring")
+RING = dict(B=2, L=8, S=16, D=8)
+
+
+def _jcfg(**kw):
+    return jm.STTODEConfig(attn_impl="dense", **{**SMALL, **kw}).validate()
+
+
+def _tcfg(jcfg, route):
+    return tm.STTODEConfig(**jcfg._replace(attn_impl=route)._asdict()) \
+        .validate()._asdict()
+
+
+def _batches(cfg, seed, valid=None, training=True):
+    scenes = jsyn.make_social_scenes(B, agents_range=(N, N),
+                                     obs_len=cfg.past_length,
+                                     pred_len=cfg.future_length, seed=seed)
+    obs = np.stack([s["obs"] for s in scenes])
+    pred = np.stack([s["pred"] for s in scenes])
+    valid = np.ones((B, N), np.float32) if valid is None else valid
+    kw = dict(training=training, rng=np.random.default_rng(seed))
+    jb, _ = jprep.prepare_scene_group(obs, pred, valid, **kw)
+    kw = dict(training=training, rng=np.random.default_rng(seed))
+    tb, _ = tprep.prepare_scene_group(obs, pred, valid, **kw)
+    return jb, tb
+
+
+def _jax_noise(cfg, rng) -> tm.TrainNoise:
+    """JAX's draws inside sttode_forward(rng), as test_torch_train
+    recomputes them: the PE keep-masks and the latent noise."""
+    M, D = B * N, cfg.hidden_dim
+    k_enc, k_fenc, k_q, k_p = jax.random.split(rng, 4)
+
+    def keep(key, T):
+        k_pe, _ = jax.random.split(key)
+        return np.asarray(jax.random.bernoulli(k_pe, 1.0 - cfg.pe_dropout,
+                                               (M, T, D)))
+
+    return tm.TrainNoise(*(torch.from_numpy(np.array(a)) for a in (
+        keep(k_enc, cfg.past_length), keep(k_fenc, cfg.future_length),
+        jax.random.normal(k_q, (M, cfg.zdim)),
+        jax.random.normal(k_p, (M * cfg.sample_k, cfg.zdim)))))
+
+
+def _params(jcfg, seed):
+    jp = jm.sttode_init(jax.random.PRNGKey(seed), jcfg)
+    return jp, bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+
+
+def _jax_value_and_grad(jcfg, jparams, jb, rng):
+    def loss(p):
+        out = jm.sttode_forward(p, jcfg, jb, rng, train=True)
+        return out.total_loss, out
+
+    with jax.default_matmul_precision("highest"):
+        (_, out), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            jparams)
+    return out, [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
+
+
+def _ring_inputs(seed):
+    r = np.random.default_rng(seed)
+    q, k, v = (0.5 * r.standard_normal((RING["B"], n, RING["D"]))
+               .astype(np.float32) for n in (RING["L"], RING["S"],
+                                             RING["S"]))
+    val = np.ones((RING["B"], RING["S"]), np.float32)
+    val[:, -5:] = 0.0
+    val[1, :3] = 0.0
+    return q, k, v, val
+
+
+def _model_cases(names, rng_seed=7):
+    """The port's spec and JAX's result of each model case."""
+    spec, want = {}, {}
+    cache = {}
+    for name in names:
+        kw, route = MODEL_CASES[name]
+        jcfg = _jcfg(**kw)
+        key = tuple(sorted(kw.items()))
+        if key not in cache:
+            jp, tp = _params(jcfg, 0)
+            jb, tb = _batches(jcfg, 1)
+            rng = jax.random.PRNGKey(rng_seed)
+            cache[key] = (jp, tp, jb, tb, rng, _jax_noise(jcfg, rng))
+        jp, tp, jb, tb, rng, noise = cache[key]
+        spec[name] = dict(kind="forward", cfg=_tcfg(jcfg, route), params=tp,
+                          batch=tb, noise=noise)
+        want[name] = (jcfg, jp, jb, rng)
+    return spec, want
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nba_files(root, n_train=32, seed=20):
+    """Synthetic NBA files ([S, 15, 11, 2] random walks)."""
+    d = os.path.join(root, "data", "nba")
+    os.makedirs(d)
+    r = np.random.default_rng(seed)
+    for fname, n in (("train.npy", n_train), ("test.npy", 16)):
+        start = r.uniform([0.0, 0.0], [94.0, 50.0], size=(n, 1, 11, 2))
+        walk = r.normal(0.0, 1.0, size=(n, 15, 11, 2)).cumsum(1)
+        np.save(os.path.join(d, fname), (start + walk).astype(np.float32))
+    return os.path.join(root, "data")
+
+
+CLI_FLAGS = ["--dataset", "nba", "--device", "cpu", "--hidden_dim", "16",
+             "--zdim", "8", "--sample_k", "4", "--batch_size", "16",
+             "--num_epochs", "1", "--model_save_epoch", "5",
+             "--log_every", "0"]
+
+
+class _Group:
+    """A set of ranks running one spec file."""
+
+    def __init__(self, tmp, name, world, cases):
+        self.out = os.path.join(tmp, f"{name}.out.pt")
+        spec = os.path.join(tmp, f"{name}.spec.pt")
+        torch.save({"rendezvous": os.path.join(tmp, f"{name}.rdv"),
+                    "out": self.out, "cases": cases}, spec)
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+        self.logs = [os.path.join(tmp, f"{name}.{r}.log")
+                     for r in range(world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, CHILD, spec, str(r), str(world)],
+            stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env)
+            for r, log in enumerate(self.logs)]
+
+    def join(self, deadline):
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tails = "\n".join(open(log).read()[-3000:] for log in self.logs)
+        assert all(p.returncode == 0 for p in self.procs), tails
+        return torch.load(self.out, weights_only=False), tails
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("parallel"))
+    # ---- the specs (numpy inputs, JAX's weights and draws) --------------
+    q, k, v, val = _ring_inputs(3)
+    ring = {f"ring_{metric}": dict(
+        kind="ring", q=torch.from_numpy(q), k=torch.from_numpy(k),
+        v=torch.from_numpy(v), val=torch.from_numpy(val), metric=metric,
+        curvature=1.0) for metric in ("oblique", "poincare")}
+    model2, want_model = _model_cases(MODEL_CASES)
+    # the padded batch: rank 0 of 2 holds 8 real agents, rank 1 holds 3
+    valid = np.ones((B, N), np.float32)
+    valid[2, 1:] = 0.0
+    valid[3, 2:] = 0.0
+    jcfg0 = _jcfg(min_clip=0.0)
+    jp, tp = _params(jcfg0, 0)
+    jb_pad, tb_pad = _batches(jcfg0, 5, valid=valid)
+    rng_pad = jax.random.PRNGKey(9)
+    jout0, _ = _jax_value_and_grad(jcfg0, jp, jb_pad, rng_pad)
+    kl_agent = np.asarray(jax.numpy.sum(jout0.qz.kl(jout0.pz), axis=-1))
+    v_flat = valid.reshape(-1)
+    mean0 = float((kl_agent * v_flat)[:8].sum() / v_flat[:8].sum())
+    mean_all = float((kl_agent * v_flat).sum() / v_flat.sum())
+    floor = 0.5 * (mean0 + mean_all)
+    jcfg_kl = _jcfg(min_clip=floor)
+    model2["kl_floor"] = dict(kind="forward", cfg=_tcfg(jcfg_kl, "auto"),
+                              params=tp, batch=tb_pad,
+                              noise=_jax_noise(jcfg_kl, rng_pad))
+    # two steps of SGD (the JAX side below), and the generator step
+    jcfg_s = _jcfg(min_clip=0.0)
+    step_batches = [_batches(jcfg_s, s) for s in (11, 12)]
+    step_keys = [jax.random.PRNGKey(s) for s in (21, 22)]
+    step_case = dict(kind="step", cfg=_tcfg(jcfg_s, "auto"), params=tp,
+                     lr=1e-2, optimizer="sgd",
+                     batches=[tb for _, tb in step_batches],
+                     noises=[_jax_noise(jcfg_s, k_) for k_ in step_keys])
+    gen_case = dict(kind="generator_step", cfg=_tcfg(jcfg_s, "auto"),
+                    params=tp, lr=1e-3, seed=5,
+                    batches=[tb for _, tb in step_batches])
+    # inference: JAX's z, recomputed from its key split
+    jb_inf, tb_inf = _batches(jcfg0, 13, training=False)
+    rng_inf = jax.random.PRNGKey(42)
+    z = np.array(jax.random.normal(jax.random.split(rng_inf)[1],
+                                   (B * N * jcfg0.sample_k, jcfg0.zdim)))
+    odd = _batches(jcfg0, 14)[1]
+    odd = dataclasses.replace(odd, batch_size=3, **{
+        f: getattr(odd, f)[:3 * N] for f in ("past", "past_vel", "future",
+                                             "future_vel", "valid")})
+    refusals = dict(kind="refusals", cfg=_tcfg(jcfg0, "auto"), params=tp,
+                    batch=tb_pad, odd_batch=odd)
+
+    def on(mesh, cases):
+        return {n: dict(c, mesh=mesh) for n, c in cases.items()}
+
+    w2 = on((2, 1), {**ring, **model2, "step": step_case,
+                     "generator_step": gen_case,
+                     "inference": dict(kind="inference",
+                                       cfg=_tcfg(jcfg0, "auto"), params=tp,
+                                       batch=tb_inf,
+                                       z=torch.from_numpy(z)),
+                     "refusals": refusals})
+    w4 = on((4, 1), {**ring, **{n: model2[n] for n in WORLD4},
+                     "step": step_case})
+    dpsp = on((2, 2), ring)
+    # ---- start every group, and the CLI at world 2 ----------------------
+    groups = {"w2": _Group(tmp, "w2", 2, w2), "w4": _Group(tmp, "w4", 4, w4),
+              "dpsp": _Group(tmp, "dpsp", 4, dpsp)}
+    data_root = _nba_files(tmp)
+    port = str(_free_port())
+    cli_logs = [os.path.join(tmp, f"cli.{r}.log") for r in range(2)]
+    cli = [subprocess.Popen(
+        [sys.executable, "-m", "sttode_tpu_torch.cli.train", "--distributed",
+         "--data_root", data_root, "--ckpt_dir",
+         os.path.join(tmp, f"ck{r}")] + CLI_FLAGS,
+        stdout=open(log, "w"), stderr=subprocess.STDOUT, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(r),
+                 LOCAL_RANK=str(r), WORLD_SIZE="2"))
+        for r, log in enumerate(cli_logs)]
+    deadline = time.monotonic() + JOIN_S
+    # ---- the JAX side, while the ranks run ------------------------------
+    want = {"model": {}}
+    for name, (jcfg, jparams, jb, rng) in want_model.items():
+        key = (jcfg, id(jparams), id(jb))
+        if key not in want["model"]:
+            want["model"][key] = _jax_value_and_grad(jcfg, jparams, jb, rng)
+        want[name] = want["model"][key]
+    want["kl_floor"] = _jax_value_and_grad(jcfg_kl, jp, jb_pad, rng_pad)
+    want["kl_means"] = (mean0, mean_all, floor)
+    jmesh = jmake_mesh(dp=8)
+    jstep = jmake_train_step(jcfg_s, optax.sgd(1e-2), mesh=jmesh,
+                             params_like=jp, donate=False)
+    p_, s_ = jax.device_put(jp, jparam_sharding(jp, jmesh)), \
+        optax.sgd(1e-2).init(jp)
+    metrics = []
+    with jax.default_matmul_precision("highest"):
+        for (jb_, _), key in zip(step_batches, step_keys):
+            p_, s_, m = jstep(p_, s_, jshard_batch(jb_, jmesh), key)
+            metrics.append({k_: float(x) for k_, x in m.items()})
+    want["step"] = (metrics, [np.asarray(x) for x in
+                              jax.tree_util.tree_leaves(p_)])
+    with jax.default_matmul_precision("highest"):
+        want["inference"] = np.asarray(jm.sttode_inference(
+            jp, jcfg0, jb_inf, rng_inf))
+        for metric in ("oblique", "poincare"):
+            args = [jax.numpy.asarray(a) for a in (q, k, v)]
+
+            def dense(q_, k_, v_):
+                return jdense(q_, k_, v_, kv_valid=val, metric=metric)
+
+            grads = jax.grad(lambda *a: jax.numpy.sum(dense(*a) ** 2),
+                             argnums=(0, 1, 2))(*args)
+            want[f"ring_{metric}"] = {
+                "dense": np.asarray(dense(*args)),
+                "grads": [np.asarray(g) for g in grads],
+                "ring": {
+                    mesh: np.asarray(jring(*args, jmake_mesh(
+                        dp=mesh[0], sp=mesh[1], tp=1), kv_valid=val,
+                        metric=metric))
+                    for mesh in ((2, 1), (4, 1), (2, 2))}}
+    # ---- join -----------------------------------------------------------
+    got = {name: g.join(deadline) for name, g in groups.items()}
+    try:
+        for p in cli:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in cli:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got["cli"] = ([p.returncode for p in cli],
+                  [open(log).read() for log in cli_logs])
+    return got, want
+
+
+def _assert_grads(got, want, what):
+    assert len(got) == len(want), what
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, **TOL,
+                                   err_msg=f"{what}: gradient leaf {i}")
+
+
+@pytest.mark.parametrize("group,mesh", [("w2", (2, 1)), ("w4", (4, 1)),
+                                        ("dpsp", (2, 2))])
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+def test_ring_matches_jax_ring_and_dense(runs, group, mesh, metric):
+    got, want = runs
+    res, w = got[group][0][f"ring_{metric}"], want[f"ring_{metric}"]
+    np.testing.assert_allclose(res["out"], w["ring"][mesh], atol=2e-5)
+    np.testing.assert_allclose(res["out"], w["dense"], atol=2e-5)
+    for name, g, wg in zip(("dq", "dk", "dv"), (res["dq"], res["dk"],
+                                                res["dv"]), w["grads"]):
+        tol = 5e-5 * max(1.0, float(np.abs(wg).max()))
+        np.testing.assert_allclose(g, wg, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("group,case", [("w2", n) for n in MODEL_CASES]
+                         + [("w4", n) for n in WORLD4])
+def test_sttode_forward_on_a_mesh_matches_jax(runs, group, case):
+    got, want = runs
+    res = got[group][0][case]
+    jout, jgrads = want[case]
+    assert res["same_on_ranks"]
+    for name in LOSSES:
+        np.testing.assert_allclose(res["losses"][name],
+                                   float(getattr(jout, name)), **TOL,
+                                   err_msg=name)
+    assert res["losses"]["loss_kl"] < 2.0     # live, not floored
+    _assert_grads(res["grads"], jgrads, f"{group} {case}")
+
+
+def test_kl_floor_and_normalizers_are_global(runs):
+    """Ranks with 8 and 3 real agents and the KL floor between the global
+    mean and rank 0's: a per-rank count or clamp would differ."""
+    got, want = runs
+    mean0, mean_all, floor = want["kl_means"]
+    assert min(mean0, mean_all) < floor < max(mean0, mean_all)
+    res = got["w2"][0]["kl_floor"]
+    jout, jgrads = want["kl_floor"]
+    assert res["same_on_ranks"]
+    for name in LOSSES:
+        np.testing.assert_allclose(res["losses"][name],
+                                   float(getattr(jout, name)), **TOL,
+                                   err_msg=name)
+    _assert_grads(res["grads"], jgrads, "kl_floor")
+
+
+@pytest.mark.parametrize("group", ["w2", "w4"])
+def test_train_step_on_a_mesh_matches_jax_dp_step(runs, group):
+    got, want = runs
+    res = got[group][0]["step"]
+    jmetrics, jparams = want["step"]
+    assert res["same_metrics"] and res["equal_on_ranks"]
+    for m, jm_ in zip(res["metrics"], jmetrics):
+        assert set(m) == set(jm_)
+        for k in m:
+            np.testing.assert_allclose(m[k], jm_[k], **TOL, err_msg=k)
+    assert len(res["params"]) == len(jparams)
+    for i, (p, jp) in enumerate(zip(res["params"], jparams)):
+        np.testing.assert_allclose(p, jp, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"parameter leaf {i}")
+
+
+def test_mesh_step_with_a_generator_equals_the_single_process_step(runs):
+    res = runs[0]["w2"][0]["generator_step"]
+    assert res["mesh"]["equal_on_ranks"]
+    for m, s in zip(res["mesh"]["metrics"], res["single"]["metrics"]):
+        for k in m:
+            np.testing.assert_allclose(m[k], s[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    # Adam moves an entry by at most ~lr a step whatever its gradient, and
+    # the two summation orders may part on a gradient near 0
+    np.testing.assert_allclose(res["mesh"]["params"],
+                               res["single"]["params"], atol=2 * 2 * 1e-3)
+
+
+def test_sttode_inference_on_a_mesh_matches_jax(runs):
+    got, want = runs
+    np.testing.assert_allclose(got["w2"][0]["inference"], want["inference"],
+                               **TOL)
+
+
+def test_children_import_no_jax(runs):
+    for group, (res, _) in runs[0].items():
+        if group != "cli":
+            assert res["_jax_imported"] is False, group
+
+
+def test_mesh_shapes_and_refusals(runs):
+    res = runs[0]["w2"][0]["refusals"]
+    assert res["shapes"] == {"default": {"data": 2, "model": 1},
+                             "hybrid": {"data": 2, "model": 1},
+                             "dp_sp": {"data": 1, "seq": 2, "model": 1}}
+    # the stacked layout keeps the step axis whole; every leaf replicated
+    assert res["stacked"] == ((2, B // 2 * N, SMALL["past_length"], 2),
+                              B // 2)
+    assert res["placements"] == ["Replicate"]
+    raised = res["raised"]
+    for name in ("tp_step", "tp_sharding"):
+        assert raised[name][0] == "NotImplementedError"
+        assert "tensor parallelism" in raised[name][1]
+    assert raised["scan_steps"][0] == "NotImplementedError" and \
+        "scan_steps" in raised["scan_steps"][1]
+    assert raised["sampler"][0] == "NotImplementedError" and \
+        "stage-2" in raised["sampler"][1]
+    assert raised["dopri5"][0] == "NotImplementedError" and \
+        "dopri5" in raised["dopri5"][1]
+    assert raised["seq_axis"][0] == "NotImplementedError" and \
+        '"seq"' in raised["seq_axis"][1]
+    assert raised["ulysses"][0] == "NotImplementedError"
+    assert raised["ring_dropout"][0] == "ValueError" and \
+        "dropout" in raised["ring_dropout"][1]
+    assert raised["mesh_dp0"][0] == "ValueError" and \
+        "dp would be 0" in raised["mesh_dp0"][1]
+    assert raised["mesh_too_big"][0] == "ValueError" and \
+        "needs 3 devices" in raised["mesh_too_big"][1]
+    assert raised["odd_batch"][0] == "ValueError" and \
+        "whole" in raised["odd_batch"][1]
+
+
+def test_cli_distributed_joins_every_rank(runs):
+    rcs, logs = runs[0]["cli"]
+    assert rcs == [0, 0], logs
+    for r, log in enumerate(logs):
+        assert f"distributed: process {r} of 2 over gloo" in log, log
+        assert "epoch 000" in log, log
+
+
+def test_cli_distributed_without_a_launcher_exits(monkeypatch):
+    for name in ("WORLD_SIZE", "MASTER_ADDR", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit, match="no launcher environment"):
+        cli_train.main(["--distributed", "--device", "cpu"])

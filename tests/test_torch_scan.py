@@ -446,14 +446,13 @@ def test_cli_trainsampler_scan_steps_and_async_ckpt(tmp_path, capsys):
 
 def test_scan_and_async_flags_are_ported():
     """Both flags parse with JAX's defaults and help, and no CLI refuses
-    them: ``refuse_unported`` names only what a CLI passes it."""
+    them: since ``--distributed`` is ported too, the CLIs have no list of
+    refused flags and no helper that refuses one."""
     a = common.base_parser("x").parse_args(["--scan_steps", "4",
                                             "--async_ckpt"])
     assert (a.scan_steps, a.async_ckpt) == (4, True)
     assert not hasattr(common, "UNPORTED_FLAGS")
-    common.refuse_unported(a, {"scan_steps": 4})
-    with pytest.raises(NotImplementedError, match="--async_ckpt"):
-        common.refuse_unported(a, {"async_ckpt": False})
+    assert not hasattr(common, "refuse_unported")
 
 
 # --------------------------------------------------------------------------- #

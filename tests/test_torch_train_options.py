@@ -420,7 +420,8 @@ def _args(root, dataset, *extra, ckpt="ck"):
 def test_cli_train_supervise_and_profile_dir(tmp_path, capsys):
     """``--supervise`` checkpoints on the supervisor's cadence (no regular
     save), ``--profile_dir`` traces epoch 0 only; ``cli.trainvae``
-    inherits both; ``--distributed`` stays refused."""
+    inherits both; ``--distributed`` without a launcher's environment
+    exits, as JAX's CLI does."""
     _nba_file(tmp_path / "data", n_train=40)
     args = _args(tmp_path, "nba", "--device", "cpu", "--supervise",
                  "--model_save_epoch", "2", "--batch_size", "16")
@@ -444,7 +445,7 @@ def test_cli_train_supervise_and_profile_dir(tmp_path, capsys):
     assert vae.cfg.loss_terms == ("pred", "recover", "kl")
     assert tck.checkpoint_epochs(str(tmp_path / "ck_vae" / "nba")) == [1]
     assert len(os.listdir(tmp_path / "prof2")) == 1
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    with pytest.raises(SystemExit, match="--distributed"):
         cli_train.main(args + ["--distributed"])
 
 
