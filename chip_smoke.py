@@ -135,13 +135,16 @@ paths, then drives both paths at the full width of the repo's model
            evaluations (the plain route's equal to the CPU's), the
            solutions (kernel within 1e-4 of the solution's largest
            magnitude), ms a solve, µs and P launches an evaluation, idle
-           share; one solve under TF32 (printed); one training step at
-           B = 32 x 11 on both routes with the same noise for dopri5 +
-           adjoint at 1e-5 / 1e-7 (the trunk solve's 92 RHS evaluations,
-           not the default tolerances' 416), dopri5 + scan budget 24 at
-           1e-5 / 1e-7 (P, Q and kernel B "dist"; losses within TRAIN_TOL,
-           the gradients held to the float64 plain route as phase 16
-           holds q_A) and learn_prior on euler (TRAIN_TOL); dropout 0.1
+           share; one training step at B = 32 x 11 on both routes with the
+           same noise for dopri5 + adjoint at 1e-5 / 1e-7 (the trunk
+           solve's 92 RHS evaluations, not the default tolerances' 416),
+           dopri5 + scan budget 24 at 1e-5 / 1e-7 (P, Q and kernel B
+           "dist"; losses within TRAIN_TOL, the gradients held to the
+           float64 plain route as phase 16 holds q_A; each dopri5 step's
+           time is its forward + backward) and learn_prior on euler
+           (TRAIN_TOL; its step timed); cut for the time limit: the
+           solve under TF32 and the scan-budget step's timed rounds;
+           dropout 0.1
            (no attention kernel; a forced packed route refused); the CLIs
            (``cli.train --ode_method dopri5 --ode_adjoint`` 1 + 1 resumed
            epoch of 2 steps, ``cli.test``, ``cli.trainvae``); the dopri5
@@ -223,7 +226,27 @@ paths, then drives both paths at the full width of the repo's model
            ``compare_adam_params``), the parameters equal on both ranks
            bit for bit, each rank's launches and ms a step; (c)
            ``cli.train --distributed --dist_backend gloo`` at world 2, one
-           epoch of 2 NBA steps: both ranks join.
+           epoch of 2 NBA steps: both ranks join; (d) the stage-2 step
+           (``make_sampler_train_step(mesh=)``, NBA 32 x 11, ε drawn and
+           not shared) at world 1 over NCCL bit for bit against the
+           single-process step (P in the counters) and at world 2 over
+           gloo within TRAIN_TOL of it; (e) the captured mesh step at
+           world 1 over NCCL (bench recipe, ``scan_steps`` 16: the
+           collectives inside the graph): its warm-up chunk and 2 replays
+           against 32 eager mesh steps bit for bit, A, C and B bf16 in
+           the counters, ms a step captured beside eager, and at world 2
+           over gloo the same step's mode, "eager"; (f) dopri5 at
+           world 2 over gloo (NBA 32 x 11, 1e-3 / 1e-6): the while form
+           (the stage-2 step's frozen encoder, P), the scan budget 16 and
+           the adjoint (stage-1 steps: P, Q, B fp32), each solve's
+           attempted and accepted steps and RHS evaluations equal on both
+           ranks and the forward solves' to the single process's, losses
+           within TRAIN_TOL, gradients as (b) holds them but the
+           adjoint's, within 10 x rtol of each leaf's largest
+           (``ADJOINT_GRAD_TOL``); (g) the NBA
+           recipe's state after (b)'s 2 steps, saved at world 2 and
+           restored at world 1 over NCCL through ``restore_shardings``:
+           parameters and Adam moments bit for bit.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -1421,10 +1444,12 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
     encoder-layer dropout at full width. (a) dopri5's accounting on the
     NBA trunk field (one layer at d 64, 8 heads, ff 1024, the port's seeded
     init, input [32, 11, 1, 64]) at three tolerance pairs on the kernel
-    route (P), the plain route and the CPU, and one solve under TF32;
-    (b) one training step at B = 32 x 11 on both routes with the same
-    noise: dopri5 + adjoint and dopri5 + scan budget 24, both at 1e-5 /
-    1e-7, learn_prior on euler; (c) dropout 0.1; (d) the CLIs
+    route (P), the plain route and the CPU; (b) one training step at
+    B = 32 x 11 on both routes with the same noise: dopri5 + adjoint and
+    dopri5 + scan budget 24, both at 1e-5 / 1e-7 (a dopri5 step's time is
+    its forward + backward: the scan budget's timed rounds and the solve
+    under TF32 were cut for the smoke's time limit), learn_prior on euler
+    (timed); (c) dropout 0.1; (d) the CLIs
     (``cli.train --ode_method dopri5 --ode_adjoint``, a resume,
     ``cli.test``, ``cli.trainvae``); (e) a dopri5 server. Returns the
     launches of its main paths."""
@@ -1529,19 +1554,6 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
             print(f"phase 17 FINDING: at {rtol:g} / {atol:g} the kernel "
                   f"route took {st_k['attempted_steps']} attempts, the plain "
                   f"route {st_p['attempted_steps']}")
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = True
-        t = time.perf_counter()
-        _, st_tf = solve("kernel route", 1e-7, 1e-9,
-                         matmul_precision="inherit")
-        torch.cuda.synchronize()
-        ms_tf = (time.perf_counter() - t) * 1e3
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    print(f"phase 17 dopri5 at 1e-7 / 1e-9 under TF32 (allow_tf32 = True, "
-          f"matmul_precision='inherit'), kernel route: "
-          f"{st_tf['attempted_steps']} attempted / {st_tf['accepted_steps']} "
-          f"accepted / {st_tf['rhs_evals']} RHS evaluations, {ms_tf:.1f} ms "
-          f"a solve  [{card}]")
 
     # (b) one training step at the NBA recipe's B = 32 x 11 on both routes
     sc = make_social_scenes(32, agents_range=(11, 11), obs_len=5,
@@ -1643,9 +1655,11 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
               f"route {ms_k:.1f} ms, plain {ms_p:.1f} ms; the kernel route's "
               f"launches {nonzero(launches)}  [{card}]")
     for label, (cfg, params, ms_k, ms_p) in steps_b.items():
-        if cfg.ode_adjoint:
-            # a step launches some 10^6 kernels: beyond what one profiler
-            # trace holds; the forward + backward above is its step time
+        if cfg.ode_method == "dopri5":
+            # the forward + backward above is a dopri5 step's time: the
+            # adjoint's launches some 10^6 kernels, beyond what one profiler
+            # trace holds, and the scan budget's timed rounds were cut for
+            # the smoke's time limit
             print(f"phase 17 {label} step, kernel route: {ms_k:.1f} "
                   f"ms/step, {32e3 / ms_k:.2f} train scenes/s; plain route "
                   f"{ms_p:.1f} ms/step, {32e3 / ms_p:.2f} train scenes/s "
@@ -1657,7 +1671,7 @@ def ode_phase(dev, card, counts, reset, nba_files) -> dict:
         step_times([[step_k, *step_k.init(params)],
                     [step_p, *step_p.init(params)]], batch, gen, 32,
                    f"phase 17 {label} step at B = 32", card, rounds=2,
-                   steps=1 if cfg.ode_method == "dopri5" else 5)
+                   steps=5)
 
     # (c) dropout 0.1 on the euler recipe: no attention kernel, the plain
     #     path's weight dropout; a forced kernel refuses
@@ -3065,19 +3079,118 @@ def _noise_to(noise, dev):
     return type(noise)(*(None if t is None else t.to(dev) for t in noise))
 
 
+# phase 21 (d): stage 2 with ε drawn, [M, nz] and not shared, so that each
+# rank keeps its rows of the global draw
+PARALLEL_SCFG = dict(train_w_mean=False, share_eps=False)
+# phase 21 (f): the continuous adjoint's gradient is exact only to its
+# backward solves' tolerance (rtol 1e-3), and in fp32 their error ratios
+# sit on the rounding floor, where the mesh's summation order takes other
+# steps than the single process's (the CPU test's float32 case: 28 against
+# 30 attempts; in float64 the two agree to 1.2e-8): the two adjoint
+# gradients are held to each other within 10 x rtol of each leaf's largest
+ADJOINT_GRAD_TOL = 1e-2
+# phase 21 (f): dopri5 at phase 17's loosest tolerance in its three forms;
+# the while form cannot be differentiated through: the stage-2 step runs
+# it in its frozen encoder
+PARALLEL_ODE = {
+    "while form": dict(ode_method="dopri5", ode_rtol=1e-3, ode_atol=1e-6),
+    "scan budget 16": dict(ode_method="dopri5", ode_rtol=1e-3,
+                           ode_atol=1e-6, ode_scan_budget=16),
+    "adjoint": dict(ode_method="dopri5", ode_rtol=1e-3, ode_atol=1e-6,
+                    ode_adjoint=True)}
+
+
+def sampler_recipe(ode: dict | None = None):
+    """Phase 21's stage-2 case on the NBA reference recipe (32 x 11), from
+    seeds: (net config, under ``ode``'s settings when given, sampler
+    config, net parameters, sampler parameters, 2 global batches)."""
+    from sttode_tpu_torch.models import sampler as ts
+    cfg, net, batches, _ = parallel_recipe(*PARALLEL_CASES[0])
+    cfg = cfg._replace(**(ode or {})).validate()
+    scfg = ts.SamplerConfig(**PARALLEL_SCFG)
+    return cfg, scfg, net, ts.sampler_init(21, scfg, cfg.hidden_dim,
+                                           2 * cfg.hidden_dim), batches
+
+
+class SolveLog:
+    """Inside, every dopri5 solve's (attempted steps, accepted steps, RHS
+    evaluations) in order, the adjoint's backward solves included (the
+    solver's own counts, read where it returns them)."""
+
+    def __enter__(self):
+        from sttode_tpu_torch.ode import solvers
+        self.solves, self._solvers = [], solvers
+        self._real = real = solvers._dopri5_odeint
+
+        def record(*args, **kw):
+            ys, st = real(*args, **kw)
+            self.solves.append((st["attempted_steps"], st["accepted_steps"],
+                                st["rhs_evals"]))
+            return ys, st
+
+        solvers._dopri5_odeint = record
+        return self
+
+    def __exit__(self, *exc):
+        self._solvers._dopri5_odeint = self._real
+
+
+def ode_case_step(form, mesh, dev, batches, noises):
+    """Phase 21 (f)'s one step of the dopri5 ``form`` (``PARALLEL_ODE``)
+    on ``mesh`` (None: the single process on the whole batch): the stage-2
+    step with a generator of one seed for the while form, else the stage-1
+    step with the injected global noise. → (metrics, gradient leaves,
+    solves)."""
+    import warnings
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import shard_batch
+    from sttode_tpu_torch.train import make_sampler_train_step, make_train_step
+    cfg, scfg, net, sp0, _ = sampler_recipe(PARALLEL_ODE[form])
+    if form == "while form":
+        step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net,
+                                       device=dev, mesh=mesh)
+        params, kw = sp0, {}
+    else:
+        step = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
+        params, kw = net, {"noise": _noise_to(noises[0], dev)}
+    p, opt = step.init(params)
+    b = batches[0] if mesh is None else shard_batch(batches[0], mesh)
+    gen = torch.Generator(device=dev).manual_seed(213)
+    with SolveLog() as log, warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*exhausted")
+        p, opt, m = step(p, opt, b.to(dev), gen, **kw)
+    return ({k: float(v) for k, v in m.items()},
+            [torch.zeros_like(t) if t.grad is None else t.grad.detach().cpu()
+             for t in bridge.tree_leaves(p)], log.solves)
+
+
+def clone_state(opt) -> dict:
+    """A copy of an optimizer's state_dict that shares no tensor with it."""
+    sd = opt.state_dict()
+    return {"state": {i: {k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in st.items()}
+                      for i, st in sd["state"].items()},
+            "param_groups": [dict(g) for g in sd["param_groups"]]}
+
+
 def parallel_rank(spec_path: str, rank: int) -> int:
-    """One of phase 21 (b)'s two ranks on the one card, over gloo: each
+    """One of phase 21's two ranks on the one card, over gloo: (b) each
     case's ``make_train_step(mesh=)`` for 2 steps on this rank's scenes
     with the global noise (metrics, every gradient leaf after each step,
     the parameters after both, whether they are equal on both ranks, this
-    rank's launch counts), then ms a step over 5 more steps. Writes its
-    results under the spec's directory."""
+    rank's launch counts), then ms a step over 5 more steps, rank 0
+    saving the NBA recipe's state after its 2 steps for (g); (d) the
+    stage-2 mesh step; (e) the scanned mesh step's mode; (f) one step of
+    each dopri5 form
+    (``ode_case_step``) with its solves' counts. Writes its results under
+    the spec's directory."""
     import datetime
     import torch.distributed as dist
     sys.path.insert(0, HERE)
     from sttode_tpu_torch import bridge
     from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
-    from sttode_tpu_torch.train import make_train_step
+    from sttode_tpu_torch.train import (make_sampler_train_step,
+                                        make_train_step, save_checkpoint)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3111,6 +3224,11 @@ def parallel_rank(spec_path: str, rank: int) -> int:
                                     opt.state_dict())))
             torch.cuda.synchronize()
             launches = counts()
+            if case == PARALLEL_CASES[0] and rank == 0:
+                # (g): the state after 2 steps at world 2, for phase 21 to
+                # restore at world 1
+                save_checkpoint(os.path.join(spec["dir"], "ck"), 2, p, opt,
+                                cfg)
             flat = torch.cat([t.detach().reshape(-1) for t in leaves])
             equal = bool(torch.equal(
                 collectives.broadcast(flat.clone(), 0, None), flat))
@@ -3124,6 +3242,40 @@ def parallel_rank(spec_path: str, rank: int) -> int:
             out[case] = {"metrics": metrics, "grads": grads,
                          "states": states, "equal": equal,
                          "launches": launches, "ms": statistics.median(ms)}
+        # (d) the stage-2 step, 2 steps with a generator of one seed
+        cfg, scfg, net, sp0, batches = sampler_recipe()
+        step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net,
+                                       device=dev, mesh=mesh)
+        p, opt = step.init(sp0)
+        gen = torch.Generator(device=dev).manual_seed(211)
+        reset()   # the main path: the stage-2 mesh step on this rank
+        metrics = []
+        for b in batches:
+            p, opt, m = step(p, opt, shard_batch(b, mesh).to(dev), gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        flat = torch.cat([t.detach().reshape(-1)
+                          for t in bridge.tree_leaves(p)])
+        out["stage2"] = {"metrics": metrics, "launches": counts(),
+                         "params": flat.cpu(), "equal": bool(torch.equal(
+                             collectives.broadcast(flat.clone(), 0, None),
+                             flat))}
+        # (e) over gloo the scanned mesh step is eager, decided when it is
+        # built: gloo stages its collectives on CUDA tensors through host
+        # memory, which a capture cannot hold
+        cfg, _, batches, noises = parallel_recipe(*PARALLEL_CASES[0])
+        out["scan_mode"] = make_train_step(cfg, PARALLEL_LR, device=dev,
+                                           mesh=mesh, scan_steps=16).mode
+        # (f) dopri5's three forms, one step each
+        for form in PARALLEL_ODE:
+            reset()   # the main path: the dopri5 mesh step on this rank
+            t = time.perf_counter()
+            metrics, grads, solves = ode_case_step(form, mesh, dev, batches,
+                                                   noises)
+            torch.cuda.synchronize()
+            out[form] = {"metrics": metrics, "grads": grads,
+                         "solves": solves, "launches": counts(),
+                         "s": time.perf_counter() - t}
         torch.save(out, os.path.join(spec["dir"], f"rank{rank}.pt"))
         dist.barrier()
     finally:
@@ -3197,8 +3349,12 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
     near-ties, §2 of PERF.md); equal on both ranks bit for bit, each
     rank's launches, ms a step (host-bound).
     (c) ``cli.train --distributed --dist_backend gloo`` at world 2 on the
-    card, one epoch of 2 NBA steps: both ranks join. Returns (a)'s
-    launches."""
+    card, one epoch of 2 NBA steps: both ranks join. (d) the stage-2 step
+    at world 1 (``stage2_world1``) and 2 (``stage2_world2``); (e) the
+    captured mesh step at world 1 (``captured_world1``); (f) dopri5's three
+    forms at world 2 (``dopri5_world2``); (g) a checkpoint saved at world 2,
+    restored at world 1 (``restore_world1``). Returns the launches of (a),
+    (d) and (e) at world 1."""
     import torch.distributed as dist
     from sttode_tpu_torch import bridge
     from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
@@ -3267,6 +3423,8 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
                     steps[name](p_, o_, b, gen)
                     torch.cuda.synchronize()
                     ms[name].append((time.perf_counter() - t) * 1e3)
+            launches_d, text_d = stage2_world1(dev, mesh, counts, reset)
+            launches_e, text_e = captured_world1(dev, mesh, counts, reset)
         finally:
             dist.destroy_process_group()
     print(f"phase 21 (a) bench recipe (B = 128 x 11, bf16 selection) "
@@ -3277,6 +3435,8 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
           f"{nonzero(launches)}; ms a step single "
           f"{statistics.median(ms['single']):.3f}, mesh "
           f"{statistics.median(ms['mesh']):.3f}  [{card}]")
+    print(f"{text_d}  [{card}]")
+    print(f"{text_e}  [{card}]")
 
     # (b) world 2 on the one card over gloo
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_dist_") as tmp:
@@ -3289,12 +3449,17 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
              "chip_smoke.parallel_rank(sys.argv[1], int(sys.argv[2])))",
              spec, str(r)], cwd=HERE,
             env=dict(os.environ, PYTHONPATH=HERE)) for r in range(2)]
-        wait_all(procs, 240, "phase 21 (b)")
+        wait_all(procs, 480, "phase 21 (b), (d), (f)")
         wall_b = time.perf_counter() - t
         require(all(p.returncode == 0 for p in procs),
                 f"phase 21 (b): ranks exited {[p.returncode for p in procs]}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
+        # (g) the checkpoint that rank 0 saved at world 2, restored at
+        #     world 1 over NCCL in this process
+        text_g = restore_world1(dev, os.path.join(tmp, "ck"),
+                                ranks[0][PARALLEL_CASES[0]]["states"][1])
+    print(f"{text_g}  [{card}]")
     # (c) the CLI with --distributed at world 2, started now: it runs while
     #     (b)'s single-process references are computed
     tmp_c = tempfile.mkdtemp(dir=HERE, prefix=".smoke_nba_")
@@ -3389,6 +3554,15 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
                   f"  [{card}]")
         print(f"phase 21 (b) two ranks: {wall_b:.1f} s from start to exit  "
               f"[{card}]")
+        print(f"{stage2_world2(dev, ranks)}  [{card}]")
+        modes = [r["scan_mode"] for r in ranks]
+        require(modes == ["eager", "eager"], f"phase 21 (e) world 2: the "
+                f"scanned mesh step over gloo runs as {modes}")
+        print(f"phase 21 (e) at world 2 over gloo on the card: "
+              f"make_train_step(mesh=, scan_steps=16).mode {modes[0]!r} on "
+              f"both ranks, decided when the step is built  [{card}]")
+        for form in PARALLEL_ODE:
+            print(f"{dopri5_world2(dev, ranks, form)}  [{card}]")
         wait_all(procs, 180, "phase 21 (c)")
         wall_c = time.perf_counter() - t_c
         text = [open(log).read() for log in logs]
@@ -3409,9 +3583,286 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
                       if line.startswith("distributed:"))
           + f") and trained one epoch of 2 NBA steps in {wall_c:.1f} s  "
           f"[{card}]")
+    launches = {k: launches[k] + launches_d[k] + launches_e[k]
+                for k in launches}
     print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s; its main "
-          f"path (a) launched {nonzero(launches)}  [{card}]")
+          f"paths (a), (d) and (e) at world 1 launched {nonzero(launches)}  "
+          f"[{card}]")
     return {"launches": launches}
+
+
+def stage2_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
+    """Phase 21 (d) at world 1 over NCCL: the stage-2 step on the NBA
+    recipe (32 x 11; ε drawn from a generator of one seed, not shared) on
+    the mesh against the single-process step, 2 steps, bit for bit (each
+    loss term, gradient leaf and parameter); P in the counters. → (the
+    mesh step's launches, its line)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import shard_batch
+    from sttode_tpu_torch.train import make_sampler_train_step
+    cfg, scfg, net, sp0, batches = sampler_recipe()
+    names = leaf_names(sp0)
+    runs = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net,
+                                       device=dev, mesh=m)
+        p, opt = step.init(sp0)
+        gen = torch.Generator(device=dev).manual_seed(211)
+        reset()   # the main path (the mesh step's run is kept)
+        record = []
+        for b in batches:
+            b = b.to(dev) if m is None else shard_batch(b, m).to(dev)
+            p, opt, mt = step(p, opt, b, gen)
+            record.append((mt, [None if t.grad is None else t.grad.clone()
+                                for t in bridge.tree_leaves(p)]))
+        torch.cuda.synchronize()
+        runs[name] = (record, [t.detach().clone()
+                               for t in bridge.tree_leaves(p)], counts())
+    (rec_s, par_s, _), (rec_m, par_m, launches) = runs["single"], \
+        runs["mesh"]
+    for i, ((m_s, g_s), (m_m, g_m)) in enumerate(zip(rec_s, rec_m)):
+        for k in m_s:
+            require(torch.equal(m_s[k], m_m[k]),
+                    f"phase 21 (d) step {i + 1}: {k} {float(m_m[k])!r} on "
+                    f"the mesh, {float(m_s[k])!r} single")
+        for n_, a, b in zip(names, g_m, g_s):
+            require((a is None and b is None) or torch.equal(a, b),
+                    f"phase 21 (d) step {i + 1}: the gradient of {n_} "
+                    f"differs")
+    for n_, a, b in zip(names, par_m, par_s):
+        require(torch.equal(a, b), f"phase 21 (d): sampler parameter {n_} "
+                f"differs by {max_err(a, b):.3e}")
+    require(launches["packed"] > 0, f"phase 21 (d): the stage-2 mesh step "
+            f"did not launch P {nonzero(launches)}")
+    stage2_forward_only(launches, "phase 21 (d)")
+    return launches, (
+        f"phase 21 (d) stage 2 (NBA 32 x 11, nk {scfg.nk}, nz {scfg.nz}, "
+        f"qnet {scfg.qnet_mlp}, ε drawn, not shared) "
+        f"make_sampler_train_step(mesh=) at "
+        f"world 1 over NCCL: 2 steps equal the single-process step bit for "
+        f"bit (totals " + " ".join(f"{float(m['total']):.6f}"
+                                   for m, _ in rec_m)
+        + f"; every gradient leaf and sampler parameter); launches "
+        f"{nonzero(launches)}")
+
+
+def captured_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
+    """Phase 21 (e) at world 1 over NCCL: the bench recipe's mesh step at
+    ``scan_steps`` 16 (one CUDA graph with its collectives): its warm-up
+    chunk, then 2 replays against 32 eager mesh steps from the state the
+    warm-up left, on the graph's Adam form, bit for bit (each loss term,
+    parameter and Adam moment); A, C and B bf16 in the replays' counters;
+    ms a step captured against eager. → (the replays' launches, its
+    line)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.data.preprocess import prepare_scene_group
+    from sttode_tpu_torch.data.synthetic import make_social_scenes
+    from sttode_tpu_torch.models import sttode as tm
+    from sttode_tpu_torch.parallel import shard_batch
+    from sttode_tpu_torch.train import (make_train_step, stack_batches,
+                                        stack_noise)
+    S, B, N = 16, 128, 11
+    cfg, params, _, _ = parallel_recipe(*PARALLEL_CASES[4])
+    gen = torch.Generator(device=dev).manual_seed(212)
+    local, noises = [], []
+    for i in range(3 * S):
+        sc = make_social_scenes(B, agents_range=(N, N), obs_len=5,
+                                pred_len=10, seed=2120 + i)
+        b, _ = prepare_scene_group(
+            np.stack([s_["obs"] for s_ in sc]),
+            np.stack([s_["pred"] for s_ in sc]),
+            np.ones((B, N), np.float32), training=True,
+            rng=np.random.default_rng(2120 + i))
+        local.append(shard_batch(b, mesh).to(dev))
+        noises.append(tm.draw_train_noise(cfg, B, N, gen, dev))
+    graph = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh,
+                            scan_steps=S)
+    eager = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
+    require(graph.mode == "graph", f"phase 21 (e): the mesh step over NCCL "
+            f"runs as {graph.mode!r}")
+    pg, og = graph.init(params)
+    chunks = [(stack_batches(local[i:i + S]), stack_noise(noises[i:i + S]))
+              for i in range(0, 3 * S, S)]
+    graph(pg, og, chunks[0][0], noise=chunks[0][1])   # the warm-up chunk
+    # the eager side from the same state, on the graph's Adam form
+    pe, oe = graph.init(pg, clone_state(og))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    me = [eager(pe, oe, b, noise=n)[2]
+          for b, n in zip(local[S:], noises[S:])]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3 / (2 * S)
+    reset()   # the main path: two replays of the captured mesh step
+    t = time.perf_counter()
+    mg = [graph(pg, og, b, noise=n)[2] for b, n in chunks[1:]]
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t) * 1e3 / (2 * S)
+    launches = counts()
+    for k in mg[0]:
+        require(torch.equal(torch.cat([m[k] for m in mg]),
+                            torch.stack([m[k] for m in me])),
+                f"phase 21 (e): the replays' {k} differ from the eager "
+                f"mesh steps'")
+    for n_, a, b in zip(leaf_names(params), bridge.tree_leaves(pg),
+                        bridge.tree_leaves(pe)):
+        require(torch.equal(a, b), f"phase 21 (e): parameter {n_} differs "
+                f"by {max_err(a.detach(), b.detach()):.3e}")
+    for a, b in zip(clone_state(og)["state"].values(),
+                    clone_state(oe)["state"].values()):
+        require(all(torch.equal(a[k], b[k]) for k in a),
+                "phase 21 (e): an Adam moment differs")
+    require(launches["attn"] > 0 and launches["attn_bwd"] > 0
+            and launches["select_bf16"] > 0,
+            f"phase 21 (e): the replays did not launch A, C and B bf16 "
+            f"{nonzero(launches)}")
+    stats = graph.graph_stats()
+    return launches, (
+        f"phase 21 (e) bench recipe (B = 128 x 11, bf16) "
+        f"make_train_step(mesh=, scan_steps=16) at world 1 over NCCL, mode "
+        f"{graph.mode!r}: the warm-up chunk and 2 replays (the gradient "
+        f"all-reduce and the loss sums captured) equal 32 eager mesh steps "
+        f"bit for bit (every loss term, parameter and Adam moment); ms a "
+        f"step captured {graph_ms:.3f}, eager {eager_ms:.3f} "
+        f"({32 * B * 1e3 / (2 * S * graph_ms):.1f} / "
+        f"{B * 1e3 / eager_ms:.1f} train scenes/s); capture "
+        f"{stats['capture_s']:.2f} s; replays' launches {nonzero(launches)}")
+
+
+def restore_world1(dev, ckpt_dir: str, saved) -> str:
+    """Phase 21 (g): the NBA recipe's checkpoint that rank 0 saved after 2
+    steps at world 2, restored at world 1 over NCCL through
+    ``restore_shardings``: the parameters and Adam moments equal the
+    saved state bit for bit."""
+    import torch.distributed as dist
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import make_mesh
+    from sttode_tpu_torch.train import (checkpoint_path, load_checkpoint,
+                                        restore_shardings)
+    path = checkpoint_path(ckpt_dir, 2)
+    params_t, opt_t, _, _ = load_checkpoint(path)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{ckpt_dir}/rendezvous", rank=0,
+        world_size=1)
+    try:
+        shardings = restore_shardings(
+            {"params": params_t, "opt_state": opt_t, "epoch": 2},
+            make_mesh(dp=1))
+        params, opt_state, epoch, _ = load_checkpoint(
+            path, dev, shardings=shardings)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    want_p, want_o = saved
+    require(epoch == 2 and all(torch.equal(a.cpu(), b) for a, b in zip(
+        bridge.tree_leaves(params), bridge.tree_leaves(want_p))),
+        "phase 21 (g): the restored parameters differ from the saved ones")
+    moments = 0
+    for i, st in want_o["state"].items():
+        for k, v in st.items():
+            require(torch.equal(opt_state["state"][i][k].cpu(), v),
+                    f"phase 21 (g): Adam state {i} {k} differs")
+            moments += 1
+    return (f"phase 21 (g) the NBA recipe's state after 2 steps at world 2 "
+            f"(gloo), saved by rank 0 and restored at world 1 over NCCL "
+            f"with restore_shardings: {len(bridge.tree_leaves(params))} "
+            f"parameter leaves and {moments} Adam state tensors equal the "
+            f"saved state bit for bit, on {dev}")
+
+
+def stage2_world2(dev, ranks) -> str:
+    """Phase 21 (d) at world 2 over gloo: the ranks' stage-2 mesh steps
+    against the single-process step on the card with the same generator
+    seed: losses within TRAIN_TOL, the ranks' metrics and sampler
+    parameters equal, P on both ranks."""
+    from sttode_tpu_torch.train import make_sampler_train_step
+    cfg, scfg, net, sp0, batches = sampler_recipe()
+    step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net, device=dev)
+    p, opt = step.init(sp0)
+    gen = torch.Generator(device=dev).manual_seed(211)
+    ref = [{k: float(v) for k, v in step(p, opt, b.to(dev), gen)[2].items()}
+           for b in batches]
+    got = [r["stage2"] for r in ranks]
+    require(got[0]["metrics"] == got[1]["metrics"]
+            and all(g["equal"] for g in got),
+            "phase 21 (d) world 2: the ranks' metrics or parameters differ")
+    err = 0.0
+    for i, (m, w) in enumerate(zip(got[0]["metrics"], ref)):
+        for k in w:
+            require(abs(m[k] - w[k]) <= TRAIN_TOL * max(1.0, abs(w[k])),
+                    f"phase 21 (d) world 2 step {i + 1}: {k} {m[k]} vs "
+                    f"single-process {w[k]}")
+            err = max(err, abs(m[k] - w[k]) / max(1.0, abs(w[k])))
+    for r, g in enumerate(got):
+        require(g["launches"]["packed"] > 0, f"phase 21 (d) world 2: rank "
+                f"{r} did not launch P {nonzero(g['launches'])}")
+        stage2_forward_only(g["launches"], f"phase 21 (d) rank {r}")
+    return (f"phase 21 (d) stage 2 at world 2 over gloo (16 scenes a "
+            f"rank): 2 steps against the single-process step on the card, "
+            f"losses within {err:.3e} (relative), the ranks' sampler "
+            f"parameters equal bit for bit; launches rank 0 "
+            f"{nonzero(got[0]['launches'])}, rank 1 "
+            f"{nonzero(got[1]['launches'])}")
+
+
+def dopri5_world2(dev, ranks, form) -> str:
+    """Phase 21 (f), one dopri5 form at world 2 over gloo against the
+    single-process step on the card: every solve's attempted and accepted
+    steps and RHS evaluations equal on both ranks, the forward solves'
+    equal the single process's (the adjoint's backward solves printed
+    beside the single process's: in fp32 their error ratios sit on the
+    rounding floor); losses within TRAIN_TOL; the gradients as (b) holds
+    them, but the adjoint's, within ADJOINT_GRAD_TOL of each leaf's
+    largest magnitude; P (and, with a gradient through the encoder, Q and
+    kernel B fp32) on both ranks."""
+    _, _, batches, noises = parallel_recipe(*PARALLEL_CASES[0])
+    metrics, grads, solves = ode_case_step(form, None, dev, batches, noises)
+    got = [r[form] for r in ranks]
+    what = f"phase 21 (f) dopri5 {form}"
+    require(got[0]["solves"] == got[1]["solves"]
+            and got[0]["metrics"] == got[1]["metrics"],
+            f"{what}: the ranks' solves {got[0]['solves']} / "
+            f"{got[1]['solves']} or metrics differ")
+    n_fwd = 1 if form == "while form" else 2
+    require(got[0]["solves"][:n_fwd] == solves[:n_fwd]
+            and len(got[0]["solves"]) == len(solves),
+            f"{what}: the forward solves {got[0]['solves']} differ from the "
+            f"single process's {solves}")
+    loss_err = 0.0
+    for k, w in metrics.items():
+        m = got[0]["metrics"][k]
+        require(abs(m - w) <= TRAIN_TOL * max(1.0, abs(w)),
+                f"{what}: {k} {m} vs single-process {w}")
+        loss_err = max(loss_err, abs(m - w) / max(1.0, abs(w)))
+    ratio = l2 = 0.0
+    for j, (a, b) in enumerate(zip(got[0]["grads"], grads)):
+        big = max(float(b.abs().max()), 1e-30)
+        r_ = float((a - b).abs().max()) / big
+        l_ = float(torch.linalg.vector_norm(a - b)) / max(
+            float(torch.linalg.vector_norm(b)), 1e-30)
+        require(r_ <= ADJOINT_GRAD_TOL if form == "adjoint" else
+                (r_ <= DP_KINK_ELEM and l_ <= DP_KINK_L2),
+                f"{what}: gradient leaf {j} differs by {r_:.3e} of its "
+                f"largest magnitude, {l_:.3e} in relative L2")
+        ratio, l2 = max(ratio, r_), max(l2, l_)
+    kernels = ("packed",) if form == "while form" else (
+        "packed", "packed_bwd", "select_fp32")
+    for r, g in enumerate(got):
+        require(all(g["launches"][k] > 0 for k in kernels),
+                f"{what}: rank {r} did not launch {kernels} "
+                f"{nonzero(g['launches'])}")
+    backward = ""
+    if form == "adjoint":
+        backward = (f"; the backward solves {got[0]['solves'][n_fwd:]} on "
+                    f"both ranks, {solves[n_fwd:]} in the single process")
+    return (f"{what} (rtol 1e-3, atol 1e-6; NBA 32 x 11, world 2 over "
+            f"gloo): solves (attempted, accepted, RHS evaluations) "
+            f"{got[0]['solves'][:n_fwd]} on both ranks and in the single "
+            f"process{backward}; losses within {loss_err:.3e} (relative), "
+            f"gradient leaves within {ratio:.3e} of their largest and "
+            f"{l2:.3e} in relative L2; {got[0]['s']:.1f} s a step on "
+            f"rank "
+            f"0; launches rank 0 {nonzero(got[0]['launches'])}, rank 1 "
+            f"{nonzero(got[1]['launches'])}")
 
 
 def launch_counters():
@@ -5144,7 +5595,9 @@ def main() -> int:
     launches20 = riemannian_phase(dev, card, counts, reset)["launches"]
 
     # 21. data parallelism and the ring over torch.distributed: world 1 over
-    #     NCCL bit for bit, world 2 on the one card over gloo, --distributed
+    #     NCCL bit for bit (stage 1, stage 2, the captured mesh step, a
+    #     restore), world 2 on the one card over gloo (stage 1, stage 2,
+    #     dopri5's three forms, the save), --distributed
     launches21 = parallel_phase(dev, card, counts, reset,
                                 nba_files)["launches"]
 
@@ -5216,7 +5669,8 @@ def main() -> int:
               launches5["packed"] + launches10["packed"]
               + launches15["packed"] + launches16["packed"]
               + launches17["packed"] + launches18["packed"]
-              + launches19["packed"] + launches20["packed"], packed_err,
+              + launches19["packed"] + launches20["packed"]
+              + launches21["packed"], packed_err,
               p_ms,
               p_plain, p_bound),
         entry("packed_geodesic_attention_backward", "packed_mhgsa_bwd.cu",

@@ -50,6 +50,8 @@ global (the batch size, the count of real agents, and the KL floor's
 gate, which reads the global mean), and so is the noise: the draws are
 those of the single process over the whole batch, of which each rank
 keeps its rows. The selection kernel decodes each rank's own rows.
+dopri5's error norms are those of the whole state (``ode.odeint``'s
+``group``), so every rank integrates with the single process's steps.
 """
 
 from __future__ import annotations
@@ -368,7 +370,8 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                     steps=cfg.ode_steps, mask=mask, kv_valid=kv_valid,
                     drop=drop, adjoint=cfg.ode_adjoint, rtol=cfg.ode_rtol,
                     atol=cfg.ode_atol,
-                    scan_budget=cfg.ode_scan_budget or None, mesh=enc_mesh)
+                    scan_budget=cfg.ode_scan_budget or None, mesh=enc_mesh,
+                    group=group)
     if split_agents:
         z = collectives.take(collectives.gather(z, group, 0), group, 1)
     if cfg.attn_axis == "scene":
@@ -617,12 +620,10 @@ def _local_noise(noise: TrainNoise, cfg: STTODEConfig, B: int, N: int,
                       enc(noise.enc_past), enc(noise.enc_future))
 
 
-def check_mesh(cfg: STTODEConfig, mesh) -> None:
+def check_mesh(mesh) -> None:
     """Raise NotImplementedError for a mesh the model does not run on: a
-    "model" axis (tensor parallelism), a "seq" axis (the whole step split
-    over data × sequence), or an ODE method other than Euler (dopri5's
-    error norm is a reduction over the whole state, so the ranks would
-    accept different steps)."""
+    "model" axis (tensor parallelism) or a "seq" axis (the whole step split
+    over data × sequence)."""
     if mesh is None:
         return
     shape = mesh_shape(mesh)
@@ -632,10 +633,6 @@ def check_mesh(cfg: STTODEConfig, mesh) -> None:
         raise NotImplementedError(
             "the model on a mesh with a \"seq\" axis is not ported yet; "
             "parallel.ring_attention takes such a mesh")
-    if cfg.ode_method != "euler":
-        raise NotImplementedError(
-            f"ode_method={cfg.ode_method!r} under a mesh is not ported yet: "
-            f"the ranks would integrate with different steps")
 
 
 class ForwardOutput(NamedTuple):
@@ -714,7 +711,7 @@ def sttode_forward(params: dict, cfg: STTODEConfig, batch: Batch, *,
     M = B * N
     K = cfg.sample_k
     valid = batch.valid
-    check_mesh(cfg, mesh)
+    check_mesh(mesh)
     group = None if mesh is None else mesh.get_group("data")
     dp = axis_size(mesh, "data")
     if noise is None:
@@ -826,7 +823,7 @@ def sttode_inference(params: dict, cfg: STTODEConfig, batch: Batch, *,
     K = sample_k or cfg.sample_k
     M = batch.batch_size * batch.agent_num
     Tf = cfg.future_length
-    check_mesh(cfg, mesh)
+    check_mesh(mesh)
     dp = axis_size(mesh, "data")
     past_feature = encode_past(params, cfg, batch,
                                isolate_scenes=isolate_scenes, mesh=mesh)

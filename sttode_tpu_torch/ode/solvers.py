@@ -22,6 +22,19 @@ JAX package's order, dict keys sorted).
   augmented system integrated backward in time, interval by interval), a
   ``torch.autograd.Function`` over y0 and the args' leaves.
 
+Under data parallelism (``group``: the process group over whose ranks the
+state's rows are split, every rank holding an equal block) dopri5's error
+norms are those of the whole state: each rank's sum of squares is summed
+over the group (``collectives.psum``, whose backward sums the cotangent's
+shares) and the count is every rank's. Every rank then takes the same
+step sizes, accept decisions and RHS evaluations, which keeps the
+collectives inside the RHS in step (a rank that decided otherwise would
+wait at the next one). The adjoint's parameter cotangent is a sum over
+every rank's rows: its VJP is all-reduced at each evaluation, so that
+every rank integrates the whole sum, whose norm counts it once; the
+backward returns it on the group's rank 0 and zeros elsewhere, so that
+the gradient shares still sum to it.
+
 Adaptive solves pin float32 matmuls (no TF32) unless told otherwise: low
 precision RHS matmuls put a noise floor under the embedded-pair error
 estimate, and at tight tolerances the controller then shrinks h against
@@ -38,7 +51,10 @@ import warnings
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint as _checkpoint
+
+from sttode_tpu_torch.parallel import collectives
 
 Tree = Any
 
@@ -222,46 +238,59 @@ def _dopri5_single_step(f, t0, h, y0: list, k1: list):
     return y_stage, err, ks[6]
 
 
-def _error_ratio(err: list, y0: list, y1: list, rtol: float,
-                 atol: float) -> torch.Tensor:
-    """RMS of err / (atol + rtol·max(|y0|, |y1|)) over every element."""
+def _mean_square(rs: list, group, shared: int) -> torch.Tensor:
+    """Σ r² / count over every element of ``rs``. With ``group`` the leaves
+    but the last ``shared`` are each rank's rows of the state, summed and
+    counted over the group's ranks; the last ``shared`` are alike on every
+    rank and counted once."""
+    own = len(rs) - shared if group is not None else len(rs)
     total = None
     count = 0
-    for e, a, b in zip(err, y0, y1):
-        tol = atol + rtol * torch.maximum(a.abs(), b.abs())
-        r = (e / tol).to(torch.float32)
+    for r in rs[:own]:
         s = torch.sum(r * r)
         total = s if total is None else total + s
         count += r.numel()
+    if group is not None:
+        total = collectives.psum(total, group)
+        count *= dist.get_world_size(group)
+        for r in rs[own:]:
+            total = total + torch.sum(r * r)
+            count += r.numel()
+    return total / count
+
+
+def _error_ratio(err: list, y0: list, y1: list, rtol: float, atol: float,
+                 group=None, shared: int = 0) -> torch.Tensor:
+    """RMS of err / (atol + rtol·max(|y0|, |y1|)) over every element (of
+    every rank's rows under ``group``, see ``_mean_square``)."""
+    rs = [(e / (atol + rtol * torch.maximum(a.abs(), b.abs())))
+          .to(torch.float32) for e, a, b in zip(err, y0, y1)]
     # the 1e-30 keeps sqrt's derivative finite at err == 0 (a discarded
     # where-branch of the scan form would otherwise poison the gradient)
-    return torch.sqrt(total / count + 1e-30)
+    return torch.sqrt(_mean_square(rs, group, shared) + 1e-30)
 
 
-def _rms(xs: list, y_ref: list, rtol: float, atol: float) -> torch.Tensor:
-    total = None
-    count = 0
-    for x, yr in zip(xs, y_ref):
-        r = (x / (atol + rtol * yr.abs())).to(torch.float32)
-        s = torch.sum(r * r)
-        total = s if total is None else total + s
-        count += r.numel()
+def _rms(xs: list, y_ref: list, rtol: float, atol: float, group=None,
+         shared: int = 0) -> torch.Tensor:
+    rs = [(x / (atol + rtol * yr.abs())).to(torch.float32)
+          for x, yr in zip(xs, y_ref)]
     # same guard as _error_ratio: a constant field makes the probe's
     # difference exactly 0 on the differentiated path
-    return torch.sqrt(total / count + 1e-30)
+    return torch.sqrt(_mean_square(rs, group, shared) + 1e-30)
 
 
 def _initial_step(f, t0, y0: list, f0: list, direction, rtol: float,
-                  atol: float) -> torch.Tensor:
+                  atol: float, group=None, shared: int = 0) -> torch.Tensor:
     """Hairer/Nørsett/Wanner starting step (Solving ODEs I, §II.4): one
     extra RHS evaluation probes the local Lipschitz scale."""
-    d0 = _rms(y0, y0, rtol, atol)
-    d1 = _rms(f0, y0, rtol, atol)
+    d0 = _rms(y0, y0, rtol, atol, group, shared)
+    d1 = _rms(f0, y0, rtol, atol, group, shared)
     h0 = torch.where(torch.minimum(d0, d1) < 1e-5, 1e-6,
                      0.01 * d0 / (d1 + 1e-30))
     y1 = _axpy(h0 * direction, f0, y0)
     f1 = f(t0 + h0 * direction, y1)
-    d2 = _rms([a - b for a, b in zip(f1, f0)], y0, rtol, atol) / h0
+    d2 = _rms([a - b for a, b in zip(f1, f0)], y0, rtol, atol, group,
+              shared) / h0
     dm = torch.maximum(d1, d2)
     # floored so that the discarded branch's power stays finite
     h1 = torch.where(dm <= 1e-15, torch.clamp(h0 * 1e-3, min=1e-6),
@@ -281,14 +310,15 @@ def _end_tol(t1: torch.Tensor) -> torch.Tensor:
 
 
 def _dopri5_interval(f, y0: list, k1: list, t0, t1, rtol, atol,
-                     max_steps: int):
+                     max_steps: int, group=None, shared: int = 0):
     """The while form over one output interval [t0, t1] (either direction):
     one host read per attempt (its accept decision and whether the interval
-    would then be done). Returns (y(t1), k1 at t1, (attempted, accepted,
-    done)) with host counts."""
+    would then be done; under ``group`` read off the all-reduced norm, alike
+    on every rank). Returns (y(t1), k1 at t1, (attempted, accepted, done))
+    with host counts."""
     direction = torch.sign(t1 - t0)
-    h = torch.minimum(_initial_step(f, t0, y0, k1, direction, rtol, atol),
-                      (t1 - t0).abs())
+    h = torch.minimum(_initial_step(f, t0, y0, k1, direction, rtol, atol,
+                                    group, shared), (t1 - t0).abs())
     tol = _end_tol(t1)
     t, y = t0, y0
     active = bool((t1 - t).abs() > tol)
@@ -296,7 +326,7 @@ def _dopri5_interval(f, y0: list, k1: list, t0, t1, rtol, atol,
     while active and n < max_steps:
         h_clip = torch.minimum(h, (t1 - t).abs()) * direction
         y_new, err, k7 = _dopri5_single_step(f, t, h_clip, y, k1)
-        ratio = _error_ratio(err, y, y_new, rtol, atol)
+        ratio = _error_ratio(err, y, y_new, rtol, atol, group, shared)
         h = h_clip.abs() * _factor(ratio)
         t_new = t + h_clip
         accept, still = torch.stack(
@@ -310,15 +340,15 @@ def _dopri5_interval(f, y0: list, k1: list, t0, t1, rtol, atol,
 
 
 def _dopri5_interval_scan(f, y0: list, k1: list, t0, t1, rtol, atol,
-                          budget: int):
+                          budget: int, group=None, shared: int = 0):
     """The scan-budget form: exactly ``budget`` attempts with masked
     updates once the interval is done; the same control law as the while
     form, so the accepted steps are the same. No host read; t, h and the
     ratio stay on the autograd graph. Returns (y(t1), k1 at t1,
     (attempted, accepted, done)) as device tensors."""
     direction = torch.sign(t1 - t0)
-    h = torch.minimum(_initial_step(f, t0, y0, k1, direction, rtol, atol),
-                      (t1 - t0).abs())
+    h = torch.minimum(_initial_step(f, t0, y0, k1, direction, rtol, atol,
+                                    group, shared), (t1 - t0).abs())
     tol = _end_tol(t1)
     t, y = t0, y0
     n = n_acc = torch.zeros((), dtype=torch.int32, device=t0.device)
@@ -329,7 +359,7 @@ def _dopri5_interval_scan(f, y0: list, k1: list, t0, t1, rtol, atol,
         h_clip = torch.where(active, torch.minimum(h, (t1 - t).abs()),
                              1.0) * direction
         y_new, err, k7 = _dopri5_single_step(f, t, h_clip, y, k1)
-        ratio = _error_ratio(err, y, y_new, rtol, atol)
+        ratio = _error_ratio(err, y, y_new, rtol, atol, group, shared)
         accept = torch.logical_and(ratio <= 1.0, active)
         t = torch.where(accept, t + h_clip, t)
         h = torch.where(active, h_clip.abs() * _factor(ratio), h)
@@ -376,8 +406,10 @@ def warn_exhausted(kind: str, budget: int, stacklevel: int = 2) -> None:
 
 
 def _dopri5_odeint(f, y0: list, ts: torch.Tensor, rtol, atol,
-                   max_steps: int, scan_budget: int | None):
-    """→ (per-leaf solutions stacked over ts, stats)."""
+                   max_steps: int, scan_budget: int | None, group=None,
+                   shared: int = 0):
+    """→ (per-leaf solutions stacked over ts, stats); ``group`` and
+    ``shared`` as in ``_mean_square``."""
     k1 = f(ts[0], y0)
     ys = [y0]
     counts = []
@@ -385,10 +417,11 @@ def _dopri5_odeint(f, y0: list, ts: torch.Tensor, rtol, atol,
     for i in range(ts.shape[0] - 1):
         if scan_budget is not None:
             y, k1, c = _dopri5_interval_scan(f, y, k1, ts[i], ts[i + 1],
-                                             rtol, atol, scan_budget)
+                                             rtol, atol, scan_budget, group,
+                                             shared)
         else:
             y, k1, c = _dopri5_interval(f, y, k1, ts[i], ts[i + 1], rtol,
-                                        atol, max_steps)
+                                        atol, max_steps, group, shared)
         ys.append(y)
         counts.append(c)
     if scan_budget is not None and _capturing(ts):
@@ -450,7 +483,7 @@ def odeint(func: Callable, y0: Tree, ts, *args, method: str = "euler",
            rtol: float = 1e-7, atol: float = 1e-9, max_steps: int = 10_000,
            checkpoint: bool = False, return_stats: bool = False,
            scan_budget: int | None = None,
-           matmul_precision: str | None = None):
+           matmul_precision: str | None = None, group=None):
     """Integrate ``dy/dt = func(t, y, *args)``, reporting y at each ``ts``.
 
     Fixed-grid methods (euler/midpoint/rk4) step on ``ts`` itself
@@ -468,6 +501,9 @@ def odeint(func: Callable, y0: Tree, ts, *args, method: str = "euler",
     ``matmul_precision``: None pins adaptive methods to "float32" and
     leaves fixed-grid ones on the ambient setting; or "float32",
     "tensorfloat32", "bfloat16" or "inherit" (see :func:`matmul_precision`).
+    ``group``: the process group over whose ranks y's rows are split (data
+    parallelism; each rank passes its block): dopri5's error norms are then
+    the whole state's, and every rank takes the same steps.
     """
     y_leaves, spec = _flatten(y0)
     ts = _as_ts(ts, y_leaves[0], method)
@@ -492,7 +528,7 @@ def odeint(func: Callable, y0: Tree, ts, *args, method: str = "euler",
             raise ValueError(f"scan_budget {scan_budget} must be >= 1")
         with _precision_scope(matmul_precision, method):
             ys, stats = _dopri5_odeint(f, y_leaves, ts, rtol, atol,
-                                       max_steps, scan_budget)
+                                       max_steps, scan_budget, group)
     else:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{_FIXED_METHODS + _ADAPTIVE_METHODS}")
@@ -511,7 +547,7 @@ class _AdjointOdeint(torch.autograd.Function):
         f = _flat_func(opts["func"], opts["spec_y"],
                        _unflatten(opts["spec_args"], leaves))
         with torch.no_grad():
-            ys = _solve_flat(f, y0, opts, opts["scan_budget"])
+            ys = _solve_flat(f, y0, opts, opts["scan_budget"], 0)
         ctx.opts = opts
         ctx.save_for_backward(*ys, *leaves)
         return tuple(ys)
@@ -549,10 +585,14 @@ class _AdjointOdeint(torch.autograd.Function):
 
         # the augmented state travels as one flat buffer, so that the
         # solver's arithmetic is a few launches an operation, not a few per
-        # parameter leaf (its error ratio sums the same elements)
+        # parameter leaf (its error ratio sums the same elements); under a
+        # group as two, this rank's rows (y, a_y) and the parameter
+        # cotangent that every rank holds alike
+        group = opts["group"]
         parts = [y[0] for y in ys] * 2 + leaves
         sizes = [x.numel() for x in parts]
         shapes = [x.shape for x in parts]
+        n_own = sum(sizes[:2 * n_y])
 
         def unpack(flat):
             return [c.view(sh) for c, sh in zip(torch.split(flat, sizes),
@@ -562,38 +602,53 @@ class _AdjointOdeint(torch.autograd.Function):
             return torch.cat([x.reshape(-1) for x in xs])
 
         def aug_flat(t, state: list) -> list:
-            return [pack(aug_dynamics(t, unpack(state[0])))]
+            flat = state[0] if group is None else torch.cat(state)
+            out = pack(aug_dynamics(t, unpack(flat)))
+            if group is None:
+                return [out]
+            own, args = torch.split(out, [n_own, out.numel() - n_own])
+            return [own, collectives.all_reduce(args.clone(), group)]
+
+        def split(flat):
+            return [flat] if group is None else list(torch.split(
+                flat, [n_own, flat.numel() - n_own]))
 
         y_bar = [gi[-1] for gi in g]
         args_bar = [torch.zeros_like(p) for p in leaves]
         budget = opts["scan_budget"]
         for i in range(ts.shape[0] - 2, -1, -1):
-            aug0 = pack([y[i + 1] for y in ys] + y_bar + args_bar)
+            aug0 = split(pack([y[i + 1] for y in ys] + y_bar + args_bar))
             aug_opts = dict(opts, ts=torch.stack([ts[i + 1], ts[i]]))
             # the reversed augmented system is stiffer than the forward
             # solve and re-adapts from scratch: twice the budget
             with torch.no_grad():
-                (out,) = _solve_flat(aug_flat, [aug0], aug_opts,
-                                     None if budget is None else 2 * budget)
-            final = unpack(out[-1])
+                out = _solve_flat(aug_flat, aug0, aug_opts,
+                                  None if budget is None else 2 * budget,
+                                  len(aug0) - 1)
+            final = unpack(torch.cat([o[-1] for o in out]))
             y_bar = [a + gi[i] for a, gi in zip(final[n_y:2 * n_y], g)]
             args_bar = final[2 * n_y:]
+        if group is not None and dist.get_rank(group) != 0:
+            # every rank holds the whole parameter cotangent: rank 0 gives
+            # it, so that the ranks' gradient shares sum to it once
+            args_bar = [torch.zeros_like(a) for a in args_bar]
         return (None, *y_bar, *args_bar)
 
 
-def _solve_flat(f, y0: list, opts: dict, scan_budget) -> list:
+def _solve_flat(f, y0: list, opts: dict, scan_budget, shared: int) -> list:
     with _precision_scope(opts["matmul_precision"], opts["method"]):
         if opts["method"] in _FIXED_METHODS:
             return _fixed_odeint(f, y0, opts["ts"], opts["method"], False)
         return _dopri5_odeint(f, y0, opts["ts"], opts["rtol"], opts["atol"],
-                              opts["max_steps"], scan_budget)[0]
+                              opts["max_steps"], scan_budget, opts["group"],
+                              shared)[0]
 
 
 def odeint_adjoint(func: Callable, y0: Tree, ts, *args,
                    method: str = "dopri5", rtol: float = 1e-7,
                    atol: float = 1e-9, max_steps: int = 10_000,
                    scan_budget: int | None = None,
-                   matmul_precision: str | None = None) -> Tree:
+                   matmul_precision: str | None = None, group=None) -> Tree:
     """Like :func:`odeint`, with O(1)-memory continuous-adjoint gradients.
 
     Differentiable in ``y0`` and the tensors of ``*args`` (parameter
@@ -603,13 +658,16 @@ def odeint_adjoint(func: Callable, y0: Tree, ts, *args,
     output interval at a time, each from the stored y at its end, with the
     same solver settings (the scan form with twice the budget), adding each
     output time's cotangent. Without a gradient to take it is
-    :func:`odeint`.
+    :func:`odeint`. ``group`` as in :func:`odeint`; the args' cotangent is
+    then the whole sum over the ranks, returned on the group's rank 0 and
+    as zeros on the others (the module's docstring).
     """
     if method not in _FIXED_METHODS + _ADAPTIVE_METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{_FIXED_METHODS + _ADAPTIVE_METHODS}")
     kw = dict(method=method, rtol=rtol, atol=atol, max_steps=max_steps,
-              scan_budget=scan_budget, matmul_precision=matmul_precision)
+              scan_budget=scan_budget, matmul_precision=matmul_precision,
+              group=group)
     if not (torch.is_grad_enabled() and _requires_grad(y0, args)):
         with torch.no_grad():
             return odeint(func, y0, ts, *args, **kw)

@@ -11,7 +11,12 @@ step sums the shares over the ranks (``all_reduce``). Under that rule
 - ``take`` (a rank's block of a tensor that every rank holds alike) has
   as backward the cotangent placed in that block, zeros elsewhere;
 - ``global_sum`` (a value → its sum over the ranks, alike on every rank)
-  has the identity as backward.
+  has the identity as backward: its cotangent is whole on every rank, as a
+  loss term's is (each rank's backward starts from the same loss);
+- ``psum`` (the same sum, for a value that every rank's own rows depend
+  on, as an ODE solver's error norm sets the step size of every rank's
+  state) has the same sum as backward (JAX's ``psum`` transpose): its
+  cotangent is, on each rank, only that rank's share.
 
 Backends. NCCL takes every collective on CUDA tensors. Gloo, the CPU
 backend, also serves several processes on one card, where NCCL refuses
@@ -145,6 +150,17 @@ class _GlobalSum(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
 def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Differentiable ``all_gather`` along ``dim``: this rank's block
     becomes block ``rank`` of the result."""
@@ -161,3 +177,10 @@ def global_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable: the sum of ``x`` over ``group``, alike on every rank;
     each rank's gradient is its own share's."""
     return _GlobalSum.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable: the sum of ``x`` over ``group``, alike on every rank,
+    where each rank holds a share of the result's cotangent (a value that
+    steers every rank's own computation); the backward sums the shares."""
+    return _Psum.apply(x, group)

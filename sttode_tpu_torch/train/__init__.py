@@ -11,6 +11,7 @@ from sttode_tpu_torch.train.checkpoint import (checkpoint_epochs,
                                                latest_checkpoint,
                                                load_checkpoint,
                                                prune_checkpoints,
+                                               restore_shardings,
                                                save_checkpoint,
                                                wait_for_saves)
 from sttode_tpu_torch.train.loop import (SamplerTrainStep, TrainStep,
@@ -26,5 +27,6 @@ __all__ = ["ExpParamAnnealer", "ReduceOnPlateau", "SamplerTrainStep",
            "TrainStep", "adam_with_schedule", "checkpoint_epochs",
            "checkpoint_path", "flush_saves", "lambda_lr", "latest_checkpoint",
            "load_checkpoint", "make_sampler_train_step", "make_train_step",
-           "prune_checkpoints", "save_checkpoint", "set_lr", "stack_batches",
-           "stack_noise", "step_lr", "train_epoch", "wait_for_saves"]
+           "prune_checkpoints", "restore_shardings", "save_checkpoint",
+           "set_lr", "stack_batches", "stack_noise", "step_lr", "train_epoch",
+           "wait_for_saves"]

@@ -21,6 +21,11 @@ thread, JAX's contract: a new save first waits for the one in flight,
 ``wait_for_saves`` / ``flush_saves`` (the same here: the file has no
 sidecars) and ``load_checkpoint`` wait for it. Reading a JAX orbax
 checkpoint is not ported.
+
+A file holds no topology, so any world size restores what any other
+saved: under data parallelism ``load_checkpoint(shardings=
+restore_shardings(template, mesh))`` lands every leaf on each rank's
+device, replicated from rank 0 (``param_sharding``'s placement).
 """
 
 from __future__ import annotations
@@ -32,10 +37,13 @@ import threading
 import time
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.models.sampler import SamplerConfig
 from sttode_tpu_torch.models.sttode import STTODEConfig
+from sttode_tpu_torch.parallel import collectives
+from sttode_tpu_torch.parallel.mesh import TP_NOT_PORTED, param_sharding
 
 CKPT_FMT = "model_{:04d}"
 SUFFIX = ".pt"
@@ -210,12 +218,52 @@ def save_checkpoint(ckpt_dir: str, epoch: int, params,
     return path
 
 
-def load_checkpoint(path: str, device: torch.device | str = "cpu"):
+def restore_shardings(template: dict, mesh, *, tp: bool = False) -> dict:
+    """The restoring topology's placements for
+    ``load_checkpoint(shardings=...)``: ``{"params": ..., "opt_state":
+    ...}`` of ``param_sharding``'s ``Replicate()`` leaves in the structure
+    of ``template``'s (a checkpoint's params and optimizer ``state_dict``;
+    "epoch" and None entries are left out). ``tp=True`` (the "model"
+    axis' rules) raises NotImplementedError."""
+    if tp:
+        raise NotImplementedError(TP_NOT_PORTED)
+    return {k: param_sharding(v, mesh) for k, v in template.items()
+            if k in ("params", "opt_state") and v is not None}
+
+
+def _replicate(tree, placements) -> None:
+    """Broadcast every tensor leaf of ``tree`` from rank 0, in place; its
+    placement in ``placements`` (a tree of the same structure) must be
+    ``Replicate()``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in placements:
+                _replicate(v, placements[k])
+    elif isinstance(tree, (list, tuple)):
+        for v, p in zip(tree, placements):
+            _replicate(v, p)
+    elif isinstance(tree, torch.Tensor):
+        if not isinstance(placements, Replicate):
+            raise NotImplementedError(f"placement {placements!r}: only "
+                                      f"Replicate() is ported")
+        collectives.broadcast(tree, 0, None)
+
+
+def load_checkpoint(path: str, device: torch.device | str = "cpu", *,
+                    shardings: dict | None = None):
     """Restore (params, optimizer state_dict, epoch, cfg); the tensors land
     on ``device``. Load the state into an optimizer over the restored
     parameters with ``TrainStep.init(params, opt_state)``. A background
-    save in flight is waited for first."""
+    save in flight is waited for first. ``shardings``
+    (``restore_shardings``; every rank of the world calls this) replicates
+    the placed leaves from rank 0, so that every rank holds rank 0's
+    values, equal bit for bit, whatever world size saved the file."""
     wait_for_saves()
     ck = torch.load(path, map_location=device, weights_only=True)
-    return (_from_plain(ck["params"]), ck["opt_state"], int(ck["epoch"]),
-            _config_from_json(ck["config"]))
+    params, opt_state = _from_plain(ck["params"]), ck["opt_state"]
+    if shardings is not None:
+        for key, tree in (("params", params), ("opt_state", opt_state)):
+            if key in shardings:
+                _replicate(tree, shardings[key])
+    return params, opt_state, int(ck["epoch"]), _config_from_json(
+        ck["config"])

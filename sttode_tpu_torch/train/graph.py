@@ -30,9 +30,12 @@ is ORed into the graph's ``exhausted`` flag on the device
 (``ode.exhaustion_flag``), which the step reads at its log boundaries. The
 kernel wrappers' launch counters count host calls, and a replay makes none:
 the capture's launches are taken out of the counters and added back once a
-replay (``kernels.counters``). The capture uses ``capture_error_mode=
-"thread_local"``, so that the prefetch thread's pinned-memory copies may go
-on while the training thread captures.
+replay (``kernels.counters``). A data-parallel step over NCCL is captured
+with its collectives (the loss's sums, the K/V gathers, the gradient
+all-reduce), which a replay runs on the device with the other ranks'. The
+capture uses ``capture_error_mode="thread_local"``, so that the prefetch
+thread's pinned-memory copies may go on while the training thread
+captures.
 """
 
 from __future__ import annotations
@@ -41,17 +44,24 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from sttode_tpu_torch.data.prefetch import tree_to
 from sttode_tpu_torch.kernels import counters
 from sttode_tpu_torch.ode import exhaustion_flag
 
 
-def capturable(cfg) -> bool:
-    """Whether a step of ``cfg`` can be captured, decided from the config:
-    dopri5's while form (``ode_scan_budget == 0``) reads the host once an
-    attempt, so its steps run eagerly; every other config is captured."""
-    return not (cfg.ode_method == "dopri5" and cfg.ode_scan_budget == 0)
+def capturable(cfg, mesh=None) -> bool:
+    """Whether a step of ``cfg`` on ``mesh`` can be captured, decided when
+    the step is built: dopri5's while form (``ode_scan_budget == 0``)
+    reads the host once an attempt, and a mesh over gloo stages its
+    collectives through host memory (``parallel.collectives``), so such
+    steps run eagerly; every other step is captured, NCCL's collectives
+    with it."""
+    while_form = cfg.ode_method == "dopri5" and cfg.ode_scan_budget == 0
+    return not while_form and (mesh is None or
+                               dist.get_backend(mesh.get_group("data"))
+                               == "nccl")
 
 
 def tensors(tree) -> list:

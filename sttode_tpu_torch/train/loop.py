@@ -37,7 +37,11 @@ normalizers and noise), each rank's backward gives its share of every
 gradient leaf, one all-reduce sums the shares, and every rank runs the
 same update from rank 0's initial values, so the parameters stay equal bit
 for bit across the ranks. The metrics are the global losses, alike on
-every rank.
+every rank. The stage-2 step does the same over the sampler's leaves. With
+``scan_steps`` > 1 each rank passes its block of a stacked batch
+(``shard_batch(..., stacked=True)``) and the global stacked noise; over
+NCCL the S steps are captured with their collectives, over gloo (host
+staged) they run eagerly (``train.graph.capturable``).
 """
 
 from __future__ import annotations
@@ -114,11 +118,7 @@ class TrainStep:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
         if tp:
             raise NotImplementedError(TP_NOT_PORTED)
-        if mesh is not None and scan_steps > 1:
-            raise NotImplementedError(
-                "scan_steps > 1 under a mesh (the captured step's "
-                "collectives) is not ported yet")
-        check_mesh(cfg, mesh)
+        check_mesh(mesh)
         self.mesh = mesh
         self.cfg = cfg.validate()
         self.optimizer = optimizer or functools.partial(torch.optim.Adam,
@@ -126,7 +126,8 @@ class TrainStep:
         self.device = bridge.resolve_device(device)
         self.scan_steps = scan_steps
         self.mode = "graph" if (scan_steps > 1 and self.device.type == "cuda"
-                                and tgraph.capturable(self.cfg)) else "eager"
+                                and tgraph.capturable(self.cfg, mesh)) \
+            else "eager"
         self.graphs: dict = {}
 
     def init(self, params, opt_state: dict | None = None
@@ -269,9 +270,8 @@ def make_train_step(cfg: STTODEConfig, lr: float, *, scan_steps: int = 1,
     its steps in one call (one CUDA graph replay on the card). Runs on the
     card unless ``device="cpu"``; raises when CUDA is asked for and
     absent. ``mesh``: data parallelism over its "data" axis (see the
-    module's docstring); ``tp=True``, ``scan_steps`` > 1 under a mesh and
-    the meshes ``models.sttode.check_mesh`` refuses raise
-    NotImplementedError."""
+    module's docstring); ``tp=True`` and the meshes
+    ``models.sttode.check_mesh`` refuses raise NotImplementedError."""
     return TrainStep(cfg, lr, device, scan_steps, optimizer, mesh, tp)
 
 
@@ -293,16 +293,20 @@ class SamplerTrainStep(TrainStep):
 
     def __init__(self, cfg: STTODEConfig, scfg: SamplerConfig, lr: float,
                  net_params, device: torch.device | str = "cuda",
-                 scan_steps: int = 1):
-        super().__init__(cfg, lr, device, scan_steps)
+                 scan_steps: int = 1, mesh=None):
+        super().__init__(cfg, lr, device, scan_steps, mesh=mesh)
         self.scfg = scfg
         self.net_params = bridge.tree_map(
             lambda t: t.detach().to(self.device, torch.float32), net_params)
+        if mesh is not None:
+            # the frozen net too is rank 0's on every rank
+            replicate(self.net_params, mesh)
 
     def _loss(self, params, batch: Batch, generator, noise):
         out = sampler_forward(params, self.net_params, self.scfg, self.cfg,
-                              batch, generator=generator, eps=noise)
-        total, parts = sampler_loss(out, self.scfg, batch)
+                              batch, generator=generator, eps=noise,
+                              mesh=self.mesh)
+        total, parts = sampler_loss(out, self.scfg, batch, self.mesh)
         return total, {"total": total, **parts}
 
 
@@ -314,13 +318,11 @@ def make_sampler_train_step(cfg: STTODEConfig, scfg: SamplerConfig,
     (sampler_params, opt_state, metrics)`` over the frozen ``net_params``,
     with ``torch.optim.Adam(lr)`` over the sampler's leaves;
     ``step.init(sampler_params)`` makes its params and optimizer state.
-    ``scan_steps`` as in ``make_train_step``. Runs on the card unless
-    ``device="cpu"``; raises when CUDA is asked for and absent. A ``mesh``
-    raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError("the stage-2 step under a mesh is not "
-                                  "ported yet")
-    return SamplerTrainStep(cfg, scfg, lr, net_params, device, scan_steps)
+    ``scan_steps`` and ``mesh`` as in ``make_train_step`` (under a mesh ε,
+    injected or drawn, is the whole batch's draw). Runs on the card unless
+    ``device="cpu"``; raises when CUDA is asked for and absent."""
+    return SamplerTrainStep(cfg, scfg, lr, net_params, device, scan_steps,
+                            mesh)
 
 
 def train_epoch(step: TrainStep, params, opt_state,

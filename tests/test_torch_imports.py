@@ -98,14 +98,12 @@ def test_visualize_imports_matplotlib_lazily():
         for node in ast.walk(tree))
 
 
-# JAX names the port leaves out: the all-to-all attention and sharded
-# restores (ROADMAP Queue 1 item 7), and what serves only the TPU or XLA
-# (ROADMAP "Not to port"); ode/solvers' Pytree alias is the port's Tree
+# JAX names the port leaves out: the all-to-all attention (ROADMAP Queue
+# 1 item 3), and what serves only the TPU or XLA (ROADMAP "Not to port");
+# ode/solvers' Pytree alias is the port's Tree
 NOT_PORTED = {
     "parallel/ulysses": None,
     "utils/compilation_cache": None,
-    "train/__init__": {"restore_shardings"},
-    "train/checkpoint": {"restore_shardings"},
     "kernels/mhgsa": {"FLASH_GRAM_3PASS"},
     "kernels/packed_mhgsa": {"packed_vmem_fit"},
     "models/sttode": {"GRU_UNROLL", "SELECT_FUSED_MIN_ROWS",

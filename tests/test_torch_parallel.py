@@ -35,18 +35,45 @@ What is held, and to what:
   generator of the same seed (default Adam): the noise is global, so the
   metrics agree within 1e-5;
 - ``sttode_inference(mesh=)`` against JAX's ``sttode_inference``;
-- ``make_mesh``'s shapes and errors, and every refusal: tensor
-  parallelism, ``scan_steps`` > 1, the stage-2 step and dopri5 under a
-  mesh, a "seq" axis in the model, ulysses, the ring with dropout;
+- ``make_sampler_train_step(mesh=)`` for 2 steps against JAX's on the
+  8-device mesh (SGD; ε JAX's own [M, nz] draws, not shared): metrics
+  within 1e-5, parameters within 1e-4, on a padded batch whose ranks hold
+  different counts of real agents and whose KL floor lies between the
+  global mean and rank 0's; the stage-2 mesh step with a generator
+  against the single-process step;
+- ``scan_steps=2`` under a mesh, both stages, against JAX's scanned mesh
+  steps (``tests/test_train.py``'s ``test_dp_scanned_matches_single_device``
+  setup; SGD): metrics and parameters within 1e-5, the step "eager" on
+  the CPU;
+- dopri5 under a mesh at rtol / atol 1e-3 / 1e-6 in its three forms: the
+  while form (the stage-2 step's frozen encoder), the scan budget (12)
+  and the adjoint (stage-1 steps), each against JAX's mesh step: losses
+  within 1e-4, parameters within 1e-4 (the adjoint's summed gradient
+  within 1e-4 × max(1, max |g|) of JAX's), equal bit for bit on every
+  rank; every solve's attempted and accepted steps and RHS evaluations
+  equal on every rank and to the single process, the forward solves' to
+  JAX's (recorded from an un-jitted forward);
+- ``restore_shardings``: a checkpoint saved at world 2 restored at worlds
+  1 and 4 (every rank but 0 reading a copy with other values): the
+  parameters and Adam moments equal the saved ones bit for bit on every
+  rank, and the next step's metrics equal the saving run's within 1e-5
+  (JAX's ``test_save_dp8_restore_dp4``);
+- ``make_mesh``'s shapes and errors, the lifted refusals (the scanned, the
+  stage-2 and the dopri5 steps build on a mesh) and every refusal left:
+  tensor parallelism (``restore_shardings(tp=True)`` too), a "seq" axis
+  in the model, ulysses, the ring with dropout;
 - ``cli.train --distributed`` at world 2 (torchrun's environment, a free
   local port) and without the environment.
 """
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import jax
@@ -57,14 +84,18 @@ import torch
 
 from sttode_tpu.data import preprocess as jprep
 from sttode_tpu.data import synthetic as jsyn
+from sttode_tpu.models import sampler as js
 from sttode_tpu.models import sttode as jm
+from sttode_tpu.nn import ode_block as jode_block
 from sttode_tpu.parallel import make_mesh as jmake_mesh
 from sttode_tpu.parallel import param_sharding as jparam_sharding
 from sttode_tpu.parallel import shard_batch as jshard_batch
 from sttode_tpu.parallel.ring_attention import dense_reference as jdense
 from sttode_tpu.parallel.ring_attention import \
     ring_geodesic_attention as jring
+from sttode_tpu.train import make_sampler_train_step as jmake_sampler_step
 from sttode_tpu.train import make_train_step as jmake_train_step
+from sttode_tpu.train import stack_batches as jstack_batches
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.cli import train as cli_train
 from sttode_tpu_torch.data import preprocess as tprep
@@ -95,6 +126,17 @@ MODEL_CASES = {
 }
 WORLD4 = ("scene_auto", "scene_ring", "agent_ring")
 RING = dict(B=2, L=8, S=16, D=8)
+SCFG = dict(nk=4, nz=SMALL["zdim"], qnet_mlp=(32, 16), train_w_mean=False,
+            share_eps=False)
+ODE = dict(ode_method="dopri5", ode_rtol=1e-3, ode_atol=1e-6, min_clip=0.0)
+ODE_CASES = {
+    # form: (the step, config); the while form cannot be differentiated
+    # through: the stage-2 step runs it in its frozen encoder
+    "while": ("sampler_step", ODE),
+    "scan_budget": ("step", dict(ODE, ode_scan_budget=12)),
+    "adjoint": ("step", dict(ODE, ode_adjoint=True)),
+}
+SOLVE_KEYS = ("attempted_steps", "accepted_steps", "rhs_evals")
 
 
 def _jcfg(**kw):
@@ -182,6 +224,61 @@ def _model_cases(names, rng_seed=7):
                           batch=tb, noise=noise)
         want[name] = (jcfg, jp, jb, rng)
     return spec, want
+
+
+def _sampler_params(seed):
+    jscfg = js.SamplerConfig(**SCFG)
+    jsp = js.sampler_init(jax.random.PRNGKey(seed), jscfg,
+                          pred_model_dim=SMALL["hidden_dim"],
+                          past_feature_dim=2 * SMALL["hidden_dim"])
+    return jscfg, jsp, bridge.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jsp))
+
+
+def _jax_eps(key):
+    """JAX's ε inside sampler_forward(key): normal(split(key, 3)[1],
+    [M, nz]) (share_eps off)."""
+    return torch.from_numpy(np.array(jax.random.normal(
+        jax.random.split(key, 3)[1], (B * N, SCFG["nz"]))))
+
+
+@contextlib.contextmanager
+def _jax_solve_log():
+    """Inside, JAX's ``ode_encoder`` solves of an un-jitted call on this
+    thread record their (attempted steps, accepted steps, RHS
+    evaluations); the adjoint's forward solve is odeint's."""
+    record = []
+    saved = jode_block.odeint, jode_block.odeint_adjoint
+    me = threading.get_ident()
+
+    def recorder(own):
+        def solve(*args, **kw):
+            if threading.get_ident() != me:      # another thread's trace
+                return own(*args, **kw)
+            ys, st = saved[0](*args, return_stats=True, **kw)
+            record.append(tuple(int(st[k]) for k in SOLVE_KEYS))
+            return ys
+        return solve
+
+    jode_block.odeint, jode_block.odeint_adjoint = map(recorder, saved)
+    try:
+        yield record
+    finally:
+        jode_block.odeint, jode_block.odeint_adjoint = saved
+
+
+def _jax_mesh_steps(make, params, batches, keys, *args):
+    """JAX's mesh step (SGD(1e-2)) over ``batches`` (sharded on the
+    8-device mesh) → (metrics a call, the final parameters' leaves)."""
+    step, mesh, stacked = make
+    state = optax.sgd(1e-2).init(params)
+    metrics = []
+    with jax.default_matmul_precision("highest"):
+        for jb_, key in zip(batches, keys):
+            params, state, m = step(params, *args, state, jshard_batch(
+                jb_, mesh, stacked=stacked), key)
+            metrics.append({k_: np.asarray(x).tolist() for k_, x in m.items()})
+    return metrics, [np.asarray(x) for x in jax.tree_util.tree_leaves(params)]
 
 
 def _free_port() -> int:
@@ -289,10 +386,76 @@ def runs(tmp_path_factory):
     refusals = dict(kind="refusals", cfg=_tcfg(jcfg0, "auto"), params=tp,
                     batch=tb_pad, odd_batch=odd)
 
+    # stage 2 on the padded batch, its KL floor between the global mean
+    # and rank 0's (JAX's sampler forward at the initial parameters)
+    jscfg, jsp, tsp = _sampler_params(1)
+    s_keys = [jax.random.PRNGKey(s) for s in (31, 32)]
+    with jax.default_matmul_precision("highest"):
+        sout = js.sampler_forward(jsp, jp, jscfg, jcfg0, jb_pad, s_keys[0])
+    skl = np.asarray(sout.sampler_dist.kl(sout.vae_dist)).reshape(
+        B * N, -1).sum(1) * v_flat
+    s_means = (float(skl[:8].sum() / v_flat[:8].sum()),
+               float(skl.sum() / v_flat.sum()))
+    jscfg_floor = jscfg._replace(kld_min_clamp=0.5 * sum(s_means))
+    jscfg_live = jscfg._replace(kld_min_clamp=0.0)
+    stage2 = dict(kind="sampler_step", cfg=_tcfg(jcfg0, "auto"), net=tp,
+                  params=tsp, lr=1e-2)
+    sampler_case = dict(stage2, scfg=jscfg_floor._asdict(),
+                        batches=[tb_pad, tb_pad],
+                        noises=[_jax_eps(k_) for k_ in s_keys])
+    sampler_gen = dict(stage2, kind="sampler_generator_step", lr=1e-3,
+                       seed=5, scfg=jscfg_live._asdict(),
+                       batches=[tb for _, tb in step_batches])
+    # scan_steps = 2 under the mesh, both stages: JAX's per-step keys
+    scan_key = jax.random.PRNGKey(23)
+    scan_keys = jax.random.split(scan_key, 2)
+    scan1 = dict(step_case, scan_steps=2,
+                 noises=[_jax_noise(jcfg_s, k_) for k_ in scan_keys])
+    scan2 = dict(stage2, scan_steps=2, scfg=jscfg_live._asdict(),
+                 batches=[tb for _, tb in step_batches],
+                 noises=[_jax_eps(k_) for k_ in scan_keys])
+    # dopri5's three forms, one step each, with the single-process twin
+    ode_key = jax.random.PRNGKey(41)
+    jb_o, tb_o = step_batches[0]
+    ode = {}
+    for form, (kind, kw) in ODE_CASES.items():
+        cfg_o = _tcfg(_jcfg(**kw), "auto")
+        ode[f"ode_{form}"] = dict(
+            kind="step", cfg=cfg_o, params=tp, lr=1e-2, optimizer="sgd",
+            batches=[tb_o], noises=[_jax_noise(_jcfg(**kw), ode_key)],
+            single=True) if kind == "step" else dict(
+            stage2, cfg=cfg_o, scfg=jscfg_live._asdict(), batches=[tb_o],
+            noises=[_jax_eps(ode_key)], single=True)
+    # the adjoint's gradient and backward solves in float64 (JAX in x64
+    # mode): in float32 the backward solves' error ratios sit on the
+    # rounding floor, where another summation order takes other steps
+    # (tests/test_torch_ode_model.py)
+    jcfg_a = _jcfg(**ODE_CASES["adjoint"][1])
+    with jax.enable_x64(True):
+        noise64 = _jax_noise(jcfg_a, ode_key)
+    ode["ode_adjoint_f64"] = dict(
+        kind="forward", cfg=_tcfg(jcfg_a, "auto"), single=True,
+        params=bridge.tree_map(torch.Tensor.double, tp), noise=noise64,
+        batch=dataclasses.replace(tb_o, **{
+            f: getattr(tb_o, f).double() for f in (
+                "past", "past_vel", "future", "future_vel", "valid")}))
+    # a checkpoint saved at world 2, restored at worlds 1 and 4
+    ck = dict(cfg=_tcfg(jcfg_s, "auto"), lr=1e-3,
+              batches=[tb for _, tb in step_batches],
+              noises=step_case["noises"], ckpt_dir=os.path.join(tmp, "ck"))
+    restore = {w: dict(ck, kind="restore", tmp=os.path.join(tmp, w))
+               for w in ("w1", "w4")}
+    for d in [r["tmp"] for r in restore.values()]:
+        os.makedirs(d)
+
     def on(mesh, cases):
         return {n: dict(c, mesh=mesh) for n, c in cases.items()}
 
-    w2 = on((2, 1), {**ring, **model2, "step": step_case,
+    w2 = on((2, 1), {"save": dict(ck, kind="save", params=tp),
+                     **ring, **model2, "step": step_case,
+                     "sampler_step": sampler_case,
+                     "sampler_generator_step": sampler_gen,
+                     "scan_step": scan1, "scan_sampler_step": scan2,
                      "generator_step": gen_case,
                      "inference": dict(kind="inference",
                                        cfg=_tcfg(jcfg0, "auto"), params=tp,
@@ -300,10 +463,14 @@ def runs(tmp_path_factory):
                                        z=torch.from_numpy(z)),
                      "refusals": refusals})
     w4 = on((4, 1), {**ring, **{n: model2[n] for n in WORLD4},
-                     "step": step_case})
+                     "step": step_case, "sampler_step": sampler_case,
+                     "restore": restore["w4"]})
     dpsp = on((2, 2), ring)
     # ---- start every group, and the CLI at world 2 ----------------------
     groups = {"w2": _Group(tmp, "w2", 2, w2), "w4": _Group(tmp, "w4", 4, w4),
+              "ode": _Group(tmp, "ode", 2, on((2, 1), ode)),
+              "w1": _Group(tmp, "w1", 1, on((1, 1), {
+                  "restore": restore["w1"]})),
               "dpsp": _Group(tmp, "dpsp", 4, dpsp)}
     data_root = _nba_files(tmp)
     port = str(_free_port())
@@ -358,6 +525,86 @@ def runs(tmp_path_factory):
                         dp=mesh[0], sp=mesh[1], tp=1), kv_valid=val,
                         metric=metric))
                     for mesh in ((2, 1), (4, 1), (2, 2))}}
+    # the mesh steps of stage 2, the scanned steps and dopri5 compile in
+    # threads (XLA compiles without the GIL; the precision and x64
+    # settings are the thread's); the solve counts come from un-jitted
+    # forwards on this thread
+    jp_mesh = jax.device_put(jp, jparam_sharding(jp, jmesh))
+    sgd = optax.sgd(1e-2)
+    stacked = [jstack_batches([jb_ for jb_, _ in step_batches])]
+
+    def stage1(jcfg, params, batches, keys, scan_steps=1):
+        return _jax_mesh_steps(
+            (jmake_train_step(jcfg, sgd, mesh=jmesh, params_like=jp,
+                              donate=False, scan_steps=scan_steps),
+             jmesh, scan_steps > 1), params, batches, keys)
+
+    def stage2(jcfg, jscfg_, batches, keys, scan_steps=1):
+        return _jax_mesh_steps(
+            (jmake_sampler_step(jcfg, jscfg_, sgd, donate=False,
+                                scan_steps=scan_steps, mesh=jmesh),
+             jmesh, scan_steps > 1), jsp, batches, keys, jp)
+
+    def adjoint64():
+        """The adjoint's mesh step in float64: its metrics, and the
+        gradient from its SGD update."""
+        with jax.enable_x64(True):
+            jp64, jb64 = jax.tree_util.tree_map(
+                lambda a: jax.numpy.asarray(a, jax.numpy.float64),
+                (jp, jb_o))
+            metrics, params = _jax_mesh_steps(
+                (jmake_train_step(_jcfg(**ODE_CASES["adjoint"][1]), sgd,
+                                  mesh=jmesh, params_like=jp64,
+                                  donate=False), jmesh, False),
+                jax.device_put(jp64, jparam_sharding(jp64, jmesh)), [jb64],
+                [ode_key])
+            return metrics, [(np.asarray(a) - b) / 1e-2 for a, b in zip(
+                jax.tree_util.tree_leaves(jp64), params)]
+
+    tasks = {
+        "sampler_step": lambda: stage2(jcfg0, jscfg_floor, [jb_pad, jb_pad],
+                                       s_keys),
+        "scan_step": lambda: stage1(jcfg_s, jp_mesh, stacked, [scan_key], 2),
+        "scan_sampler_step": lambda: stage2(jcfg0, jscfg_live, stacked,
+                                            [scan_key], 2),
+        "ode_while": lambda: stage2(_jcfg(**ODE_CASES["while"][1]),
+                                    jscfg_live, [jb_o], [ode_key]),
+        "ode_scan_budget": lambda: stage1(_jcfg(
+            **ODE_CASES["scan_budget"][1]), jp_mesh, [jb_o], [ode_key]),
+        "ode_adjoint_f64": adjoint64}
+    with concurrent.futures.ThreadPoolExecutor(len(tasks)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in tasks.items()}
+        solves, losses = {}, {}
+        for form, (kind, kw) in ODE_CASES.items():
+            jcfg_o = _jcfg(**kw)
+            with _jax_solve_log() as solves[form], \
+                    jax.default_matmul_precision("highest"):
+                if kind == "step":
+                    out = jm.sttode_forward(jp, jcfg_o, jb_o, ode_key,
+                                            train=True)
+                    losses[form] = {k: float(getattr(out, name)) for k, name
+                                    in zip(("total", "pred", "recover",
+                                            "kl", "diverse"), LOSSES)}
+                else:
+                    js.sampler_forward(jsp, jp, jscfg_live, jcfg_o, jb_o,
+                                       ode_key)
+        with jax.enable_x64(True), jax.default_matmul_precision("highest"), \
+                _jax_solve_log() as solves64:
+            jp64, jb64 = jax.tree_util.tree_map(
+                lambda a: jax.numpy.asarray(a, jax.numpy.float64),
+                (jp, jb_o))
+            jm.sttode_forward(jp64, _jcfg(**ODE_CASES["adjoint"][1]), jb64,
+                              ode_key, train=True)
+        done = {name: f.result() for name, f in futures.items()}
+    want["sampler_step"] = done["sampler_step"]
+    want["sampler_means"] = (*s_means, jscfg_floor.kld_min_clamp)
+    want["scan_step"] = done["scan_step"]
+    want["scan_sampler_step"] = done["scan_sampler_step"]
+    for form in ("while", "scan_budget"):
+        want[f"ode_{form}"] = (*done[f"ode_{form}"], solves[form])
+    # the float32 adjoint step's losses: JAX's float32 forward's
+    want["ode_adjoint"] = ([losses["adjoint"]], None, solves["adjoint"])
+    want["ode_adjoint_f64"] = (*done["ode_adjoint_f64"], solves64)
     # ---- join -----------------------------------------------------------
     got = {name: g.join(deadline) for name, g in groups.items()}
     try:
@@ -454,6 +701,144 @@ def test_mesh_step_with_a_generator_equals_the_single_process_step(runs):
                                res["single"]["params"], atol=2 * 2 * 1e-3)
 
 
+def _assert_steps(res, want, params_tol, metrics_tol=None, what=""):
+    """The mesh step's metrics and final parameters against JAX's."""
+    jmetrics, jparams = want
+    assert res["same_metrics"] and res["equal_on_ranks"], what
+    assert len(res["metrics"]) == len(jmetrics)
+    for m, jm_ in zip(res["metrics"], jmetrics):
+        assert set(m) == set(jm_)
+        for k in m:
+            np.testing.assert_allclose(m[k], jm_[k],
+                                       **(metrics_tol or params_tol),
+                                       err_msg=f"{what} {k}")
+    assert len(res["params"]) == len(jparams)
+    for i, (p, jp) in enumerate(zip(res["params"], jparams)):
+        np.testing.assert_allclose(p, jp, **params_tol,
+                                   err_msg=f"{what} parameter leaf {i}")
+
+
+@pytest.mark.parametrize("group", ["w2", "w4"])
+def test_sampler_step_on_a_mesh_matches_jax_dp_step(runs, group):
+    """Stage 2 on the padded batch, 2 SGD steps: metrics within 1e-5,
+    parameters within TOL."""
+    got, want = runs
+    _assert_steps(got[group][0]["sampler_step"], want["sampler_step"], TOL,
+                  dict(rtol=1e-5, atol=1e-5), f"{group} sampler")
+
+
+def test_sampler_kl_floor_and_normalizers_are_global(runs):
+    """Ranks with 8 and 3 real agents and the stage-2 KL floor between
+    the global mean and rank 0's: the first step's KL is the global mean,
+    floored as JAX floors it."""
+    got, want = runs
+    mean0, mean_all, floor = want["sampler_means"]
+    assert min(mean0, mean_all) < floor < max(mean0, mean_all)
+    kld = got["w2"][0]["sampler_step"]["metrics"][0]["kld"]
+    np.testing.assert_allclose(kld, max(mean_all, floor), rtol=1e-5)
+    np.testing.assert_allclose(kld, want["sampler_step"][0][0]["kld"],
+                               rtol=1e-5)
+
+
+def test_sampler_mesh_step_with_a_generator_equals_the_single_process_step(
+        runs):
+    """ε drawn from a generator of one seed, [M, nz] and not shared: the
+    mesh step draws the single process's ε and keeps its rows."""
+    res = runs[0]["w2"][0]["sampler_generator_step"]
+    assert res["mesh"]["equal_on_ranks"]
+    for m, s in zip(res["mesh"]["metrics"], res["single"]["metrics"]):
+        for k in m:
+            np.testing.assert_allclose(m[k], s[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    np.testing.assert_allclose(res["mesh"]["params"],
+                               res["single"]["params"], atol=2 * 2 * 1e-3)
+
+
+@pytest.mark.parametrize("case", ["scan_step", "scan_sampler_step"])
+def test_scanned_mesh_steps_match_jax(runs, case):
+    """scan_steps = 2 on the mesh, a stacked batch's rows split over the
+    ranks and JAX's per-step draws: metrics [2] and parameters within
+    1e-5; eager on the CPU."""
+    got, want = runs
+    res = got["w2"][0][case]
+    assert res["mode"] == "eager"
+    assert all(len(v) == 2 for v in res["metrics"][0].values())
+    _assert_steps(res, want[case], dict(rtol=1e-5, atol=1e-5), what=case)
+
+
+@pytest.mark.parametrize("form", list(ODE_CASES))
+def test_dopri5_mesh_step_matches_jax(runs, form):
+    """dopri5 under a mesh, one SGD step against JAX's: losses within
+    1e-4, parameters within TOL, equal bit for bit on both ranks. The
+    adjoint: the float32 step's losses against JAX's float64 step, and in
+    float64 the losses and the summed gradient, within 1e-4 × max(1,
+    max |g|) of the gradient of JAX's step."""
+    got, want = runs
+    res = got["ode"][0][f"ode_{form}"]
+    jmetrics, jparams, _ = want[f"ode_{form}"]
+    if form != "adjoint":
+        _assert_steps(res, (jmetrics, jparams), TOL, what=form)
+        return
+    assert res["same_metrics"] and res["equal_on_ranks"]
+    for k, v in res["metrics"][0].items():
+        np.testing.assert_allclose(v, jmetrics[0][k], **TOL, err_msg=k)
+    f64 = got["ode"][0]["ode_adjoint_f64"]
+    jmetrics64, jgrads, _ = want["ode_adjoint_f64"]
+    assert f64["same_on_ranks"]
+    for name, k in zip(LOSSES, ("total", "pred", "recover", "kl",
+                                "diverse")):
+        np.testing.assert_allclose(f64["losses"][name], jmetrics64[0][k],
+                                   **TOL, err_msg=name)
+    assert len(f64["grads"]) == len(jgrads)
+    for i, (g, w) in enumerate(zip(f64["grads"], jgrads)):
+        np.testing.assert_allclose(
+            g, w, rtol=0, atol=1e-4 * max(1.0, float(np.abs(w).max())),
+            err_msg=f"adjoint: gradient leaf {i}")
+
+
+@pytest.mark.parametrize("form", list(ODE_CASES))
+def test_dopri5_step_counts_equal_on_ranks_and_to_jax(runs, form):
+    """Every solve of the step (the adjoint's backward solves too): the
+    same attempted and accepted steps and RHS evaluations on both ranks
+    and in the single process; the forward solves' equal JAX's. The
+    adjoint's backward solves equal the single process's in float64; in
+    float32, on the rounding floor, they are alike on both ranks."""
+    got, want = runs
+    res = got["ode"][0][f"ode_{form}"]
+    jsolves = want[f"ode_{form}"][2]
+    n_fwd = 1 if form == "while" else 2
+    assert len(jsolves) == n_fwd
+    assert res["same_solves"]
+    assert len(res["solves"]) == n_fwd * (2 if form == "adjoint" else 1)
+    assert [tuple(s) for s in res["solves"][:n_fwd]] == jsolves
+    assert all(s[1] > 0 for s in res["solves"])
+    if form == "adjoint":
+        res, jsolves = got["ode"][0]["ode_adjoint_f64"], \
+            want["ode_adjoint_f64"][2]
+        assert res["same_solves"] and len(res["solves"]) == 4
+        assert [tuple(s) for s in res["solves"][:2]] == jsolves
+    assert res["solves"] == res["single"]["solves"]
+
+
+@pytest.mark.parametrize("group", ["w1", "w4"])
+def test_restore_shardings_restores_another_worlds_checkpoint(runs, group):
+    """Saved at world 2, restored at world 1 and 4 through
+    ``restore_shardings`` (every rank but 0 read other values): the
+    parameters and Adam moments equal the saved ones bit for bit on every
+    rank, and the next step's metrics equal the saving run's."""
+    got, _ = runs
+    saved = got["w2"][0]["save"]
+    res = got[group][0]["restore"]
+    assert res["epoch"] == 1
+    assert len(res["restored"]) == int(group[1:])
+    for r, state in enumerate(res["restored"]):
+        assert torch.equal(state, saved["saved"]), f"{group} rank {r}"
+    for k, v in saved["metrics"].items():
+        np.testing.assert_allclose(res["metrics"][k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert res["tp"][0] == "NotImplementedError"
+
+
 def test_sttode_inference_on_a_mesh_matches_jax(runs):
     got, want = runs
     np.testing.assert_allclose(got["w2"][0]["inference"], want["inference"],
@@ -461,6 +846,7 @@ def test_sttode_inference_on_a_mesh_matches_jax(runs):
 
 
 def test_children_import_no_jax(runs):
+    assert {"w1", "w2", "w4", "dpsp", "ode"} <= set(runs[0])
     for group, (res, _) in runs[0].items():
         if group != "cli":
             assert res["_jax_imported"] is False, group
@@ -475,16 +861,14 @@ def test_mesh_shapes_and_refusals(runs):
     assert res["stacked"] == ((2, B // 2 * N, SMALL["past_length"], 2),
                               B // 2)
     assert res["placements"] == ["Replicate"]
+    # lifted: the scanned steps of both stages and dopri5 build on a mesh
+    # (eager on the CPU)
+    assert res["built"] == {"scan_steps": "eager", "sampler": "eager",
+                            "dopri5": "eager"}
     raised = res["raised"]
-    for name in ("tp_step", "tp_sharding"):
+    for name in ("tp_step", "tp_sharding", "restore_tp"):
         assert raised[name][0] == "NotImplementedError"
         assert "tensor parallelism" in raised[name][1]
-    assert raised["scan_steps"][0] == "NotImplementedError" and \
-        "scan_steps" in raised["scan_steps"][1]
-    assert raised["sampler"][0] == "NotImplementedError" and \
-        "stage-2" in raised["sampler"][1]
-    assert raised["dopri5"][0] == "NotImplementedError" and \
-        "dopri5" in raised["dopri5"][1]
     assert raised["seq_axis"][0] == "NotImplementedError" and \
         '"seq"' in raised["seq_axis"][1]
     assert raised["ulysses"][0] == "NotImplementedError"

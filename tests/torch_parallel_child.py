@@ -7,7 +7,9 @@ and rank 0 writes each case's result. It imports no JAX.
 """
 
 import datetime
+import os
 import sys
+import time
 
 import torch
 import torch.distributed as dist
@@ -15,8 +17,10 @@ import torch.distributed as dist
 torch.set_num_threads(1)
 
 from sttode_tpu_torch import bridge  # noqa: E402
+from sttode_tpu_torch.models import sampler as ts  # noqa: E402
 from sttode_tpu_torch.models import sttode as tm  # noqa: E402
 from sttode_tpu_torch.nn.attention import geodesic_attention  # noqa: E402
+from sttode_tpu_torch.ode import solvers  # noqa: E402
 from sttode_tpu_torch.parallel import (make_mesh, param_sharding,  # noqa: E402
                                        shard_batch)
 from sttode_tpu_torch.parallel import collectives  # noqa: E402
@@ -24,8 +28,11 @@ from sttode_tpu_torch.parallel.mesh import (axis_size,  # noqa: E402
                                             make_hybrid_mesh, mesh_shape)
 from sttode_tpu_torch.parallel.ring_attention import (  # noqa: E402
     resolve_sp_axes, ring_geodesic_attention)
-from sttode_tpu_torch.train import (make_sampler_train_step,  # noqa: E402
-                                    make_train_step, stack_batches)
+from sttode_tpu_torch.train import (checkpoint_path,  # noqa: E402
+                                    load_checkpoint, make_sampler_train_step,
+                                    make_train_step, restore_shardings,
+                                    save_checkpoint, stack_batches,
+                                    stack_noise)
 
 LOSSES = ("total_loss", "loss_pred", "loss_recover", "loss_kl",
           "loss_diverse")
@@ -80,17 +87,31 @@ def _sum_grads(params, group):
 
 def forward(case, mesh):
     """``sttode_forward(mesh=)`` on this rank's scenes: the losses (and
-    whether every rank has the same), the summed gradient leaves."""
+    whether every rank has the same), the summed gradient leaves, the
+    dopri5 solves' counts (alike on every rank?) and, when the case asks,
+    the single process's losses, gradients and solves."""
     cfg = tm.STTODEConfig(**case["cfg"])
-    params = bridge.tree_map(_leaf, case["params"])
-    out = tm.sttode_forward(params, cfg, shard_batch(case["batch"], mesh),
-                            noise=case["noise"], mesh=mesh)
-    out.total_loss.backward()
-    losses = {name: float(getattr(out, name)) for name in LOSSES}
-    return {"losses": losses,
-            "same_on_ranks": all(x == losses for x in
-                                 _gather_objects(losses)),
-            "grads": _sum_grads(params, mesh.get_group("data"))}
+
+    def run(m):
+        params = bridge.tree_map(_leaf, case["params"])
+        with _SolveLog() as log:
+            out = tm.sttode_forward(
+                params, cfg, case["batch"] if m is None else shard_batch(
+                    case["batch"], m), noise=case["noise"], mesh=m)
+            out.total_loss.backward()
+        losses = {name: float(getattr(out, name)) for name in LOSSES}
+        grads = [p.grad.numpy() for p in bridge.tree_leaves(params)] \
+            if m is None else _sum_grads(params, m.get_group("data"))
+        return {"losses": losses, "grads": grads, "solves": log.solves}
+
+    out = run(mesh)
+    out.update(same_on_ranks=all(x == out["losses"] for x in
+                                 _gather_objects(out["losses"])),
+               same_solves=all(x == out["solves"] for x in
+                               _gather_objects(out["solves"])))
+    if case.get("single") and dist.get_rank() == 0:
+        out["single"] = run(None)
+    return out
 
 
 def _flat(params):
@@ -111,29 +132,193 @@ def _sgd(lr):
     return make
 
 
-def step(case, mesh):
-    """``make_train_step(mesh=)`` for the case's steps with its injected
-    global noise: the metrics of each step, the final parameters and
-    whether they are equal on every rank."""
-    cfg = tm.STTODEConfig(**case["cfg"])
-    opt = _sgd(case["lr"]) if case["optimizer"] == "sgd" else None
-    stp = make_train_step(cfg, case["lr"], device="cpu", mesh=mesh,
-                          optimizer=opt)
-    # every rank but 0 starts from other values: init gives rank 0's
+class _SolveLog:
+    """Inside, every dopri5 solve's (attempted steps, accepted steps, RHS
+    evaluations) in order, the adjoint's backward solves included."""
+
+    def __enter__(self):
+        self.solves, self._real = [], solvers._dopri5_odeint
+
+        def record(*args, **kw):
+            ys, st = self._real(*args, **kw)
+            self.solves.append((st["attempted_steps"], st["accepted_steps"],
+                                st["rhs_evals"]))
+            return ys, st
+
+        solvers._dopri5_odeint = record
+        return self
+
+    def __exit__(self, *exc):
+        solvers._dopri5_odeint = self._real
+
+
+def _drive(stp, params, state, case, mesh):
+    """The case's steps (one stacked call under ``scan_steps`` > 1) with
+    its injected global noise → (params, metrics a call, the solves)."""
+    stacked = stp.scan_steps > 1
+    batches, noises = case["batches"], case["noises"]
+    if stacked:
+        batches, noises = [stack_batches(batches)], [stack_noise(noises)]
+    metrics = []
+    with _SolveLog() as log:
+        for batch, noise in zip(batches, noises):
+            if mesh is not None:
+                batch = shard_batch(batch, mesh, stacked=stacked)
+            params, state, m = stp(params, state, batch, noise=noise)
+            metrics.append({k: v.tolist() for k, v in m.items()})
+    return params, metrics, log.solves
+
+
+def _result(params, metrics, solves) -> dict:
+    return {"metrics": metrics, "solves": solves,
+            "params": [p.detach().numpy() for p in
+                       bridge.tree_leaves(params)],
+            # under SGD the last step's summed gradient (q_c has none: the
+            # reconstruction term is off)
+            "grads": [(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .numpy() for p in bridge.tree_leaves(params)]}
+
+
+def _on_mesh(make, case, mesh, optimizer):
+    """Run a step that ``make(mesh)`` builds on the mesh, every rank but 0
+    starting from other values (init gives rank 0's), then on rank 0 the
+    single-process twin when the case asks for it."""
+    stp = make(mesh)
     params = case["params"] if dist.get_rank() == 0 else bridge.tree_map(
         lambda t: t + 1.0, case["params"])
     params, state = stp.init(params)
-    metrics = []
-    for batch, noise in zip(case["batches"], case["noises"]):
-        params, state, m = stp(params, state, shard_batch(batch, mesh),
-                               noise=noise)
-        metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics,
-            "same_metrics": all(x == metrics for x in
+    state = optimizer(params) or state
+    params, metrics, solves = _drive(stp, params, state, case, mesh)
+    out = _result(params, metrics, solves)
+    out.update(mode=stp.mode,
+               same_metrics=all(x == metrics for x in
                                 _gather_objects(metrics)),
-            "params": [p.detach().numpy() for p in
-                       bridge.tree_leaves(params)],
-            "equal_on_ranks": _equal_on_ranks(params)}
+               same_solves=all(x == solves for x in _gather_objects(solves)),
+               equal_on_ranks=_equal_on_ranks(params))
+    if case.get("single") and dist.get_rank() == 0:
+        stp = make(None)
+        params, state = stp.init(case["params"])
+        state = optimizer(params) or state
+        out["single"] = _result(*_drive(stp, params, state, case, None))
+    return out
+
+
+def step(case, mesh):
+    """``make_train_step(mesh=)`` (``scan_steps`` from the case) for the
+    case's steps with its injected global noise: the metrics of each call,
+    the final parameters and the last gradient, whether they are equal on
+    every rank, the dopri5 solves' counts (alike on every rank?) and, when
+    asked, the single-process step's."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    opt = _sgd(case["lr"]) if case["optimizer"] == "sgd" else None
+    return _on_mesh(lambda m: make_train_step(
+        cfg, case["lr"], device="cpu", mesh=m, optimizer=opt,
+        scan_steps=case.get("scan_steps", 1)), case, mesh, lambda p: None)
+
+
+def sampler_step(case, mesh):
+    """``make_sampler_train_step(mesh=)`` under SGD, as ``step``: the
+    sampler's parameters, the frozen net the case's."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    scfg = ts.SamplerConfig(**case["scfg"])
+
+    def sgd(params):
+        return torch.optim.SGD(bridge.tree_leaves(params), lr=case["lr"])
+
+    return _on_mesh(lambda m: make_sampler_train_step(
+        cfg, scfg, case["lr"], case["net"], device="cpu", mesh=m,
+        scan_steps=case.get("scan_steps", 1)), case, mesh, sgd)
+
+
+def sampler_generator_step(case, mesh):
+    """The stage-2 mesh step and the single-process step on the whole
+    batch, each with a generator from the same seed (ε drawn: the global
+    draw), default Adam: both steps' metrics and final parameters."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    scfg = ts.SamplerConfig(**case["scfg"])
+    out = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        stp = make_sampler_train_step(cfg, scfg, case["lr"], case["net"],
+                                      device="cpu", mesh=m)
+        params, state = stp.init(case["params"])
+        gen = torch.Generator().manual_seed(case["seed"])
+        metrics = []
+        for batch in case["batches"]:
+            b = batch if m is None else shard_batch(batch, m)
+            params, state, mt = stp(params, state, b, gen)
+            metrics.append({k: float(v) for k, v in mt.items()})
+        out[name] = {"metrics": metrics, "params": _flat(params).numpy()}
+        if m is not None:
+            out[name]["equal_on_ranks"] = _equal_on_ranks(params)
+    return out
+
+
+def _state(params, opt_state: dict) -> torch.Tensor:
+    """The parameters and every tensor of an optimizer's state_dict, laid
+    end to end."""
+    leaves = [p.detach().reshape(-1) for p in bridge.tree_leaves(params)]
+    for i in sorted(opt_state["state"]):
+        st = opt_state["state"][i]
+        leaves += [st[k].reshape(-1).float() for k in sorted(st)]
+    return torch.cat(leaves)
+
+
+def save(case, mesh):
+    """One Adam step on the mesh from the case's first batch, saved by
+    rank 0 into the case's directory; then the step on its second batch:
+    the saved state (``_state``) and that step's metrics."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    stp = make_train_step(cfg, case["lr"], device="cpu", mesh=mesh)
+    params, opt = stp.init(case["params"])
+    (b0, b1), (n0, n1) = case["batches"], case["noises"]
+    params, opt, _ = stp(params, opt, shard_batch(b0, mesh), noise=n0)
+    if dist.get_rank() == 0:
+        save_checkpoint(case["ckpt_dir"], 1, params, opt, cfg)
+    saved = _state(params, opt.state_dict())
+    params, opt, m = stp(params, opt, shard_batch(b1, mesh), noise=n1)
+    return {"saved": saved, "metrics": {k: float(v) for k, v in m.items()}}
+
+
+def _perturbed(tree):
+    if isinstance(tree, dict):
+        return {k: _perturbed(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_perturbed(v) for v in tree]
+    return tree + 1.0 if isinstance(tree, torch.Tensor) and \
+        tree.is_floating_point() else tree
+
+
+def restore(case, mesh):
+    """Restore the checkpoint that another world saved (waiting for it)
+    through ``restore_shardings``, every rank but 0 reading a copy with
+    other values; then the saving run's second step from it: the restored
+    state of every rank, the epoch, that step's metrics and whether
+    ``tp=True`` raises."""
+    path = checkpoint_path(case["ckpt_dir"], 1)
+    deadline = time.monotonic() + 120.0
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint at {path}")
+        time.sleep(0.2)
+    mine = path
+    if dist.get_rank() != 0:
+        mine = os.path.join(case["tmp"], f"other{dist.get_rank()}.pt")
+        ck = torch.load(path, weights_only=True)
+        torch.save(dict(ck, params=_perturbed(ck["params"]),
+                        opt_state=_perturbed(ck["opt_state"])), mine)
+    params_t, opt_t, _, _ = load_checkpoint(path)
+    template = {"params": params_t, "opt_state": opt_t, "epoch": 1}
+    params, opt_state, epoch, cfg = load_checkpoint(
+        mine, shardings=restore_shardings(template, mesh))
+    restored = _state(params, opt_state)
+    stp = make_train_step(cfg, case["lr"], device="cpu", mesh=mesh)
+    params, opt = stp.init(params, opt_state)
+    params, opt, m = stp(params, opt, shard_batch(case["batches"][1], mesh),
+                         noise=case["noises"][1])
+    return {"restored": _gather_objects(restored), "epoch": epoch,
+            "metrics": {k: float(v) for k, v in m.items()},
+            "tp": _outcome(lambda: restore_shardings(template, mesh,
+                                                     tp=True))}
 
 
 def generator_step(case, mesh):
@@ -188,7 +373,17 @@ def refusals(case, mesh):
     stacked = shard_batch(stack_batches([case["batch"]] * 2), mesh,
                           stacked=True)
     placements = bridge.tree_leaves(param_sharding(params, mesh))
-    return {"shapes": shapes,
+    # what earlier slices refused: the scanned step (eager on the CPU),
+    # the stage-2 step and dopri5 on a mesh
+    built = {
+        "scan_steps": make_train_step(cfg, 1e-3, device="cpu", mesh=mesh,
+                                      scan_steps=2).mode,
+        "sampler": make_sampler_train_step(
+            cfg, ts.SamplerConfig(nk=2, nz=cfg.zdim, qnet_mlp=(8,)), 1e-3,
+            params, device="cpu", mesh=mesh, scan_steps=2).mode,
+        "dopri5": make_train_step(cfg._replace(ode_method="dopri5"), 1e-3,
+                                  device="cpu", mesh=mesh).mode}
+    return {"shapes": shapes, "built": built,
             "stacked": (tuple(stacked.past.shape), stacked.batch_size),
             "placements": sorted({type(p).__name__ for p in placements}),
             "raised": {
@@ -196,13 +391,8 @@ def refusals(case, mesh):
             cfg, 1e-3, device="cpu", mesh=mesh, tp=True)),
         "tp_sharding": _outcome(lambda: param_sharding(params, mesh,
                                                        tp=True)),
-        "scan_steps": _outcome(lambda: make_train_step(
-            cfg, 1e-3, device="cpu", mesh=mesh, scan_steps=2)),
-        "sampler": _outcome(lambda: make_sampler_train_step(
-            cfg, None, 1e-3, params, device="cpu", mesh=mesh)),
-        "dopri5": _outcome(lambda: make_train_step(
-            cfg._replace(ode_method="dopri5"), 1e-3, device="cpu",
-            mesh=mesh)),
+        "restore_tp": _outcome(lambda: restore_shardings(
+            {"params": params}, mesh, tp=True)),
         "seq_axis": _outcome(lambda: make_train_step(
             cfg, 1e-3, device="cpu", mesh=seq_mesh)),
         "ulysses": _outcome(lambda: cfg._replace(
@@ -218,7 +408,9 @@ def refusals(case, mesh):
 
 RUNNERS = {"ring": ring, "forward": forward, "step": step,
            "generator_step": generator_step, "inference": inference,
-           "refusals": refusals}
+           "refusals": refusals, "sampler_step": sampler_step,
+           "sampler_generator_step": sampler_generator_step, "save": save,
+           "restore": restore}
 
 
 def main(spec_path: str, rank: int, world: int) -> None:
