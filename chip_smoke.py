@@ -209,7 +209,7 @@ paths, then drives both paths at the full width of the repo's model
            over the past encoder's features of 8 NBA batches on P, against
            float64 on the card and 400 points against the CPU: seconds and
            peak memory.
-  phase 21 data parallelism and the ring over torch.distributed
+  phase 21 data parallelism, the ring and Ulysses over torch.distributed
            (``parallel_phase``): (a) world 1 over NCCL in this process,
            ``make_train_step(mesh=)`` on the bench recipe (B = 128 x 11,
            bf16 selection, a generator of one seed) for 2 steps against
@@ -246,7 +246,22 @@ paths, then drives both paths at the full width of the repo's model
            (``ADJOINT_GRAD_TOL``); (g) the NBA
            recipe's state after (b)'s 2 steps, saved at world 2 and
            restored at world 1 over NCCL through ``restore_shardings``:
-           parameters and Adam moments bit for bit.
+           parameters and Adam moments bit for bit; (h) Ulysses at
+           world 1 over NCCL (``ulysses_world1``): the stage-1 step with
+           ``attn_impl="ulysses"`` (the all-to-all over a one-rank NCCL
+           group, the local core on the kernels) at NBA 32 x 11 (P, Q, B
+           fp32) and the bench recipe (A, C, B bf16) against the
+           single-process "auto" step, 2 steps within TRAIN_TOL (bit for
+           bit or not, said), ms a step of both; the captured Ulysses
+           mesh step (``scan_steps`` 16, the all-to-all inside the graph)
+           against its eager steps bit for bit; (i) at world 2 over gloo
+           (the all-to-all staged through host memory): Ulysses at both
+           recipes as (b) holds "auto" and "ring"; a [1, 2, 1] data x seq
+           mesh with "ring" and "ulysses" on the agent axis (32 scenes x 16
+           agents, compat "tpu", padded agents: P and Q under ulysses) and
+           the stage-2 step on it (``stage2_seq_world2``), against the
+           single-process "auto" step within TRAIN_TOL and ``DP_KINK_*``,
+           ms a step of each.
 
 Each serving or training phase is compared with the same computation on the
 plain routes (``attn_impl="dense"``, ``select_impl="xla"``) with the same
@@ -3040,7 +3055,8 @@ PARALLEL_CASES = tuple(
     (name, B, dtype, route) for name, B, dtype in (
         ("NBA reference recipe", 32, "float32"),
         ("bench recipe", 128, "float32"), ("bench recipe", 128, "bfloat16"))
-    for route in ("auto", "ring"))
+    for route in ("auto", "ring", "ulysses"))
+BENCH_BF16 = ("bench recipe", 128, "bfloat16", "auto")
 PARALLEL_LR = 1e-4
 # world 2 against the single process: each rank's dense layers run on half
 # the rows, so the GEMMs round some rows otherwise; a decoder ReLU whose
@@ -3051,27 +3067,42 @@ DP_KINK_L2 = 1e-3
 DP_KINK_ELEM = 1e-2
 
 
+# phase 21 (i): the agent axis on a [1, 2, 1] data x seq mesh, ETH's
+# agent-axis recipe's batch (32 scenes x 16 agents, compat "tpu"), the
+# last 4 agents of every other scene padded
+AGENT_RECIPE = "agent-axis recipe"
+AGENT_CASES = tuple((AGENT_RECIPE, 32, "float32", route)
+                    for route in ("ring", "ulysses"))
+
+
 def parallel_recipe(name, B, dtype, route):
     """A phase-21 case on the CPU, from seeds: (config, parameters, 2
-    global batches of B scenes × 11 agents, their global noise)."""
+    global batches of B scenes × 11 agents, or × 16 on the agent axis for
+    ``AGENT_RECIPE``, their global noise)."""
     from sttode_tpu_torch.data.preprocess import prepare_scene_group
     from sttode_tpu_torch.data.synthetic import make_social_scenes
     from sttode_tpu_torch.models import sttode as tm
+    agent = name == AGENT_RECIPE
+    N = 16 if agent else 11
     cfg = tm.STTODEConfig(past_length=5, future_length=10,
                           select_impl="auto", select_dtype=dtype,
-                          decode_dtype=dtype, attn_impl=route).validate()
+                          decode_dtype=dtype, attn_impl=route,
+                          **(dict(compat="tpu", attn_axis="agent")
+                             if agent else {})).validate()
+    valid = np.ones((B, N), np.float32)
+    if agent:
+        valid[::2, 12:] = 0.0
     batches, noises = [], []
     for i in range(2):
-        sc = make_social_scenes(B, agents_range=(11, 11), obs_len=5,
+        sc = make_social_scenes(B, agents_range=(N, N), obs_len=5,
                                 pred_len=10, seed=210 + i)
         b, _ = prepare_scene_group(
             np.stack([s_["obs"] for s_ in sc]),
-            np.stack([s_["pred"] for s_ in sc]),
-            np.ones((B, 11), np.float32), training=True,
+            np.stack([s_["pred"] for s_ in sc]), valid, training=True,
             rng=np.random.default_rng(210 + i))
         batches.append(b)
         noises.append(tm.draw_train_noise(
-            cfg, B, 11, torch.Generator().manual_seed(21 + i), "cpu"))
+            cfg, B, N, torch.Generator().manual_seed(21 + i), "cpu"))
     return cfg, tm.sttode_init(21, cfg), batches, noises
 
 
@@ -3100,12 +3131,13 @@ PARALLEL_ODE = {
                     ode_adjoint=True)}
 
 
-def sampler_recipe(ode: dict | None = None):
-    """Phase 21's stage-2 case on the NBA reference recipe (32 x 11), from
-    seeds: (net config, under ``ode``'s settings when given, sampler
-    config, net parameters, sampler parameters, 2 global batches)."""
+def sampler_recipe(ode: dict | None = None, case=PARALLEL_CASES[0]):
+    """Phase 21's stage-2 case on the NBA reference recipe (32 x 11), or
+    the recipe of ``case``, from seeds: (net config, under ``ode``'s
+    settings when given, sampler config, net parameters, sampler
+    parameters, 2 global batches)."""
     from sttode_tpu_torch.models import sampler as ts
-    cfg, net, batches, _ = parallel_recipe(*PARALLEL_CASES[0])
+    cfg, net, batches, _ = parallel_recipe(*case)
     cfg = cfg._replace(**(ode or {})).validate()
     scfg = ts.SamplerConfig(**PARALLEL_SCFG)
     return cfg, scfg, net, ts.sampler_init(21, scfg, cfg.hidden_dim,
@@ -3173,15 +3205,63 @@ def clone_state(opt) -> dict:
             "param_groups": [dict(g) for g in sd["param_groups"]]}
 
 
+def rank_steps(case, mesh, dev, counts, reset, save: str | None = None):
+    """One rank's ``make_train_step(mesh=)`` for 2 steps of ``case``
+    (``parallel_recipe``) on its part of each batch with the global
+    noise: metrics, every gradient leaf and the state after each step,
+    whether the parameters are equal on every rank, this rank's launch
+    counts, then ms a step over 5 more steps. With ``save`` the state
+    after the 2 steps is saved there first (epoch 2)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import collectives, shard_batch
+    from sttode_tpu_torch.train import make_train_step, save_checkpoint
+    cfg, params, batches, noises = parallel_recipe(*case)
+    step = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
+    p, opt = step.init(params)
+    leaves = bridge.tree_leaves(p)
+    local = [shard_batch(b, mesh).to(dev) for b in batches]
+    noises = [_noise_to(n, dev) for n in noises]
+    reset()   # the main path: the mesh step on this rank
+    metrics, grads, states = [], [], []
+    for b, n in zip(local, noises):
+        p, opt, m = step(p, opt, b, noise=n)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append([t.grad.detach().cpu() for t in leaves])
+        # the state after the step: the parameters and Adam's
+        states.append((bridge.tree_map(
+            lambda t: t.detach().to("cpu", copy=True), p),
+            bridge.tree_map(lambda t: t.to("cpu", copy=True)
+                            if isinstance(t, torch.Tensor) else t,
+                            opt.state_dict())))
+    torch.cuda.synchronize()
+    launches = counts()
+    if save is not None:
+        save_checkpoint(save, 2, p, opt, cfg)
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves])
+    equal = bool(torch.equal(collectives.broadcast(flat.clone(), 0, None),
+                             flat))
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(p, opt, local[0], noise=noises[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return {"metrics": metrics, "grads": grads, "states": states,
+            "equal": equal, "launches": launches,
+            "ms": statistics.median(ms)}
+
+
 def parallel_rank(spec_path: str, rank: int) -> int:
     """One of phase 21's two ranks on the one card, over gloo: (b) each
     case's ``make_train_step(mesh=)`` for 2 steps on this rank's scenes
     with the global noise (metrics, every gradient leaf after each step,
     the parameters after both, whether they are equal on both ranks, this
-    rank's launch counts), then ms a step over 5 more steps, rank 0
-    saving the NBA recipe's state after its 2 steps for (g); (d) the
-    stage-2 mesh step; (e) the scanned mesh step's mode; (f) one step of
-    each dopri5 form
+    rank's launch counts), then ms a step over 5 more steps
+    (``rank_steps``), rank 0 saving the NBA recipe's state after its 2
+    steps for (g); (i) the agent-axis cases and the stage-2 step on a [1,
+    2, 1] data x seq mesh; (d) the stage-2 mesh step; (e) the scanned
+    mesh step's mode; (f) one step of each dopri5 form
     (``ode_case_step``) with its solves' counts. Writes its results under
     the spec's directory."""
     import datetime
@@ -3190,7 +3270,7 @@ def parallel_rank(spec_path: str, rank: int) -> int:
     from sttode_tpu_torch import bridge
     from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
     from sttode_tpu_torch.train import (make_sampler_train_step,
-                                        make_train_step, save_checkpoint)
+                                        make_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3204,44 +3284,42 @@ def parallel_rank(spec_path: str, rank: int) -> int:
         mesh = make_mesh(dp=2)
         out = {"staging": collectives.staging(mesh.get_group("data"), dev)}
         for case in spec["cases"]:
-            cfg, params, batches, noises = parallel_recipe(*case)
-            step = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
-            p, opt = step.init(params)
-            leaves = bridge.tree_leaves(p)
-            local = [shard_batch(b, mesh).to(dev) for b in batches]
-            noises = [_noise_to(n, dev) for n in noises]
-            reset()   # the main path: the mesh step on this rank
-            metrics, grads, states = [], [], []
-            for b, n in zip(local, noises):
-                p, opt, m = step(p, opt, b, noise=n)
-                metrics.append({k: float(v) for k, v in m.items()})
-                grads.append([t.grad.detach().cpu() for t in leaves])
-                # the state after the step: the parameters and Adam's
-                states.append((bridge.tree_map(
-                    lambda t: t.detach().to("cpu", copy=True), p),
-                    bridge.tree_map(lambda t: t.to("cpu", copy=True)
-                                    if isinstance(t, torch.Tensor) else t,
-                                    opt.state_dict())))
+            # (g): rank 0 saves the NBA recipe's state after 2 steps at
+            # world 2, for phase 21 to restore at world 1
+            out[case] = rank_steps(
+                case, mesh, dev, counts, reset,
+                os.path.join(spec["dir"], "ck")
+                if case == PARALLEL_CASES[0] and rank == 0 else None)
+        # (i) the agent axis on a [1, 2, 1] data x seq mesh: each rank holds
+        #     every scene, the routes split the agents over "seq"
+        seq = make_mesh(dp=1, sp=2)
+        for case in AGENT_CASES:
+            out[case] = rank_steps(case, seq, dev, counts, reset)
+        cfg, scfg, net, sp0, batches = sampler_recipe(case=AGENT_CASES[1])
+        step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net,
+                                       device=dev, mesh=seq)
+        p, opt = step.init(sp0)
+        gen = torch.Generator(device=dev).manual_seed(211)
+        reset()   # the main path: the stage-2 step on the seq mesh
+        metrics = []
+        for b in batches:
+            p, opt, m = step(p, opt, shard_batch(b, seq).to(dev), gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        launches = counts()
+        flat = torch.cat([t.detach().reshape(-1)
+                          for t in bridge.tree_leaves(p)])
+        ms = []
+        for _ in range(5):
             torch.cuda.synchronize()
-            launches = counts()
-            if case == PARALLEL_CASES[0] and rank == 0:
-                # (g): the state after 2 steps at world 2, for phase 21 to
-                # restore at world 1
-                save_checkpoint(os.path.join(spec["dir"], "ck"), 2, p, opt,
-                                cfg)
-            flat = torch.cat([t.detach().reshape(-1) for t in leaves])
-            equal = bool(torch.equal(
-                collectives.broadcast(flat.clone(), 0, None), flat))
-            ms = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                step(p, opt, local[0], noise=noises[0])
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t) * 1e3)
-            out[case] = {"metrics": metrics, "grads": grads,
-                         "states": states, "equal": equal,
-                         "launches": launches, "ms": statistics.median(ms)}
+            t = time.perf_counter()
+            step(p, opt, shard_batch(batches[0], seq).to(dev), gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out["stage2_seq"] = {"metrics": metrics, "launches": launches,
+                             "ms": statistics.median(ms),
+                             "equal": bool(torch.equal(collectives.broadcast(
+                                 flat.clone(), 0, None), flat))}
         # (d) the stage-2 step, 2 steps with a generator of one seed
         cfg, scfg, net, sp0, batches = sampler_recipe()
         step = make_sampler_train_step(cfg, scfg, PARALLEL_LR, net,
@@ -3354,7 +3432,8 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
     captured mesh step at world 1 (``captured_world1``); (f) dopri5's three
     forms at world 2 (``dopri5_world2``); (g) a checkpoint saved at world 2,
     restored at world 1 (``restore_world1``). Returns the launches of (a),
-    (d) and (e) at world 1."""
+    (d), (e) and (h) at world 1. (h) and (i): ``ulysses_world1``,
+    ``hold_world2``, ``stage2_seq_world2``."""
     import torch.distributed as dist
     from sttode_tpu_torch import bridge
     from sttode_tpu_torch.parallel import collectives, make_mesh, shard_batch
@@ -3362,7 +3441,7 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
 
     t_phase = time.perf_counter()
     # (a) world 1 over NCCL: the mesh step against the single-process step
-    cfg, params, batches, _ = parallel_recipe(*PARALLEL_CASES[4])
+    cfg, params, batches, _ = parallel_recipe(*BENCH_BF16)
     batches = [b.to(dev) for b in batches]
     names = leaf_names(params)
     torch.cuda.set_device(0)
@@ -3425,6 +3504,10 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
                     ms[name].append((time.perf_counter() - t) * 1e3)
             launches_d, text_d = stage2_world1(dev, mesh, counts, reset)
             launches_e, text_e = captured_world1(dev, mesh, counts, reset)
+            # (h) ulysses: the all-to-all over a one-rank NCCL group
+            launches_h, texts_h = ulysses_world1(dev, mesh, counts, reset)
+            launches_hc, text_hc = captured_world1(dev, mesh, counts, reset,
+                                                   route="ulysses")
         finally:
             dist.destroy_process_group()
     print(f"phase 21 (a) bench recipe (B = 128 x 11, bf16 selection) "
@@ -3437,6 +3520,8 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
           f"{statistics.median(ms['mesh']):.3f}  [{card}]")
     print(f"{text_d}  [{card}]")
     print(f"{text_e}  [{card}]")
+    for text in texts_h + [text_hc]:
+        print(f"{text}  [{card}]")
 
     # (b) world 2 on the one card over gloo
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_dist_") as tmp:
@@ -3480,78 +3565,10 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
                      WORLD_SIZE="2"))
             for r, log in enumerate(logs)]
         for case in PARALLEL_CASES:
-            name, B, dtype, route = case
-            what = f"phase 21 (b) {name} {dtype} {route}"
-            fp32 = dtype == "float32"
-            kernels = ("select_fp32" if fp32 else "select_bf16",) + (
-                () if route == "ring" else ("packed", "packed_bwd") if B == 32
-                else ("attn", "attn_bwd"))
-            got = [r_[case] for r_ in ranks]
-            require(got[0]["metrics"] == got[1]["metrics"] and
-                    all(g["equal"] for g in got),
-                    f"{what}: the ranks' metrics or parameters differ")
-            # each step against the single-process step from the same state
-            # (the initial one, then the mesh's after step 1), so that a
-            # ReLU switched at rounding in one step does not carry over
-            cfg, params, batches, noises = parallel_recipe(*case)
-            step = make_train_step(cfg._replace(attn_impl="auto"), PARALLEL_LR,
-                                   device=dev)
-            rec = []
-            for i, (b, n) in enumerate(zip(batches, noises)):
-                p, opt = step.init(*((params,) if i == 0
-                                     else got[0]["states"][i - 1]))
-                p, opt, m = step(p, opt, b.to(dev), noise=_noise_to(n, dev))
-                rec.append(({k: float(v) for k, v in m.items()},
-                            [t.grad.detach().cpu() for t in
-                             bridge.tree_leaves(p)],
-                            [t.detach().cpu() for t in bridge.tree_leaves(p)]))
-            loss_err, grad_ratio, grad_l2 = 0.0, 0.0, 0.0
-            p_err, excused = 0.0, 0
-            for i, ((m_ref, g_ref, par), m_got, g_got, st) in enumerate(zip(
-                    rec, got[0]["metrics"], got[0]["grads"],
-                    got[0]["states"])):
-                for k, want in m_ref.items():
-                    tol = TRAIN_TOL * max(1.0, abs(want))
-                    require(abs(m_got[k] - want) <= tol,
-                            f"{what} step {i + 1}: {k} {m_got[k]} vs "
-                            f"single-process {want}")
-                    loss_err = max(loss_err, abs(m_got[k] - want) /
-                                   max(1.0, abs(want)))
-                if fp32:
-                    for j, (a, b) in enumerate(zip(g_got, g_ref)):
-                        big = max(float(b.abs().max()), 1e-30)
-                        ratio = float((a - b).abs().max()) / big
-                        l2 = float(torch.linalg.vector_norm(a - b)) / max(
-                            float(torch.linalg.vector_norm(b)), 1e-30)
-                        require(ratio <= DP_KINK_ELEM and l2 <= DP_KINK_L2,
-                                f"{what} step {i + 1}: gradient leaf {j} "
-                                f"differs by {ratio:.3e} of its largest "
-                                f"magnitude, {l2:.3e} in relative L2")
-                        grad_ratio = max(grad_ratio, ratio)
-                        grad_l2 = max(grad_l2, l2)
-                    e, x = compare_adam_params(
-                        bridge.tree_leaves(st[0]), par, g_got, g_ref,
-                        f"{what} step {i + 1}")
-                    p_err, excused = max(p_err, e), excused + x
-            held = "(gradients and parameters not held: bf16 winners)"
-            if fp32:
-                held = (f"gradient leaves within {grad_ratio:.3e} of their "
-                        f"largest and {grad_l2:.3e} in relative L2, "
-                        f"parameters within {p_err:.3e} ({excused} entries "
-                        f"at a gradient at rounding or moved)")
-            for r_, g in enumerate(got):
-                require(all(g["launches"][k] > 0 for k in kernels),
-                        f"{what}: rank {r_} did not launch {kernels} "
-                        f"{nonzero(g['launches'])}")
-            print(f"{what} ({B} x 11; world 2 on one card over gloo, staged "
-                  f"through host memory: {ranks[0]['staging']}): 2 steps "
-                  f"against the single-process step, losses within "
-                  f"{loss_err:.3e} (relative), {held}, equal on both ranks; "
-                  f"launches rank 0 "
-                  f"{nonzero(got[0]['launches'])}, rank 1 "
-                  f"{nonzero(got[1]['launches'])}; ms a step rank 0 "
-                  f"{got[0]['ms']:.3f}, rank 1 {got[1]['ms']:.3f} (host-bound)"
-                  f"  [{card}]")
+            print(f"{hold_world2(case, ranks, dev)}  [{card}]")
+        for case in AGENT_CASES:
+            print(f"{hold_world2(case, ranks, dev)}  [{card}]")
+        print(f"{stage2_seq_world2(dev, ranks)}  [{card}]")
         print(f"phase 21 (b) two ranks: {wall_b:.1f} s from start to exit  "
               f"[{card}]")
         print(f"{stage2_world2(dev, ranks)}  [{card}]")
@@ -3584,11 +3601,132 @@ def parallel_phase(dev, card, counts, reset, nba_files) -> dict:
           + f") and trained one epoch of 2 NBA steps in {wall_c:.1f} s  "
           f"[{card}]")
     launches = {k: launches[k] + launches_d[k] + launches_e[k]
-                for k in launches}
+                + launches_h[k] + launches_hc[k] for k in launches}
     print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s; its main "
-          f"paths (a), (d) and (e) at world 1 launched {nonzero(launches)}  "
-          f"[{card}]")
+          f"paths (a), (d), (e) and (h) at world 1 launched "
+          f"{nonzero(launches)}  [{card}]")
     return {"launches": launches}
+
+
+def hold_world2(case, ranks, dev) -> str:
+    """Phase 21 (b) / (i): one case's 2 steps on the two ranks against the
+    single-process "auto" step on the card from the same state (the
+    initial one, then the mesh's after step 1, so that a ReLU switched at
+    rounding in one step does not carry over): losses within TRAIN_TOL;
+    in fp32 every gradient leaf by ``DP_KINK_*`` and the parameters by
+    ``compare_adam_params``; the ranks' metrics and parameters equal; the
+    route's kernels on both ranks. → its line."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.train import make_train_step
+    name, B, dtype, route = case
+    agent = name == AGENT_RECIPE
+    what = f"phase 21 ({'i' if agent or route == 'ulysses' else 'b'}) " \
+        f"{name} {dtype} {route}"
+    fp32 = dtype == "float32"
+    # the local attention: none in the ring; packed at NBA 32 x 11 and
+    # under ulysses on the agent axis, whole-S at the bench recipe
+    kernels = ("select_fp32" if fp32 else "select_bf16",) + (
+        () if route == "ring" else ("packed", "packed_bwd")
+        if B == 32 else ("attn", "attn_bwd"))
+    got = [r_[case] for r_ in ranks]
+    require(got[0]["metrics"] == got[1]["metrics"] and
+            all(g["equal"] for g in got),
+            f"{what}: the ranks' metrics or parameters differ")
+    cfg, params, batches, noises = parallel_recipe(*case)
+    step = make_train_step(cfg._replace(attn_impl="auto"), PARALLEL_LR,
+                           device=dev)
+    rec = []
+    for i, (b, n) in enumerate(zip(batches, noises)):
+        p, opt = step.init(*((params,) if i == 0
+                             else got[0]["states"][i - 1]))
+        p, opt, m = step(p, opt, b.to(dev), noise=_noise_to(n, dev))
+        rec.append(({k: float(v) for k, v in m.items()},
+                    [t.grad.detach().cpu() for t in bridge.tree_leaves(p)],
+                    [t.detach().cpu() for t in bridge.tree_leaves(p)]))
+    loss_err, grad_ratio, grad_l2 = 0.0, 0.0, 0.0
+    p_err, excused = 0.0, 0
+    for i, ((m_ref, g_ref, par), m_got, g_got, st) in enumerate(zip(
+            rec, got[0]["metrics"], got[0]["grads"], got[0]["states"])):
+        for k, want in m_ref.items():
+            tol = TRAIN_TOL * max(1.0, abs(want))
+            require(abs(m_got[k] - want) <= tol,
+                    f"{what} step {i + 1}: {k} {m_got[k]} vs "
+                    f"single-process {want}")
+            loss_err = max(loss_err, abs(m_got[k] - want) /
+                           max(1.0, abs(want)))
+        if fp32:
+            for j, (a, b) in enumerate(zip(g_got, g_ref)):
+                big = max(float(b.abs().max()), 1e-30)
+                ratio = float((a - b).abs().max()) / big
+                l2 = float(torch.linalg.vector_norm(a - b)) / max(
+                    float(torch.linalg.vector_norm(b)), 1e-30)
+                require(ratio <= DP_KINK_ELEM and l2 <= DP_KINK_L2,
+                        f"{what} step {i + 1}: gradient leaf {j} differs "
+                        f"by {ratio:.3e} of its largest magnitude, "
+                        f"{l2:.3e} in relative L2")
+                grad_ratio = max(grad_ratio, ratio)
+                grad_l2 = max(grad_l2, l2)
+            e, x = compare_adam_params(bridge.tree_leaves(st[0]), par,
+                                       g_got, g_ref, f"{what} step {i + 1}")
+            p_err, excused = max(p_err, e), excused + x
+    held = "(gradients and parameters not held: bf16 winners)"
+    if fp32:
+        held = (f"gradient leaves within {grad_ratio:.3e} of their largest "
+                f"and {grad_l2:.3e} in relative L2, parameters within "
+                f"{p_err:.3e} ({excused} entries at a gradient at rounding "
+                f"or moved)")
+    for r_, g in enumerate(got):
+        require(all(g["launches"][k] > 0 for k in kernels),
+                f"{what}: rank {r_} did not launch {kernels} "
+                f"{nonzero(g['launches'])}")
+    where = ("a [1, 2, 1] data x seq mesh, 16 agents a scene split over "
+             "seq" if agent else "world 2")
+    return (f"{what} ({B} x {16 if agent else 11}; {where} on one card over "
+            f"gloo, staged through host memory: {ranks[0]['staging']}): 2 "
+            f"steps against the single-process step, losses within "
+            f"{loss_err:.3e} (relative), {held}, equal on both ranks; "
+            f"launches rank 0 {nonzero(got[0]['launches'])}, rank 1 "
+            f"{nonzero(got[1]['launches'])}; ms a step rank 0 "
+            f"{got[0]['ms']:.3f}, rank 1 {got[1]['ms']:.3f} (host-bound)")
+
+
+def stage2_seq_world2(dev, ranks) -> str:
+    """Phase 21 (i): the ranks' stage-2 steps on the [1, 2, 1] data x seq
+    mesh (the frozen net on the agent axis under ulysses) against the
+    single-process step (the net on "auto") on the card with the same
+    generator seed: losses within TRAIN_TOL, the ranks' metrics and
+    sampler parameters equal, P on both ranks, forward only."""
+    from sttode_tpu_torch.train import make_sampler_train_step
+    cfg, scfg, net, sp0, batches = sampler_recipe(case=AGENT_CASES[1])
+    step = make_sampler_train_step(cfg._replace(attn_impl="auto"), scfg,
+                                   PARALLEL_LR, net, device=dev)
+    p, opt = step.init(sp0)
+    gen = torch.Generator(device=dev).manual_seed(211)
+    ref = [{k: float(v) for k, v in step(p, opt, b.to(dev), gen)[2].items()}
+           for b in batches]
+    got = [r["stage2_seq"] for r in ranks]
+    what = "phase 21 (i) stage 2 on the [1, 2, 1] data x seq mesh"
+    require(got[0]["metrics"] == got[1]["metrics"]
+            and all(g["equal"] for g in got),
+            f"{what}: the ranks' metrics or parameters differ")
+    err = 0.0
+    for i, (m, w) in enumerate(zip(got[0]["metrics"], ref)):
+        for k in w:
+            require(abs(m[k] - w[k]) <= TRAIN_TOL * max(1.0, abs(w[k])),
+                    f"{what} step {i + 1}: {k} {m[k]} vs single-process "
+                    f"{w[k]}")
+            err = max(err, abs(m[k] - w[k]) / max(1.0, abs(w[k])))
+    for r, g in enumerate(got):
+        require(g["launches"]["packed"] > 0, f"{what}: rank {r} did not "
+                f"launch P {nonzero(g['launches'])}")
+        stage2_forward_only(g["launches"], f"{what} rank {r}")
+    return (f"{what} (the net on the agent axis under ulysses, 32 x 16, ε "
+            f"drawn): 2 steps against the single-process step on the card, "
+            f"losses within {err:.3e} (relative), the ranks' sampler "
+            f"parameters equal bit for bit; launches rank 0 "
+            f"{nonzero(got[0]['launches'])}, rank 1 "
+            f"{nonzero(got[1]['launches'])}; ms a step rank 0 "
+            f"{got[0]['ms']:.3f}, rank 1 {got[1]['ms']:.3f} (host-bound)")
 
 
 def stage2_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
@@ -3646,14 +3784,102 @@ def stage2_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
         f"{nonzero(launches)}")
 
 
-def captured_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
+def ulysses_world1(dev, mesh, counts, reset) -> tuple[dict, list]:
+    """Phase 21 (h) at world 1 over NCCL: the stage-1 step with
+    ``attn_impl="ulysses"`` on ``mesh`` (the head <-> token all-to-all
+    over a one-rank group, the local core on the kernels) at NBA 32 x 11
+    (fp32 selection: P, Q, B fp32) and the bench recipe (bf16: A, C, B
+    bf16), 2 steps with the global noise, against the single-process
+    "auto" step from the same parameters: the losses within TRAIN_TOL,
+    in fp32 every gradient leaf within TRAIN_TOL of its largest; whether
+    all of it is bit for bit; ms a step of both, alternating. → (the
+    Ulysses steps' launches, a line a recipe)."""
+    from sttode_tpu_torch import bridge
+    from sttode_tpu_torch.parallel import shard_batch
+    from sttode_tpu_torch.train import make_train_step
+    total, lines = None, []
+    for case, kernels in (
+            (("NBA reference recipe", 32, "float32", "ulysses"),
+             ("packed", "packed_bwd", "select_fp32")),
+            (("bench recipe", 128, "bfloat16", "ulysses"),
+             ("attn", "attn_bwd", "select_bf16"))):
+        what = f"phase 21 (h) {case[0]} {case[2]}"
+        cfg, params, batches, noises = parallel_recipe(*case)
+        steps = {"single": make_train_step(cfg._replace(attn_impl="auto"),
+                                           PARALLEL_LR, device=dev),
+                 "ulysses": make_train_step(cfg, PARALLEL_LR, device=dev,
+                                            mesh=mesh)}
+        local = {"single": [b.to(dev) for b in batches],
+                 "ulysses": [shard_batch(b, mesh).to(dev) for b in batches]}
+        noises = [_noise_to(n, dev) for n in noises]
+        runs = {}
+        for name, step in steps.items():
+            p, opt = step.init(params)
+            leaves = bridge.tree_leaves(p)
+            reset()   # the main path (the Ulysses step's run is kept)
+            rec = []
+            for b, n in zip(local[name], noises):
+                p, opt, m = step(p, opt, b, noise=n)
+                rec.append(({k: v.clone() for k, v in m.items()},
+                            [t.grad.clone() for t in leaves]))
+            torch.cuda.synchronize()
+            runs[name] = (rec, counts(), p, opt)
+        (rec_s, _, _, _), (rec_u, launches, _, _) = runs["single"], \
+            runs["ulysses"]
+        same, loss_err, grad_err = True, 0.0, 0.0
+        for i, ((m_s, g_s), (m_u, g_u)) in enumerate(zip(rec_s, rec_u)):
+            for k in m_s:
+                want, got = float(m_s[k]), float(m_u[k])
+                require(abs(got - want) <= TRAIN_TOL * max(1.0, abs(want)),
+                        f"{what} step {i + 1}: {k} {got!r} under ulysses, "
+                        f"{want!r} single")
+                loss_err = max(loss_err, abs(got - want) / max(1.0,
+                                                               abs(want)))
+                same = same and torch.equal(m_s[k], m_u[k])
+            for j, (a, b) in enumerate(zip(g_u, g_s)):
+                same = same and torch.equal(a, b)
+                ratio = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                grad_err = max(grad_err, ratio)
+                require(case[2] != "float32" or ratio <= TRAIN_TOL,
+                        f"{what} step {i + 1}: gradient leaf {j} differs by "
+                        f"{ratio:.3e} of its largest magnitude")
+        require(all(launches[k] > 0 for k in kernels),
+                f"{what}: the Ulysses step did not launch {kernels} "
+                f"{nonzero(launches)}")
+        ms: dict = {"single": [], "ulysses": []}
+        for r in range(6):
+            for name in (("single", "ulysses") if r % 2 == 0
+                         else ("ulysses", "single")):
+                _, _, p_, o_ = runs[name]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                steps[name](p_, o_, local[name][0], noise=noises[0])
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t) * 1e3)
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        lines.append(
+            f"{what} ({case[1]} x 11) make_train_step(mesh=, "
+            f"attn_impl='ulysses') at world 1 over NCCL: 2 steps against "
+            f"the single-process 'auto' step, "
+            + ("bit for bit (every loss term and gradient leaf)" if same
+               else f"losses within {loss_err:.3e} (relative), gradient "
+               f"leaves within {grad_err:.3e} of their largest, not bit "
+               f"for bit") + f"; launches {nonzero(launches)}; ms a step "
+            f"single {statistics.median(ms['single']):.3f}, ulysses "
+            f"{statistics.median(ms['ulysses']):.3f}")
+    return total, lines
+
+
+def captured_world1(dev, mesh, counts, reset,
+                    route: str = "auto") -> tuple[dict, str]:
     """Phase 21 (e) at world 1 over NCCL: the bench recipe's mesh step at
-    ``scan_steps`` 16 (one CUDA graph with its collectives): its warm-up
-    chunk, then 2 replays against 32 eager mesh steps from the state the
-    warm-up left, on the graph's Adam form, bit for bit (each loss term,
-    parameter and Adam moment); A, C and B bf16 in the replays' counters;
-    ms a step captured against eager. → (the replays' launches, its
-    line)."""
+    ``scan_steps`` 16 (one CUDA graph with its collectives; under
+    ``route="ulysses"``, (h), the all-to-alls too): its warm-up chunk,
+    then 2 replays against 32 eager mesh steps from the state the warm-up
+    left, on the graph's Adam form, bit for bit (each loss term, parameter
+    and Adam moment); A, C and B bf16 in the replays' counters; ms a step
+    captured against eager. → (the replays' launches, its line)."""
     from sttode_tpu_torch import bridge
     from sttode_tpu_torch.data.preprocess import prepare_scene_group
     from sttode_tpu_torch.data.synthetic import make_social_scenes
@@ -3662,7 +3888,9 @@ def captured_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
     from sttode_tpu_torch.train import (make_train_step, stack_batches,
                                         stack_noise)
     S, B, N = 16, 128, 11
-    cfg, params, _, _ = parallel_recipe(*PARALLEL_CASES[4])
+    cfg, params, _, _ = parallel_recipe(*BENCH_BF16)
+    cfg = cfg._replace(attn_impl=route).validate()
+    what = f"phase 21 ({'h' if route == 'ulysses' else 'e'})"
     gen = torch.Generator(device=dev).manual_seed(212)
     local, noises = [], []
     for i in range(3 * S):
@@ -3678,7 +3906,7 @@ def captured_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
     graph = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh,
                             scan_steps=S)
     eager = make_train_step(cfg, PARALLEL_LR, device=dev, mesh=mesh)
-    require(graph.mode == "graph", f"phase 21 (e): the mesh step over NCCL "
+    require(graph.mode == "graph", f"{what}: the mesh step over NCCL "
             f"runs as {graph.mode!r}")
     pg, og = graph.init(params)
     chunks = [(stack_batches(local[i:i + S]), stack_noise(noises[i:i + S]))
@@ -3701,26 +3929,28 @@ def captured_world1(dev, mesh, counts, reset) -> tuple[dict, str]:
     for k in mg[0]:
         require(torch.equal(torch.cat([m[k] for m in mg]),
                             torch.stack([m[k] for m in me])),
-                f"phase 21 (e): the replays' {k} differ from the eager "
+                f"{what}: the replays' {k} differ from the eager "
                 f"mesh steps'")
     for n_, a, b in zip(leaf_names(params), bridge.tree_leaves(pg),
                         bridge.tree_leaves(pe)):
-        require(torch.equal(a, b), f"phase 21 (e): parameter {n_} differs "
+        require(torch.equal(a, b), f"{what}: parameter {n_} differs "
                 f"by {max_err(a.detach(), b.detach()):.3e}")
     for a, b in zip(clone_state(og)["state"].values(),
                     clone_state(oe)["state"].values()):
         require(all(torch.equal(a[k], b[k]) for k in a),
-                "phase 21 (e): an Adam moment differs")
+                f"{what}: an Adam moment differs")
     require(launches["attn"] > 0 and launches["attn_bwd"] > 0
             and launches["select_bf16"] > 0,
-            f"phase 21 (e): the replays did not launch A, C and B bf16 "
+            f"{what}: the replays did not launch A, C and B bf16 "
             f"{nonzero(launches)}")
     stats = graph.graph_stats()
     return launches, (
-        f"phase 21 (e) bench recipe (B = 128 x 11, bf16) "
+        f"{what} bench recipe (B = 128 x 11, bf16) attn_impl {route!r} "
         f"make_train_step(mesh=, scan_steps=16) at world 1 over NCCL, mode "
         f"{graph.mode!r}: the warm-up chunk and 2 replays (the gradient "
-        f"all-reduce and the loss sums captured) equal 32 eager mesh steps "
+        f"all-reduce and the loss sums captured"
+        + (", the all-to-alls too" if route == "ulysses" else "")
+        + f") equal 32 eager mesh steps "
         f"bit for bit (every loss term, parameter and Adam moment); ms a "
         f"step captured {graph_ms:.3f}, eager {eager_ms:.3f} "
         f"({32 * B * 1e3 / (2 * S * graph_ms):.1f} / "
@@ -5594,10 +5824,12 @@ def main() -> int:
     #     CPU, δ-hyperbolicity at full size
     launches20 = riemannian_phase(dev, card, counts, reset)["launches"]
 
-    # 21. data parallelism and the ring over torch.distributed: world 1 over
-    #     NCCL bit for bit (stage 1, stage 2, the captured mesh step, a
-    #     restore), world 2 on the one card over gloo (stage 1, stage 2,
-    #     dopri5's three forms, the save), --distributed
+    # 21. data parallelism, the ring and Ulysses over torch.distributed:
+    #     world 1 over NCCL bit for bit (stage 1, stage 2, the captured mesh
+    #     step, a restore; Ulysses against "auto", captured), world 2 on the
+    #     one card over gloo (stage 1 on auto, ring and ulysses, stage 2,
+    #     dopri5's three forms, the save, a data x seq mesh on the agent
+    #     axis), --distributed
     launches21 = parallel_phase(dev, card, counts, reset,
                                 nba_files)["launches"]
 
@@ -5656,7 +5888,8 @@ def main() -> int:
               launches4["select_fp32"] + launches5["select_fp32"]
               + launches8["select_fp32"] + launches15["select_fp32"]
               + launches17["select_fp32"] + launches18["select_fp32"]
-              + launches19["select_fp32"] + launches20["select_fp32"],
+              + launches19["select_fp32"] + launches20["select_fp32"]
+              + launches21["select_fp32"],
               select_err, s_ms, s_plain, s_bound),
         entry("select_decode_bf16", "select_decode.cu",
               "sttode_tpu/kernels/select_decode.py:270",
@@ -5677,7 +5910,8 @@ def main() -> int:
               "sttode_tpu/kernels/packed_mhgsa.py:370",
               launches10["packed_bwd"] + launches15["packed_bwd"]
               + launches17["packed_bwd"] + launches18["packed_bwd"]
-              + launches19["packed_bwd"] + launches20["packed_bwd"],
+              + launches19["packed_bwd"] + launches20["packed_bwd"]
+              + launches21["packed_bwd"],
               packed_bwd_err, pb_ms, pb_plain,
               pb_bound),
         entry("flash_geodesic_attention", "flash_mhgsa_fwd.cu",

@@ -38,20 +38,39 @@ that ``select_impl="fused"`` in training and ``attn_impl="packed"`` or
 ``"flash"`` run the kernel's plain version, as the JAX package runs its
 Pallas kernels in interpret mode off the TPU.
 
-Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh over "data"):
-each rank passes its own block of whole scenes (``parallel.shard_batch``)
-and computes the model that the single process computes on the whole
-batch. On the scene axis the scenes are the attention's tokens (quirk
-Q4), so each rank attends its scenes to the keys and values of every
-rank's (``nn.attention``: gathered, or the ring under ``attn_impl="ring"``);
+Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh over "data",
+or "data" × "seq"): each rank passes its own block of whole scenes
+(``parallel.shard_batch``, by its "data" coordinate) and computes the
+model that the single process computes on the whole batch. On the scene
+axis the scenes are the attention's tokens (quirk Q4), so each rank
+attends its scenes to the keys and values of every rank's
+(``nn.attention``: gathered over "data", or a sequence-parallel route);
 on the agent axis the attention stays within a scene, except that the
-ring splits each scene's agents over the ranks. The loss normalizers are
-global (the batch size, the count of real agents, and the KL floor's
-gate, which reads the global mean), and so is the noise: the draws are
-those of the single process over the whole batch, of which each rank
-keeps its rows. The selection kernel decodes each rank's own rows.
-dopri5's error norms are those of the whole state (``ode.odeint``'s
-``group``), so every rank integrates with the single process's steps.
+ring and ulysses split each scene's agents over the ranks. The loss
+normalizers are global (the batch size, the count of real agents, and
+the KL floor's gate, which reads the global mean), and so is the noise:
+the draws are those of the single process over the whole batch, of which
+each rank keeps its rows. The selection kernel decodes each rank's own
+rows. dopri5's error norms are those of the whole state (``ode.odeint``'s
+``group``, "data"), so every rank integrates with the single process's
+steps.
+
+On a data × sequence mesh [dp, sp] the sp ranks of a data group hold the
+same scenes and compute the same rows, losses and gradient; the sums
+above run over "data" alone, and so does the step's gradient sum. Only
+the sequence-parallel routes part them, in JAX's ``shard_map`` layout:
+the attention's tokens split over "seq" and its batch rows over "data".
+On the scene axis rank (d, s) then attends, for block d of the batch rows
+(agents, × heads under the ring), the queries of scene block s (of the
+global batch's scenes) to every scene; on the agent axis, for its own
+scenes, the queries of agent block s to every agent. Each gives its rows
+back (``nn.attention._from_sp``), whole again on every sequence rank,
+with the cotangent rules that keep each rank's gradient whole
+(``parallel.collectives``). The other routes attend over the keys
+gathered across "data", the same on every sequence rank. Where JAX's
+``shard_map`` refuses a shape (the batch rows or the tokens not dividing
+their axis, the heads not dividing "seq" under ulysses) the port raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -64,7 +83,6 @@ import torch
 from sttode_tpu_torch import bridge
 from sttode_tpu_torch.kernels.select_decode import select_decode
 from sttode_tpu_torch.nn import core, embed
-from sttode_tpu_torch.nn.attention import ULYSSES_NOT_PORTED
 from sttode_tpu_torch.nn.ode_block import ode_encoder
 from sttode_tpu_torch.nn.recurrent import conv1d, conv1d_init, gru, gru_init
 from sttode_tpu_torch.nn.transformer import (LayerConfig, LayerDropMasks,
@@ -81,9 +99,8 @@ class STTODEConfig(NamedTuple):
     JAX config converts with ``STTODEConfig(**jax_cfg._asdict())``).
 
     ``validate`` raises NotImplementedError on what the port does not run
-    rather than running something else: ``compute_dtype="bfloat16"``, the
-    ulysses attention route, and ``num_decompose != 2`` on the
-    selection-decode kernel route.
+    rather than running something else: ``compute_dtype="bfloat16"`` and
+    ``num_decompose != 2`` on the selection-decode kernel route.
     ``remat`` is carried but unused: PyTorch stores what autograd needs.
     One default differs from the JAX package: ``select_impl="auto"``, the
     selection-decode kernel on CUDA (the JAX default "xla" keeps its
@@ -180,8 +197,6 @@ class STTODEConfig(NamedTuple):
                                                        "bfloat16"))):
             if value not in known:
                 raise ValueError(f"{name} {value!r}")
-        if self.attn_impl == "ulysses":
-            raise NotImplementedError(ULYSSES_NOT_PORTED)
         if self.compute_dtype != "float32":
             raise NotImplementedError(
                 "compute_dtype='bfloat16' is not ported (decode_dtype and "
@@ -332,31 +347,20 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                          "compat drops attention masks (Q2), so padded "
                          "agents would leak into attention")
     mask = kv_valid = enc_mesh = None
+    ring_axis = "data"
     group = None if mesh is None else mesh.get_group("data")
-    split_agents = False
     if cfg.attn_axis == "scene":
         tokens = (x.reshape(1, B * N, 1, D) if isolate_scenes
                   else x[:, :, None, :])                      # [L=B, N, 1, D]
-        # the scenes, split over the ranks, are the tokens
+        # the scenes, split over "data", are the tokens
         enc_mesh = None if isolate_scenes else mesh
-    elif cfg.attn_impl == "ring":
-        # the ring's only mask form is key validity
+    elif cfg.attn_impl in ("ring", "ulysses"):
+        # the sequence-parallel routes' only mask form is key validity
         tokens = x.transpose(0, 1)[:, :, None, :]             # [L=N, B, 1, D]
         kv_valid = valid.reshape(B, N)
-        if mesh is not None:
-            # the ring splits each scene's agents: every rank takes its
-            # block of them in every scene, and gives the scenes back after
-            n = axis_size(mesh, "data")
-            if N % n:
-                raise ValueError(f"attn_impl='ring' on the agent axis splits "
-                                 f"the {N} agents over data = {n}: they "
-                                 f"must divide")
-            tokens = collectives.take(collectives.gather(tokens, group, 1),
-                                      group, 0)         # [N/n, B·n, 1, D]
-            kv_valid = collectives.all_gather(kv_valid, group, 0).narrow(
-                1, axis_rank(mesh, "data") * (N // n), N // n)
-            enc_mesh = mesh
-            split_agents = True
+        # every rank holds its scenes' agents whole: the route splits them
+        # (nn.attention)
+        enc_mesh, ring_axis = mesh, None
     else:
         tokens = x.transpose(0, 1)[:, :, None, :]             # [L=N, B, 1, D]
         mask = _agent_attn_mask(valid, B, N)
@@ -371,9 +375,7 @@ def _encode_trunk(p: dict, cfg: STTODEConfig, inputs: torch.Tensor, B: int,
                     drop=drop, adjoint=cfg.ode_adjoint, rtol=cfg.ode_rtol,
                     atol=cfg.ode_atol,
                     scan_budget=cfg.ode_scan_budget or None, mesh=enc_mesh,
-                    group=group)
-    if split_agents:
-        z = collectives.take(collectives.gather(z, group, 0), group, 1)
+                    ring_axis=ring_axis, group=group)
     if cfg.attn_axis == "scene":
         z = z.reshape(B, N, D)
     else:
@@ -622,17 +624,10 @@ def _local_noise(noise: TrainNoise, cfg: STTODEConfig, B: int, N: int,
 
 def check_mesh(mesh) -> None:
     """Raise NotImplementedError for a mesh the model does not run on: a
-    "model" axis (tensor parallelism) or a "seq" axis (the whole step split
-    over data × sequence)."""
-    if mesh is None:
-        return
-    shape = mesh_shape(mesh)
-    if shape.get("model", 1) > 1:
+    "model" axis (tensor parallelism). A "seq" axis runs (the module's
+    docstring)."""
+    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
         raise NotImplementedError(TP_NOT_PORTED)
-    if shape.get("seq", 1) > 1:
-        raise NotImplementedError(
-            "the model on a mesh with a \"seq\" axis is not ported yet; "
-            "parallel.ring_attention takes such a mesh")
 
 
 class ForwardOutput(NamedTuple):

@@ -53,11 +53,16 @@ kernel's plain version. The packed boundary is the JAX package's starting
 point, not an H100 crossover: ``chip_smoke.py`` times the kernels at the NBA
 recipe's shapes.
 
-Under a ``mesh`` (``parallel``) the tensors are each rank's block of the
-token axes: ``fused="ring"`` runs ``parallel.ring_attention`` (JAX's
-"ring" route), every other route attends the rank's queries to the keys
-and values gathered from every rank (``_mesh_attention``); the all-to-all
-route "ulysses" is not ported.
+Under a ``mesh`` (``parallel``) the tensors are each rank's part of the
+attention, its block of the token axes over ``ring_axis`` (or, with
+``ring_axis=None``, the whole token axes and its block of the batch over
+"data"). ``fused="ring"`` runs ``parallel.ring_attention`` and
+``fused="ulysses"`` ``parallel.ulysses`` (JAX's sequence-parallel
+routes) in their layout (``_into_sp``): the tokens split over the token
+axis of ``resolve_sp_axes`` ("data", or "seq" on a data × sequence mesh),
+the batch rows over "data" on that mesh, as JAX's ``shard_map`` lays them
+out. Every other route attends the rank's queries to the keys and values
+gathered from every rank of ``ring_axis`` (``_mesh_attention``).
 """
 
 from __future__ import annotations
@@ -157,12 +162,10 @@ def _kernel_route(q_shape: tuple, k_shape: tuple, *, has_mask: bool,
     as an additive mask. No kernel implements attention-weight dropout:
     active dropout sends "auto" to the plain path, and a forced kernel
     raises, as in JAX."""
-    if fused == "ulysses":
-        raise NotImplementedError(ULYSSES_NOT_PORTED)
     if fused not in ("auto", True, False, "packed", "flash"):
         raise NotImplementedError(
             f"attention route {fused!r} is not ported "
-            "(auto/fused/packed/flash/dense/ring)")
+            "(auto/fused/packed/flash/dense/ring/ulysses)")
     if dropout_active and fused in (True, "packed", "flash"):
         route = "fused" if fused is True else fused
         raise ValueError(
@@ -212,7 +215,7 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        kv_valid: torch.Tensor | None = None,
                        dropout_rate: float = 0.0,
                        dropout_mask: torch.Tensor | None = None,
-                       mesh=None, ring_axis: str = "data"):
+                       mesh=None, ring_axis: str | None = "data"):
     """Core attention: scores → (+mask) → softmax → dropout → @v.
 
     q [..., L, Dh], k/v [..., S, Dh], additive mask broadcastable to
@@ -226,21 +229,26 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is given, on the plain path only.
 
     Under a ``mesh`` (``parallel.make_mesh``) q, k, v and ``kv_valid`` hold
-    this rank's block of the token axes, split over ``mesh[ring_axis]``
-    ("seq" where the mesh has it, ``parallel.ring_attention.resolve_sp_axes``);
-    the result is this rank's rows. ``fused="ring"`` runs the ring
-    (``parallel.ring_attention``; no dropout, key validity only); every
-    other route attends this rank's queries to the keys and values
-    gathered from every rank, on the route the local shapes pick
-    (``_mesh_attention``). Quirk Q3's swap is decided on the global shapes
-    in both."""
+    this rank's block of the token axes, split over ``mesh[ring_axis]``,
+    or with ``ring_axis=None`` the whole token axes and this rank's block
+    of the batch over "data" (the agent axis on a mesh); the result is
+    this rank's part alike. ``fused="ring"`` runs the ring
+    (``parallel.ring_attention``) and ``fused="ulysses"`` the head ↔ token
+    all-to-all (``parallel.ulysses``; an explicit head axis [..., H, L,
+    Dh]): no dropout, key validity only (a singleton head axis of
+    ``kv_valid`` is squeezed for ulysses), in their layout
+    (``_into_sp``). Every other route attends this rank's queries to the
+    keys and values gathered from every rank of ``ring_axis``, on the
+    route the local shapes pick (``_mesh_attention``). Quirk Q3's swap is
+    decided on the global shapes in all of them: the token axes are split
+    alike."""
     dropout_active = dropout_rate > 0.0 and dropout_mask is not None
-    if fused == "ring":
-        return _ring_attention(q, k, v, mesh, ring_axis, mask=mask,
-                               compat=compat, metric=metric,
-                               curvature=curvature, kv_valid=kv_valid,
-                               dropout_active=dropout_active)
-    if mesh is not None:
+    if fused in ("ring", "ulysses"):
+        return _sp_attention(q, k, v, mesh, ring_axis, fused, mask=mask,
+                             compat=compat, metric=metric,
+                             curvature=curvature, kv_valid=kv_valid,
+                             dropout_active=dropout_active)
+    if mesh is not None and ring_axis is not None:
         return _mesh_attention(q, k, v, mesh, ring_axis, mask=mask,
                                compat=compat, fused=fused,
                                need_weights=need_weights, metric=metric,
@@ -304,47 +312,126 @@ def geodesic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return w @ v, w
 
 
-ULYSSES_NOT_PORTED = ("attn_impl='ulysses' (all-to-all sequence "
-                      "parallelism) is not ported yet; use attn_impl='ring'")
+def _sp_axes(mesh, ring_axis: str | None) -> tuple[str, str | None]:
+    """(token axis, batch axis) of the sequence-parallel routes on
+    ``mesh`` for tokens given split over ``ring_axis`` (None: whole, the
+    batch rows split over "data"); ValueError for another layout."""
+    from sttode_tpu_torch.parallel.ring_attention import resolve_sp_axes
+    tok, bat = resolve_sp_axes(mesh, ring_axis or "data")
+    if ring_axis not in (tok, "data", None):
+        raise ValueError(f"ring_axis {ring_axis!r}: the tokens lie split over "
+                         f"{tok!r} or 'data', or whole (None)")
+    return tok, bat
 
 
-def _ring_attention(q, k, v, mesh, ring_axis: str, *, mask, compat: str,
-                    metric: str, curvature: float, kv_valid,
-                    dropout_active: bool):
-    """The "ring" route (JAX's): q [..., L, Dh], k/v [..., S, Dh] blocks of
-    the token axes folded to [B, ·, Dh], ``kv_valid`` broadcast over the
-    folded axes; q and k swap under quirk Q3."""
+def _split_size(size: int, mesh, axis: str, route: str, what: str) -> None:
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if size % n:
+        raise ValueError(f"attn_impl={route!r} splits the {size} {what} over "
+                         f"{axis} = {n}: they must divide")
+
+
+def _into_sp(x, mesh, ring_axis: str | None, tdim: int, route: str):
+    """``x`` (the batch rows on dim 0, the tokens on ``tdim``) from this
+    rank's part as given (``geodesic_attention``'s mesh layout) to its
+    part in the sequence-parallel layout: the tokens split over the token
+    axis, the rows over the batch axis (``_sp_axes``). From tokens split
+    over "data" on a data × sequence mesh: every token gathered over
+    "data", this rank's rows taken, its "seq" block of tokens split off;
+    from whole tokens (rows over "data"): the "seq" block, or on a 2-axis
+    mesh every row gathered and the "data" block of tokens taken. The
+    gather's, take's and split's backward rules make each rank's
+    cotangent whole for its part (``parallel.collectives``)."""
+    from sttode_tpu_torch.parallel import collectives
+    tok, bat = _sp_axes(mesh, ring_axis)
+    if ring_axis == tok:
+        return x
+    data = mesh.get_group("data")
+    if bat is None:
+        x = collectives.gather(x, data, 0)
+        _split_size(x.shape[tdim], mesh, "data", route, "tokens")
+        return collectives.take(x, data, tdim)
+    if ring_axis == "data":
+        x = collectives.gather(x, data, tdim)
+        _split_size(x.shape[0], mesh, "data", route,
+                    "rows of the attention's batch")
+        x = collectives.take(x, data, 0)
+    _split_size(x.shape[tdim], mesh, tok, route, "tokens")
+    return collectives.split(x, mesh.get_group(tok), tdim)
+
+
+def _from_sp(x, mesh, ring_axis: str | None, tdim: int):
+    """``_into_sp``'s inverse: the output back to this rank's part as
+    given."""
+    from sttode_tpu_torch.parallel import collectives
+    tok, bat = _sp_axes(mesh, ring_axis)
+    if ring_axis == tok:
+        return x
+    data = mesh.get_group("data")
+    if bat is None:
+        return collectives.take(collectives.gather(x, data, tdim), data, 0)
+    x = collectives.unsplit(x, mesh.get_group(tok), tdim)
+    if ring_axis == "data":
+        x = collectives.take(collectives.gather(x, data, 0), data, tdim)
+    return x
+
+
+def _sp_attention(q, k, v, mesh, ring_axis: str | None, route: str, *, mask,
+                  compat: str, metric: str, curvature: float, kv_valid,
+                  dropout_active: bool):
+    """The routes "ring" and "ulysses" (JAX's): q [..., L, Dh], k / v [...,
+    S, Dh] folded to the route's batch rows (the ring's every leading
+    axis, ulysses' those before the heads), ``kv_valid`` broadcast over
+    them; q and k swap under quirk Q3; the route runs in its layout
+    (``_into_sp``) and the output comes back (``_from_sp``)."""
     if dropout_active:
-        # loud, not silent: the ring has no attention-weight dropout
+        # loud, not silent: the sequence-parallel routes have no
+        # attention-weight dropout
         raise ValueError(
-            "attn_impl='ring' does not implement attention dropout; set "
-            "dropout=0 (the reference default) or use a dense route")
+            f"attn_impl='{route}' does not implement attention dropout; "
+            "set dropout=0 (the reference default) or use a dense route")
     if mesh is None:
-        raise ValueError("attn_impl='ring' needs a mesh — pass it through "
-                         "sttode_forward(..., mesh=) / make_train_step")
+        raise ValueError(f"attn_impl='{route}' needs a mesh — pass it "
+                         "through sttode_forward(..., mesh=) / "
+                         "make_train_step")
     if mask is not None:
-        raise ValueError("ring path supports key-validity masks only; pass "
-                         "kv_valid instead of an additive mask")
+        raise ValueError(f"{route} path supports key-validity masks only; "
+                         "pass kv_valid instead of an additive mask")
+    if route == "ulysses" and q.dim() < 4:
+        raise ValueError("ulysses attention needs an explicit head axis: "
+                         "q/k/v must be [..., H, L, Dh]")
     from sttode_tpu_torch.parallel.ring_attention import \
         ring_geodesic_attention
+    from sttode_tpu_torch.parallel.ulysses import ulysses_geodesic_attention
     *lead, L, Dh = q.shape
     S = k.shape[-2]
     # both token axes are split alike: square locally iff globally
     qq, kk = (k, q) if (compat == "reference" and L == S) else (q, k)
+    batch = lead if route == "ring" else lead[:-1]
     B = 1
-    for d in lead:
+    for d in batch:
         B *= d
     val = None
     if kv_valid is not None:
         kvv = kv_valid
-        while kvv.ndim < len(lead) + 1:   # insert axes before S (e.g. the
-            kvv = kvv[..., None, :]       # folded head axis)
-        val = torch.broadcast_to(kvv, (*lead, S)).reshape(B, S)
-    out = ring_geodesic_attention(
-        qq.reshape(B, L, Dh), kk.reshape(B, S, Dh), v.reshape(B, S, Dh),
-        mesh, axis=ring_axis, kv_valid=val, metric=metric,
-        curvature=curvature)
-    return out.reshape(*lead, L, Dh), None
+        if route == "ulysses":
+            # no head axis at rest: squeeze a singleton one
+            while kvv.dim() > len(batch) + 1 and kvv.shape[-2] == 1:
+                kvv = kvv.squeeze(-2)
+        while kvv.dim() < len(batch) + 1:   # insert axes before S (e.g. the
+            kvv = kvv[..., None, :]         # ring's folded head axis)
+        val = _into_sp(torch.broadcast_to(kvv, (*batch, S)).reshape(B, S),
+                       mesh, ring_axis, 1, route)
+    rows = (B,) if route == "ring" else (B, lead[-1])
+    tdim = len(rows)
+    qq, kk, vv = (_into_sp(x.reshape(*rows, x.shape[-2], Dh), mesh,
+                           ring_axis, tdim, route) for x in (qq, kk, v))
+    attend = ring_geodesic_attention if route == "ring" else \
+        ulysses_geodesic_attention
+    # the route's token axis: the given one, else resolved from "data"
+    out = attend(qq, kk, vv, mesh, axis=ring_axis or "data", kv_valid=val,
+                 metric=metric, curvature=curvature)
+    return _from_sp(out, mesh, ring_axis, tdim).reshape(*lead, L, Dh), None
 
 
 def _mesh_attention(q, k, v, mesh, ring_axis: str, *, mask, compat: str,
@@ -361,12 +448,11 @@ def _mesh_attention(q, k, v, mesh, ring_axis: str, *, mask, compat: str,
     its local shapes pick. ``dropout_mask`` is this rank's rows of the
     global one."""
     from sttode_tpu_torch.parallel import collectives
-    from sttode_tpu_torch.parallel.ring_attention import resolve_sp_axes
     if mask is not None:
         raise ValueError("under a mesh the attention supports key-validity "
                          "masks only; pass kv_valid instead of an additive "
                          "mask")
-    group = mesh.get_group(resolve_sp_axes(mesh, ring_axis)[0])
+    group = mesh.get_group(ring_axis)
     # both token axes are split alike: square locally iff globally
     qq, kk = (k, q) if (compat == "reference" and
                         q.shape[-2] == k.shape[-2]) else (q, k)
@@ -394,7 +480,7 @@ def mhgsa(params: MHGSAParams, query: torch.Tensor, key: torch.Tensor,
           dropout_mask: torch.Tensor | None = None,
           bias_kv: tuple | None = None,
           add_zero_attn: bool = False,
-          mesh=None, ring_axis: str = "data"):
+          mesh=None, ring_axis: str | None = "data"):
     """Full multi-head geodesic attention: query [..., L, E], key/value
     [..., S, E] → (out [..., L, E], head-averaged weights or None). One
     packed [E, 3E] projection when query, key and value are the same tensor,

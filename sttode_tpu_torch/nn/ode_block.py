@@ -41,17 +41,18 @@ def ode_encoder(params: list, src: torch.Tensor, cfg: LayerConfig, *,
                 adjoint: bool = False, rtol: float = 1e-7,
                 atol: float = 1e-9,
                 scan_budget: int | None = None,
-                mesh=None, group=None) -> torch.Tensor:
+                mesh=None, ring_axis: str | None = "data",
+                group=None) -> torch.Tensor:
     """ODE-integrated encoder over [L, N, S, D] tokens, ReLU epilogue.
     ``steps`` is the fixed grid's density over [0, time]; ``drop`` the
-    layers' dropout keep-masks (None: no dropout); ``mesh`` the layers'
-    (``nn.transformer.encoder_layer``); ``group`` the process group over
-    whose ranks the tokens' rows are split (dopri5's error norms are the
-    whole state's, ``ode.odeint``)."""
+    layers' dropout keep-masks (None: no dropout); ``mesh`` and
+    ``ring_axis`` the layers' (``nn.transformer.encoder_layer``);
+    ``group`` the process group over whose ranks the tokens' rows are
+    split (dopri5's error norms are the whole state's, ``ode.odeint``)."""
     def rhs(t, y, p):
         del t    # autonomous field
         return encoder_stack(p, y, cfg, mask=mask, kv_valid=kv_valid,
-                             drop=drop, mesh=mesh)
+                             drop=drop, mesh=mesh, ring_axis=ring_axis)
 
     ts = _grid(time, steps, src, method)
     integrate = odeint_adjoint if adjoint else odeint

@@ -26,8 +26,7 @@ from typing import NamedTuple
 import torch
 
 from sttode_tpu_torch.nn import core
-from sttode_tpu_torch.nn.attention import (ULYSSES_NOT_PORTED, MHGSAParams,
-                                           mhgsa, mhgsa_init)
+from sttode_tpu_torch.nn.attention import MHGSAParams, mhgsa, mhgsa_init
 
 
 class GatedAttentionParams(NamedTuple):
@@ -85,9 +84,9 @@ class DecoderDropMasks(NamedTuple):
 class LayerConfig(NamedTuple):
     """Static hyperparameters of one layer. ``attn_impl``: "auto" (the CUDA
     kernels on CUDA tensors, routed by shape), "fused", "packed" or "flash"
-    (one kernel forced), "dense" (plain path) or "ring" (sequence-parallel
-    over a mesh given to the layer). ``dropout``: the layer's dropout rate
-    where it is given keep-masks."""
+    (one kernel forced), "dense" (plain path), "ring" or "ulysses"
+    (sequence-parallel over a mesh given to the layer). ``dropout``: the
+    layer's dropout rate where it is given keep-masks."""
     d_model: int = 64
     num_heads: int = 8
     ff_dim: int = 1024
@@ -100,7 +99,8 @@ class LayerConfig(NamedTuple):
 
 
 _ATTN_IMPL_TO_FUSED = {"auto": "auto", "dense": False, "fused": True,
-                       "packed": "packed", "flash": "flash", "ring": "ring"}
+                       "packed": "packed", "flash": "flash", "ring": "ring",
+                       "ulysses": "ulysses"}
 
 
 def gated_attention_init(gen, d_model: int,
@@ -171,13 +171,15 @@ def gated_attention(params: GatedAttentionParams, query: torch.Tensor,
                     kv_valid: torch.Tensor | None = None,
                     dropout_rate: float = 0.0,
                     dropout_mask: torch.Tensor | None = None,
-                    mesh=None, ring_axis: str = "data"):
+                    mesh=None, ring_axis: str | None = "data"):
     """Gated geodesic attention over [L, N, S, D]: MHGSA on [N·S, L, D],
     then the ``tanh(info(a)) * sigmoid(gate(a))`` gate. ``kv_valid``
     [N·S, L] (or broadcastable) marks real key tokens; ``dropout_mask``
     [N·S, H, L, L] keeps attention weights at ``dropout_rate``. Under a
     ``mesh`` L is this rank's block of the token axis, split over
-    ``mesh[ring_axis]`` (``nn.attention.geodesic_attention``).
+    ``mesh[ring_axis]``, or with ``ring_axis=None`` the whole token axis
+    and N·S this rank's rows over "data"
+    (``nn.attention.geodesic_attention``).
     Returns (out [L, N, S, D], weights or None)."""
     L, N, S, D = query.shape
 
@@ -207,24 +209,23 @@ def encoder_layer(params: EncoderLayerParams, src: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   kv_valid: torch.Tensor | None = None,
                   drop: LayerDropMasks | None = None,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, ring_axis: str | None = "data") -> torch.Tensor:
     """Post-norm encoder layer over [L, N, S, D] tokens, with dropout at
     ``cfg.dropout`` where ``drop`` gives its keep-masks. Under a ``mesh``
-    (needed by ``attn_impl="ring"``) L is this rank's block of the tokens
-    (``gated_attention``)."""
-    if cfg.attn_impl == "ulysses":
-        raise NotImplementedError(ULYSSES_NOT_PORTED)
+    (needed by ``attn_impl="ring"`` and ``"ulysses"``) L is this rank's
+    block of the tokens over ``mesh[ring_axis]``, or the whole tokens with
+    ``ring_axis=None`` (``gated_attention``)."""
     if cfg.attn_impl not in _ATTN_IMPL_TO_FUSED:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported "
-            "(auto/fused/packed/flash/dense/ring)")
+            "(auto/fused/packed/flash/dense/ring/ulysses)")
     rate = cfg.dropout if drop is not None else 0.0
     attn_out, _ = gated_attention(
         params.self_attn, src, src, src, cfg.num_heads, mask=mask,
         compat=cfg.compat, fused=_ATTN_IMPL_TO_FUSED[cfg.attn_impl],
         metric=cfg.attn_metric, curvature=cfg.curvature, kv_valid=kv_valid,
         dropout_rate=rate, dropout_mask=None if drop is None else drop.attn,
-        mesh=mesh)
+        mesh=mesh, ring_axis=ring_axis)
     if rate > 0.0:
         attn_out = core.dropout(attn_out, rate, keep_mask=drop.resid1)
     src = core.layer_norm(params.norm1, src + attn_out)
@@ -249,13 +250,13 @@ def encoder_stack(params: list, src: torch.Tensor, cfg: LayerConfig, *,
                   mask: torch.Tensor | None = None,
                   kv_valid: torch.Tensor | None = None,
                   drop: list[LayerDropMasks] | None = None,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, ring_axis: str | None = "data") -> torch.Tensor:
     """The layers in turn; ``drop`` holds one ``LayerDropMasks`` per layer
     (JAX's per-layer key order), or None for no dropout."""
     for i, p in enumerate(params):
         src = encoder_layer(p, src, cfg, mask=mask, kv_valid=kv_valid,
                             drop=None if drop is None else drop[i],
-                            mesh=mesh)
+                            mesh=mesh, ring_axis=ring_axis)
     return src
 
 

@@ -1,7 +1,7 @@
 """Parallelism over ``torch.distributed`` (port of ``sttode_tpu/parallel``):
-the process-group mesh, the placement of batches and parameters, and ring
-sequence-parallel attention. The all-to-all (Ulysses) attention and tensor
-parallelism are not ported."""
+the process-group mesh, the placement of batches and parameters, and the
+ring and all-to-all (Ulysses) sequence-parallel attentions. Tensor
+parallelism is not ported."""
 
 from sttode_tpu_torch.parallel.mesh import (
     batch_sharding,

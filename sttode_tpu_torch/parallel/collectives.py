@@ -18,6 +18,21 @@ step sums the shares over the ranks (``all_reduce``). Under that rule
   state) has the same sum as backward (JAX's ``psum`` transpose): its
   cotangent is, on each rank, only that rank's share.
 
+On a data × sequence mesh the ranks of a "seq" group hold the same rows
+and run the same program on them, so each holds the whole gradient of
+those rows (the step sums over "data" alone). Only a sequence-parallel
+attention parts them, with rules that keep that whole:
+
+- ``split`` (a rank's block of a tensor alike on every rank, whose
+  cotangent every rank holds whole) has as backward the blocks'
+  cotangents gathered, whole again on every rank;
+- ``unsplit`` (the blocks of every rank gathered, the result alike on
+  every rank and so its cotangent) has as backward this rank's block of
+  that cotangent;
+- ``all_to_all`` (JAX's tiled ``all_to_all``: block j of ``split_dim``
+  to rank j, the blocks received concatenated along ``concat_dim`` in
+  rank order) has as backward the inverse exchange.
+
 Backends. NCCL takes every collective on CUDA tensors. Gloo, the CPU
 backend, also serves several processes on one card, where NCCL refuses
 two ranks a device; ``GLOO_CUDA`` lists the collectives that
@@ -33,7 +48,7 @@ import torch.distributed as dist
 
 # the collectives that ProcessGroupGloo took on CUDA tensors on an H100
 # under torch 2.11 (a send / receive pair of CUDA tensors aborted the
-# process: "writev: Bad address")
+# process: "writev: Bad address"; gloo has no all-to-all of CUDA tensors)
 GLOO_CUDA = frozenset({"all_reduce", "broadcast", "all_gather"})
 
 
@@ -47,7 +62,8 @@ def staging(group, device: torch.device) -> list:
     tensors on ``device`` (empty under NCCL, and on the CPU)."""
     probe = torch.empty(0, device=device)
     return sorted(op for op in ("all_reduce", "broadcast", "all_gather",
-                                "send_recv") if _staged(op, probe, group))
+                                "all_to_all", "send_recv")
+                  if _staged(op, probe, group))
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -109,6 +125,19 @@ def ring_shift(tensors: list, group) -> list:
     return out
 
 
+def _all_to_all(x: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    send = torch.stack(torch.split(x, x.shape[split_dim] // n,
+                                   dim=split_dim)).contiguous()
+    staged = _staged("all_to_all", send, group)
+    if staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.to(x.device).unbind(0), dim=concat_dim)
+
+
 def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     size = x.shape[dim] // n
@@ -161,6 +190,41 @@ class _Psum(torch.autograd.Function):
         return all_reduce(g.contiguous().clone(), ctx.group), None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Unsplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g.contiguous(), ctx.group, concat_dim, split_dim),
+                None, None, None)
+
+
 def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Differentiable ``all_gather`` along ``dim``: this rank's block
     becomes block ``rank`` of the result."""
@@ -184,3 +248,29 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     where each rank holds a share of the result's cotangent (a value that
     steers every rank's own computation); the backward sums the shares."""
     return _Psum.apply(x, group)
+
+
+def split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Differentiable: this rank's block along ``dim`` of a tensor that every
+    rank of ``group`` holds alike with its whole cotangent (the rows that
+    a data group's sequence ranks share); the backward gathers the blocks'
+    cotangents."""
+    return _Split.apply(x, group, dim)
+
+
+def unsplit(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Differentiable: the blocks of every rank of ``group`` along ``dim``,
+    alike on every rank, whose cotangent every rank then holds whole; the
+    backward keeps this rank's block of it (``split``'s inverse)."""
+    return _Unsplit.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Differentiable all-to-all over ``group``: ``x`` cut into the group's
+    size of blocks along ``split_dim`` (which must divide), block j sent
+    to rank j, the blocks received concatenated along ``concat_dim`` in
+    rank order. NCCL's is native (and captured in a CUDA graph); gloo's
+    on CUDA tensors goes through host memory. The backward is the inverse
+    exchange."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)

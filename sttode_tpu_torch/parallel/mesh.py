@@ -14,8 +14,11 @@ own part and the collectives are explicit (``parallel.collectives``):
   as JAX's ``P("data")`` lays M over devices (``shard_batch``); each block
   holds whole scenes. The parameters are replicated: every rank starts
   from rank 0's values (``replicate``) and runs the same update.
-- **Sequence parallelism.** ``ring_attention`` shards the token axis of an
-  attention over "seq" (or "data" on the 2-axis mesh).
+- **Sequence parallelism.** ``ring_attention`` and ``ulysses`` shard the
+  token axis of an attention over "seq" (or "data" on the 2-axis mesh).
+  On a data × sequence mesh the batch's rows are split over "data" alone,
+  alike on the "seq" ranks of a data group, and the model splits them
+  over "seq" only inside those attentions (``models.sttode``).
 - **Tensor parallelism** (``param_sharding(tp=True)``) is not ported.
 """
 

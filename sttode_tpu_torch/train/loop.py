@@ -34,9 +34,11 @@ calls the step with its block of whole scenes (``parallel.shard_batch``)
 and the global noise: the forward computes the single process's model
 and losses (``models.sttode``: the gathered scene axis, the global
 normalizers and noise), each rank's backward gives its share of every
-gradient leaf, one all-reduce sums the shares, and every rank runs the
-same update from rank 0's initial values, so the parameters stay equal bit
-for bit across the ranks. The metrics are the global losses, alike on
+gradient leaf, one all-reduce over "data" sums the shares (on a data ×
+sequence mesh the "seq" ranks of a data group each hold their rows' whole
+gradient, alike), and every rank runs the same update from rank 0's
+initial values, so the parameters stay equal bit for bit across the
+ranks. The metrics are the global losses, alike on
 every rank. The stage-2 step does the same over the sampler's leaves. With
 ``scan_steps`` > 1 each rank passes its block of a stacked batch
 (``shard_batch(..., stacked=True)``) and the global stacked noise; over

@@ -269,12 +269,12 @@ def test_cli_train_trains_saves_and_resumes(tmp_path, capsys):
     assert tck.checkpoint_epochs(str(cdir)) == [1, 2, 3, 4]
     # --distributed is ported (tests/test_torch_parallel.py): without a
     # launcher's environment it exits, as JAX's CLI does; the CLI's step has
-    # no mesh, as JAX's has none, so the ring asks for one
+    # no mesh, as JAX's has none, so the ring and ulysses ask for one
     with pytest.raises(SystemExit, match="--distributed"):
         cli_train.main(args + ["--distributed"])
     with pytest.raises(ValueError, match="needs a mesh"):
         cli_train.main(args + ["--attn_impl", "ring"])
-    with pytest.raises(NotImplementedError, match="ulysses"):
+    with pytest.raises(ValueError, match="'ulysses' needs a mesh"):
         cli_train.main(args + ["--attn_impl", "ulysses"])
 
 

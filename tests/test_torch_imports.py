@@ -98,11 +98,9 @@ def test_visualize_imports_matplotlib_lazily():
         for node in ast.walk(tree))
 
 
-# JAX names the port leaves out: the all-to-all attention (ROADMAP Queue
-# 1 item 3), and what serves only the TPU or XLA (ROADMAP "Not to port");
-# ode/solvers' Pytree alias is the port's Tree
+# JAX names the port leaves out: what serves only the TPU or XLA (ROADMAP
+# "Not to port"); ode/solvers' Pytree alias is the port's Tree
 NOT_PORTED = {
-    "parallel/ulysses": None,
     "utils/compilation_cache": None,
     "kernels/mhgsa": {"FLASH_GRAM_3PASS"},
     "kernels/packed_mhgsa": {"packed_vmem_fit"},

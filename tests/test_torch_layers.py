@@ -231,11 +231,13 @@ def test_ode_encoder(rng, layer_setup, compat, method, steps):
 
 def test_unported_routes_raise(rng):
     q = T(randn(rng, 2, 4, 8))
-    with pytest.raises(NotImplementedError, match="ulysses"):
-        tattn.geodesic_attention(q, q, q, fused="ulysses")
-    # the ring is ported (tests/test_torch_parallel.py) and needs a mesh
-    with pytest.raises(ValueError, match="needs a mesh"):
-        tattn.geodesic_attention(q, q, q, fused="ring")
+    # the ring and ulysses are ported (tests/test_torch_parallel.py) and
+    # need a mesh; a route neither package has is refused
+    for route in ("ring", "ulysses"):
+        with pytest.raises(ValueError, match=f"'{route}' needs a mesh"):
+            tattn.geodesic_attention(q, q, q, fused=route)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tattn.geodesic_attention(q, q, q, fused="tree")
     # the poincaré metric is ported (held to JAX in test_torch_poincare.py);
     # a metric neither package has is refused
     # (mid-ball points: near the edge artanh amplifies fp32 rounding ~1e4×)
@@ -245,6 +247,12 @@ def test_unported_routes_raise(rng):
         jrun(jattn.geodesic_scores, x, y, metric="poincare"), **TOL)
     with pytest.raises(ValueError, match="metric"):
         tattn.geodesic_scores(q, q, metric="euclidean")
-    with pytest.raises(NotImplementedError, match="ulysses"):
+    ucfg = ttr.LayerConfig(d_model=8, num_heads=2, ff_dim=16,
+                           attn_impl="ulysses")
+    with pytest.raises(ValueError, match="'ulysses' needs a mesh"):
+        ttr.encoder_layer(ttr.encoder_layer_init(torch.Generator()
+                                                 .manual_seed(0), ucfg),
+                          T(randn(rng, 2, 2, 1, 8)), ucfg)
+    with pytest.raises(NotImplementedError, match="not ported"):
         ttr.encoder_layer(None, T(randn(rng, 2, 2, 1, 8)),
-                          ttr.LayerConfig(d_model=8, attn_impl="ulysses"))
+                          ttr.LayerConfig(d_model=8, attn_impl="tree"))

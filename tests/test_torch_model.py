@@ -181,10 +181,10 @@ def test_bridge_rejects_unknown_namedtuples():
     ("compute_dtype", "bfloat16"), ("dropout", 0.1), ("num_decompose", 3)])
 def test_config_refuses_unported_settings(field, value):
     # the adaptive and adjoint ODE encoder, learn_prior and encoder-layer
-    # dropout are ported (held to JAX in test_torch_ode_model.py), and so is
-    # the ring (test_torch_parallel.py)
-    if (field, value) == ("attn_impl", "ring") or field in (
-            "ode_method", "ode_adjoint", "learn_prior", "dropout"):
+    # dropout are ported (held to JAX in test_torch_ode_model.py), and so are
+    # the ring and ulysses (test_torch_parallel.py)
+    if field in ("attn_impl", "ode_method", "ode_adjoint", "learn_prior",
+                 "dropout"):
         assert tm.STTODEConfig(**{field: value}).validate()._asdict()[
             field] == value
         return

@@ -12,17 +12,21 @@ with numpy and JAX's own draws (as ``tests/test_torch_train.py`` makes
 them) and handed to the port through ``bridge``.
 
 What is held, and to what:
-- ``ring_geodesic_attention`` on each rank's blocks, assembled, against
-  JAX's ``ring_geodesic_attention`` on the same mesh shape and JAX's
-  ``dense_reference``, both metrics, with a key validity: forward within
-  2e-5, gradients of sum(out²) within 5e-5 × max(1, max |g|);
+- ``ring_geodesic_attention`` and ``ulysses_geodesic_attention`` on each
+  rank's blocks, assembled, against JAX's on the same mesh shape and
+  JAX's ``dense_reference``, both metrics, with a key validity: forward
+  within 2e-5, gradients of sum(out²) within 5e-5 × max(1, max |g|);
+  ulysses with heads that do not divide raises ValueError;
 - ``sttode_forward(mesh=)`` (every loss term, alike on every rank, and
   every gradient leaf summed over the ranks) against JAX's unsharded
   forward within 1e-4 abs/rel: the scene axis at reference compat on the
   routes "auto" (the gathered keys and values, q and v under quirk Q3),
   "packed" (the gathered call on the packed kernel's plain version) and
   "ring", the agent axis at compat "tpu" on "auto" and "ring" (each
-  scene's agents split over the ranks); a padded batch whose ranks hold
+  scene's agents split over the ranks); "ulysses" on the scene axis and
+  on the agent axis (2 × 8), against JAX's dense forward as JAX's own
+  Ulysses tests hold it, and with padded agents whose inputs move no real
+  agent's feature (``tests/test_ulysses.py``); a padded batch whose ranks hold
   different counts of real agents, with the KL floor between the global
   mean and rank 0's, so that a per-rank normalizer or clamp differs;
 - ``make_train_step(mesh=)`` for 2 steps against JAX's
@@ -57,11 +61,21 @@ What is held, and to what:
   1 and 4 (every rank but 0 reading a copy with other values): the
   parameters and Adam moments equal the saved ones bit for bit on every
   rank, and the next step's metrics equal the saving run's within 1e-5
-  (JAX's ``test_save_dp8_restore_dp4``);
+  (JAX's ``test_save_dp8_restore_dp4``); also onto the 2 × 2 mesh;
+- on ``make_mesh(dp=2, sp=2)`` (the 2 × 2 group) against JAX's
+  ``make_train_step(mesh=make_mesh(dp=2, sp=2))`` (SGD, 2 steps): the
+  stage-1 step on "ring" and "auto" (scene axis, 4 × 3), "ulysses" (scene
+  axis, 4 × 4) and "ring" and "ulysses" on the agent axis (2 × 8), the
+  stage-2 step and ``scan_steps=2`` on "ulysses": metrics within 1e-4,
+  parameters within 1e-5, equal bit for bit on the 4 ranks; ulysses on
+  the scene axis with 3 agents over data = 2 raises ValueError, as JAX's
+  ``shard_map`` refuses it;
 - ``make_mesh``'s shapes and errors, the lifted refusals (the scanned, the
-  stage-2 and the dopri5 steps build on a mesh) and every refusal left:
-  tensor parallelism (``restore_shardings(tp=True)`` too), a "seq" axis
-  in the model, ulysses, the ring with dropout;
+  stage-2 and the dopri5 steps build on a mesh, so does a step on a "seq"
+  axis, and ulysses validates) and every refusal left: tensor
+  parallelism (``restore_shardings(tp=True)`` too), the ring and ulysses
+  with dropout, ulysses without a mesh, with an additive mask or without
+  a head axis;
 - ``cli.train --distributed`` at world 2 (torchrun's environment, a free
   local port) and without the environment.
 """
@@ -69,6 +83,7 @@ What is held, and to what:
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import os
 import socket
 import subprocess
@@ -93,6 +108,8 @@ from sttode_tpu.parallel import shard_batch as jshard_batch
 from sttode_tpu.parallel.ring_attention import dense_reference as jdense
 from sttode_tpu.parallel.ring_attention import \
     ring_geodesic_attention as jring
+from sttode_tpu.parallel.ulysses import \
+    ulysses_geodesic_attention as julysses
 from sttode_tpu.train import make_sampler_train_step as jmake_sampler_step
 from sttode_tpu.train import make_train_step as jmake_train_step
 from sttode_tpu.train import stack_batches as jstack_batches
@@ -107,7 +124,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(ROOT, "tests", "torch_parallel_child.py")
-JOIN_S = 150.0
+JOIN_S = 240.0
 TOL = dict(rtol=1e-4, atol=1e-4)
 SMALL = dict(hidden_dim=16, num_heads=2, ff_dim=32, zdim=8, sample_k=4,
              past_length=5, future_length=10, select_impl="xla")
@@ -123,9 +140,24 @@ MODEL_CASES = {
                    "auto"),
     "agent_ring": (dict(compat="tpu", attn_axis="agent", min_clip=0.0),
                    "ring"),
+    # ulysses: four heads (they divide over 4 ranks); the agent axis on
+    # JAX's test shape, 2 scenes × 8 agents
+    "scene_ulysses": (dict(min_clip=0.0, num_heads=4), "ulysses"),
+    "agent_ulysses": (dict(compat="tpu", attn_axis="agent", min_clip=0.0,
+                           num_heads=4), "ulysses", (2, 8)),
 }
-WORLD4 = ("scene_auto", "scene_ring", "agent_ring")
+WORLD4 = ("scene_auto", "scene_ring", "agent_ring", "scene_ulysses")
 RING = dict(B=2, L=8, S=16, D=8)
+ULYSSES = dict(B=2, H=4, L=8, S=16, D=8)
+# the steps on the 2 × 2 mesh: (config, route, scenes × agents)
+AGENT = dict(compat="tpu", attn_axis="agent", min_clip=0.0)
+DPSP_STEPS = {
+    "scene_ring": (dict(min_clip=0.0), "ring", (4, 3)),
+    "scene_auto": (dict(min_clip=0.0), "auto", (4, 3)),
+    "scene_ulysses": (dict(min_clip=0.0), "ulysses", (4, 4)),
+    "agent_ring": (AGENT, "ring", (2, 8)),
+    "agent_ulysses": (AGENT, "ulysses", (2, 8)),
+}
 SCFG = dict(nk=4, nz=SMALL["zdim"], qnet_mlp=(32, 16), train_w_mean=False,
             share_eps=False)
 ODE = dict(ode_method="dopri5", ode_rtol=1e-3, ode_atol=1e-6, min_clip=0.0)
@@ -148,7 +180,8 @@ def _tcfg(jcfg, route):
         .validate()._asdict()
 
 
-def _batches(cfg, seed, valid=None, training=True):
+def _batches(cfg, seed, valid=None, training=True, shape=(B, N)):
+    B, N = shape
     scenes = jsyn.make_social_scenes(B, agents_range=(N, N),
                                      obs_len=cfg.past_length,
                                      pred_len=cfg.future_length, seed=seed)
@@ -162,10 +195,10 @@ def _batches(cfg, seed, valid=None, training=True):
     return jb, tb
 
 
-def _jax_noise(cfg, rng) -> tm.TrainNoise:
+def _jax_noise(cfg, rng, shape=(B, N)) -> tm.TrainNoise:
     """JAX's draws inside sttode_forward(rng), as test_torch_train
     recomputes them: the PE keep-masks and the latent noise."""
-    M, D = B * N, cfg.hidden_dim
+    M, D = shape[0] * shape[1], cfg.hidden_dim
     k_enc, k_fenc, k_q, k_p = jax.random.split(rng, 4)
 
     def keep(key, T):
@@ -195,12 +228,13 @@ def _jax_value_and_grad(jcfg, jparams, jb, rng):
     return out, [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
 
 
-def _ring_inputs(seed):
+def _ring_inputs(seed, shape=RING):
     r = np.random.default_rng(seed)
-    q, k, v = (0.5 * r.standard_normal((RING["B"], n, RING["D"]))
-               .astype(np.float32) for n in (RING["L"], RING["S"],
-                                             RING["S"]))
-    val = np.ones((RING["B"], RING["S"]), np.float32)
+    heads = (shape["H"],) if "H" in shape else ()
+    q, k, v = (0.5 * r.standard_normal((shape["B"], *heads, n, shape["D"]))
+               .astype(np.float32) for n in (shape["L"], shape["S"],
+                                             shape["S"]))
+    val = np.ones((shape["B"], shape["S"]), np.float32)
     val[:, -5:] = 0.0
     val[1, :3] = 0.0
     return q, k, v, val
@@ -211,14 +245,15 @@ def _model_cases(names, rng_seed=7):
     spec, want = {}, {}
     cache = {}
     for name in names:
-        kw, route = MODEL_CASES[name]
+        kw, route, *shape = MODEL_CASES[name]
+        shape = tuple(shape[0]) if shape else (B, N)
         jcfg = _jcfg(**kw)
-        key = tuple(sorted(kw.items()))
+        key = (tuple(sorted(kw.items())), shape)
         if key not in cache:
             jp, tp = _params(jcfg, 0)
-            jb, tb = _batches(jcfg, 1)
+            jb, tb = _batches(jcfg, 1, shape=shape)
             rng = jax.random.PRNGKey(rng_seed)
-            cache[key] = (jp, tp, jb, tb, rng, _jax_noise(jcfg, rng))
+            cache[key] = (jp, tp, jb, tb, rng, _jax_noise(jcfg, rng, shape))
         jp, tp, jb, tb, rng, noise = cache[key]
         spec[name] = dict(kind="forward", cfg=_tcfg(jcfg, route), params=tp,
                           batch=tb, noise=noise)
@@ -344,7 +379,31 @@ def runs(tmp_path_factory):
         kind="ring", q=torch.from_numpy(q), k=torch.from_numpy(k),
         v=torch.from_numpy(v), val=torch.from_numpy(val), metric=metric,
         curvature=1.0) for metric in ("oblique", "poincare")}
+    uq, uk, uv, uval = _ring_inputs(4, ULYSSES)
+    uly = {f"ulysses_{metric}": dict(
+        kind="ring", route="ulysses", q=torch.from_numpy(uq),
+        k=torch.from_numpy(uk), v=torch.from_numpy(uv),
+        val=torch.from_numpy(uval), metric=metric, curvature=1.0)
+        for metric in ("oblique", "poincare")}
     model2, want_model = _model_cases(MODEL_CASES)
+    # ulysses on the agent axis with two padded agents (JAX's test): the
+    # forward against JAX's, and the padded agents' inputs moved
+    jcfg_u = _jcfg(**MODEL_CASES["agent_ulysses"][0])
+    valid_u = np.ones((2, 8), np.float32)
+    valid_u[:, 7] = 0.0
+    jp_u, tp_u = _params(jcfg_u, 0)
+    jb_u, tb_u = _batches(jcfg_u, 6, valid=valid_u, shape=(2, 8))
+    rng_u = jax.random.PRNGKey(8)
+    noise_u = _jax_noise(jcfg_u, rng_u, (2, 8))
+    moved = tb_u.past.clone()
+    moved[7] += 100.0
+    moved[15] -= 50.0
+    model2["agent_ulysses_padded"] = dict(
+        kind="forward", cfg=_tcfg(jcfg_u, "ulysses"), params=tp_u,
+        batch=tb_u, noise=noise_u, single=True)
+    validity_case = dict(kind="validity", cfg=_tcfg(jcfg_u, "ulysses"),
+                         params=tp_u, batch=tb_u, noise=noise_u,
+                         moved=dataclasses.replace(tb_u, past=moved))
     # the padded batch: rank 0 of 2 holds 8 real agents, rank 1 holds 3
     valid = np.ones((B, N), np.float32)
     valid[2, 1:] = 0.0
@@ -451,8 +510,34 @@ def runs(tmp_path_factory):
     def on(mesh, cases):
         return {n: dict(c, mesh=mesh) for n, c in cases.items()}
 
+    # the 2 × 2 mesh: the stage-1 steps, stage 2 and scan_steps = 2 on
+    # ulysses, ulysses over 3 agents (refused), a restore
+    dpsp_cases, dpsp_jax = {}, {}
+    for name, (kw, route, shape) in DPSP_STEPS.items():
+        jcfg_d = _jcfg(**kw)
+        jp_d, tp_d = _params(jcfg_d, 0)
+        bs = [_batches(jcfg_d, s_, shape=shape) for s_ in (11, 12)]
+        dpsp_cases[f"step_{name}"] = dict(
+            kind="step", cfg=_tcfg(jcfg_d, route), params=tp_d, lr=1e-2,
+            optimizer="sgd", batches=[tb for _, tb in bs],
+            noises=[_jax_noise(jcfg_d, k_, shape) for k_ in step_keys])
+        dpsp_jax[f"step_{name}"] = (jcfg_d._replace(attn_impl=route), jp_d,
+                                    [jb_ for jb_, _ in bs])
+    jcfg_n3 = _jcfg(min_clip=0.0)
+    _, tb_n3 = _batches(jcfg_n3, 15, shape=(4, 3))
+    dpsp_cases["ulysses_n3"] = dict(
+        kind="forward_raises", cfg=_tcfg(jcfg_n3, "ulysses"), params=tp,
+        batch=tb_n3, noise=_jax_noise(jcfg_n3, step_keys[0], (4, 3)))
+    dpsp_cases["sampler_step"] = dict(sampler_case,
+                                      cfg=_tcfg(jcfg0, "ulysses"))
+    dpsp_cases["scan_step"] = dict(scan1, cfg=_tcfg(jcfg_s, "ulysses"))
+    restore["dpsp"] = dict(ck, kind="restore", tmp=os.path.join(tmp, "dpsp"))
+    os.makedirs(restore["dpsp"]["tmp"])
+    dpsp_cases["restore"] = restore["dpsp"]
+
     w2 = on((2, 1), {"save": dict(ck, kind="save", params=tp),
-                     **ring, **model2, "step": step_case,
+                     **ring, **uly, **model2, "validity": validity_case,
+                     "step": step_case,
                      "sampler_step": sampler_case,
                      "sampler_generator_step": sampler_gen,
                      "scan_step": scan1, "scan_sampler_step": scan2,
@@ -462,10 +547,10 @@ def runs(tmp_path_factory):
                                        batch=tb_inf,
                                        z=torch.from_numpy(z)),
                      "refusals": refusals})
-    w4 = on((4, 1), {**ring, **{n: model2[n] for n in WORLD4},
+    w4 = on((4, 1), {**ring, **uly, **{n: model2[n] for n in WORLD4},
                      "step": step_case, "sampler_step": sampler_case,
                      "restore": restore["w4"]})
-    dpsp = on((2, 2), ring)
+    dpsp = on((2, 2), {**ring, **uly, **dpsp_cases})
     # ---- start every group, and the CLI at world 2 ----------------------
     groups = {"w2": _Group(tmp, "w2", 2, w2), "w4": _Group(tmp, "w4", 4, w4),
               "ode": _Group(tmp, "ode", 2, on((2, 1), ode)),
@@ -492,6 +577,8 @@ def runs(tmp_path_factory):
         if key not in want["model"]:
             want["model"][key] = _jax_value_and_grad(jcfg, jparams, jb, rng)
         want[name] = want["model"][key]
+    want["agent_ulysses_padded"] = _jax_value_and_grad(jcfg_u, jp_u, jb_u,
+                                                       rng_u)
     want["kl_floor"] = _jax_value_and_grad(jcfg_kl, jp, jb_pad, rng_pad)
     want["kl_means"] = (mean0, mean_all, floor)
     jmesh = jmake_mesh(dp=8)
@@ -525,6 +612,25 @@ def runs(tmp_path_factory):
                         dp=mesh[0], sp=mesh[1], tp=1), kv_valid=val,
                         metric=metric))
                     for mesh in ((2, 1), (4, 1), (2, 2))}}
+            uargs = [jax.numpy.asarray(a) for a in (uq, uk, uv)]
+            Bu, Hu, D_ = ULYSSES["B"], ULYSSES["H"], ULYSSES["D"]
+
+            def dense_heads(q_, k_, v_):
+                return jdense(*(x.reshape(Bu * Hu, -1, D_) for x in
+                                (q_, k_, v_)),
+                              kv_valid=np.repeat(uval, Hu, axis=0),
+                              metric=metric).reshape(q_.shape)
+
+            grads = jax.grad(lambda *a: jax.numpy.sum(dense_heads(*a) ** 2),
+                             argnums=(0, 1, 2))(*uargs)
+            want[f"ulysses_{metric}"] = {
+                "dense": np.asarray(dense_heads(*uargs)),
+                "grads": [np.asarray(g) for g in grads],
+                "ring": {
+                    mesh: np.asarray(julysses(*uargs, jmake_mesh(
+                        dp=mesh[0], sp=mesh[1], tp=1), kv_valid=uval,
+                        metric=metric))
+                    for mesh in ((2, 1), (4, 1), (2, 2))}}
     # the mesh steps of stage 2, the scanned steps and dopri5 compile in
     # threads (XLA compiles without the GIL; the precision and x64
     # settings are the thread's); the solve counts come from un-jitted
@@ -533,17 +639,24 @@ def runs(tmp_path_factory):
     sgd = optax.sgd(1e-2)
     stacked = [jstack_batches([jb_ for jb_, _ in step_batches])]
 
-    def stage1(jcfg, params, batches, keys, scan_steps=1):
-        return _jax_mesh_steps(
-            (jmake_train_step(jcfg, sgd, mesh=jmesh, params_like=jp,
-                              donate=False, scan_steps=scan_steps),
-             jmesh, scan_steps > 1), params, batches, keys)
+    jmesh22 = jmake_mesh(dp=2, sp=2, tp=1)
 
-    def stage2(jcfg, jscfg_, batches, keys, scan_steps=1):
+    def stage1(jcfg, params, batches, keys, scan_steps=1, mesh=jmesh,
+               like=jp):
+        return _jax_mesh_steps(
+            (jmake_train_step(jcfg, sgd, mesh=mesh, params_like=like,
+                              donate=False, scan_steps=scan_steps),
+             mesh, scan_steps > 1), params, batches, keys)
+
+    def stage2(jcfg, jscfg_, batches, keys, scan_steps=1, mesh=jmesh):
         return _jax_mesh_steps(
             (jmake_sampler_step(jcfg, jscfg_, sgd, donate=False,
-                                scan_steps=scan_steps, mesh=jmesh),
-             jmesh, scan_steps > 1), jsp, batches, keys, jp)
+                                scan_steps=scan_steps, mesh=mesh),
+             mesh, scan_steps > 1), jsp, batches, keys, jp)
+
+    def on22(jcfg, params, batches, keys, scan_steps=1):
+        return stage1(jcfg, jax.device_put(params, jparam_sharding(
+            params, jmesh22)), batches, keys, scan_steps, jmesh22, params)
 
     def adjoint64():
         """The adjoint's mesh step in float64: its metrics, and the
@@ -571,7 +684,14 @@ def runs(tmp_path_factory):
                                     jscfg_live, [jb_o], [ode_key]),
         "ode_scan_budget": lambda: stage1(_jcfg(
             **ODE_CASES["scan_budget"][1]), jp_mesh, [jb_o], [ode_key]),
-        "ode_adjoint_f64": adjoint64}
+        "ode_adjoint_f64": adjoint64,
+        **{name: functools.partial(on22, jcfg_d, jp_d, jbs, step_keys)
+           for name, (jcfg_d, jp_d, jbs) in dpsp_jax.items()},
+        "dpsp_sampler_step": lambda: stage2(
+            jcfg0._replace(attn_impl="ulysses"), jscfg_floor,
+            [jb_pad, jb_pad], s_keys, mesh=jmesh22),
+        "dpsp_scan_step": lambda: on22(jcfg_s._replace(attn_impl="ulysses"),
+                                       jp, stacked, [scan_key], 2)}
     with concurrent.futures.ThreadPoolExecutor(len(tasks)) as pool:
         futures = {name: pool.submit(fn) for name, fn in tasks.items()}
         solves, losses = {}, {}
@@ -600,6 +720,9 @@ def runs(tmp_path_factory):
     want["sampler_means"] = (*s_means, jscfg_floor.kld_min_clamp)
     want["scan_step"] = done["scan_step"]
     want["scan_sampler_step"] = done["scan_sampler_step"]
+    want["dpsp"] = {name: done[name] for name in dpsp_jax}
+    want["dpsp"]["sampler_step"] = done["dpsp_sampler_step"]
+    want["dpsp"]["scan_step"] = done["dpsp_scan_step"]
     for form in ("while", "scan_budget"):
         want[f"ode_{form}"] = (*done[f"ode_{form}"], solves[form])
     # the float32 adjoint step's losses: JAX's float32 forward's
@@ -639,6 +762,51 @@ def test_ring_matches_jax_ring_and_dense(runs, group, mesh, metric):
                                                 res["dv"]), w["grads"]):
         tol = 5e-5 * max(1.0, float(np.abs(wg).max()))
         np.testing.assert_allclose(g, wg, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("group,mesh", [("w2", (2, 1)), ("w4", (4, 1)),
+                                        ("dpsp", (2, 2))])
+@pytest.mark.parametrize("metric", ["oblique", "poincare"])
+def test_ulysses_matches_jax_ulysses_and_dense(runs, group, mesh, metric):
+    """[2, 4, 8 / 16, 8] blocks, a key validity: the assembled output and
+    the gradients of sum(out²) against JAX's Ulysses on the same mesh and
+    the dense oracle a head; 3 heads over the axis raise ValueError."""
+    got, want = runs
+    res, w = got[group][0][f"ulysses_{metric}"], want[f"ulysses_{metric}"]
+    np.testing.assert_allclose(res["out"], w["ring"][mesh], atol=2e-5)
+    np.testing.assert_allclose(res["out"], w["dense"], atol=2e-5)
+    for name, g, wg in zip(("dq", "dk", "dv"), (res["dq"], res["dk"],
+                                                res["dv"]), w["grads"]):
+        tol = 5e-5 * max(1.0, float(np.abs(wg).max()))
+        np.testing.assert_allclose(g, wg, atol=tol, err_msg=name)
+    kind, msg = res["heads"]
+    assert kind == "ValueError" and "3 heads" in msg and "must divide" in msg
+
+
+def test_ulysses_respects_the_key_validity(runs):
+    """The agent axis with a padded agent a scene (JAX's Ulysses test
+    holds the real agents' features when the padded agents' inputs move):
+    the losses against JAX's dense forward, the gradients against the
+    port's single-process forward on the same inputs (on this batch a
+    decoder ReLU lies at rounding, where the port's plain forward and
+    JAX's part by one hidden unit of one row: ~1 column of
+    ``decoder_x``'s first layer, 5e-4); moving the padded agents' inputs
+    moves their own features, no real agent's."""
+    got, want = runs
+    res = got["w2"][0]["agent_ulysses_padded"]
+    jout, _ = want["agent_ulysses_padded"]
+    assert res["same_on_ranks"]
+    for name in LOSSES:
+        np.testing.assert_allclose(res["losses"][name],
+                                   float(getattr(jout, name)), **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(res["losses"][name],
+                                   res["single"]["losses"][name], **TOL,
+                                   err_msg=name)
+    _assert_grads(res["grads"], res["single"]["grads"],
+                  "agent_ulysses_padded")
+    val = got["w2"][0]["validity"]
+    assert val["real"] <= 1e-5 and val["padded"] > 1e-2, val
 
 
 @pytest.mark.parametrize("group,case", [("w2", n) for n in MODEL_CASES]
@@ -820,23 +988,45 @@ def test_dopri5_step_counts_equal_on_ranks_and_to_jax(runs, form):
     assert res["solves"] == res["single"]["solves"]
 
 
-@pytest.mark.parametrize("group", ["w1", "w4"])
+@pytest.mark.parametrize("group", ["w1", "w4", "dpsp"])
 def test_restore_shardings_restores_another_worlds_checkpoint(runs, group):
-    """Saved at world 2, restored at world 1 and 4 through
-    ``restore_shardings`` (every rank but 0 read other values): the
-    parameters and Adam moments equal the saved ones bit for bit on every
-    rank, and the next step's metrics equal the saving run's."""
+    """Saved at world 2, restored at world 1, 4 and on the 2 × 2 mesh
+    through ``restore_shardings`` (every rank but 0 read other values):
+    the parameters and Adam moments equal the saved ones bit for bit on
+    every rank, and the next step's metrics equal the saving run's."""
     got, _ = runs
     saved = got["w2"][0]["save"]
     res = got[group][0]["restore"]
     assert res["epoch"] == 1
-    assert len(res["restored"]) == int(group[1:])
+    assert len(res["restored"]) == {"w1": 1, "w4": 4, "dpsp": 4}[group]
     for r, state in enumerate(res["restored"]):
         assert torch.equal(state, saved["saved"]), f"{group} rank {r}"
     for k, v in saved["metrics"].items():
         np.testing.assert_allclose(res["metrics"][k], v, rtol=1e-5,
                                    atol=1e-6, err_msg=k)
     assert res["tp"][0] == "NotImplementedError"
+
+
+@pytest.mark.parametrize("case", [f"step_{n}" for n in DPSP_STEPS]
+                         + ["sampler_step", "scan_step"])
+def test_steps_on_a_data_seq_mesh_match_jax(runs, case):
+    """``make_mesh(dp=2, sp=2)``: 2 SGD steps (one stacked call under
+    ``scan_steps=2``) against JAX's on its 2 × 2 mesh: metrics within 1e-4,
+    parameters within 1e-5, equal bit for bit on the 4 ranks though every
+    rank but 0 starts from other values."""
+    got, want = runs
+    res = got["dpsp"][0][case]
+    assert res["mode"] == "eager"
+    _assert_steps(res, want["dpsp"][case], dict(rtol=1e-5, atol=1e-5),
+                  TOL, what=case)
+
+
+def test_ulysses_on_the_scene_axis_needs_agents_that_divide_data(runs):
+    """3 agents a scene (the rows of the scene axis' attention) over data
+    = 2: JAX's ``shard_map`` refuses the shape, the port raises."""
+    kind, msg = runs[0]["dpsp"][0]["ulysses_n3"]
+    assert kind == "ValueError" and "3 rows" in msg and "data = 2" in msg \
+        and "must divide" in msg, msg
 
 
 def test_sttode_inference_on_a_mesh_matches_jax(runs):
@@ -864,16 +1054,19 @@ def test_mesh_shapes_and_refusals(runs):
     # lifted: the scanned steps of both stages and dopri5 build on a mesh
     # (eager on the CPU)
     assert res["built"] == {"scan_steps": "eager", "sampler": "eager",
-                            "dopri5": "eager"}
+                            "dopri5": "eager", "seq_axis": "eager",
+                            "ulysses": "ulysses"}
     raised = res["raised"]
     for name in ("tp_step", "tp_sharding", "restore_tp"):
         assert raised[name][0] == "NotImplementedError"
         assert "tensor parallelism" in raised[name][1]
-    assert raised["seq_axis"][0] == "NotImplementedError" and \
-        '"seq"' in raised["seq_axis"][1]
-    assert raised["ulysses"][0] == "NotImplementedError"
-    assert raised["ring_dropout"][0] == "ValueError" and \
-        "dropout" in raised["ring_dropout"][1]
+    for name in ("ring_dropout", "ulysses_dropout"):
+        assert raised[name][0] == "ValueError" and \
+            "dropout" in raised[name][1]
+    for name, what in (("ulysses_no_mesh", "needs a mesh"),
+                       ("ulysses_mask", "key-validity"),
+                       ("ulysses_no_heads", "head axis")):
+        assert raised[name][0] == "ValueError" and what in raised[name][1]
     assert raised["mesh_dp0"][0] == "ValueError" and \
         "dp would be 0" in raised["mesh_dp0"][1]
     assert raised["mesh_too_big"][0] == "ValueError" and \

@@ -28,6 +28,8 @@ from sttode_tpu_torch.parallel.mesh import (axis_size,  # noqa: E402
                                             make_hybrid_mesh, mesh_shape)
 from sttode_tpu_torch.parallel.ring_attention import (  # noqa: E402
     resolve_sp_axes, ring_geodesic_attention)
+from sttode_tpu_torch.parallel.ulysses import (  # noqa: E402
+    ulysses_geodesic_attention)
 from sttode_tpu_torch.train import (checkpoint_path,  # noqa: E402
                                     load_checkpoint, make_sampler_train_step,
                                     make_train_step, restore_shardings,
@@ -54,20 +56,24 @@ def _leaf(t):
 
 
 def ring(case, mesh):
-    """The ring on this rank's blocks of q, k, v and the key validity;
-    returns the assembled output and the gradients of sum(out²)."""
+    """The ring (or, with ``case["route"] == "ulysses"``, the all-to-all
+    attention on [B, H, L, D]) on this rank's blocks of q, k, v and the key
+    validity; returns the assembled output and the gradients of sum(out²)
+    and, for ulysses, what a head count that does not divide raises."""
     tok, b_ax = resolve_sp_axes(mesh, "data")
     t, n = mesh.get_local_rank(tok), axis_size(mesh, tok)
     bi, bn = (mesh.get_local_rank(b_ax), axis_size(mesh, b_ax)) \
         if b_ax else (0, 1)
+    tdim = case["q"].dim() - 2
 
-    def local(x):
-        return _block(_block(x, 0, bi, bn), 1, t, n)
+    def local(x, dim=tdim):
+        return _block(_block(x, 0, bi, bn), dim, t, n)
 
+    attend = ulysses_geodesic_attention \
+        if case.get("route") == "ulysses" else ring_geodesic_attention
     q, k, v = (_leaf(local(case[name])) for name in ("q", "k", "v"))
-    out = ring_geodesic_attention(q, k, v, mesh, kv_valid=local(case["val"]),
-                                  metric=case["metric"],
-                                  curvature=case["curvature"])
+    out = attend(q, k, v, mesh, kv_valid=local(case["val"], 1),
+                 metric=case["metric"], curvature=case["curvature"])
     torch.sum(out ** 2).backward()
     parts = _gather_objects((bi, t, out.detach(), q.grad, k.grad, v.grad))
     full = {"out": torch.zeros_like(case["q"]), "dq": torch.zeros_like(
@@ -75,8 +81,12 @@ def ring(case, mesh):
         "dv": torch.zeros_like(case["v"])}
     for bi_, t_, *blocks in parts:
         for name, blk in zip(("out", "dq", "dk", "dv"), blocks):
-            _block(_block(full[name], 0, bi_, bn), 1, t_, n).copy_(blk)
-    return {name: x.numpy() for name, x in full.items()}
+            _block(_block(full[name], 0, bi_, bn), tdim, t_, n).copy_(blk)
+    res = {name: x.numpy() for name, x in full.items()}
+    if case.get("route") == "ulysses":
+        res["heads"] = _outcome(lambda: attend(q[:, :3], k[:, :3], v[:, :3],
+                                               mesh))
+    return res
 
 
 def _sum_grads(params, group):
@@ -89,14 +99,17 @@ def forward(case, mesh):
     """``sttode_forward(mesh=)`` on this rank's scenes: the losses (and
     whether every rank has the same), the summed gradient leaves, the
     dopri5 solves' counts (alike on every rank?) and, when the case asks,
-    the single process's losses, gradients and solves."""
+    the single process's losses, gradients and solves (on "auto" where
+    the case's route needs a mesh)."""
     cfg = tm.STTODEConfig(**case["cfg"])
 
     def run(m):
         params = bridge.tree_map(_leaf, case["params"])
+        c = cfg._replace(attn_impl="auto") if m is None and \
+            cfg.attn_impl in ("ring", "ulysses") else cfg
         with _SolveLog() as log:
             out = tm.sttode_forward(
-                params, cfg, case["batch"] if m is None else shard_batch(
+                params, c, case["batch"] if m is None else shard_batch(
                     case["batch"], m), noise=case["noise"], mesh=m)
             out.total_loss.backward()
         losses = {name: float(getattr(out, name)) for name in LOSSES}
@@ -112,6 +125,32 @@ def forward(case, mesh):
     if case.get("single") and dist.get_rank() == 0:
         out["single"] = run(None)
     return out
+
+
+def validity(case, mesh):
+    """``sttode_forward(mesh=)`` without gradients on a padded batch and on
+    its twin whose padded agents moved: the largest change of a real
+    agent's past feature (none: padding reaches no real agent) and of a
+    padded one's (its own input moved), over every rank."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    feats = []
+    with torch.no_grad():
+        for batch in (case["batch"], case["moved"]):
+            feats.append(tm.sttode_forward(
+                case["params"], cfg, shard_batch(batch, mesh),
+                noise=case["noise"], mesh=mesh).past_feature)
+    real = shard_batch(case["batch"], mesh).valid > 0
+    diff = (feats[0] - feats[1]).abs().amax(dim=1)
+    return {"real": max(_gather_objects(float(diff[real].max()))),
+            "padded": min(_gather_objects(float(diff[~real].max())))}
+
+
+def forward_raises(case, mesh):
+    """What ``sttode_forward(mesh=)`` raises on this rank's scenes."""
+    cfg = tm.STTODEConfig(**case["cfg"])
+    return _outcome(lambda: tm.sttode_forward(
+        case["params"], cfg, shard_batch(case["batch"], mesh),
+        noise=case["noise"], mesh=mesh))
 
 
 def _flat(params):
@@ -382,7 +421,11 @@ def refusals(case, mesh):
             cfg, ts.SamplerConfig(nk=2, nz=cfg.zdim, qnet_mlp=(8,)), 1e-3,
             params, device="cpu", mesh=mesh, scan_steps=2).mode,
         "dopri5": make_train_step(cfg._replace(ode_method="dopri5"), 1e-3,
-                                  device="cpu", mesh=mesh).mode}
+                                  device="cpu", mesh=mesh).mode,
+        # what this slice lifted: a "seq" axis, and ulysses
+        "seq_axis": make_train_step(cfg._replace(attn_impl="ulysses"), 1e-3,
+                                    device="cpu", mesh=seq_mesh).mode,
+        "ulysses": cfg._replace(attn_impl="ulysses").validate().attn_impl}
     return {"shapes": shapes, "built": built,
             "stacked": (tuple(stacked.past.shape), stacked.batch_size),
             "placements": sorted({type(p).__name__ for p in placements}),
@@ -393,13 +436,18 @@ def refusals(case, mesh):
                                                        tp=True)),
         "restore_tp": _outcome(lambda: restore_shardings(
             {"params": params}, mesh, tp=True)),
-        "seq_axis": _outcome(lambda: make_train_step(
-            cfg, 1e-3, device="cpu", mesh=seq_mesh)),
-        "ulysses": _outcome(lambda: cfg._replace(
-            attn_impl="ulysses").validate()),
         "ring_dropout": _outcome(lambda: geodesic_attention(
             x, x, x, fused="ring", mesh=mesh, dropout_rate=0.1,
             dropout_mask=torch.ones(2, 2, 4, 4, dtype=torch.bool))),
+        "ulysses_dropout": _outcome(lambda: geodesic_attention(
+            x, x, x, fused="ulysses", mesh=mesh, dropout_rate=0.1,
+            dropout_mask=torch.ones(2, 2, 4, 4, dtype=torch.bool))),
+        "ulysses_no_mesh": _outcome(lambda: geodesic_attention(
+            x, x, x, fused="ulysses")),
+        "ulysses_mask": _outcome(lambda: geodesic_attention(
+            x, x, x, fused="ulysses", mesh=mesh, mask=torch.zeros(4, 4))),
+        "ulysses_no_heads": _outcome(lambda: geodesic_attention(
+            x[0], x[0], x[0], fused="ulysses", mesh=mesh)),
         "mesh_dp0": _outcome(lambda: make_mesh(tp=2 * world)),
         "mesh_too_big": _outcome(lambda: make_mesh(dp=world + 1)),
         "odd_batch": _outcome(lambda: shard_batch(
@@ -410,7 +458,8 @@ RUNNERS = {"ring": ring, "forward": forward, "step": step,
            "generator_step": generator_step, "inference": inference,
            "refusals": refusals, "sampler_step": sampler_step,
            "sampler_generator_step": sampler_generator_step, "save": save,
-           "restore": restore}
+           "restore": restore, "validity": validity,
+           "forward_raises": forward_raises}
 
 
 def main(spec_path: str, rank: int, world: int) -> None:
